@@ -1,0 +1,164 @@
+"""Model registry: every reference model name -> a P3DSaliency configuration.
+
+A copy of ``sap3d_tpu/models/registry.py``'s tables (the port imports
+nothing of ``sap3d_tpu``).  ``build_model`` builds the names whose decoder
+is ported: ``p3d_unetplusplus_ds`` (the flagship, alias ``unet++``),
+``p3d_unetplusplus_nonsa``, ``p3d_micro`` and ``p3d_micro_sa``.  The other
+names raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from sap3d_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device, resolve_dtype
+from sap3d_tpu_torch.models.p3d import P3DSaliency
+
+# name -> (decoder, decoder_kwargs, norm_mode, backbone_cbam, ...)
+MODEL_REGISTRY: dict[str, dict[str, Any]] = {
+    # ---- BN family (reference p3d.py) ----
+    "p3d_unet": dict(decoder="unet", norm_mode="bn"),
+    "p3d_concat": dict(decoder="concat", norm_mode="bn"),
+    "p3d_unetplusplus": dict(
+        decoder="unetpp",
+        decoder_kwargs=dict(attention="sa", head="full"),
+        norm_mode="bn",
+    ),
+    "p3d_unetplusplus_ds": dict(
+        decoder="unetpp",
+        decoder_kwargs=dict(attention="sa", head="ds"),
+        norm_mode="bn",
+    ),
+    "p3d_unetplusplus_nonsa": dict(
+        decoder="unetpp",
+        decoder_kwargs=dict(attention="none", head="ds"),
+        norm_mode="bn",
+    ),
+    "p3d_unetplusplus_nl": dict(
+        decoder="unetpp",
+        decoder_kwargs=dict(attention="nl", head="ds"),
+        norm_mode="bn",
+    ),
+    # ---- GN + CBAM family (reference gn/p3d_gn.py) ----
+    "inference_p3d": dict(
+        decoder="gn_easy",
+        decoder_kwargs=dict(wide_pool4=True),
+        norm_mode="gn",
+        backbone_cbam=True,
+    ),
+    "inference_p3d_concat": dict(
+        decoder="gn_easy",
+        decoder_kwargs=dict(wide_pool4=False),
+        norm_mode="gn",
+        backbone_cbam=True,
+    ),
+    "inference_p3d_sa_concat": dict(
+        decoder="gn_easy",
+        decoder_kwargs=dict(wide_pool4=False, use_sa=True),
+        norm_mode="gn",
+        backbone_cbam=True,
+    ),
+    "inference_p3d_sa_concat_2": dict(
+        decoder="gn_sa_concat_2",
+        norm_mode="gn",
+        backbone_cbam=True,
+    ),
+    "inference_p3d_sa_decoder_block": dict(
+        decoder="gn_decoder_block",
+        decoder_kwargs=dict(use_sa=True),
+        norm_mode="gn",
+        backbone_cbam=True,
+    ),
+    "inference_p3d_decoder_block": dict(
+        decoder="gn_decoder_block",
+        decoder_kwargs=dict(use_sa=False),
+        norm_mode="gn",
+        backbone_cbam=True,
+    ),
+    # ---- debug/CI scale (not a reference variant): the flagship topology
+    # at ~1/1000 the parameters
+    "p3d_micro": dict(
+        decoder="unetpp",
+        decoder_kwargs=dict(attention="none", head="ds"),
+        norm_mode="bn",
+        stages=((4, 1), (4, 1), (4, 1)),
+        stem_features=4,
+    ),
+    # the same, with the flagship's self-attention sites
+    "p3d_micro_sa": dict(
+        decoder="unetpp",
+        decoder_kwargs=dict(attention="sa", head="ds"),
+        norm_mode="bn",
+        stages=((8, 1), (16, 1), (32, 1)),
+        stem_features=8,
+    ),
+}
+
+# The trainer CLI's --structure values.
+STRUCTURE_ALIASES = {
+    "unet": "p3d_unet",
+    "concat": "p3d_concat",
+    "unet++": "p3d_unetplusplus_ds",
+    "unet++full": "p3d_unetplusplus",
+    "unet++nonsa": "p3d_unetplusplus_nonsa",
+    "unet++nl": "p3d_unetplusplus_nl",
+    "P3D": "inference_p3d",
+    "P3D_CONCAT": "inference_p3d_concat",
+    "P3D_SA_CONCAT": "inference_p3d_sa_concat",
+    "P3D_SA_CONCAT_2": "inference_p3d_sa_concat_2",
+    "P3D_SA_DECODER": "inference_p3d_sa_decoder_block",
+    "P3D_DECODER": "inference_p3d_decoder_block",
+}
+
+# Variants whose output is linear (no sigmoid).
+LINEAR_OUTPUT = {
+    "p3d_concat",
+    "inference_p3d",
+    "inference_p3d_concat",
+    "inference_p3d_sa_concat",
+    "inference_p3d_sa_concat_2",
+    "inference_p3d_sa_decoder_block",
+    "inference_p3d_decoder_block",
+}
+
+
+def resolve_name(name: str) -> str:
+    if name in MODEL_REGISTRY:
+        return name
+    if name in STRUCTURE_ALIASES:
+        return STRUCTURE_ALIASES[name]
+    raise KeyError(
+        f"unknown model {name!r}; known: {sorted(MODEL_REGISTRY)} "
+        f"or aliases {sorted(STRUCTURE_ALIASES)}"
+    )
+
+
+def _unported(cfg: dict[str, Any]) -> str | None:
+    """The ROADMAP item that ports this configuration, or None if built."""
+    if cfg.get("norm_mode") == "gn" or cfg.get("backbone_cbam"):
+        return "ROADMAP A.10 (the GN+CBAM family)"
+    kw = cfg.get("decoder_kwargs") or {}
+    if cfg["decoder"] != "unetpp" or kw.get("attention") == "nl" \
+            or kw.get("head") == "full":
+        return "ROADMAP A.9 (the rest of the BN family)"
+    return None
+
+
+def build_model(name: str, dtype: str | torch.dtype | None = None,
+                device: str | torch.device = DEFAULT_DEVICE,
+                seed: int = 0) -> P3DSaliency:
+    """The named model in eval mode on ``device``, its parameters made from
+    ``seed`` (Glorot-uniform kernels, zero biases, unit BN statistics and
+    scales, ``gamma`` = 0, as the flax init)."""
+    name = resolve_name(name)
+    dev = resolve_device(device)
+    cfg = dict(MODEL_REGISTRY[name])
+    todo = _unported(cfg)
+    if todo is not None:
+        raise NotImplementedError(f"model {name!r} is not ported yet: {todo}")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = P3DSaliency(**cfg, dtype=resolve_dtype(dtype))
+    return model.to(dev).eval()

@@ -1,0 +1,126 @@
+"""Fused attention forward (no lse): the CUDA kernel and its plain version.
+
+Counterpart of ``sap3d_tpu/ops/pallas/flash_attention.py``'s
+``flash_attend_tokens`` primal, i.e. ``_flash_forward(want_lse=False)``:
+``softmax(q k^T) v`` over the key axis with no 1/sqrt(d) scale, fp32 scores,
+output in v's dtype.  q ``[B, Nq, d]``, k ``[B, Nk, d]``, v ``[B, Nk, C]``.
+
+``flash_attend_tokens`` launches ``csrc/flash_attention_fwd.cu`` for CUDA
+tensors and runs ``flash_attend_tokens_reference`` only for CPU tensors.  On
+a CUDA tensor it launches the kernel or raises; it never falls back.
+``flash_attend_tokens.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from sap3d_tpu_torch.ops.cuda import build
+
+SOURCE = "flash_attention_fwd"
+# Below one query block of the TPU kernel the JAX package takes the XLA path
+# (flash_attention_viable: nq >= BLOCK_Q); the port keeps that dispatch rule.
+BLOCK_Q = 256
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The limits the kernel is held to against its plain version on the same
+# inputs, per dtype: (rtol, atol, mean_tol), read as
+#   |got - want| <= rtol * |want| + atol * max|want|   for every element,
+#   mean|got - want| <= mean_tol * mean|want|.
+# bf16: both sides round the output to bf16, so an element may differ by an
+# ulp (at most 2^-7 of its value); before that they differ by the rounding
+# of the probabilities (the plain version rounds p, the kernel exp(s - m)),
+# a relative ~2^-9 per key that averages out over the keys.  rtol allows two
+# ulps, atol and mean_tol cover the probability rounding.
+# fp32: summation order and __expf, ~1e-6 relative.
+TOLERANCE = {torch.bfloat16: (2.0 ** -6, 2.0 ** -8, 2.0 ** -7),
+             torch.float32: (1e-5, 1e-4, 1e-4)}
+
+
+def agreement(got: torch.Tensor, want: torch.Tensor) -> dict[str, float]:
+    """How far the kernel's output ``got`` is from its plain version's
+    ``want`` under ``TOLERANCE[want.dtype]``: the largest and the mean
+    absolute error, and ``excess``, the largest ratio of an error (per
+    element, or the mean) to its limit.  They agree when excess <= 1."""
+    rtol, atol, mean_tol = TOLERANCE[want.dtype]
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    mag = want.abs()
+    limit = (rtol * mag + atol * mag.max()).clamp_min(torch.finfo(torch.float32).tiny)
+    mean_err = err.mean().item()
+    excess = max((err / limit).max().item(),
+                 mean_err / (mean_tol * mag.mean().item()))
+    return dict(max_abs_err=err.max().item(), mean_abs_err=mean_err,
+                excess=excess, finite=bool(torch.isfinite(got).all().item()))
+
+
+def flash_attend_tokens_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch: softmax(q k^T) v with fp32 scores and softmax; the
+    probabilities are cast to v's dtype before the product, which
+    accumulates in fp32 (``sap3d_tpu`` ``_dot_softmax_attend``)."""
+    scores = torch.bmm(q.float(), k.float().transpose(1, 2))
+    beta = torch.softmax(scores, dim=-1)
+    return torch.bmm(beta.to(v.dtype), v)
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load(SOURCE)
+    if not getattr(lib, "_sap3d_typed", False):
+        lib.sap3d_flash_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
+        lib.sap3d_flash_fwd.restype = ctypes.c_int
+        lib.sap3d_flash_fwd_block_c.restype = ctypes.c_int
+        lib.sap3d_flash_fwd_max_d.restype = ctypes.c_int
+        lib.sap3d_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.sap3d_cuda_error_string.restype = ctypes.c_char_p
+        lib._sap3d_typed = True
+    return lib
+
+
+def flash_attend_tokens(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T) v: the CUDA kernel on CUDA tensors, the plain version
+    on CPU tensors."""
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return flash_attend_tokens_reference(q, k, v)
+    lib = _library()
+    if not all(t.device.type == "cuda" and t.device == q.device for t in (q, k, v)):
+        raise ValueError(f"q/k/v must share one CUDA device, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash kernel takes one dtype of float32/bfloat16, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("q, k, v must be [B, N, width]")
+    b, nq, d = q.shape
+    _, nk, c = v.shape
+    if k.shape != (b, nk, d) or v.shape[0] != b:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if d > lib.sap3d_flash_fwd_max_d() or c % lib.sap3d_flash_fwd_block_c():
+        raise ValueError(f"flash kernel takes d <= {lib.sap3d_flash_fwd_max_d()} "
+                         f"and C a multiple of {lib.sap3d_flash_fwd_block_c()}; "
+                         f"got d={d}, C={c}")
+    if q.dtype == torch.bfloat16 and d % 8:
+        raise ValueError(f"the bf16 kernel reads rows in 16-byte chunks: d={d} "
+                         "must be a multiple of 8")
+    # contiguous, and 16-byte aligned for the kernel's vector loads
+    q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+               else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
+    o = torch.empty((b, nq, c), dtype=v.dtype, device=v.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.sap3d_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              o.data_ptr(), b, nq, nk, d, c,
+                              _DTYPE_CODES[q.dtype], stream)
+    if err:
+        raise RuntimeError("flash_attention_fwd launch failed: "
+                           + lib.sap3d_cuda_error_string(err).decode())
+    flash_attend_tokens.launches += 1
+    return o
+
+
+flash_attend_tokens.launches = 0

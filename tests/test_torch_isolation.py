@@ -1,0 +1,156 @@
+"""The port stands alone and runs where it is told to.
+
+* Importing every module of ``sap3d_tpu_torch`` in a fresh interpreter puts
+  no ``jax``, ``flax`` or ``sap3d_tpu`` into ``sys.modules``: the GPU host
+  has none of them.
+* ``chip_smoke.py`` imports nothing of JAX or the JAX package, and on a host
+  without a GPU it exits non-zero and prints no result line.
+* Every entry point's default device is CUDA, and on this GPU-less host it
+  raises instead of running on the CPU.
+* On a CUDA tensor the kernel wrapper launches the kernel or raises: with
+  the library absent it raises and never takes the plain path.
+"""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+import types
+
+import pytest
+import torch
+
+import sap3d_tpu_torch
+from sap3d_tpu_torch.ops.cuda import build
+from sap3d_tpu_torch.ops.cuda import flash_attention as fa
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sap3d_tpu")
+
+
+def _all_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        sap3d_tpu_torch.__path__, prefix="sap3d_tpu_torch."))
+
+
+def _run(code: str, cwd: str = REPO, timeout: int = 120):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_port_imports_nothing_of_jax():
+    mods = _all_modules()
+    assert "sap3d_tpu_torch.ops.cuda.flash_attention" in mods
+    assert "sap3d_tpu_torch.cli" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(repr(bad))\n"
+    )
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_port_sources_name_no_jax_import():
+    """A static check as well: no import statement anywhere in the package
+    or chip_smoke.py names a forbidden top-level module."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.dirname(sap3d_tpu_torch.__file__)):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in FORBIDDEN, f"{path}: import {name}"
+
+
+def test_chip_smoke_fails_without_a_gpu_and_imports_no_jax():
+    code = (
+        "import runpy, sys\n"
+        "try:\n"
+        "    runpy.run_path('chip_smoke.py', run_name='__main__')\n"
+        "    code = 0\n"
+        "except SystemExit as e:\n"
+        "    code = e.code\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print('EXIT', code, repr(bad))\n"
+    )
+    res = _run(code)
+    last = res.stdout.strip().splitlines()[-1]
+    assert last.startswith("EXIT ") and not last.startswith("EXIT 0 ")
+    assert last.endswith("[]")
+    assert '"ok": true' not in res.stdout
+
+
+def test_chip_smoke_alone_in_a_directory_fails(tmp_path):
+    with open(os.path.join(REPO, "chip_smoke.py")) as src:
+        (tmp_path / "chip_smoke.py").write_text(src.read())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+
+
+def test_default_device_raises_without_a_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU; the default device is valid here")
+    from sap3d_tpu_torch import cli
+    from sap3d_tpu_torch.core.device import resolve_device
+    from sap3d_tpu_torch.infer.predictor import SlidingWindowPredictor
+    from sap3d_tpu_torch.models.registry import build_model
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model("p3d_micro")
+    with pytest.raises(RuntimeError, match="cuda"):
+        SlidingWindowPredictor(lambda clips: clips)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["predict", "--structure", "p3d_micro", "--checkpoint", "w.pt",
+                  "--data", str(tmp_path), "--out", str(tmp_path / "out")])
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _fake_cuda_tensor(*shape):
+    return types.SimpleNamespace(device=torch.device("cuda"), dtype=torch.float32,
+                                 shape=shape, dim=lambda: len(shape))
+
+
+def test_wrapper_raises_on_cuda_tensors_when_the_library_is_absent(monkeypatch):
+    def absent(name):
+        raise OSError(f"lib{name}.so: cannot open shared object file")
+
+    monkeypatch.setattr(build, "load", absent)
+    monkeypatch.setattr(fa, "flash_attend_tokens_reference",
+                        lambda *a: pytest.fail("fell back to the plain version"))
+    q, k, v = (_fake_cuda_tensor(1, 256, 8), _fake_cuda_tensor(1, 64, 8),
+               _fake_cuda_tensor(1, 64, 64))
+    before = fa.flash_attend_tokens.launches
+    with pytest.raises(OSError, match="cannot open"):
+        fa.flash_attend_tokens(q, k, v)
+    assert fa.flash_attend_tokens.launches == before
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """With no nvcc to be found the build raises (it does not skip the
+    kernel); the library is looked for under a fresh build directory."""
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("nvcc is installed at /usr/local/cuda on this host")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build(fa.SOURCE)
