@@ -1,8 +1,14 @@
-// Flash attention forward without lse: o = softmax(q k^T) v, unscaled.
+// Flash attention forward: o = softmax(q k^T) v, unscaled, and optionally
+// lse = m + log(l), the log-sum-exp of each query row's scores.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` as called by
-// `_flash_forward(want_lse=False)` (sap3d_tpu/ops/pallas/flash_attention.py,
-// the `flash_attend_tokens` primal, which is what inference runs).
+// `_flash_forward` (sap3d_tpu/ops/pallas/flash_attention.py):
+//   * without lse (a null lse pointer), `_flash_forward(want_lse=False)`,
+//     the `flash_attend_tokens` primal, which is what inference runs (B1);
+//   * with lse, `_flash_forward(want_lse=True)`, the custom_vjp forward rule
+//     `_fwd_rule` that training runs (B2).  The TPU kernel writes lse as
+//     [B, 8, Nq], each row replicated over the 8 sublanes of one tile; that
+//     is a layout artifact of the TPU, and here lse is [B, Nq] float32.
 //
 // Shapes: q [B, Nq, d], k [B, Nk, d], v [B, Nk, C] -> o [B, Nq, C], all
 // contiguous and of one dtype (float32 or bfloat16).  d = C/8 at every call
@@ -18,7 +24,8 @@
 //   x_1_3  Nq=25088, Nk=3136, d=16, C=128: 362 GFLOP, 130 MB -> compute-bound
 // (989 TFLOP/s bf16 tensor-core peak, 3.35 TB/s).  The two compute-bound
 // sites also issue d + C = 144 FLOPs per exponential, so the exp unit is
-// within an order of magnitude of the tensor-core bound at x_1_3.
+// within an order of magnitude of the tensor-core bound at x_1_3.  lse adds
+// 4 bytes per query row (0.4 MB at x_1_3), nothing to the bound.
 //
 // Design, and why it differs from the TPU kernel.  The TPU kernel keeps all
 // of K and V for one batch element resident in VMEM and runs one query block
@@ -32,6 +39,8 @@
 //     accumulator when m grows and dividing by l at the end;
 //   * the d-wide scores are recomputed for each column tile of C; since
 //     d = C/8 that costs d/BC of the P.V work per tile.
+//   * lse: every column tile of a row computes the same m and l (same scores,
+//     same order), so the blocks of the first column tile write it.
 // Two kernels implement this:
 //   * bf16 (the inference default): tensor cores through `mma.sync`
 //     m16n8k16 with fp32 accumulation.  Four warps own 16 query rows each
@@ -83,7 +92,7 @@ __device__ __forceinline__ float group16_sum(float x) {
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
-              int nq, int nk, int d, int c) {
+              float* __restrict__ lse, int nq, int nk, int d, int c) {
     extern __shared__ float smem[];
     float* qs = smem;              // [d][LDT]  q tile, transposed
     float* ks = qs + d * LDT;      // [d][LDT]  k tile, transposed
@@ -198,17 +207,19 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         const float inv = 1.f / l[i];
 #pragma unroll
         for (int j = 0; j < 4; ++j) ob[(size_t)r * c + c0 + tx * 4 + j] = acc[i][j] * inv;
+        if (lse != nullptr && blockIdx.y == 0 && tx == 0)
+            lse[(size_t)b * nq + r] = m[i] + logf(l[i]);
     }
 }
 
-int launch_f32(const float* q, const float* k, const float* v, float* o, int b,
-               int nq, int nk, int d, int c, cudaStream_t stream) {
+int launch_f32(const float* q, const float* k, const float* v, float* o, float* lse,
+               int b, int nq, int nk, int d, int c, cudaStream_t stream) {
     const size_t smem = sizeof(float) * (2 * (size_t)d * LDT + BK * BC + BK * LDT);
     cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((nq + BQ - 1) / BQ, c / BC, b);
-    flash_fwd_f32<<<grid, THREADS, smem, stream>>>(q, k, v, o, nq, nk, d, c);
+    flash_fwd_f32<<<grid, THREADS, smem, stream>>>(q, k, v, o, lse, nq, nk, d, c);
     return (int)cudaGetLastError();
 }
 
@@ -262,7 +273,7 @@ template <int D>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-               int nq, int nk, int d, int c) {
+               float* __restrict__ lse, int nq, int nk, int d, int c) {
     constexpr int KLD = D + TC_PAD;      // row stride of the K tile
     constexpr int VLD = TC_BC + TC_PAD;  // row stride of the V tile
     __shared__ __align__(16) __nv_bfloat16 ks[TC_BK * KLD];
@@ -394,7 +405,12 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
         }
     }
 
-    const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+    const float sum0 = quad_sum(l0), sum1 = quad_sum(l1);
+    const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+    if (lse != nullptr && blockIdx.y == 0 && tig == 0) {
+        if (r0 < nq) lse[(size_t)b * nq + r0] = m0 + logf(sum0);
+        if (r1 < nq) lse[(size_t)b * nq + r1] = m1 + logf(sum1);
+    }
     __nv_bfloat16* ob = o + (size_t)b * nq * c;
 #pragma unroll
     for (int n = 0; n < TC_BC / 8; ++n) {
@@ -411,19 +427,21 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 
 template <int D>
 int launch_bf16_d(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                  __nv_bfloat16* o, int b, int nq, int nk, int d, int c, cudaStream_t stream) {
+                  __nv_bfloat16* o, float* lse, int b, int nq, int nk, int d, int c,
+                  cudaStream_t stream) {
     const dim3 grid((nq + TC_BQ - 1) / TC_BQ, (c + TC_BC - 1) / TC_BC, b);
-    flash_fwd_bf16<D><<<grid, TC_THREADS, 0, stream>>>(q, k, v, o, nq, nk, d, c);
+    flash_fwd_bf16<D><<<grid, TC_THREADS, 0, stream>>>(q, k, v, o, lse, nq, nk, d, c);
     return (int)cudaGetLastError();
 }
 
 int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                __nv_bfloat16* o, int b, int nq, int nk, int d, int c, cudaStream_t stream) {
+                __nv_bfloat16* o, float* lse, int b, int nq, int nk, int d, int c,
+                cudaStream_t stream) {
     if (d % 8) return (int)cudaErrorInvalidValue;  // 16-byte row chunks
-    if (d <= 16) return launch_bf16_d<16>(q, k, v, o, b, nq, nk, d, c, stream);
-    if (d <= 32) return launch_bf16_d<32>(q, k, v, o, b, nq, nk, d, c, stream);
-    if (d <= 64) return launch_bf16_d<64>(q, k, v, o, b, nq, nk, d, c, stream);
-    return launch_bf16_d<128>(q, k, v, o, b, nq, nk, d, c, stream);
+    if (d <= 16) return launch_bf16_d<16>(q, k, v, o, lse, b, nq, nk, d, c, stream);
+    if (d <= 32) return launch_bf16_d<32>(q, k, v, o, lse, b, nq, nk, d, c, stream);
+    if (d <= 64) return launch_bf16_d<64>(q, k, v, o, lse, b, nq, nk, d, c, stream);
+    return launch_bf16_d<128>(q, k, v, o, lse, b, nq, nk, d, c, stream);
 }
 
 }  // namespace
@@ -435,22 +453,24 @@ extern "C" {
 int sap3d_flash_fwd_block_c() { return C_MULTIPLE; }
 int sap3d_flash_fwd_max_d() { return MAX_D; }
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched);
-// invalid arguments return cudaErrorInvalidValue without launching.
-int sap3d_flash_fwd(const void* q, const void* k, const void* v, void* o, int b,
-                    int nq, int nk, int d, int c, int dtype, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16.  lse: float32 [B, Nq], or null for the
+// forward without lse.  Returns a cudaError_t (0 = launched); invalid
+// arguments return cudaErrorInvalidValue without launching.
+int sap3d_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                    int b, int nq, int nk, int d, int c, int dtype, void* stream) {
     if (b <= 0 || nq <= 0 || nk <= 0 || d <= 0 || d > MAX_D || c <= 0 || c % C_MULTIPLE)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 0)
         return launch_f32(static_cast<const float*>(q), static_cast<const float*>(k),
                           static_cast<const float*>(v), static_cast<float*>(o),
-                          b, nq, nk, d, c, s);
+                          static_cast<float*>(lse), b, nq, nk, d, c, s);
     if (dtype == 1)
         return launch_bf16(static_cast<const __nv_bfloat16*>(q),
                            static_cast<const __nv_bfloat16*>(k),
                            static_cast<const __nv_bfloat16*>(v),
-                           static_cast<__nv_bfloat16*>(o), b, nq, nk, d, c, s);
+                           static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+                           b, nq, nk, d, c, s);
     return (int)cudaErrorInvalidValue;
 }
 

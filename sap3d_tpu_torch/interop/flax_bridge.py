@@ -1,4 +1,4 @@
-"""Carry ``sap3d_tpu`` (flax) weights across to the port's ``state_dict``.
+"""Carry ``sap3d_tpu`` (flax) weights and train state across to the port.
 
 The port's module tree mirrors the flax variable tree, so a flax path maps
 to a torch key by replacing ``/`` with ``.``:
@@ -15,8 +15,14 @@ Only kernels change layout:
     ``[in, out, kd, kh, kw]`` (the layout of ``F.conv_transpose3d``);
   * BN scale/bias/mean/var and ``gamma`` go straight across.
 
+``optimizer_state_from_optax`` carries the Adam state as well: optax's
+``mu``/``nu`` trees (the parameters' layouts, so the same conversion) and
+``count`` become torch Adam's ``exp_avg``/``exp_avg_sq``/``step`` per
+parameter, so a JAX train state can continue in the port.
+
 Inputs are nested dicts of numpy arrays (``jax.tree.map(np.asarray, ...)``
-of a flax train state); nothing here imports JAX.
+of a flax train state, whose optimizer state stays a tuple of optax's named
+tuples); nothing here imports JAX or optax.
 """
 
 from __future__ import annotations
@@ -85,3 +91,47 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping | None = None,
         if bad:
             raise ValueError(f"shape mismatches (flax, torch): {bad[:10]}")
     return sd
+
+
+def _find_adam_state(opt_state):
+    """The element of an optax state that carries ``mu``, ``nu`` and
+    ``count`` (``ScaleByAdamState``), searched through tuples and
+    ``inner_state`` wrappers (``MaskedState``)."""
+    if all(hasattr(opt_state, a) for a in ("mu", "nu", "count")):
+        return opt_state
+    inner = getattr(opt_state, "inner_state", None)
+    children = [inner] if inner is not None else (
+        list(opt_state) if isinstance(opt_state, (tuple, list)) else [])
+    for child in children:
+        found = _find_adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def optimizer_state_from_optax(opt_state, model: torch.nn.Module
+                               ) -> dict[str, dict[str, torch.Tensor]]:
+    """torch Adam's per-parameter state, ``{parameter name: {"step",
+    "exp_avg", "exp_avg_sq"}}``, from an optax Adam state (``optax.adam``
+    or the masked coupled-L2 chain of ``sap3d_tpu.train.state``).  Every
+    parameter of ``model`` must be covered, with its shape
+    (``train/state.TrainState.load_optimizer_state`` loads the result)."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (mu, nu, count) in the optax state")
+    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    mu, nu = _flatten(adam.mu), _flatten(adam.nu)
+    params = dict(model.named_parameters())
+    if set(mu) != set(nu) or {k.replace("/", ".") for k in mu} != set(params):
+        raise KeyError(f"optax moments do not cover the model's parameters: "
+                       f"{sorted({k.replace('/', '.') for k in mu} ^ set(params))[:10]}")
+    out = {}
+    for path in mu:
+        name = path.replace("/", ".")
+        m, v = (torch.from_numpy(np.array(convert_leaf(path, t[path]), dtype=np.float32,
+                                          order="C")) for t in (mu, nu))
+        if m.shape != params[name].shape:
+            raise ValueError(f"{name}: optax {tuple(m.shape)}, torch "
+                             f"{tuple(params[name].shape)}")
+        out[name] = {"step": step.clone(), "exp_avg": m, "exp_avg_sq": v}
+    return out

@@ -1,8 +1,9 @@
 """P3D (Pseudo-3D ResNet-199) video-saliency model, BN family, UNet++ head.
 
-Counterpart of ``sap3d_tpu/models/p3d.py`` for the flagship inference path:
+Counterpart of ``sap3d_tpu/models/p3d.py`` for the flagship:
 ``Bottleneck``, ``P3DEncoder``, ``UNetPPDecoder`` (attention 'sa' or 'none',
-head 'ds', eval mode) and ``P3DSaliency``.  The other decoders, the 'nl'
+head 'ds') and ``P3DSaliency``, in eval and train mode (``model.train()``:
+batch statistics in every BN, dropout before the head).  The other decoders, the 'nl'
 attention, the 'full' head, the GN+CBAM family and the bottleneck BN quirk
 port in later slices (ROADMAP A.9, A.10, A.12).
 
@@ -134,13 +135,18 @@ class P3DEncoder(nn.Module):
 class UNetPPDecoder(nn.Module):
     """UNet++ nested decoder, attention 'sa' (self-attention at x_4_0, x_3_1,
     x_2_2 and, key/value-subsampled, x_1_3) or 'none'; head 'ds' (a single
-    transposed conv straight to 1 channel).  Dropout is the identity at
-    inference.  Output is sigmoid-activated, NCDHW."""
+    transposed conv straight to 1 channel), after dropout at rate
+    ``dropout_rate`` in train mode.  Output is sigmoid-activated, NCDHW.
+
+    The JAX package's phase-layout train head (``fast_tconv.py``) is a TPU
+    formulation whose summed loss is the same number; the interleaved head
+    runs in both modes here."""
 
     def __init__(self, skip_features: tuple[int, int, int, int],
                  attention: str = "sa", head: str = "ds", norm_mode: str = "bn",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout_rate: float = 0.5):
         super().__init__()
+        self.dropout_rate = dropout_rate
         if attention == "nl":
             raise NotImplementedError(
                 "UNetPPDecoder(attention='nl') ports with NonLocal3D "
@@ -181,7 +187,20 @@ class UNetPPDecoder(nn.Module):
     def _sa(self, x: torch.Tensor, name: str) -> torch.Tensor:
         return getattr(self, name)(x) if name in self.sa_sites else x
 
-    def forward(self, feats: dict[str, torch.Tensor]) -> torch.Tensor:
+    def _dropout(self, x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+        """Inverted dropout with a mask drawn from ``generator`` (flax's
+        ``nn.Dropout``: keep with probability 1 - rate, scale by its
+        inverse in the input's dtype)."""
+        keep = 1.0 - self.dropout_rate
+        if not self.training or self.dropout_rate == 0.0:
+            return x
+        if keep <= 0.0:
+            return torch.zeros_like(x)
+        mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
+        return x * mask / keep
+
+    def forward(self, feats: dict[str, torch.Tensor],
+                generator: torch.Generator | None = None) -> torch.Tensor:
         x_1_0, x_2_0 = feats["x_1_0"], feats["pool2"]
         x_3_0, x_4_0 = feats["pool3"], feats["pool4"]
 
@@ -200,6 +219,7 @@ class UNetPPDecoder(nn.Module):
         x_1_2 = self.x_1_2((x_1_1, up_2_1))
         up_2_2 = self.upx_2_2(x_2_2)
         x_1_3 = self._sa(self.x_1_3((x_1_2, up_2_2)), "x_1_3_sa")
+        x_1_3 = self._dropout(x_1_3, generator)
         # The sigmoid runs in float32 on the logits of the compute dtype: XLA
         # drops the bf16 rounding between the JAX model's sigmoid and its
         # float32 output cast, so its bf16 maps are not quantized to bf16.
@@ -208,11 +228,14 @@ class UNetPPDecoder(nn.Module):
 
 class P3DSaliency(nn.Module):
     """Encoder + UNet++ decoder.  Input ``[B, T, H, W, 3]``, output
-    ``[B, T, H, W, 1]`` float32; the input is cast to the compute dtype."""
+    ``[B, T, H, W, 1]`` float32; the input is cast to the compute dtype.
+    In train mode ``generator`` draws the dropout mask (the default
+    generator of the device when None)."""
 
     def __init__(self, decoder: str = "unetpp", decoder_kwargs: dict | None = None,
                  norm_mode: str = "bn", dtype: torch.dtype = torch.float32,
-                 stages: tuple = _STAGES, stem_features: int = 64):
+                 stages: tuple = _STAGES, stem_features: int = 64,
+                 dropout_rate: float = 0.5):
         super().__init__()
         if decoder != "unetpp":
             raise NotImplementedError(
@@ -222,11 +245,13 @@ class P3DSaliency(nn.Module):
         self.encoder = P3DEncoder(norm_mode, dtype, stages, stem_features)
         skips = (stem_features,) + tuple(p * BLOCK_EXPANSION for p, _ in stages)
         self.decoder = UNetPPDecoder(skips, **(decoder_kwargs or {}),
-                                     norm_mode=norm_mode, dtype=dtype)
+                                     norm_mode=norm_mode, dtype=dtype,
+                                     dropout_rate=dropout_rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         x = x.to(self.dtype).permute(0, 4, 1, 2, 3)  # NDHWC -> NCDHW
-        out = self.decoder(self.encoder(x))
+        out = self.decoder(self.encoder(x), generator)
         return out.permute(0, 2, 3, 4, 1).float()
 
     def attention_modules(self) -> list[SelfAttention3D]:

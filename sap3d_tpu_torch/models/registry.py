@@ -148,10 +148,11 @@ def _unported(cfg: dict[str, Any]) -> str | None:
 
 def build_model(name: str, dtype: str | torch.dtype | None = None,
                 device: str | torch.device = DEFAULT_DEVICE,
-                seed: int = 0) -> P3DSaliency:
+                seed: int = 0, dropout_rate: float = 0.5) -> P3DSaliency:
     """The named model in eval mode on ``device``, its parameters made from
     ``seed`` (Glorot-uniform kernels, zero biases, unit BN statistics and
-    scales, ``gamma`` = 0, as the flax init)."""
+    scales, ``gamma`` = 0, as the flax init); ``dropout_rate`` applies in
+    train mode."""
     name = resolve_name(name)
     dev = resolve_device(device)
     cfg = dict(MODEL_REGISTRY[name])
@@ -160,5 +161,5 @@ def build_model(name: str, dtype: str | torch.dtype | None = None,
         raise NotImplementedError(f"model {name!r} is not ported yet: {todo}")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = P3DSaliency(**cfg, dtype=resolve_dtype(dtype))
+        model = P3DSaliency(**cfg, dtype=resolve_dtype(dtype), dropout_rate=dropout_rate)
     return model.to(dev).eval()

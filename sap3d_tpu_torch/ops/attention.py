@@ -8,9 +8,16 @@ the output is ``x + gamma * relu(norm(out_conv(o)))`` with ``gamma``
 initialized to 0.
 
 Dispatch mirrors the JAX package: where the query count reaches one block of
-the fused kernel (``BLOCK_Q`` = 256) the tokens go to ``flash_attend_tokens``
-(the CUDA kernel for CUDA tensors, its plain version for CPU tensors);
+the fused kernels (``BLOCK_Q`` = 256) the tokens go to ``flash_attend``;
 otherwise to ``attend_tokens``, as JAX does at ``x_4_0`` (Nq = 49).
+``flash_attend`` is the counterpart of the JAX ``flash_attend_tokens``
+custom_vjp: under autograd its forward is kernel B2 (o and lse) and its
+backward kernel B3; without autograd it is kernel B1, as the custom_vjp
+primal.  Each kernel wrapper runs its plain version on CPU tensors, so the
+CPU path computes the same one-exp backward formula.  One difference is
+deliberate: JAX's training gate (``flash_attention_viable``) sends an fp32
+x_2_2 site to ``attend_tokens`` because of the TPU's VMEM budget; the port
+keeps "Nq >= BLOCK_Q" in both dtypes (the same function either way).
 ``ring_mesh`` and ``NonLocal3D`` port in later slices (ROADMAP A.9, A.11).
 """
 
@@ -24,7 +31,9 @@ from sap3d_tpu_torch.ops.cuda.flash_attention import (
     BLOCK_Q,
     flash_attend_tokens,
     flash_attend_tokens_reference as _dot_softmax_attend,
+    flash_forward_lse,
 )
+from sap3d_tpu_torch.ops.cuda.flash_attention_bwd import flash_backward
 from sap3d_tpu_torch.ops.layers import Conv3d, Norm, pool3d
 
 # Above this many query tokens, attend in query chunks so the score matrix
@@ -39,6 +48,29 @@ def attend_tokens(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
         return _dot_softmax_attend(q, k, v)
     return torch.cat([_dot_softmax_attend(qc, k, v)
                       for qc in q.split(_QUERY_CHUNK, dim=1)], dim=1)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel B2 saving (q, k, v, o, lse); backward kernel B3 on the
+    cotangent cast to v's dtype (the JAX ``_fwd_rule`` / ``_bwd_rule``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = flash_forward_lse(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return flash_backward(q, k, v, o, lse, do.to(v.dtype).contiguous())
+
+
+def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Fused attention: kernels B2 + B3 when autograd records, B1 otherwise."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v)
+    return flash_attend_tokens(q, k, v)
 
 
 def _tokens(x: torch.Tensor) -> torch.Tensor:
@@ -78,7 +110,7 @@ class SelfAttention3D(nn.Module):
             hv = pool3d(hv, self.sub_size)
         q, k, v = _tokens(g), _tokens(f), _tokens(hv)
         if self.use_kernel and q.shape[1] >= BLOCK_Q:
-            o = flash_attend_tokens(q, k, v)
+            o = flash_attend(q, k, v)
         else:
             o = attend_tokens(q, k, v)
         o = o.transpose(1, 2).reshape(g.shape[0], -1, *x.shape[2:])

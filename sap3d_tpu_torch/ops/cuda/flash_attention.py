@@ -1,14 +1,22 @@
-"""Fused attention forward (no lse): the CUDA kernel and its plain version.
+"""Fused attention forward: the CUDA kernel and its plain version.
 
 Counterpart of ``sap3d_tpu/ops/pallas/flash_attention.py``'s
-``flash_attend_tokens`` primal, i.e. ``_flash_forward(want_lse=False)``:
-``softmax(q k^T) v`` over the key axis with no 1/sqrt(d) scale, fp32 scores,
-output in v's dtype.  q ``[B, Nq, d]``, k ``[B, Nk, d]``, v ``[B, Nk, C]``.
+``_flash_forward``: ``softmax(q k^T) v`` over the key axis with no
+1/sqrt(d) scale, fp32 scores, output in v's dtype.  q ``[B, Nq, d]``,
+k ``[B, Nk, d]``, v ``[B, Nk, C]``.  Two entry points run
+``csrc/flash_attention_fwd.cu``:
 
-``flash_attend_tokens`` launches ``csrc/flash_attention_fwd.cu`` for CUDA
-tensors and runs ``flash_attend_tokens_reference`` only for CPU tensors.  On
-a CUDA tensor it launches the kernel or raises; it never falls back.
-``flash_attend_tokens.launches`` counts kernel launches.
+* ``flash_attend_tokens`` (kernel B1): o only, as the ``flash_attend_tokens``
+  primal (``want_lse=False``) that inference runs;
+* ``flash_forward_lse`` (kernel B2): o and ``lse`` ``[B, Nq]`` float32, the
+  log-sum-exp of each query row's scores, as the custom_vjp forward rule
+  (``want_lse=True``) that training runs.  The TPU kernel's ``[B, 8, Nq]``
+  sublane replication is a TPU layout and is not kept.
+
+Each launches the kernel for CUDA tensors and runs its plain version
+(``flash_attend_tokens_reference``, ``flash_forward_lse_reference``) only
+for CPU tensors.  On a CUDA tensor it launches the kernel or raises; it
+never falls back.  ``<function>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -37,14 +45,26 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # fp32: summation order and __expf, ~1e-6 relative.
 TOLERANCE = {torch.bfloat16: (2.0 ** -6, 2.0 ** -8, 2.0 ** -7),
              torch.float32: (1e-5, 1e-4, 1e-4)}
+# lse (float32 in both dtypes, from the same float32 scores): the kernel's
+# running max and sum against torch.logsumexp differ by summation order and
+# __expf, ~1e-6 relative; dropping one tile of 64 keys moves lse by ~1e-2.
+LSE_TOLERANCE = {torch.float32: (1e-5, 1e-5, 1e-5)}
 
 
-def agreement(got: torch.Tensor, want: torch.Tensor) -> dict[str, float]:
+def agreement(got: torch.Tensor, want: torch.Tensor, tolerance: dict | None = None,
+              row_tolerance: dict | None = None) -> dict[str, float]:
     """How far the kernel's output ``got`` is from its plain version's
-    ``want`` under ``TOLERANCE[want.dtype]``: the largest and the mean
-    absolute error, and ``excess``, the largest ratio of an error (per
-    element, or the mean) to its limit.  They agree when excess <= 1."""
-    rtol, atol, mean_tol = TOLERANCE[want.dtype]
+    ``want`` under ``tolerance[want.dtype]`` (default ``TOLERANCE``): the
+    largest and the mean absolute error, the relative L2 distance (read,
+    not held), and ``excess``, the largest ratio
+    of an error (per element, or the mean) to its limit.  With
+    ``row_tolerance``, each row (the last axis) is also held by its relative
+    L2 distance, ``||got_r - want_r|| <= row_tol * ||want_r||`` (rows below
+    2^-20 of the largest row's norm are held to that floor), so that a row
+    left at zero reads 1 / row_tol however small it is; ``row_excess`` is
+    the largest ratio.  They agree when excess <= 1."""
+    rtol, atol, mean_tol = (TOLERANCE if tolerance is None else tolerance)[want.dtype]
+    row_tol = None if row_tolerance is None else row_tolerance[want.dtype]
     got, want = got.float(), want.float()
     err = (got - want).abs()
     mag = want.abs()
@@ -52,8 +72,18 @@ def agreement(got: torch.Tensor, want: torch.Tensor) -> dict[str, float]:
     mean_err = err.mean().item()
     excess = max((err / limit).max().item(),
                  mean_err / (mean_tol * mag.mean().item()))
-    return dict(max_abs_err=err.max().item(), mean_abs_err=mean_err,
-                excess=excess, finite=bool(torch.isfinite(got).all().item()))
+    out = dict(max_abs_err=err.max().item(), mean_abs_err=mean_err,
+               rel_l2=(err.norm() / want.norm().clamp_min(torch.finfo(torch.float32).tiny)
+                       ).item(),
+               finite=bool(torch.isfinite(got).all().item()))
+    if row_tol is not None:
+        row_err = (got - want).flatten(0, -2).norm(dim=-1)
+        row_norm = want.flatten(0, -2).norm(dim=-1)
+        row_limit = (row_tol * row_norm.clamp_min(2.0 ** -20 * row_norm.max())
+                     ).clamp_min(torch.finfo(torch.float32).tiny)
+        out["row_excess"] = (row_err / row_limit).max().item()
+        excess = max(excess, out["row_excess"])
+    return dict(out, excess=excess)
 
 
 def flash_attend_tokens_reference(q: torch.Tensor, k: torch.Tensor,
@@ -66,10 +96,19 @@ def flash_attend_tokens_reference(q: torch.Tensor, k: torch.Tensor,
     return torch.bmm(beta.to(v.dtype), v)
 
 
+def flash_forward_lse_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch: ``flash_attend_tokens_reference``'s output and the
+    float32 log-sum-exp of each query row's fp32 scores, ``[B, Nq]``."""
+    scores = torch.bmm(q.float(), k.float().transpose(1, 2))
+    beta = torch.softmax(scores, dim=-1)
+    return torch.bmm(beta.to(v.dtype), v), torch.logsumexp(scores, dim=-1)
+
+
 def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if not getattr(lib, "_sap3d_typed", False):
-        lib.sap3d_flash_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+        lib.sap3d_flash_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         lib.sap3d_flash_fwd.restype = ctypes.c_int
         lib.sap3d_flash_fwd_block_c.restype = ctypes.c_int
@@ -80,12 +119,9 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def flash_attend_tokens(q: torch.Tensor, k: torch.Tensor,
-                        v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T) v: the CUDA kernel on CUDA tensors, the plain version
-    on CPU tensors."""
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        return flash_attend_tokens_reference(q, k, v)
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            want_lse: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Check the inputs and launch the forward kernel, with or without lse."""
     lib = _library()
     if not all(t.device.type == "cuda" and t.device == q.device for t in (q, k, v)):
         raise ValueError(f"q/k/v must share one CUDA device, got "
@@ -107,20 +143,48 @@ def flash_attend_tokens(q: torch.Tensor, k: torch.Tensor,
     if q.dtype == torch.bfloat16 and d % 8:
         raise ValueError(f"the bf16 kernel reads rows in 16-byte chunks: d={d} "
                          "must be a multiple of 8")
-    # contiguous, and 16-byte aligned for the kernel's vector loads
-    q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
-               else t.clone(memory_format=torch.contiguous_format)
-               for t in (q, k, v))
+    q, k, v = (contiguous_aligned(t) for t in (q, k, v))
     o = torch.empty((b, nq, c), dtype=v.dtype, device=v.device)
+    lse = torch.empty((b, nq), dtype=torch.float32, device=v.device) if want_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.sap3d_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              o.data_ptr(), b, nq, nk, d, c,
+    err = lib.sap3d_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                              None if lse is None else lse.data_ptr(), b, nq, nk, d, c,
                               _DTYPE_CODES[q.dtype], stream)
     if err:
         raise RuntimeError("flash_attention_fwd launch failed: "
                            + lib.sap3d_cuda_error_string(err).decode())
+    return o, lse
+
+
+def contiguous_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if contiguous and 16-byte aligned (the kernels' vector loads),
+    else a contiguous copy."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def flash_attend_tokens(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T) v (kernel B1): the CUDA kernel on CUDA tensors, the
+    plain version on CPU tensors."""
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return flash_attend_tokens_reference(q, k, v)
+    o, _ = _launch(q, k, v, want_lse=False)
     flash_attend_tokens.launches += 1
     return o
 
 
+def flash_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(softmax(q k^T) v, lse) (kernel B2): the CUDA kernel on CUDA tensors,
+    the plain version on CPU tensors."""
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return flash_forward_lse_reference(q, k, v)
+    o, lse = _launch(q, k, v, want_lse=True)
+    flash_forward_lse.launches += 1
+    return o, lse
+
+
 flash_attend_tokens.launches = 0
+flash_forward_lse.launches = 0

@@ -78,6 +78,22 @@ def pool3d(x: torch.Tensor, sub_size: int) -> torch.Tensor:
     return max_pool3d(x, sub_size, sub_size, padding="VALID")
 
 
+def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor,
+                   inside_weights: torch.Tensor | float = 1.0,
+                   outside_weights: torch.Tensor | float = 1.0,
+                   sigma: float = 1.0) -> torch.Tensor:
+    """Huber-style smooth-L1 summed over every element (``sap3d_tpu``
+    ``smooth_l1_loss``).  The quadratic/linear switch factor is a constant
+    to the gradient (detached), as the JAX package's ``stop_gradient``."""
+    sigma2 = sigma ** 2
+    diff = (pred - target) * inside_weights
+    abs_diff = diff.abs()
+    is_small = (abs_diff < 1.0 / sigma2).to(diff.dtype).detach()
+    per_elem = diff.square() * (sigma2 / 2.0) * is_small \
+        + (abs_diff - 0.5 / sigma2) * (1.0 - is_small)
+    return (per_elem * outside_weights).sum()
+
+
 def _glorot_(w: torch.Tensor, fan_in: int, fan_out: int) -> None:
     bound = (6.0 / (fan_in + fan_out)) ** 0.5
     with torch.no_grad():
@@ -165,13 +181,21 @@ class ConvTranspose3d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """``nn.BatchNorm`` (flax) twin at inference: running statistics, eps
-    1e-3.  Flax's momentum 0.99 (torch's 0.01) only matters to the train-mode
-    update, which ports with the train step (ROADMAP A.5).
+    """``nn.BatchNorm`` (flax, momentum 0.99, epsilon 1e-3) twin.
 
-    One ``F.batch_norm`` call on the input in the compute dtype with the
-    float32 statistics and affine parameters: PyTorch normalizes such mixed
-    inputs in float32 and returns the compute dtype, as flax does."""
+    Eval mode normalizes with the running statistics.  Train mode normalizes
+    with the batch mean and biased variance and moves the running
+    statistics with those same batch statistics, under ``no_grad``, as flax
+    does: ``running = 0.99 * running + 0.01 * batch``.  The buffers are not
+    handed to the batch-norm call in train mode: torch would move ``var``
+    with the unbiased variance.  The statistics are float32 from the
+    compute-dtype input, as flax's; the variance is read back from the
+    call's inverse standard deviation (``invstd^-2 - eps``), where flax
+    takes ``max(0, E[x^2] - E[x]^2)``: the two differ by float32 rounding.
+
+    Both modes are one batch-norm call on the input in the compute dtype
+    with float32 statistics and affine parameters: PyTorch normalizes such
+    mixed inputs in float32 and returns the compute dtype, as flax does."""
 
     eps = 1e-3
     momentum = 0.99  # flax convention: running = m * running + (1 - m) * batch
@@ -185,12 +209,17 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm ports with the train step (ROADMAP A.5); "
-                "call model.eval()")
-        return F.batch_norm(x.to(self.dtype), self.mean, self.var, self.scale,
-                            self.bias, False, 0.0, self.eps)
+        x = x.to(self.dtype)
+        if not self.training:
+            return F.batch_norm(x, self.mean, self.var, self.scale, self.bias,
+                                False, 0.0, self.eps)
+        y, mean, invstd = torch.native_batch_norm(x, self.scale, self.bias, None, None,
+                                                  True, 0.0, self.eps)
+        with torch.no_grad():
+            var = (invstd.float().square().reciprocal() - self.eps).clamp_min(0.0)
+            self.mean.mul_(self.momentum).add_(mean.float(), alpha=1.0 - self.momentum)
+            self.var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        return y
 
 
 class GroupNorm(nn.Module):

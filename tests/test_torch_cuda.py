@@ -6,9 +6,11 @@ conftest (which configures JAX) is left out:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-The kernel is held to its plain version under ``flash_attention.TOLERANCE``
-(per element and on the mean, scaled to the output; ``agreement`` says
-why), as chip_smoke.py holds it.
+Each kernel is held to its plain version under its module's limits
+(``flash_attention.TOLERANCE`` for o, ``LSE_TOLERANCE`` for lse,
+``flash_attention_bwd.TOLERANCE`` for dq, dk and dv; per element and on the
+mean, scaled to the output; ``agreement`` says why), as chip_smoke.py holds
+them.
 """
 
 import numpy as np
@@ -16,10 +18,14 @@ import pytest
 import torch
 
 from sap3d_tpu_torch.ops.attention import SelfAttention3D
+from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
 from sap3d_tpu_torch.ops.cuda.flash_attention import (
+    LSE_TOLERANCE,
     agreement,
     flash_attend_tokens,
     flash_attend_tokens_reference,
+    flash_forward_lse,
+    flash_forward_lse_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -96,3 +102,119 @@ def test_self_attention_kernel_path_matches_plain_path(cuda):
         want = sa(x)
     assert flash_attend_tokens.launches == before + 1
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+# ragged shapes and the flagship sites' proportions (d = C/8), plus a C
+# that is a multiple of 64 but not of 128
+_SHAPES = [
+    (3, 300, 200, 16, 128),  # ragged Nq and Nk
+    (1, 392, 392, 64, 512),  # x_3_1
+    (1, 700, 500, 32, 256),  # x_2_2 proportions
+    (2, 1000, 300, 16, 128), # x_1_3 proportions
+    (2, 130, 70, 24, 192),   # three 64-column slabs of C
+    (1, 1, 3, 8, 64),        # one query (with one key, dq and dk are 0)
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nq,nk,d,c", _SHAPES)
+def test_b2_matches_plain(cuda, dtype, b, nq, nk, d, c):
+    q, k, v = _inputs(b, nq, nk, d, c, dtype)
+    before = flash_forward_lse.launches
+    o, lse = flash_forward_lse(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_forward_lse.launches == before + 1
+    assert o.shape == (b, nq, c) and o.dtype == dtype
+    assert lse.shape == (b, nq) and lse.dtype == torch.float32
+    want_o, want_lse = flash_forward_lse_reference(q, k, v)
+    assert agreement(o, want_o)["excess"] <= 1
+    check = agreement(lse, want_lse, LSE_TOLERANCE)
+    assert check["finite"] and check["excess"] <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nq,nk,d,c", _SHAPES)
+def test_b3_matches_plain(cuda, dtype, b, nq, nk, d, c):
+    q, k, v = _inputs(b, nq, nk, d, c, dtype)
+    do = torch.randn(b, nq, c, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(1)).to(dtype)
+    o, lse = flash_forward_lse_reference(q, k, v)
+    before = fb.flash_backward.launches
+    got = fb.flash_backward(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert fb.flash_backward.launches == before + 1
+    want = fb.flash_backward_reference(q, k, v, o, lse, do)
+    for name, g, w, t in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == dtype, name
+        rows = fb.DV_ROW_TOLERANCE if name == "dv" else None
+        check = agreement(g, w, fb.TOLERANCE, rows)
+        assert check["finite"] and check["excess"] <= 1, (name, check)
+
+
+def test_b3_rejects_what_it_does_not_take(cuda):
+    q, k, v = _inputs(1, 8, 8, 8, 1024, torch.float32)  # C above 512
+    o, lse = flash_forward_lse_reference(q, k, v)
+    with pytest.raises(ValueError):
+        fb.flash_backward(q, k, v, o, lse, o)
+    q, k, v = _inputs(1, 8, 8, 8, 64, torch.bfloat16)
+    o, lse = flash_forward_lse_reference(q, k, v)
+    with pytest.raises(TypeError):
+        fb.flash_backward(q, k, v, o, lse.half(), o)
+
+
+# The kernel path against B2 with the plain B3 (the same forward; the
+# backward's own difference): loss and whole gradient (relative L2).  Read
+# on an H100: fp32 4.3e-6, bf16 1.2e-2 (the bf16 backward carries each
+# rounding difference far; the control, a B3 without delta, 31 and 21).
+# Against the plain B2 and B3 the bf16 gradient is 0.12 away: moving the
+# forward's rounding point moves it that far (PERF.md).
+_TRAIN_TOL = {torch.float32: (1e-6, 1e-4), torch.bfloat16: (1e-6, 5e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_micro_train_step_kernel_path_matches_plain_path(cuda, dtype, monkeypatch):
+    """p3d_micro_sa at 32 px, batch 2, dropout 0: two sites (x_2_2, x_1_3)
+    take B2 and B3; x_4_0 and x_3_1 are below one query block."""
+    from sap3d_tpu_torch.models.registry import build_model
+    from sap3d_tpu_torch.ops import attention
+    from sap3d_tpu_torch.train.steps import loss_fn_saliency
+
+    model = build_model("p3d_micro_sa", dtype=dtype, device=cuda, seed=0, dropout_rate=0.0)
+    with torch.no_grad():
+        for sa in model.attention_modules():
+            sa.gamma.fill_(1.0)  # with gamma = 0 every attention gradient is 0
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(2, 16, 32, 32, 3, device=cuda, generator=gen) * 0.5
+    y = torch.rand(2, 16, 32, 32, device=cuda, generator=gen)
+
+    def run(forward=flash_forward_lse, backward=fb.flash_backward):
+        monkeypatch.setattr(attention, "flash_forward_lse", forward)
+        monkeypatch.setattr(attention, "flash_backward", backward)
+        model.train()
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn_saliency(model(x), y)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), torch.cat([p.grad.flatten() for p in model.parameters()])
+
+    def counts():
+        return (flash_forward_lse.launches, fb.flash_backward.launches,
+                flash_attend_tokens.launches)
+
+    def without_delta(q, k, v, o, lse, do):
+        return fb.flash_backward_reference(q, k, v, torch.zeros_like(o), lse, do)
+
+    before = counts()
+    loss_k, grad_k = run()
+    assert counts() == (before[0] + 2, before[1] + 2, before[2])
+    loss_s, grad_s = run(backward=fb.flash_backward_reference)
+    _, grad_f = run(backward=without_delta)
+    _, grad_r = run(flash_forward_lse_reference, fb.flash_backward_reference)
+    loss_tol, grad_tol = _TRAIN_TOL[dtype]
+    rel = (grad_k - grad_s).norm().item() / grad_s.norm().item()
+    fault = (grad_f - grad_s).norm().item() / grad_s.norm().item()
+    print(f"micro train step {dtype}: loss {loss_k} against {loss_s}, gradient relative L2 "
+          f"{rel:.3e}, without delta {fault:.3e}; against the plain B2 and B3 "
+          f"{(grad_k - grad_r).norm().item() / grad_r.norm().item():.3e}")
+    assert abs(loss_k - loss_s) <= loss_tol * abs(loss_s), (loss_k, loss_s)
+    assert rel <= grad_tol < fault, (rel, fault)

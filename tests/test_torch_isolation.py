@@ -7,8 +7,9 @@
   without a GPU it exits non-zero and prints no result line.
 * Every entry point's default device is CUDA, and on this GPU-less host it
   raises instead of running on the CPU.
-* On a CUDA tensor the kernel wrapper launches the kernel or raises: with
-  the library absent it raises and never takes the plain path.
+* On a CUDA tensor each kernel wrapper (B1, B2, B3) launches its kernel
+  or raises: with the library absent it raises and never takes the plain
+  path.
 """
 
 import ast
@@ -24,6 +25,7 @@ import torch
 import sap3d_tpu_torch
 from sap3d_tpu_torch.ops.cuda import build
 from sap3d_tpu_torch.ops.cuda import flash_attention as fa
+from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sap3d_tpu")
@@ -124,6 +126,22 @@ def test_default_device_raises_without_a_gpu(tmp_path):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_train_entry_points_default_to_cuda_and_raise_without_a_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU; the default device is valid here")
+    from sap3d_tpu_torch import cli
+    from sap3d_tpu_torch.core.config import Config, ModelConfig, TrainConfig
+    from sap3d_tpu_torch.train.trainer import Trainer
+
+    cfg = Config(model=ModelConfig(name="p3d_micro"),
+                 train=TrainConfig(model_dir=str(tmp_path), logs_dir=str(tmp_path)))
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["train", "--structure", "p3d_micro", "--frames", str(tmp_path),
+                  "--densities", str(tmp_path)])
+
+
 def _fake_cuda_tensor(*shape):
     return types.SimpleNamespace(device=torch.device("cuda"), dtype=torch.float32,
                                  shape=shape, dim=lambda: len(shape))
@@ -142,6 +160,27 @@ def test_wrapper_raises_on_cuda_tensors_when_the_library_is_absent(monkeypatch):
     with pytest.raises(OSError, match="cannot open"):
         fa.flash_attend_tokens(q, k, v)
     assert fa.flash_attend_tokens.launches == before
+
+
+@pytest.mark.parametrize("kernel", ["B2", "B3"])
+def test_training_wrappers_raise_on_cuda_tensors_when_the_library_is_absent(
+        monkeypatch, kernel):
+    def absent(name):
+        raise OSError(f"lib{name}.so: cannot open shared object file")
+
+    fail = lambda *a: pytest.fail("fell back to the plain version")  # noqa: E731
+    monkeypatch.setattr(build, "load", absent)
+    monkeypatch.setattr(fa, "flash_forward_lse_reference", fail)
+    monkeypatch.setattr(fb, "flash_backward_reference", fail)
+    q, k, v = (_fake_cuda_tensor(1, 256, 8), _fake_cuda_tensor(1, 64, 8),
+               _fake_cuda_tensor(1, 64, 64))
+    o, lse = _fake_cuda_tensor(1, 256, 64), _fake_cuda_tensor(1, 256)
+    wrapper, args = ((fa.flash_forward_lse, (q, k, v)) if kernel == "B2"
+                     else (fb.flash_backward, (q, k, v, o, lse, o)))
+    before = wrapper.launches
+    with pytest.raises(OSError, match="cannot open"):
+        wrapper(*args)
+    assert wrapper.launches == before
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
