@@ -22,7 +22,7 @@ result line):
      [16, 16, 112, 112, 3] bf16, seeded weights, gamma nonzero and random BN
      statistics; each B1 call held against its plain version on the tensors
      the model gave it, the kernel path against the plain path end to end,
-     3 launches per forward, clips/s of both (median of 20); with
+     3 launches per forward, clips/s of both (median of 10); with
      --json-out, a torch.profiler breakdown of one kernel-path forward by
      layer;
   5. predictor (the inference path): SlidingWindowPredictor.predict_video
@@ -42,10 +42,40 @@ result line):
      zeroed before and read after, finite losses, a validation pass,
      checkpoints saved, restored into a second trainer and resumed;
      (e) train clips/s of both paths (plain, kernel, kernel, plain; the
-     median, slowest and fastest of 20 steps each) and peak device
+     median, slowest and fastest of 10 steps each) and peak device
      memory; with --json-out, a torch.profiler breakdown of one kernel-path
      train step;
-  7. a JSON line of per-kernel numbers, then the result line
+  7. the GN + CBAM SA decoder (inference_p3d_sa_decoder_block, alias
+     P3D_SA_DECODER) at full width in bf16, batch 16; its three attention
+     sites' (Nq, Nk, d, C) are read from the model:
+     (a) eval forward: 3 B1 launches, each held against its plain version on
+     the model's tensors (planted fault: the key tile with the most attention
+     mass dropped; the last keys of the pool4 deconv hold the bias alone);
+     kernel path against plain path in bf16 and fp32; the linear output
+     neither constant nor blown up; clips/s of both paths;
+     (b) kernels at the GN sites on random inputs, bf16 and fp32: B1 at all
+     three, B2 and B3 where the backward gate takes the shape, and B5
+     (flash forward + chunked recompute backward) at all three: o against
+     the plain version, dq, dk, dv against autograd through attend_tokens,
+     a planted fault (the last 64 keys zeroed) failing, times beside bounds;
+     at a shape of more than one chunk, the backward's peak memory under one
+     full [B, Nq, Nk] float32 block;
+     (c) predictor on a 40-frame video: 3 B1 launches per batch of windows;
+     (d) training with SAP3D_FLASH_HYBRID=1 (set by the phase for itself,
+     restored after): launches per step as the gate predicts from the
+     printed shapes (B5 where the backward gate refuses, B2 + B3 elsewhere);
+     the B5 call of one step held on the step's own tensors (o against the
+     plain version, dq, dk, dv against autograd through attend_tokens; the
+     heaviest key tile's keys zeroed must fail); one step from one state (dropout 0) in bf16 and fp32 against the same
+     attention Functions on the plain kernels (cuDNN's deterministic
+     algorithms for this comparison), with a B3 without delta as the
+     control; Trainer.fit, 3 steps with a validation pass and
+     checkpoints; train clips/s and peak memory, plain, hybrid, hybrid,
+     plain, and the same with the flag off;
+  8. every registry name built on the card, one bf16 eval forward at batch
+     2: shape, finite values, B1 launches as the gate gives them; the
+     plain-path time of a site of at least 256 queries that B1 does not take;
+  9. a JSON line of per-kernel numbers, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Needs torch with CUDA and nvcc; imports nothing of JAX or ``sap3d_tpu``.
@@ -83,6 +113,9 @@ KEY_TILE = 64                      # keys per streamed tile in both B1 kernels
 # 47-block network amplifies (about 3e-3 on an H100, PERF.md).  The forward
 # without attention must exceed this limit for the check to count.
 E2E_MEAN_TOL = 1e-2
+# The same for the GN SA decoder, whose output is linear: in units of the
+# fp32 output's standard deviation.
+GN_E2E_MEAN_TOL = 5e-2
 # Train phase (c): (relative loss, relative L2 of the whole gradient) limits
 # of the kernel path against B2 with the plain B3 (the same forward, so the
 # backward's own difference) on one batch (dropout 0), per dtype, from runs
@@ -95,8 +128,45 @@ E2E_MEAN_TOL = 1e-2
 # whole bf16 gradient against the plain B2 and B3 is 0.43 away: moving the
 # forward's rounding point moves it that far; PERF.md.)
 TRAIN_TOL = {"bf16": (1e-4, 1e-1), "float32": (1e-6, 1e-2)}
+# The same limits for the GN SA decoder (B2 + B3 at two sites, B5 at the
+# third), from runs on an H100: the whole gradient against the same path
+# with the plain B3 read 1.9e-2 in bf16 and 3.0e-3 in fp32 (the plain path
+# run twice: 1.9e-3 and 1.7e-3 to 2.7e-3).  Its linear output makes a loss
+# (2e6) whose gradient the attention sites move little: a B3 without delta
+# moves the whole gradient 2.6e-2 to 8.3e-2 (1.6e-2 to 8.1e-2 in fp32), too
+# near the sound reading to be a control: the whole-gradient limit has no
+# control of its own and guards against gross faults only.  What holds the
+# kernels in this step: B5's o, dq, dk and dv on the step's own tensors
+# against ``attend_tokens`` and autograd through it (``b5_in_step``, with a
+# planted fault that must fail; in the comparison below the kernel path and
+# the plain-B3 run share B5's code, so it says nothing of B5), and for B3 the
+# gradient of the sites' f, g and h projections, which only dq, dk and dv
+# feed, held to GN_PROJ_TOL; B3's control is read there.  The projections
+# read 1.4e-4 to 2.4e-4 in bf16
+# (each B3 output is about 2e-4 from its plain version), the control 0.94 to
+# 3.9 in both types.  In fp32 the reading is 2.9e-7 to 2.4e-6 when cuDNN's
+# backward repeats itself and was 6.9e-4 in a run where it did not (the plain
+# path run twice was then 6.7e-4 from itself on these projections).  The
+# comparison therefore asks cuDNN for its deterministic algorithms: the plain
+# path run twice then reads 0 there.
+GN_TRAIN_TOL = {"bf16": (1e-4, 5e-2), "float32": (1e-6, 1e-2)}
+GN_PROJ_TOL = {"bf16": 2e-3, "float32": 1e-4}
 TRAIN_STEPS = 3
-THROUGHPUT_CALLS = 20              # timed calls per path and round of clips/s
+THROUGHPUT_CALLS = 10              # timed calls per path and round of clips/s
+GN_MODEL = "P3D_SA_DECODER"        # inference_p3d_sa_decoder_block
+# B1 launches of one eval forward of each registry name at 112 px: the
+# attention sites the forward gate takes (at least 256 queries, C a multiple
+# of 64): none without self-attention; x_3_1, x_2_2 and x_1_3 in the UNet++
+# models (x_4_0 has 49 queries; the 'full' head's x_0_1_sa has C = 16; 'nl'
+# has a non-local block at x_1_3); pool2 and pool3 in sa_concat (pool4 has
+# 49 tokens); all three sites of the two other GN SA decoders.
+ZOO_LAUNCHES = {
+    "p3d_unet": 0, "p3d_concat": 0, "p3d_unetplusplus": 3, "p3d_unetplusplus_ds": 3,
+    "p3d_unetplusplus_nonsa": 0, "p3d_unetplusplus_nl": 2, "inference_p3d": 0,
+    "inference_p3d_concat": 0, "inference_p3d_sa_concat": 2, "inference_p3d_sa_concat_2": 3,
+    "inference_p3d_sa_decoder_block": 3, "inference_p3d_decoder_block": 0,
+    "p3d_micro": 0, "p3d_micro_sa": 3,
+}
 
 
 def card_line() -> str:
@@ -185,6 +255,31 @@ def drop_last_key_tile(fa, q, k, v):
     return fa.flash_attend_tokens_reference(q, k[:, :keep], v[:, :keep])
 
 
+def heaviest_key_tile(q, k) -> slice:
+    """The ``KEY_TILE``-key tile that holds the most attention mass over all
+    queries."""
+    import torch
+
+    p = torch.softmax(torch.bmm(q.float(), k.float().transpose(1, 2)), dim=-1)
+    mass = p.sum(dim=(0, 1))
+    pad = (-mass.numel()) % KEY_TILE
+    tile = int(torch.nn.functional.pad(mass, (0, pad)).view(-1, KEY_TILE).sum(-1).argmax())
+    return slice(tile * KEY_TILE, (tile + 1) * KEY_TILE)
+
+
+def drop_heaviest_key_tile(fa, q, k, v):
+    """A planted fault for tensors whose last keys carry no weight (the GN
+    decoder's pool4 deconv, stride 4 over a kernel of 1 and 3, ends in
+    tokens that hold the bias alone, all alike: dropping them moves nothing):
+    the plain version without the ``KEY_TILE``-key tile that holds the most
+    attention mass over all queries."""
+    import torch
+
+    keep = torch.ones(k.shape[1], dtype=torch.bool, device=k.device)
+    keep[heaviest_key_tile(q, k)] = False
+    return fa.flash_attend_tokens_reference(q, k[:, keep], v[:, keep])
+
+
 def hold(label, got, want, fault, fault_name, tolerance, row_tolerance=None):
     """Hold a kernel output against its plain version's under
     ``tolerance`` (and ``row_tolerance``), and show that the same limits
@@ -212,10 +307,14 @@ def hold(label, got, want, fault, fault_name, tolerance, row_tolerance=None):
 _DROPPED = f"last {KEY_TILE}-key tile dropped"
 
 
-def check_b1(fa, label, q, k, v, got):
-    """B1's output on (q, k, v) against its plain version."""
+def check_b1(fa, label, q, k, v, got, heaviest: bool = False):
+    """B1's output on (q, k, v) against its plain version; the planted fault
+    drops the last key tile, or with ``heaviest`` the one with the most
+    attention mass."""
+    fault = drop_heaviest_key_tile(fa, q, k, v) if heaviest else drop_last_key_tile(fa, q, k, v)
+    name = f"the heaviest {KEY_TILE}-key tile dropped" if heaviest else _DROPPED
     return hold(f"B1 {label}", got, fa.flash_attend_tokens_reference(q, k, v),
-                drop_last_key_tile(fa, q, k, v), _DROPPED, fa.TOLERANCE)
+                fault, name, fa.TOLERANCE)
 
 
 def check_b2(fa, label, q, k, v, o, lse):
@@ -249,16 +348,18 @@ def check_b3(fb, label, q, k, v, o, lse, do, got):
     return dict(res, max_abs_err=max(r["max_abs_err"] for r in res.values()))
 
 
-def phase_kernels(torch, fa, fb, flush):
-    """Phase 3: B1, B2 and B3 against their plain versions at the flagship
-    shapes, with their times."""
+def phase_kernels(torch, fa, fb, flush, sites=None):
+    """Phases 3 and 7(b): B1, B2 and B3 against their plain versions at the
+    shapes of ``sites`` (default: the flagship's), with their times; B2 and
+    B3 only where the backward gate takes the shape."""
+    sites = SITES if sites is None else sites
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     rows = {"B1": [], "B2": [], "B3": []}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        for site, (nq, nk, d, c) in SITES.items():
+        for site, (nq, nk, d, c) in sites.items():
             # q, k with std d^-1/4: unit-variance scores, a soft softmax
             q = (torch.randn(BATCH, nq, d, device=DEVICE, generator=gen) * d ** -0.25).to(dtype)
             k = (torch.randn(BATCH, nk, d, device=DEVICE, generator=gen) * d ** -0.25).to(dtype)
@@ -266,7 +367,8 @@ def phase_kernels(torch, fa, fb, flush):
             do = torch.randn(BATCH, nq, c, device=DEVICE, generator=gen).to(dtype)
             shape = dict(site=site, dtype=dname, nq=nq, nk=nk, d=d, c=c)
             label = f"{site} {dname} (random inputs)"
-            iters = (3 if dtype == torch.float32 else 5) if site == "x_1_3" else 20
+            heavy = nq * nk * (d + c) > 5e9  # x_1_3 and the two wider GN sites
+            iters = (3 if dtype == torch.float32 else 5) if heavy else 20
             plain_iters = max(iters // 4, 3)
 
             got = fa.flash_attend_tokens(q, k, v)
@@ -280,6 +382,13 @@ def phase_kernels(torch, fa, fb, flush):
             row["bound_ms"], row["bound_by"] = flash_bound(BATCH, nq, nk, d, c, dname,
                                                            q.element_size())
             rows["B1"].append(row)
+            ran = ["B1"]
+            if not fb.backward_viable(nq, nk, d, c, dtype):
+                report_kernel_rows(rows, ran, site, dname, nq, nk, d, c)
+                del q, k, v, do
+                torch.cuda.empty_cache()
+                continue
+            ran += ["B2", "B3"]
 
             o, lse = fa.flash_forward_lse(q, k, v)
             row = dict(check_b2(fa, label, q, k, v, o, lse), **shape)
@@ -302,17 +411,21 @@ def phase_kernels(torch, fa, fb, flush):
             row["bound_ms"], row["bound_by"] = flash_bwd_bound(BATCH, nq, nk, d, c, dname,
                                                                q.element_size())
             rows["B3"].append(row)
-            for name in ("B1", "B2", "B3"):
-                r = rows[name][-1]
-                lib = r["library_ms"]
-                print(f"[kernel] {name} {site} {dname} B={BATCH} Nq={nq} Nk={nk} d={d} C={c}: "
-                      f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                      f"sdpa {lib if lib is None else f'{lib:.4f}'} ms "
-                      f"({r['library_backend']}), bound {r['bound_ms']:.4f} ms "
-                      f"({r['bound_by']})", flush=True)
+            report_kernel_rows(rows, ran, site, dname, nq, nk, d, c)
             del q, k, v, do, o, lse
             torch.cuda.empty_cache()
     return rows
+
+
+def report_kernel_rows(rows, names, site, dname, nq, nk, d, c):
+    for name in names:
+        r = rows[name][-1]
+        lib = r["library_ms"]
+        print(f"[kernel] {name} {site} {dname} B={BATCH} Nq={nq} Nk={nk} d={d} C={c}: "
+              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"sdpa {lib if lib is None else f'{lib:.4f}'} ms "
+              f"({r['library_backend']}), bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
 
 
 def calibrate_and_randomize_bn(torch, model, x, gen):
@@ -493,6 +606,8 @@ def phase_throughput(torch, model, x, card):
 _KERNEL_GROUPS = (
     ("B3 flash_attention_bwd", ("flash_bwd", "bwd_delta", "round_to_bf16")),
     ("B1/B2 flash_attention_fwd", ("flash_fwd",)),
+    ("group norm", ("groupnorm", "group_norm", "rowwisemoments", "computeinternalgradients",
+                    "computefusedparams", "gammabeta")),
     ("convolution (cuDNN, with its layout transforms)",
      ("conv", "cudnn", "xmma", "implicit_gemm", "dgrad", "wgrad", "cutlass")),
     ("attention plain path at x_4_0 (bmm, softmax)", ("softmax", "gemm", "bmm")),
@@ -890,10 +1005,696 @@ def phase_train(torch, fa, fb, model, card, profile: bool = False):
     return res
 
 
-def kernel_entry(name, source, replaces, launches, rows, extra_err=()):
-    """One kernel's entry of the JSON line: times summed over the three bf16
-    site calls of one batch-16 step; bound_by is the term that holds most
-    of the summed bound."""
+# ---- phase 7: the GN + CBAM SA decoder ---------------------------------------
+
+
+def launch_counts(fa, fb, ta) -> dict[str, int]:
+    return dict(_launch_counts(fa, fb), B5=ta.flash_fwd_chunked_bwd.launches)
+
+
+def zero_launch_counts(fa, fb, ta) -> None:
+    _zero_launch_counts(fa, fb)
+    ta.flash_fwd_chunked_bwd.launches = 0
+
+
+@contextlib.contextmanager
+def attention_sites(model):
+    """Yields a dict that fills, for the duration, with name -> ((Nq, Nk, d,
+    C), route) of the latest gated call of each self-attention module of
+    ``model``'s decoder: what each module asked of ``attention_route`` and
+    what it was told."""
+    from sap3d_tpu_torch.ops import attention
+
+    sites, running = {}, []
+    orig = attention.attention_route
+
+    def spy(nq, nk, d, c, dtype, train):
+        route = orig(nq, nk, d, c, dtype, train)
+        sites[running[-1]] = ((nq, nk, d, c), route)
+        return route
+
+    def leave(_module, _args, _output) -> None:
+        running.pop()
+
+    handles = []
+    for name, m in model.decoder.named_modules():
+        if isinstance(m, attention.SelfAttention3D):
+            handles.append(m.register_forward_pre_hook(
+                lambda _m, _args, name=name: running.append(name)))
+            handles.append(m.register_forward_hook(leave))
+    attention.attention_route = spy
+    try:
+        yield sites
+    finally:
+        attention.attention_route = orig
+        for h in handles:
+            h.remove()
+
+
+@contextlib.contextmanager
+def hybrid_flag(value: str | None):
+    """SAP3D_FLASH_HYBRID set to ``value`` (None: unset) for the duration."""
+    import os
+
+    old = os.environ.get("SAP3D_FLASH_HYBRID")
+    if value is None:
+        os.environ.pop("SAP3D_FLASH_HYBRID", None)
+    else:
+        os.environ["SAP3D_FLASH_HYBRID"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("SAP3D_FLASH_HYBRID", None)
+        else:
+            os.environ["SAP3D_FLASH_HYBRID"] = old
+
+
+def build_gn_model(torch, dtype: str, gen=None, like=None, dropout_rate: float = 0.5):
+    """The GN SA decoder at full width; gamma drawn from [0.5, 1.5] (at its
+    init, 0, a dead attention kernel passes every end-to-end check), or the
+    weights of ``like``."""
+    from sap3d_tpu_torch.models.registry import build_model
+
+    model = build_model(GN_MODEL, dtype=dtype, device=DEVICE, seed=SEED,
+                        dropout_rate=dropout_rate)
+    if like is not None:
+        model.load_state_dict(like.state_dict())
+    else:
+        with torch.no_grad():
+            for sa in model.attention_modules():
+                sa.gamma.copy_(torch.rand(1, device=DEVICE, generator=gen) + 0.5)
+    return model
+
+
+def phase_gn_forward(torch, fa, model, x, card):
+    """Phase 7(a): the GN SA decoder's eval forward."""
+    from sap3d_tpu_torch.train.steps import make_eval_step
+
+    def run(m, use_kernel, want_launches):
+        for sa in m.attention_modules():
+            sa.use_kernel = use_kernel
+        fa.flash_attend_tokens.launches = 0
+        out = make_eval_step(m)(x)
+        torch.cuda.synchronize()
+        if fa.flash_attend_tokens.launches != want_launches:
+            raise AssertionError(f"GN forward: expected {want_launches} B1 launches, got "
+                                 f"{fa.flash_attend_tokens.launches}")
+        return out
+
+    calls = []
+
+    def spy(q, k, v):
+        o = fa.flash_attend_tokens(q, k, v)
+        calls.append((q, k, v, o))
+        return o
+
+    with attention_call(spy), attention_sites(model) as sites:
+        kern16 = run(model, True, 3)
+    for name, (shape, route) in sites.items():
+        print(f"[gn] site {name}: (Nq, Nk, d, C) = {shape}, eval route {route}", flush=True)
+    if len(sites) != 3 or any(route != "flash" for _, route in sites.values()):
+        raise AssertionError(f"GN forward: expected three sites on the kernel, got {sites}")
+    by_shape = {shape: name for name, (shape, _) in sites.items()}
+    held = {}
+    for q, k, v, o in calls:
+        name = by_shape[(q.shape[1], k.shape[1], q.shape[2], v.shape[2])]
+        held[name] = check_b1(fa, f"{name} bf16 (in the GN forward)", q, k, v, o,
+                              heaviest=True)
+    if sorted(held) != sorted(sites):
+        raise AssertionError(f"B1 ran at {sorted(held)}, not at every GN site")
+    del calls
+    plain16 = run(model, False, 0)
+    with attention_call(lambda q, k, v: drop_heaviest_key_tile(fa, q, k, v)):
+        fault16 = run(model, True, 0)
+    gammas = [sa.gamma.detach().clone() for sa in model.attention_modules()]
+    with torch.no_grad():
+        for sa in model.attention_modules():
+            sa.gamma.zero_()
+        no_attn16 = run(model, False, 0)
+        for sa, g in zip(model.attention_modules(), gammas):
+            sa.gamma.copy_(g)
+
+    model32 = build_gn_model(torch, "float32", like=model)
+    ref32 = run(model32, False, 0)
+    kern32 = run(model32, True, 3)
+    del model32
+    torch.cuda.empty_cache()
+
+    # The output is linear: distances are read against its spread.
+    scale = ref32.std().item()
+    err32 = (kern32 - ref32).abs().max().item() / scale
+    mean16 = (kern16 - plain16).abs().mean().item() / scale
+    fault16_mean = (fault16 - plain16).abs().mean().item() / scale
+    no_attn_mean = (no_attn16 - plain16).abs().mean().item() / scale
+    bf16_gap = (plain16 - ref32).abs().mean().item() / scale
+    tol32 = 1e-3
+    print(f"[gn] forward {tuple(x.shape)} -> {tuple(kern16.shape)}, 3 B1 launches; linear "
+          f"output mean {kern16.mean().item():.4f}, std {kern16.std().item():.4f}, range "
+          f"[{kern16.min().item():.4f}, {kern16.max().item():.4f}]; in units of the fp32 "
+          f"output's std {scale:.4f}: fp32 kernel vs plain path max {err32:.3e} (tol "
+          f"{tol32:g}); bf16 kernel vs plain path mean {mean16:.3e} (tol {GN_E2E_MEAN_TOL:g}), "
+          f"no attention {no_attn_mean:.3e}, planted fault {fault16_mean:.3e}; bf16 vs fp32 "
+          f"forward mean {bf16_gap:.3e}", flush=True)
+    if not bool(torch.isfinite(kern16).all().item()) or kern16.shape != (*x.shape[:4],):
+        raise AssertionError("GN forward: non-finite output or wrong shape")
+    # neither constant nor blown up: GroupNorm keeps the activations O(1)
+    if not (1e-3 < kern16.std().item() < 1e3 and kern16.abs().max().item() < 1e4):
+        raise AssertionError("GN forward: the output is constant or blown up")
+    if not err32 <= tol32 or not mean16 <= GN_E2E_MEAN_TOL:
+        raise AssertionError("GN forward: kernel path disagrees with plain path")
+    if not no_attn_mean > GN_E2E_MEAN_TOL:
+        raise AssertionError("GN forward: the checks pass a model without attention; void")
+
+    step = make_eval_step(model)
+    thr = {}
+    for label, use_kernel in (("plain", False), ("kernel", True), ("kernel2", True),
+                              ("plain2", False)):
+        for m in model.attention_modules():
+            m.use_kernel = use_kernel
+        thr[label] = rate_summary(step_times(torch, lambda: step(x), THROUGHPUT_CALLS))
+    for m in model.attention_modules():
+        m.use_kernel = True
+    print(f"[gn] forward clips/s (batch {BATCH}, bf16; median [slowest, fastest] of "
+          f"{THROUGHPUT_CALLS} forwards each, order plain, kernel, kernel, plain): "
+          f"{describe_rates(thr)}  [{card}]", flush=True)
+    return dict(sites={n: dict(shape=s_, route=r) for n, (s_, r) in sites.items()}, held=held,
+                fp32_max_err_over_std=err32, bf16_mean_err_over_std=mean16,
+                bf16_fault_over_std=fault16_mean, bf16_no_attention_over_std=no_attn_mean,
+                bf16_vs_fp32_over_std=bf16_gap, output_std=scale, clips_per_s=thr)
+
+
+def b5_bound(b, nq, nk, d, c, dtype_name: str, itemsize: int):
+    """(bound_ms, bound_by) of B5's forward plus backward: the forward's
+    bound (B1's), and for the backward q, k, v and do read and dq, dk, dv
+    written, against the five products that dq, dk and dv of (q, k, v, do)
+    need, 2*b*nq*nk*(3d + 2C) FLOPs as for B3 (o is not needed: delta =
+    rowsum(p * dp)).  The bound is the function's: the p v product of the
+    implementation's recompute is not counted."""
+    fwd_ms, _ = flash_bound(b, nq, nk, d, c, dtype_name, itemsize)
+    nbytes = b * (2 * (nq * d + nk * d + nk * c) + nq * c) * itemsize
+    bwd_ms, bwd_by = _bound(nbytes, 2 * b * nq * nk * (3 * d + 2 * c), dtype_name)
+    return fwd_ms + bwd_ms, bwd_by, fwd_ms, bwd_ms
+
+
+def phase_b5(torch, fa, fb, ta, flush, sites):
+    """Phase 7(b), kernel B5 at the GN sites on random inputs: o against the
+    plain version under B1's limits; dq, dk, dv against autograd through
+    ``attend_tokens`` on the same inputs under B3's limits; the planted
+    fault is the same computation on a k whose last 64 keys are zeroed."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for site, (nq, nk, d, c) in sites.items():
+            q = (torch.randn(BATCH, nq, d, device=DEVICE, generator=gen) * d ** -0.25).to(dtype)
+            k = (torch.randn(BATCH, nk, d, device=DEVICE, generator=gen) * d ** -0.25).to(dtype)
+            v = torch.randn(BATCH, nk, c, device=DEVICE, generator=gen).to(dtype)
+            do = torch.randn(BATCH, nq, c, device=DEVICE, generator=gen).to(dtype)
+            q, k, v = (t.requires_grad_() for t in (q, k, v))
+            label = f"{site} {dname} (random inputs)"
+
+            before = ta.flash_fwd_chunked_bwd.launches, fa.flash_attend_tokens.launches
+            out = ta.flash_fwd_chunked_bwd(q, k, v)
+            if (ta.flash_fwd_chunked_bwd.launches, fa.flash_attend_tokens.launches) != \
+                    (before[0] + 1, before[1]):
+                raise AssertionError("B5 counts one launch of its own per call and none of B1's")
+            got = torch.autograd.grad(out, (q, k, v), do)
+            plain_out = ta.attend_tokens(q, k, v)
+            want = torch.autograd.grad(plain_out, (q, k, v), do)
+            kz = k.detach().clone()
+            kz[:, -KEY_TILE:] = 0
+            kz.requires_grad_()
+            fault_out = ta.flash_fwd_chunked_bwd(q, kz, v)
+            fault = torch.autograd.grad(fault_out, (q, kz, v), do)
+            zeroed = f"last {KEY_TILE} keys zeroed"
+            res = {"o": hold(f"B5 o {label}", out.detach(), plain_out.detach(),
+                             fault_out.detach(), zeroed, fa.TOLERANCE)}
+            for name, g, w, f in zip(("dq", "dk", "dv"), got, want, fault):
+                res[name] = hold(f"B5 {name} {label}", g, w, f, zeroed, fb.TOLERANCE)
+            del out, plain_out, fault_out, got, want, fault, kz
+            row = dict(res, site=site, dtype=dname, nq=nq, nk=nk, d=d, c=c,
+                       max_abs_err=max(r["max_abs_err"] for r in res.values()))
+
+            iters = 3 if dtype == torch.float32 else 5
+            out = ta.flash_fwd_chunked_bwd(q, k, v)
+            row["fwd_ms"] = time_ms(lambda: ta.flash_fwd_chunked_bwd(q, k, v), iters, flush)
+            row["bwd_ms"] = time_ms(lambda: torch.autograd.grad(out, (q, k, v), do,
+                                                                retain_graph=True), iters, flush)
+            del out
+            plain_out = ta.attend_tokens(q, k, v)
+            row["plain_fwd_ms"] = time_ms(lambda: ta.attend_tokens(q, k, v), iters, flush)
+            row["plain_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                plain_out, (q, k, v), do, retain_graph=True), iters, flush)
+            del plain_out
+            row["ms"] = row["fwd_ms"] + row["bwd_ms"]
+            row["plain_ms"] = row["plain_fwd_ms"] + row["plain_bwd_ms"]
+            qd, kd, vd = (t.detach() for t in (q, k, v))
+            lib_f, backend = sdpa_yardstick(qd, kd, vd, flush)
+            lib_b, _ = sdpa_yardstick(qd, kd, vd, flush, do=do)
+            row["library_ms"] = None if None in (lib_f, lib_b) else lib_f + lib_b
+            row["library_backend"] = backend
+            row["bound_ms"], row["bound_by"], row["bound_fwd_ms"], row["bound_bwd_ms"] = \
+                b5_bound(BATCH, nq, nk, d, c, dname, q.element_size())
+            lib = row["library_ms"]
+            print(f"[kernel] B5 {site} {dname} B={BATCH} Nq={nq} Nk={nk} d={d} C={c}: forward "
+                  f"{row['fwd_ms']:.4f} + backward {row['bwd_ms']:.4f} = {row['ms']:.4f} ms, "
+                  f"plain {row['plain_fwd_ms']:.4f} + {row['plain_bwd_ms']:.4f} = "
+                  f"{row['plain_ms']:.4f} ms, sdpa forward + backward "
+                  f"{lib if lib is None else f'{lib:.4f}'} ms ({backend}), bound "
+                  f"{row['bound_fwd_ms']:.4f} + {row['bound_bwd_ms']:.4f} = "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+            rows.append(row)
+            del q, k, v, do, qd, kd, vd
+            torch.cuda.empty_cache()
+
+    # Chunking: at the flagship's x_1_3 shape the backward runs 7 chunks of
+    # 4096 queries; its peak stays under one full [B, Nq, Nk] float32 block.
+    nq, nk, d, c = SITES["x_1_3"]
+    dtype = torch.bfloat16
+    q = (torch.randn(BATCH, nq, d, device=DEVICE, generator=gen) * d ** -0.25).to(dtype)
+    k = (torch.randn(BATCH, nk, d, device=DEVICE, generator=gen) * d ** -0.25).to(dtype)
+    v = torch.randn(BATCH, nk, c, device=DEVICE, generator=gen).to(dtype)
+    do = torch.randn(BATCH, nq, c, device=DEVICE, generator=gen).to(dtype)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+
+    def backward_peak(fn):
+        out = fn(q, k, v)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads = torch.autograd.grad(out, (q, k, v), do)
+        torch.cuda.synchronize()
+        return grads, held, torch.cuda.max_memory_allocated() - held
+
+    got, held_b5, peak_b5 = backward_peak(ta.flash_fwd_chunked_bwd)
+    want, held_plain, peak_plain = backward_peak(ta.attend_tokens)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check = fa.agreement(g, w, fb.TOLERANCE)
+        print(f"[check] B5 {name} x_1_3 bf16 (7 chunks): max_abs_err "
+              f"{check['max_abs_err']:.3e}, excess {check['excess']:.3f}", flush=True)
+        if not check["finite"] or not check["excess"] <= 1:
+            raise AssertionError(f"B5 {name} over 7 chunks disagrees with attend_tokens")
+    full_block = BATCH * nq * nk * 4
+    gib = 2.0 ** 30
+    print(f"[kernel] B5 backward at x_1_3 (B={BATCH}, Nq={nq}, Nk={nk}; 7 chunks): peak "
+          f"{peak_b5 / gib:.3f} GiB above the {held_b5 / gib:.3f} GiB held after its forward; "
+          f"one full [B, Nq, Nk] fp32 block is {full_block / gib:.3f} GiB; autograd through "
+          f"attend_tokens holds {held_plain / gib:.3f} GiB after its forward and peaks "
+          f"{peak_plain / gib:.3f} GiB above that", flush=True)
+    if not peak_b5 < full_block:
+        raise AssertionError("B5's backward peaks above one full score block: not chunked")
+    del got, want, q, k, v, do
+    torch.cuda.empty_cache()
+    return rows, dict(peak_b5_bytes=peak_b5, held_b5_bytes=held_b5, full_block_bytes=full_block,
+                      peak_plain_bytes=peak_plain, held_plain_bytes=held_plain)
+
+
+def phase_gn_predictor(torch, fa, model):
+    """Phase 7(c), the GN inference path: the predictor on 40 frames."""
+    import numpy as np
+
+    from sap3d_tpu_torch.infer.predictor import SlidingWindowPredictor
+    from sap3d_tpu_torch.train.steps import make_eval_step
+
+    frames = (np.random.default_rng(SEED).normal(size=(40, SIZE, SIZE, 3)) * 0.3
+              ).astype(np.float32)
+    with SlidingWindowPredictor(make_eval_step(model), batch_windows=BATCH,
+                                image_size=SIZE, device=DEVICE) as pred:
+        fa.flash_attend_tokens.launches = 0
+        t0 = time.perf_counter()
+        maps = pred.predict_video(frames=frames)
+        dt = time.perf_counter() - t0
+        launches = fa.flash_attend_tokens.launches
+    print(f"[gn] predictor: 40 frames -> {maps.shape}, linear maps mean {maps.mean():.4f}, "
+          f"std {maps.std():.4f}, range [{maps.min():.4f}, {maps.max():.4f}], {dt:.3f} s, "
+          f"B1 launches {launches}", flush=True)
+    if maps.shape != (40, SIZE, SIZE) or not np.isfinite(maps).all() \
+            or not 1e-3 < maps.std() < 1e3:
+        raise AssertionError("GN predictor: wrong shape, non-finite or constant maps")
+    want = -(-25 // BATCH) * 3  # 25 windows in batches of 16, a launch per site
+    if launches != want:
+        raise AssertionError(f"expected {want} B1 launches in the GN predictor run, got "
+                             f"{launches}")
+    return launches
+
+
+def phase_gn_train(torch, fa, fb, ta, model, sites, card, profile: bool = False):
+    """Phase 7(d), the GN train path with SAP3D_FLASH_HYBRID=1."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from sap3d_tpu_torch.core.config import Config, ModelConfig, TrainConfig
+    from sap3d_tpu_torch.ops import attention
+    from sap3d_tpu_torch.train.checkpoint import checkpoint_steps
+    from sap3d_tpu_torch.train.state import create_train_state
+    from sap3d_tpu_torch.train.steps import loss_fn_saliency, make_train_step
+    from sap3d_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(SEED + 7)
+
+    def batch():
+        frames = (rng.normal(size=(BATCH, 16, SIZE, SIZE, 3)) * 0.3).astype(np.float32)
+        targets = rng.uniform(size=(BATCH, 16, SIZE, SIZE)).astype(np.float32)
+        return frames, targets
+
+    x, y = (torch.from_numpy(a).to(DEVICE) for a in batch())
+
+    # what the gate predicts from the shapes the model printed
+    def predicted(hybrid: bool) -> dict[str, int]:
+        with hybrid_flag("1" if hybrid else None):
+            routes = [ta.attention_route(*shape, torch.bfloat16, train=True)
+                      for shape, _ in sites.values()]
+        return {"B1": 0, "B2": routes.count("flash"), "B3": routes.count("flash"),
+                "B5": routes.count("hybrid")}
+
+    want_on, want_off = predicted(True), predicted(False)
+    print(f"[gn] launches per train step as the gate predicts: hybrid on {want_on}, off "
+          f"{want_off}", flush=True)
+    if want_on["B5"] != 1 or want_off["B5"] != 0 or want_on["B2"] != 2:
+        raise AssertionError("the gate does not route the GN sites as B3's limits say")
+    res = {"predicted_launches": {"hybrid_on": want_on, "hybrid_off": want_off}}
+
+    def set_kernel(m, use_kernel):
+        for sa in m.attention_modules():
+            sa.use_kernel = use_kernel
+
+    @contextlib.contextmanager
+    def plain_kernels(b3=None, everything=False):
+        """B3 replaced by ``b3`` and, with ``everything``, B2 and B5's
+        forward by their plain versions too."""
+        orig = attention.launch_forward
+        if everything:
+            attention.launch_forward = \
+                lambda q, k, v, want_lse: (fa.flash_attend_tokens_reference(q, k, v), None)
+        try:
+            with function_calls(fa.flash_forward_lse_reference if everything else None, b3):
+                yield
+        finally:
+            attention.launch_forward = orig
+
+    def grads(m, use_kernel, **patch):
+        """(loss, the whole gradient, the gradient of the attention sites'
+        f, g and h projections), flattened."""
+        set_kernel(m, use_kernel)
+        m.train()
+        m.zero_grad(set_to_none=True)
+        with plain_kernels(**patch):
+            loss = loss_fn_saliency(m(x), y)
+            loss.backward()
+        torch.cuda.synchronize()
+        flat = torch.cat([p.grad.float().flatten() for p in m.parameters()])
+        proj = torch.cat([p.grad.float().flatten() for sa in m.attention_modules()
+                          for conv in (sa.f, sa.g, sa.h) for p in conv.parameters()])
+        m.zero_grad(set_to_none=True)
+        return loss.item(), flat, proj
+
+    def b5_in_step(m, dname: str) -> dict:
+        """Kernel B5 on the train step's own tensors: the o it returned and
+        the dq, dk and dv it handed back to autograd, against
+        ``attend_tokens`` and autograd through it on the same q, k, v and
+        do.  Planted fault: the plain computation on a k whose heaviest tile
+        of keys is zeroed (the last keys of this site hold the bias alone)."""
+        import types
+
+        function, calls = attention._FlashForwardChunkedBackward, []
+
+        def apply(q, k, v):
+            o = function.apply(q, k, v)
+            rec = dict(q=q.detach(), k=k.detach(), v=v.detach(), o=o.detach())
+            o.register_hook(lambda g: rec.__setitem__("do", g.to(v.dtype)))
+            for name, t in (("dq", q), ("dk", k), ("dv", v)):
+                t.register_hook(lambda g, name=name: rec.__setitem__(name, g))
+            calls.append(rec)
+            return o
+
+        attention._FlashForwardChunkedBackward = types.SimpleNamespace(apply=apply)
+        try:
+            grads(m, True)
+        finally:
+            attention._FlashForwardChunkedBackward = function
+        names = {shape: name for name, (shape, _) in sites.items()}
+        held = {}
+        for rec in calls:
+            q, k, v = (rec[n].clone().requires_grad_() for n in "qkv")
+            name = names[(q.shape[1], k.shape[1], q.shape[2], v.shape[2])]
+            label = f"{name} {dname} (in the GN train step)"
+            want_o = ta.attend_tokens(q, k, v)
+            want = torch.autograd.grad(want_o, (q, k, v), rec["do"])
+            kz = rec["k"].clone()
+            kz[:, heaviest_key_tile(rec["q"], rec["k"])] = 0
+            kz.requires_grad_()
+            fault_o = ta.attend_tokens(q, kz, v)
+            fault = torch.autograd.grad(fault_o, (q, kz, v), rec["do"])
+            zeroed = f"the heaviest {KEY_TILE}-key tile's keys zeroed"
+            res_ = {"o": hold(f"B5 o {label}", rec["o"], want_o.detach(), fault_o.detach(),
+                              zeroed, fa.TOLERANCE)}
+            for out, w, f in zip(("dq", "dk", "dv"), want, fault):
+                res_[out] = hold(f"B5 {out} {label}", rec[out], w, f, zeroed, fb.TOLERANCE)
+            held[name] = dict(res_, max_abs_err=max(r["max_abs_err"] for r in res_.values()))
+        if len(calls) != want_on["B5"] or len(held) != want_on["B5"]:
+            raise AssertionError(f"B5 ran {len(calls)} times in the step, at {sorted(held)}; "
+                                 f"the gate gives it {want_on['B5']} site(s)")
+        return held
+
+    def no_delta(q, k, v, o, lse, do):
+        return fb.flash_backward_reference(q, k, v, torch.zeros_like(o), lse, do)
+
+    def rel(a, b):
+        return (a - b).norm().item() / b.norm().item()
+
+    def one_step(m) -> dict:
+        """The kernel path (B2 + B3 at two sites, B5 at the third) against:
+        the same with the plain B3 (held: the same forward, the backward's
+        own difference), on the whole gradient and on the gradient of the
+        sites' f, g and h projections, which dq, dk and dv alone feed;
+        control: a B3 without delta, read on the projections (this model's
+        linear output makes a loss whose gradient the attention sites move
+        little: on the whole gradient the control is within 1.5x of the sound
+        reading); the same Functions on the plain B2, B3 and B1 (the loss is
+        held against it); the plain path (attend_tokens at every site), run
+        twice for the floor."""
+        ref = fb.flash_backward_reference
+        loss_k, g_k, a_k = grads(m, True)
+        loss_s, g_s, a_s = grads(m, True, b3=ref)
+        _, g_f, a_f = grads(m, True, b3=no_delta)
+        loss_r, g_r, _ = grads(m, True, b3=ref, everything=True)
+        loss_p, g_p, a_p = grads(m, False)
+        _, g_p2, a_p2 = grads(m, False)
+        return dict(loss_kernel=loss_k, loss_reference=loss_r, loss_plain=loss_p,
+                    loss_rel=abs(loss_k - loss_r) / abs(loss_r), grad_rel_l2=rel(g_k, g_s),
+                    proj_grad_rel_l2=rel(a_k, a_s), fault_grad_rel_l2=rel(g_f, g_s),
+                    fault_proj_grad_rel_l2=rel(a_f, a_s), kernel_vs_reference=rel(g_k, g_r),
+                    kernel_vs_plain=rel(g_k, g_p), plain_again=rel(g_p2, g_p),
+                    proj_kernel_vs_plain=rel(a_k, a_p), proj_plain_again=rel(a_p2, a_p),
+                    same_forward_loss_rel=abs(loss_k - loss_s) / abs(loss_s))
+
+    with hybrid_flag("1"):
+        model.decoder.dropout_rate = 0.0
+        # deterministic cuDNN algorithms for the comparison alone: what is
+        # left between two runs is the kernels' own (B3's atomic dq sums)
+        was_deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            res["b5_in_step"] = {"bf16": b5_in_step(model, "bf16")}
+            e2e = {"bf16": one_step(model)}
+            model32 = build_gn_model(torch, "float32", like=model, dropout_rate=0.0)
+            res["b5_in_step"]["float32"] = b5_in_step(model32, "float32")
+            e2e["float32"] = one_step(model32)
+            del model32
+        finally:
+            torch.backends.cudnn.deterministic = was_deterministic
+        torch.cuda.empty_cache()
+        for dname, r in e2e.items():
+            loss_tol, grad_tol = GN_TRAIN_TOL[dname]
+            proj_tol = GN_PROJ_TOL[dname]
+            r.update(tol_loss_rel=loss_tol, tol_grad_rel_l2=grad_tol, tol_proj_rel_l2=proj_tol)
+            print(f"[gn] one step, {dname}, dropout 0, hybrid on: loss kernel path "
+                  f"{r['loss_kernel']:.6f}, the same Functions on the plain kernels "
+                  f"{r['loss_reference']:.6f} (relative {r['loss_rel']:.3e}, limit "
+                  f"{loss_tol:g}), plain path {r['loss_plain']:.6f}; whole-gradient relative "
+                  f"L2 of the kernel path against the same with the plain B3 "
+                  f"{r['grad_rel_l2']:.3e} (limit {grad_tol:g}), of the sites' f/g/h projections "
+                  f"{r['proj_grad_rel_l2']:.3e} (limit {proj_tol:g}), control (B3 without "
+                  f"delta) {r['fault_grad_rel_l2']:.3e} and {r['fault_proj_grad_rel_l2']:.3e}; "
+                  f"whole gradient against the plain kernels {r['kernel_vs_reference']:.3e}, "
+                  f"against the plain path {r['kernel_vs_plain']:.3e} (the plain path again "
+                  f"{r['plain_again']:.3e}); projections against the plain path "
+                  f"{r['proj_kernel_vs_plain']:.3e} (again {r['proj_plain_again']:.3e})",
+                  flush=True)
+        res["end_to_end"] = e2e
+
+        # launches per make_train_step call, flag on and off
+        state = create_train_state(model, lr=1e-4)
+        step = make_train_step(state)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+        set_kernel(model, True)
+        for flag, want in (("1", want_on), (None, want_off)):
+            with hybrid_flag(flag):
+                zero_launch_counts(fa, fb, ta)
+                with attention_sites(model) as seen:
+                    loss = step(x, y, gen)
+                torch.cuda.synchronize()
+                got = launch_counts(fa, fb, ta)
+                routes = {n: r for n, (_, r) in seen.items()}
+            print(f"[gn] launches in one make_train_step call (hybrid "
+                  f"{'on' if flag else 'off'}): {got}, routes {routes}, loss "
+                  f"{loss.item():.4f}", flush=True)
+            if got != want or not np.isfinite(loss.item()):
+                raise AssertionError(f"expected {want} launches and a finite loss, got {got}")
+
+        # train clips/s and peak memory: plain, kernel, kernel, plain, with
+        # the flag on (B5 at the C = 1024 site) and off (attend_tokens there)
+        model.decoder.dropout_rate = 0.5
+        thr = {}
+        for name, flag in (("hybrid_on", "1"), ("hybrid_off", None)):
+            with hybrid_flag(flag):
+                thr[name] = {}
+                for label, use_kernel in (("plain", False), ("kernel", True),
+                                          ("kernel2", True), ("plain2", False)):
+                    set_kernel(model, use_kernel)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    thr[name][label] = dict(
+                        rate_summary(step_times(torch, lambda: step(x, y, gen),
+                                                THROUGHPUT_CALLS)),
+                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            print(f"[gn] train clips/s, {name.replace('_', ' ')} (batch {BATCH}, bf16, dropout "
+                  f"0.5; median [slowest, fastest] of {THROUGHPUT_CALLS} steps each, order "
+                  f"plain, kernel, kernel, plain): {describe_rates(thr[name])}; peak memory "
+                  f"kernel {thr[name]['kernel']['peak_gib']:.2f} GiB, plain "
+                  f"{thr[name]['plain']['peak_gib']:.2f} GiB  [{card}]", flush=True)
+        set_kernel(model, True)
+        res["train_clips_per_s"] = thr
+        if profile:
+            res["profile"] = profile_device_time(
+                torch, lambda: step(x, y, gen), "one GN train step, hybrid on")
+        del state, step
+
+        # Trainer.fit: 3 steps, side dumps, one validation pass, checkpoints
+        root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                            "smoke_train_gn")
+        shutil.rmtree(root, ignore_errors=True)
+        cfg = Config(model=ModelConfig(name=GN_MODEL, dtype="bfloat16", dropout=0.5),
+                     train=TrainConfig(batch_size=BATCH, lr=1e-4, valid_iter=2, save_iter=2,
+                                       max_steps=TRAIN_STEPS, seed=SEED, info="smoke",
+                                       model_dir=os.path.join(root, "model"),
+                                       logs_dir=os.path.join(root, "logs")))
+        try:
+            trainer = Trainer(cfg, run="smoke", device=DEVICE)
+            trainer.model.load_state_dict(model.state_dict())  # gamma nonzero
+            train_batches = [batch() for _ in range(TRAIN_STEPS)]
+            valid = [batch()]
+            zero_launch_counts(fa, fb, ta)
+            t0 = time.perf_counter()
+            trainer.fit(iter(train_batches), lambda: iter(valid))
+            trainer.ckpt.wait_until_finished()
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            fit_launches = launch_counts(fa, fb, ta)
+            trainer.close()
+            with open(os.path.join(trainer.logs_dir, "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            losses = [r["loss"] for r in records if "loss" in r]
+            valid_rec = [r for r in records if "cc" in r]
+            steps = checkpoint_steps(trainer.model_dir)
+            no_stats = not any(key.endswith((".mean", ".var"))
+                               for key in trainer.model.state_dict())
+            del trainer
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+            torch.cuda.empty_cache()
+    # side dumps at every logged step (steps < 10) and one validation batch
+    # run the eval forward: B1 at the three sites
+    want = {"B1": 3 * (TRAIN_STEPS + 1), "B2": want_on["B2"] * TRAIN_STEPS,
+            "B3": want_on["B3"] * TRAIN_STEPS, "B5": want_on["B5"] * TRAIN_STEPS}
+    falling = losses[-1] < losses[0]
+    trend = "falling" if falling else "not falling: each step sees another random batch"
+    print(f"[gn] Trainer.fit, hybrid on: {TRAIN_STEPS} steps in {fit_s:.2f} s, losses "
+          f"{[round(v, 3) for v in losses]} ({trend}), launches {fit_launches}, "
+          f"validation {valid_rec}, checkpoints at steps {steps}", flush=True)
+    if fit_launches != want:
+        raise AssertionError(f"GN Trainer.fit: expected launches {want}, got {fit_launches}")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError("GN Trainer.fit: missing or non-finite losses")
+    # KLD of a linear output with negative values is NaN (the log of a
+    # negative ratio, in both packages); the other three must be finite
+    if len(valid_rec) != 1 or not all(np.isfinite(valid_rec[0][key])
+                                      for key in ("cc", "sim", "auc_judd")):
+        raise AssertionError("GN Trainer.fit: no validation pass with finite metrics")
+    if steps != [2, TRAIN_STEPS] or not no_stats:
+        raise AssertionError(f"GN Trainer.fit: checkpoints at {steps}, BN statistics in a "
+                             "GN model")
+    res["fit"] = dict(steps=TRAIN_STEPS, seconds=fit_s, losses=losses, launches=fit_launches,
+                      validation=valid_rec[0], falling=falling)
+    for dname, r in e2e.items():
+        if not (r["loss_rel"] <= r["tol_loss_rel"] and r["grad_rel_l2"] <= r["tol_grad_rel_l2"]
+                and r["proj_grad_rel_l2"] <= r["tol_proj_rel_l2"]):
+            raise AssertionError(f"GN train step, {dname}: the kernel path disagrees with its "
+                                 "plain versions")
+        if not r["fault_proj_grad_rel_l2"] > r["tol_proj_rel_l2"]:
+            raise AssertionError("the GN train-step limits pass a B3 without delta; void")
+    return res
+
+
+def phase_zoo(torch, fa, ta, flush):
+    """Phase 8: every registry name on the card, one bf16 eval forward at
+    batch 2.  A site of at least one query block that the forward gate
+    refuses (the 'full' head's x_0_1_sa: d = 2, C = 16) runs plain PyTorch on
+    the card, a shape still owed to B1: its plain-path time is printed."""
+    from sap3d_tpu_torch.models.registry import LINEAR_OUTPUT, MODEL_REGISTRY, build_model
+    from sap3d_tpu_torch.train.steps import make_eval_step
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    x = torch.randn(2, 16, SIZE, SIZE, 3, device=DEVICE, generator=gen) * 0.3
+    res = {}
+    for name in MODEL_REGISTRY:
+        model = build_model(name, dtype="bfloat16", device=DEVICE, seed=SEED)
+        # gamma nonzero, and BN statistics calibrated on the batch: at their
+        # init (0, 1) nothing normalizes the 47 blocks, and the non-local
+        # blocks (cubic in their input) then overflow
+        calibrate_and_randomize_bn(torch, model, x, gen)
+        fa.flash_attend_tokens.launches = 0
+        with torch.inference_mode(), attention_sites(model) as sites:
+            out = model(x)
+        torch.cuda.synchronize()
+        launches = fa.flash_attend_tokens.launches
+        gated = sum(route == "flash" for _, route in sites.values())
+        lo, hi = out.min().item(), out.max().item()
+        print(f"[zoo] {name}: {tuple(out.shape)}, range [{lo:.4f}, {hi:.4f}], B1 launches "
+              f"{launches}, sites {({n: s_ for n, (s_, _) in sites.items()})}", flush=True)
+        if tuple(out.shape) != (2, 16, SIZE, SIZE, 1) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name}: wrong shape or non-finite output")
+        if name not in LINEAR_OUTPUT and not (0.0 <= lo and hi <= 1.0):
+            raise AssertionError(f"{name}: a sigmoid output outside [0, 1]")
+        if not launches == gated == ZOO_LAUNCHES[name]:
+            raise AssertionError(f"{name}: {launches} B1 launches, the gate gives {gated}, "
+                                 f"expected {ZOO_LAUNCHES[name]}")
+        res[name] = dict(launches=launches, min=lo, max=hi)
+        for site, ((nq, nk, d, c), route) in sites.items():
+            if route == "plain" and nq >= fa.BLOCK_Q:
+                q, k, v = (torch.randn(2, n, w, device=DEVICE, generator=gen).to(out.dtype)
+                           for n, w in ((nq, d), (nk, d), (nk, c)))
+                ms = time_ms(lambda: ta.attend_tokens(q, k, v), 3, flush)
+                print(f"[zoo] {name} site {site} (Nq, Nk, d, C) = {(nq, nk, d, c)} is not a "
+                      f"shape B1 takes: plain path on the card, {ms:.4f} ms at batch 2 "
+                      f"(random inputs, bf16), no kernel", flush=True)
+                res[name]["owed_to_b1"] = dict(site=site, shape=(nq, nk, d, c), plain_ms=ms)
+                del q, k, v
+        del model, out
+        torch.cuda.empty_cache()
+    if len(res) != 14:
+        raise AssertionError(f"the registry holds {len(res)} names, not 14")
+    return res
+
+
+def kernel_entry(name, source, replaces, launches, rows, extra_err=(), more_rows=()):
+    """One kernel's entry of the JSON line: times summed over the bf16 site
+    calls of ``rows`` (one batch-16 step of the model whose sites they are);
+    bound_by is the term that holds most of the summed bound.  ``more_rows``
+    (the same kernel at another model's sites) count towards max_abs_err."""
     main_rows = [r for r in rows if r["dtype"] == "bfloat16"]
     total = {key: sum(r[key] for r in main_rows) for key in ("ms", "plain_ms", "bound_ms")}
     lib = [r["library_ms"] for r in main_rows]
@@ -901,7 +1702,8 @@ def kernel_entry(name, source, replaces, launches, rows, extra_err=()):
     return {
         "name": name, "route": "cuda", "source": f"sap3d_tpu_torch/csrc/{source}.cu",
         "replaces": replaces, "launches": launches,
-        "max_abs_err": max([r["max_abs_err"] for r in rows] + list(extra_err)),
+        "max_abs_err": max([r["max_abs_err"] for r in list(rows) + list(more_rows)]
+                           + list(extra_err)),
         "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
         "bound_by": "operations" if t_ops >= total["bound_ms"] / 2 else "bytes",
         "library_ms": None if None in lib else sum(lib),
@@ -924,10 +1726,14 @@ def main(argv=None) -> int:
     try:
         card = card_line()
         print(f"[card] {card}", flush=True)
+        # float32 references in full float32: no TF32 in products or in cuDNN
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
 
         from concurrent.futures import ThreadPoolExecutor
 
         from sap3d_tpu_torch.models.registry import build_model
+        from sap3d_tpu_torch.ops import attention as ta
         from sap3d_tpu_torch.ops.cuda import build
         from sap3d_tpu_torch.ops.cuda import flash_attention as fa
         from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
@@ -958,21 +1764,58 @@ def main(argv=None) -> int:
         launches = phase_predictor(torch, fa, model)
         del x
         train = phase_train(torch, fa, fb, model, card, profile=bool(args.json_out))
+        del model
+        torch.cuda.empty_cache()
 
-        fit = train["fit"]["launches"]
-        if not (launches > 0 and fit["B2"] > 0 and fit["B3"] > 0):
+        gn_model = build_gn_model(torch, "bfloat16", gen=gen)
+        x = torch.randn(BATCH, 16, SIZE, SIZE, 3, device=DEVICE, generator=gen) * 0.3
+        gn_fwd = phase_gn_forward(torch, fa, gn_model, x, card)
+        gn_prof = None
+        if args.json_out:
+            from sap3d_tpu_torch.train.steps import make_eval_step
+
+            gn_prof = profile_device_time(torch, lambda: make_eval_step(gn_model)(x),
+                                          "one GN kernel-path forward")
+        del x
+        gn_sites = {name: tuple(site["shape"]) for name, site in gn_fwd["sites"].items()}
+        gn_rows = phase_kernels(torch, fa, fb, flush, gn_sites)
+        b5_rows, b5_memory = phase_b5(torch, fa, fb, ta, flush, gn_sites)
+        gn_launches = phase_gn_predictor(torch, fa, gn_model)
+        gn_train = phase_gn_train(torch, fa, fb, ta, gn_model,
+                                  {n: (tuple(s_["shape"]), s_["route"])
+                                   for n, s_ in gn_fwd["sites"].items()},
+                                  card, profile=bool(args.json_out))
+        del gn_model
+        torch.cuda.empty_cache()
+        zoo = phase_zoo(torch, fa, ta, flush)
+
+        fit, gn_fit = train["fit"]["launches"], gn_train["fit"]["launches"]
+        # every main path launched every kernel the gate gives it
+        if not (launches > 0 and fit["B2"] > 0 and fit["B3"] > 0 and gn_launches > 0
+                and gn_fit["B2"] > 0 and gn_fit["B3"] > 0 and gn_fit["B5"] > 0):
             raise AssertionError("a kernel of a main path was never launched")
+        print(f"[launches] flagship predictor B1 {launches}; flagship Trainer.fit {fit}; GN "
+              f"predictor B1 {gn_launches}; GN Trainer.fit (hybrid on) {gn_fit}", flush=True)
         in_step = {k: [r["max_abs_err"] for r in train[f"{k}_in_step"].values()]
                    for k in ("b2", "b3")}
         kernels = [
+            # B1 to B3: times at the flagship's sites, as in earlier runs;
+            # launches summed over the flagship's and the GN model's main paths
             kernel_entry("flash_attention_fwd", fa.SOURCE,
-                         "sap3d_tpu/ops/pallas/flash_attention.py:141", launches, rows["B1"]),
+                         "sap3d_tpu/ops/pallas/flash_attention.py:141", launches + gn_launches,
+                         rows["B1"], [r["max_abs_err"] for r in gn_fwd["held"].values()],
+                         gn_rows["B1"]),
             kernel_entry("flash_attention_fwd_lse", fa.SOURCE,
-                         "sap3d_tpu/ops/pallas/flash_attention.py:141", fit["B2"], rows["B2"],
-                         in_step["b2"]),
+                         "sap3d_tpu/ops/pallas/flash_attention.py:141", fit["B2"] + gn_fit["B2"],
+                         rows["B2"], in_step["b2"], gn_rows["B2"]),
             kernel_entry("flash_attention_bwd", fb.SOURCE,
-                         "sap3d_tpu/ops/pallas/flash_attention.py:274", fit["B3"], rows["B3"],
-                         in_step["b3"]),
+                         "sap3d_tpu/ops/pallas/flash_attention.py:274", fit["B3"] + gn_fit["B3"],
+                         rows["B3"], in_step["b3"], gn_rows["B3"]),
+            # B5: forward + backward at the three GN sites
+            kernel_entry("flash_fwd_chunked_bwd", fa.SOURCE,
+                         "sap3d_tpu/ops/pallas/flash_attention.py:373", gn_fit["B5"], b5_rows,
+                         [r["max_abs_err"] for by_site in gn_train["b5_in_step"].values()
+                          for r in by_site.values()]),
         ]
         if args.json_out:
             import os
@@ -980,7 +1823,10 @@ def main(argv=None) -> int:
             os.makedirs(os.path.dirname(os.path.abspath(args.json_out)), exist_ok=True)
             with open(args.json_out, "w") as f:
                 json.dump(dict(card=card, kernel_rows=rows, forward=fwd, clips_per_s=thr,
-                               profile=prof, train=train, kernels=kernels), f, indent=1)
+                               profile=prof, train=train, gn_forward=gn_fwd,
+                               gn_profile=gn_prof, gn_kernel_rows=gn_rows, b5_rows=b5_rows,
+                               b5_memory=b5_memory, gn_train=gn_train, zoo=zoo,
+                               kernels=kernels), f, indent=1)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

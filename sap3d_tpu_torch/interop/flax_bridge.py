@@ -13,7 +13,11 @@ Only kernels change layout:
   * transposed-conv kernels (flax ``nn.ConvTranspose``, which does not
     transpose its kernel) are flipped on the three spatial axes, then go to
     ``[in, out, kd, kh, kw]`` (the layout of ``F.conv_transpose3d``);
-  * BN scale/bias/mean/var and ``gamma`` go straight across.
+  * ``nn.Dense`` kernels (the CBAM and SE MLPs) go from ``[in, out]`` to
+    ``[out, in]``;
+  * BN scale/bias/mean/var, GN scale/bias and ``gamma`` go straight across.
+
+GN models have no ``batch_stats`` tree; pass None or an empty mapping.
 
 ``optimizer_state_from_optax`` carries the Adam state as well: optax's
 ``mu``/``nu`` trees (the parameters' layouts, so the same conversion) and
@@ -33,8 +37,10 @@ import numpy as np
 import torch
 
 # Flax module names that are transposed convs: the TransposeConvNormRelu
-# submodule and the UNet++ head tconv (sap3d_tpu/models/p3d.py:_tconv).
-TCONV_MODULES = frozenset({"ConvTranspose_0", "x_0_1"})
+# submodule and the bare head tconvs (sap3d_tpu/models/p3d.py:_tconv): the
+# UNet++ heads' ``x_0_1``, the U-Net head's ``head_tconv`` and the concat
+# and GN decoders' ``predict_revise``.
+TCONV_MODULES = frozenset({"ConvTranspose_0", "x_0_1", "head_tconv", "predict_revise"})
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -51,7 +57,11 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
 def convert_leaf(path: str, value: np.ndarray) -> np.ndarray:
     """One flax leaf in the port's layout."""
     parts = path.split("/")
-    if parts[-1] != "kernel" or value.ndim != 5:
+    if parts[-1] != "kernel":
+        return value
+    if value.ndim == 2:  # nn.Dense
+        return value.T
+    if value.ndim != 5:
         return value
     if len(parts) >= 2 and parts[-2] in TCONV_MODULES:
         return np.flip(value, axis=(0, 1, 2)).transpose(3, 4, 0, 1, 2)

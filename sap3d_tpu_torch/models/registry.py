@@ -1,10 +1,9 @@
 """Model registry: every reference model name -> a P3DSaliency configuration.
 
 A copy of ``sap3d_tpu/models/registry.py``'s tables (the port imports
-nothing of ``sap3d_tpu``).  ``build_model`` builds the names whose decoder
-is ported: ``p3d_unetplusplus_ds`` (the flagship, alias ``unet++``),
-``p3d_unetplusplus_nonsa``, ``p3d_micro`` and ``p3d_micro_sa``.  The other
-names raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+nothing of ``sap3d_tpu``).  ``build_model`` builds every name: the BN
+family (``p3d_unetplusplus_ds`` is the flagship, alias ``unet++``), the
+GN + CBAM family and the two debug-scale models.
 """
 
 from __future__ import annotations
@@ -135,30 +134,17 @@ def resolve_name(name: str) -> str:
     )
 
 
-def _unported(cfg: dict[str, Any]) -> str | None:
-    """The ROADMAP item that ports this configuration, or None if built."""
-    if cfg.get("norm_mode") == "gn" or cfg.get("backbone_cbam"):
-        return "ROADMAP A.10 (the GN+CBAM family)"
-    kw = cfg.get("decoder_kwargs") or {}
-    if cfg["decoder"] != "unetpp" or kw.get("attention") == "nl" \
-            or kw.get("head") == "full":
-        return "ROADMAP A.9 (the rest of the BN family)"
-    return None
-
-
 def build_model(name: str, dtype: str | torch.dtype | None = None,
                 device: str | torch.device = DEFAULT_DEVICE,
                 seed: int = 0, dropout_rate: float = 0.5) -> P3DSaliency:
     """The named model in eval mode on ``device``, its parameters made from
-    ``seed`` (Glorot-uniform kernels, zero biases, unit BN statistics and
-    scales, ``gamma`` = 0, as the flax init); ``dropout_rate`` applies in
+    ``seed`` (Glorot-uniform conv kernels, variance-scaling CBAM kernels,
+    zero biases, unit norm scales and BN statistics, ``gamma`` = 0, as the
+    flax init); ``dropout_rate`` applies in
     train mode."""
     name = resolve_name(name)
     dev = resolve_device(device)
     cfg = dict(MODEL_REGISTRY[name])
-    todo = _unported(cfg)
-    if todo is not None:
-        raise NotImplementedError(f"model {name!r} is not ported yet: {todo}")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = P3DSaliency(**cfg, dtype=resolve_dtype(dtype), dropout_rate=dropout_rate)

@@ -1,39 +1,55 @@
-"""Self-attention over 3D (D,H,W) token grids.
+"""Self-attention and non-local blocks over 3D (D,H,W) token grids.
 
 Counterpart of ``sap3d_tpu/ops/attention.py`` (``_dot_softmax_attend``,
-``attend_tokens``, ``SelfAttention3D``).  The semantics are the same: scores
-are unscaled dot products, softmax is over the key axis, keys and values
-are max-pooled by ``sub_size`` when subsampling while queries never are, and
-the output is ``x + gamma * relu(norm(out_conv(o)))`` with ``gamma``
-initialized to 0.
+``attend_tokens``, ``SelfAttention3D``, ``NonLocal3D``).  The semantics are
+the same: scores are unscaled dot products, softmax is over the key axis,
+keys and values are max-pooled by ``sub_size`` when subsampling while queries
+never are, and the output is ``x + gamma * relu(norm(out_conv(o)))`` with
+``gamma`` initialized to 0.
 
-Dispatch mirrors the JAX package: where the query count reaches one block of
-the fused kernels (``BLOCK_Q`` = 256) the tokens go to ``flash_attend``;
-otherwise to ``attend_tokens``, as JAX does at ``x_4_0`` (Nq = 49).
+Dispatch (``attention_route``) mirrors the JAX package's rule with the port's
+own gates, built on what the CUDA kernels take
+(``flash_attention.forward_viable``, ``flash_attention_bwd.backward_viable``)
+and on nothing of the TPU's VMEM budget:
+
+* eval mode, autograd not recording: a site the forward gate takes goes to
+  ``flash_attend`` (kernel B1); any other to ``attend_tokens``, as ``x_4_0``
+  (Nq = 49, below one query block) and the 'full' head's ``x_0_1_sa``
+  (d = 2, C = 16);
+* train mode, or eval mode while autograd records the tokens (an input-
+  gradient pass, fine-tuning under ``eval()``): the site will be
+  differentiated, so a site the backward gate takes goes to ``flash_attend``
+  (forward kernel B2 saving lse, backward kernel B3); else, with
+  ``SAP3D_FLASH_HYBRID=1`` in the environment and a site the forward gate
+  takes, to ``flash_fwd_chunked_bwd`` (kernel B5); else to
+  ``attend_tokens``.  With the registry's widths only the GN decoders'
+  C = 1024 site is refused by the backward gate (B3 takes C <= 512).
+
 ``flash_attend`` is the counterpart of the JAX ``flash_attend_tokens``
-custom_vjp: under autograd its forward is kernel B2 (o and lse) and its
-backward kernel B3; without autograd it is kernel B1, as the custom_vjp
-primal.  Each kernel wrapper runs its plain version on CPU tensors, so the
-CPU path computes the same one-exp backward formula.  One difference is
-deliberate: JAX's training gate (``flash_attention_viable``) sends an fp32
-x_2_2 site to ``attend_tokens`` because of the TPU's VMEM budget; the port
-keeps "Nq >= BLOCK_Q" in both dtypes (the same function either way).
-``ring_mesh`` and ``NonLocal3D`` port in later slices (ROADMAP A.9, A.11).
+custom_vjp and ``flash_fwd_chunked_bwd`` of the JAX function of that name:
+its forward is kernel B1 (no lse; only q, k, v are saved) and its backward
+recomputes ``attend_tokens`` chunk by chunk and differentiates each chunk,
+so at most one ``[B, 4096, Nk]`` score block is alive.  Each kernel wrapper
+runs its plain version on CPU tensors.  The function is the same on every
+route.  ``ring_mesh`` is not ported yet (ROADMAP A.11).
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from sap3d_tpu_torch.ops.cuda.flash_attention import (
-    BLOCK_Q,
     flash_attend_tokens,
     flash_attend_tokens_reference as _dot_softmax_attend,
     flash_forward_lse,
+    forward_viable,
+    launch_forward,
 )
-from sap3d_tpu_torch.ops.cuda.flash_attention_bwd import flash_backward
+from sap3d_tpu_torch.ops.cuda.flash_attention_bwd import backward_viable, flash_backward
 from sap3d_tpu_torch.ops.layers import Conv3d, Norm, pool3d
 
 # Above this many query tokens, attend in query chunks so the score matrix
@@ -73,6 +89,67 @@ def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Ten
     return flash_attend_tokens(q, k, v)
 
 
+class _FlashForwardChunkedBackward(torch.autograd.Function):
+    """Forward kernel B1 (no lse) saving only (q, k, v); the backward
+    recomputes ``attend_tokens`` one chunk of ``_QUERY_CHUNK`` queries at a
+    time under ``torch.enable_grad()`` and differentiates that chunk (the
+    JAX ``_hybrid_fwd_rule`` / ``_hybrid_bwd_rule``: ``jax.vjp`` of the
+    checkpointed ``lax.map``), the cotangent in v's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        if all(t.device.type == "cpu" for t in (q, k, v)):
+            return _dot_softmax_attend(q, k, v)
+        o, _ = launch_forward(q, k, v, want_lse=False)
+        flash_fwd_chunked_bwd.launches += 1
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        do = do.to(v.dtype)
+        kd, vd = k.detach().requires_grad_(), v.detach().requires_grad_()
+        dq, dk, dv = [], None, None
+        for qc, doc in zip(q.detach().split(_QUERY_CHUNK, dim=1),
+                           do.split(_QUERY_CHUNK, dim=1)):
+            qc = qc.requires_grad_()
+            with torch.enable_grad():
+                oc = _dot_softmax_attend(qc, kd, vd)
+            gq, gk, gv = torch.autograd.grad(oc, (qc, kd, vd), doc)
+            dq.append(gq)
+            dk = gk if dk is None else dk.add_(gk)
+            dv = gv if dv is None else dv.add_(gv)
+        return (dq[0] if len(dq) == 1 else torch.cat(dq, dim=1)), dk, dv
+
+
+def flash_fwd_chunked_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T) v (kernel B5): the B1 forward kernel on CUDA tensors
+    (the plain version on CPU tensors) with a backward that recomputes the
+    chunked plain attention.  ``flash_fwd_chunked_bwd.launches`` counts the
+    forward kernel's launches made here."""
+    return _FlashForwardChunkedBackward.apply(q, k, v)
+
+
+flash_fwd_chunked_bwd.launches = 0
+
+
+def attention_route(nq: int, nk: int, d: int, c: int, dtype: torch.dtype,
+                    train: bool) -> str:
+    """Where a site's tokens go: "flash" (``flash_attend``), "hybrid"
+    (``flash_fwd_chunked_bwd``) or "plain" (``attend_tokens``); ``train``
+    says that the site will be differentiated, and the module docstring
+    states the rule.  ``SAP3D_FLASH_HYBRID`` (default "0") is read
+    at each call, as the JAX package reads it."""
+    if not train:
+        return "flash" if forward_viable(nq, nk, d, c, dtype) else "plain"
+    if backward_viable(nq, nk, d, c, dtype):
+        return "flash"
+    if os.environ.get("SAP3D_FLASH_HYBRID", "0") == "1" and forward_viable(nq, nk, d, c, dtype):
+        return "hybrid"
+    return "plain"
+
+
 def _tokens(x: torch.Tensor) -> torch.Tensor:
     """[B, C, D, H, W] -> contiguous [B, D*H*W, C]."""
     return x.flatten(2).transpose(1, 2).contiguous()
@@ -109,10 +186,49 @@ class SelfAttention3D(nn.Module):
             f = pool3d(f, self.sub_size)
             hv = pool3d(hv, self.sub_size)
         q, k, v = _tokens(g), _tokens(f), _tokens(hv)
-        if self.use_kernel and q.shape[1] >= BLOCK_Q:
+        # a site autograd records is differentiated, whatever the mode
+        train = self.training or (torch.is_grad_enabled() and q.requires_grad)
+        route = attention_route(q.shape[1], k.shape[1], q.shape[2], v.shape[2], q.dtype,
+                                train) if self.use_kernel else "plain"
+        if route == "flash":
             o = flash_attend(q, k, v)
+        elif route == "hybrid":
+            o = flash_fwd_chunked_bwd(q, k, v)
         else:
             o = attend_tokens(q, k, v)
         o = o.transpose(1, 2).reshape(g.shape[0], -1, *x.shape[2:])
         o = F.relu(self.Norm_0(self.out(o)))
         return x + self.gamma.to(x.dtype) * o
+
+
+class NonLocal3D(nn.Module):
+    """Dot-product non-local block (NCDHW in/out): theta/phi/g project to
+    C//2 channels with biased 1x1x1 convs; the scores are divided by the
+    key-token count (no softmax); the output passes a 1x1x1 conv, a batch
+    norm (always BN, whatever the model's norm mode) and a relu, and is added
+    to the input.  ``sub_sample`` pools keys and values (phi, g) by 2."""
+
+    def __init__(self, features: int, sub_sample: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if features < 2:
+            raise ValueError(f"NonLocal3D needs >=2 channels, got {features}")
+        inter = features // 2
+        self.sub_sample = sub_sample
+        self.g = Conv3d(features, inter, 1, dtype=dtype)
+        self.theta = Conv3d(features, inter, 1, dtype=dtype)
+        self.phi = Conv3d(features, inter, 1, dtype=dtype)
+        self.w_y = Conv3d(inter, features, 1, dtype=dtype)
+        self.Norm_0 = Norm("bn", features, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        g_x, theta, phi = self.g(x), self.theta(x), self.phi(x)
+        if self.sub_sample:
+            g_x, phi = pool3d(g_x, 2), pool3d(phi, 2)
+        q, k, v = _tokens(theta), _tokens(phi), _tokens(g_x)
+        # float32 scores, cast to v's dtype before the product, which
+        # accumulates in float32 (the JAX block's preferred_element_type)
+        scores = torch.bmm(q.float(), k.float().transpose(1, 2)) / float(k.shape[1])
+        y = torch.bmm(scores.to(v.dtype), v)
+        y = y.transpose(1, 2).reshape(x.shape[0], -1, *x.shape[2:])
+        return x + F.relu(self.Norm_0(self.w_y(y)))

@@ -17,6 +17,12 @@ Each launches the kernel for CUDA tensors and runs its plain version
 (``flash_attend_tokens_reference``, ``flash_forward_lse_reference``) only
 for CPU tensors.  On a CUDA tensor it launches the kernel or raises; it
 never falls back.  ``<function>.launches`` counts kernel launches.
+
+``forward_viable`` is the dispatch gate of the forward: the shapes and types
+the kernel takes (``MAX_D``, ``C_MULTIPLE``, 16-byte bf16 rows), kept here
+as constants so that a host without the library decides as the card does;
+``_library`` checks them against the library's own.  Nothing of the TPU
+kernel's VMEM model carries over.
 """
 
 from __future__ import annotations
@@ -31,6 +37,9 @@ SOURCE = "flash_attention_fwd"
 # Below one query block of the TPU kernel the JAX package takes the XLA path
 # (flash_attention_viable: nq >= BLOCK_Q); the port keeps that dispatch rule.
 BLOCK_Q = 256
+# The kernel's own limits (csrc/flash_attention_fwd.cu: MAX_D, C_MULTIPLE).
+MAX_D = 128
+C_MULTIPLE = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The limits the kernel is held to against its plain version on the same
@@ -105,6 +114,20 @@ def flash_forward_lse_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     return torch.bmm(beta.to(v.dtype), v), torch.logsumexp(scores, dim=-1)
 
 
+def row_chunks_ok(d: int, dtype: torch.dtype) -> bool:
+    """The bf16 kernels read q and k rows in 16-byte chunks: d % 8 == 0."""
+    return dtype != torch.bfloat16 or d % 8 == 0
+
+
+def forward_viable(nq: int, nk: int, d: int, c: int, dtype: torch.dtype) -> bool:
+    """True where the dispatch gives (q [.., nq, d], k [.., nk, d],
+    v [.., nk, c]) of ``dtype`` to the forward kernel (B1, B2): at least one
+    block of queries (below it the JAX package takes the plain path too) and
+    a shape and type the kernel takes."""
+    return (nq >= BLOCK_Q and nk >= 1 and dtype in _DTYPE_CODES and 0 < d <= MAX_D
+            and c > 0 and c % C_MULTIPLE == 0 and row_chunks_ok(d, dtype))
+
+
 def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if not getattr(lib, "_sap3d_typed", False):
@@ -115,13 +138,18 @@ def _library() -> ctypes.CDLL:
         lib.sap3d_flash_fwd_max_d.restype = ctypes.c_int
         lib.sap3d_cuda_error_string.argtypes = [ctypes.c_int]
         lib.sap3d_cuda_error_string.restype = ctypes.c_char_p
+        limits = (lib.sap3d_flash_fwd_max_d(), lib.sap3d_flash_fwd_block_c())
+        if limits != (MAX_D, C_MULTIPLE):
+            raise RuntimeError(f"csrc/{SOURCE}.cu takes (max d, C multiple) = {limits}; "
+                               f"the gate's constants say {(MAX_D, C_MULTIPLE)}")
         lib._sap3d_typed = True
     return lib
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            want_lse: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Check the inputs and launch the forward kernel, with or without lse."""
+def launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   want_lse: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Check the inputs and launch the forward kernel, with or without lse.
+    Counts nothing: each wrapper that calls it counts its own launches."""
     lib = _library()
     if not all(t.device.type == "cuda" and t.device == q.device for t in (q, k, v)):
         raise ValueError(f"q/k/v must share one CUDA device, got "
@@ -136,11 +164,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (b, nk, d) or v.shape[0] != b:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    if d > lib.sap3d_flash_fwd_max_d() or c % lib.sap3d_flash_fwd_block_c():
-        raise ValueError(f"flash kernel takes d <= {lib.sap3d_flash_fwd_max_d()} "
-                         f"and C a multiple of {lib.sap3d_flash_fwd_block_c()}; "
-                         f"got d={d}, C={c}")
-    if q.dtype == torch.bfloat16 and d % 8:
+    if d > MAX_D or c % C_MULTIPLE:
+        raise ValueError(f"flash kernel takes d <= {MAX_D} and C a multiple of "
+                         f"{C_MULTIPLE}; got d={d}, C={c}")
+    if not row_chunks_ok(d, q.dtype):
         raise ValueError(f"the bf16 kernel reads rows in 16-byte chunks: d={d} "
                          "must be a multiple of 8")
     q, k, v = (contiguous_aligned(t) for t in (q, k, v))
@@ -170,7 +197,7 @@ def flash_attend_tokens(q: torch.Tensor, k: torch.Tensor,
     plain version on CPU tensors."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attend_tokens_reference(q, k, v)
-    o, _ = _launch(q, k, v, want_lse=False)
+    o, _ = launch_forward(q, k, v, want_lse=False)
     flash_attend_tokens.launches += 1
     return o
 
@@ -181,7 +208,7 @@ def flash_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     the plain version on CPU tensors."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_forward_lse_reference(q, k, v)
-    o, lse = _launch(q, k, v, want_lse=True)
+    o, lse = launch_forward(q, k, v, want_lse=True)
     flash_forward_lse.launches += 1
     return o, lse
 

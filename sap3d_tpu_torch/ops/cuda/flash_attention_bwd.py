@@ -12,6 +12,11 @@ from ``(q, k, v, o, lse, do)``, with one exponential per score:
 and runs ``flash_backward_reference`` only for CPU tensors.  On a CUDA
 tensor it launches the kernel or raises; it never falls back.
 ``flash_backward.launches`` counts kernel launches.
+
+``backward_viable`` is the dispatch gate of a differentiated site: B2's gate
+and the backward kernel's one further limit, ``MAX_C`` (``MAX_D`` and
+``C_MULTIPLE`` are the forward's); the constants are checked against the
+library's own when it loads.
 """
 
 from __future__ import annotations
@@ -21,9 +26,17 @@ import ctypes
 import torch
 
 from sap3d_tpu_torch.ops.cuda import build
-from sap3d_tpu_torch.ops.cuda.flash_attention import contiguous_aligned
+from sap3d_tpu_torch.ops.cuda.flash_attention import (
+    C_MULTIPLE,
+    MAX_D,
+    contiguous_aligned,
+    forward_viable,
+    row_chunks_ok,
+)
 
 SOURCE = "flash_attention_bwd"
+# The kernel's own limit beyond the forward's (csrc/flash_attention_bwd.cu).
+MAX_C = 512
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Query rows per step of the plain version: bounds its [B, rows, Nk] float32
 # temporaries (about 0.8 GB each at the flagship's x_1_3 site, batch 16).
@@ -84,6 +97,12 @@ def flash_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(dq, dim=1), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def backward_viable(nq: int, nk: int, d: int, c: int, dtype: torch.dtype) -> bool:
+    """True where the dispatch gives a site that autograd differentiates to
+    B2 + B3: the forward's gate, and C within the backward kernel's limit."""
+    return forward_viable(nq, nk, d, c, dtype) and c <= MAX_C
+
+
 def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if not getattr(lib, "_sap3d_typed", False):
@@ -95,6 +114,12 @@ def _library() -> ctypes.CDLL:
             getattr(lib, name).restype = ctypes.c_int
         lib.sap3d_cuda_error_string.argtypes = [ctypes.c_int]
         lib.sap3d_cuda_error_string.restype = ctypes.c_char_p
+        limits = (lib.sap3d_flash_bwd_max_d(), lib.sap3d_flash_bwd_max_c(),
+                  lib.sap3d_flash_bwd_c_multiple())
+        if limits != (MAX_D, MAX_C, C_MULTIPLE):
+            raise RuntimeError(f"csrc/{SOURCE}.cu takes (max d, max C, C multiple) = "
+                               f"{limits}; the gate's constants say "
+                               f"{(MAX_D, MAX_C, C_MULTIPLE)}")
         lib._sap3d_typed = True
     return lib
 
@@ -125,12 +150,10 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}, o {tuple(o.shape)}, "
                          f"lse {tuple(lse.shape)}, do {tuple(do.shape)}")
-    max_d, max_c, mult = (lib.sap3d_flash_bwd_max_d(), lib.sap3d_flash_bwd_max_c(),
-                          lib.sap3d_flash_bwd_c_multiple())
-    if d > max_d or c > max_c or c % mult:
-        raise ValueError(f"flash backward takes d <= {max_d} and C a multiple of "
-                         f"{mult} up to {max_c}; got d={d}, C={c}")
-    if q.dtype == torch.bfloat16 and d % 8:
+    if d > MAX_D or c > MAX_C or c % C_MULTIPLE:
+        raise ValueError(f"flash backward takes d <= {MAX_D} and C a multiple of "
+                         f"{C_MULTIPLE} up to {MAX_C}; got d={d}, C={c}")
+    if not row_chunks_ok(d, q.dtype):
         raise ValueError(f"the bf16 kernel reads rows in 16-byte chunks: d={d} "
                          "must be a multiple of 8")
     q, k, v, o, lse, do = (contiguous_aligned(t) for t in tensors)

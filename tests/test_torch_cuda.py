@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from sap3d_tpu_torch.ops import attention as ta
 from sap3d_tpu_torch.ops.attention import SelfAttention3D
 from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
 from sap3d_tpu_torch.ops.cuda.flash_attention import (
@@ -52,6 +53,7 @@ def _inputs(b, nq, nk, d, c, dtype, seed=0):
 @pytest.mark.parametrize("b,nq,nk,d,c", [
     (3, 300, 200, 16, 128),  # ragged Nq and Nk, two column tiles
     (2, 256, 64, 128, 64),   # the largest d the kernel takes
+    (2, 700, 500, 128, 1024),  # the GN decoder's widest site's d and C, ragged Nq and Nk
     (1, 392, 392, 64, 512),  # x_3_1 proportions
     (1, 700, 500, 32, 256),  # x_2_2 proportions
     (2, 1000, 300, 16, 128), # x_1_3 proportions
@@ -218,3 +220,77 @@ def test_micro_train_step_kernel_path_matches_plain_path(cuda, dtype, monkeypatc
           f"{(grad_k - grad_r).norm().item() / grad_r.norm().item():.3e}")
     assert abs(loss_k - loss_s) <= loss_tol * abs(loss_s), (loss_k, loss_s)
     assert rel <= grad_tol < fault, (rel, fault)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nq,nk,d,c", [
+    (2, 700, 500, 128, 1024),  # the GN decoder's widest site's d and C: one chunk
+    (1, 4500, 300, 64, 512),   # two chunks of queries in the backward
+])
+def test_b5_matches_the_plain_path(cuda, dtype, b, nq, nk, d, c):
+    """Kernel B5: the forward is the B1 kernel (counted as B5's launch, not
+    B1's); dq, dk, dv are autograd's through ``attend_tokens`` on the same
+    inputs; the same computation on a k whose last 64 keys are zeroed fails
+    the limits."""
+    q, k, v = (t.requires_grad_() for t in _inputs(b, nq, nk, d, c, dtype))
+    do = torch.randn(b, nq, c, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(1)).to(dtype)
+    before = ta.flash_fwd_chunked_bwd.launches, flash_attend_tokens.launches
+    out = ta.flash_fwd_chunked_bwd(q, k, v)
+    torch.cuda.synchronize()
+    assert (ta.flash_fwd_chunked_bwd.launches, flash_attend_tokens.launches) == \
+        (before[0] + 1, before[1])
+    want_out = ta.attend_tokens(q, k, v)
+    assert agreement(out.detach(), want_out.detach())["excess"] <= 1
+    got = torch.autograd.grad(out, (q, k, v), do)
+    want = torch.autograd.grad(want_out, (q, k, v), do)
+    kz = k.detach().clone()
+    kz[:, -64:] = 0
+    kz.requires_grad_()
+    fault = torch.autograd.grad(ta.flash_fwd_chunked_bwd(q, kz, v), (q, kz, v), do)
+    for name, g, w, f, t in zip(("dq", "dk", "dv"), got, want, fault, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == dtype, name
+        check = agreement(g, w, fb.TOLERANCE)
+        assert check["finite"] and check["excess"] <= 1, (name, check)
+        assert agreement(f, w, fb.TOLERANCE)["excess"] > 1, name
+
+
+def test_gn_site_routes_on_the_card(cuda, monkeypatch):
+    """A C = 1024 site: eval runs B1; training runs B5 with the hybrid flag
+    and no kernel without it; a C = 512 site trains on B2 + B3.  An eval-mode
+    site that autograd records is routed as a training site: its backward
+    runs and never reaches B3 at C = 1024."""
+    torch.manual_seed(0)
+    x = torch.randn(1, 1024, 1, 16, 16, device=cuda, dtype=torch.bfloat16)
+
+    def counts():
+        return (flash_attend_tokens.launches, flash_forward_lse.launches,
+                fb.flash_backward.launches, ta.flash_fwd_chunked_bwd.launches)
+
+    def run(sa, train, differentiate=None):
+        differentiate = train if differentiate is None else differentiate
+        sa.train(train)
+        before = counts()
+        inp = x[:, :sa.h.kernel.shape[0]].clone().requires_grad_(differentiate)
+        with torch.set_grad_enabled(differentiate):
+            out = sa(inp)
+            if differentiate:
+                out.float().sum().backward()
+        torch.cuda.synchronize()
+        return tuple(a - b for a, b in zip(counts(), before))
+
+    wide = SelfAttention3D(1024, norm_mode="gn", dtype=torch.bfloat16).to(cuda)
+    narrow = SelfAttention3D(512, norm_mode="gn", dtype=torch.bfloat16).to(cuda)
+    with torch.no_grad():
+        wide.gamma.fill_(1.0)
+        narrow.gamma.fill_(1.0)
+    monkeypatch.delenv("SAP3D_FLASH_HYBRID", raising=False)
+    assert run(wide, False) == (1, 0, 0, 0)
+    assert run(wide, True) == (0, 0, 0, 0)
+    assert run(narrow, True) == (0, 1, 1, 0)
+    assert run(wide, False, differentiate=True) == (0, 0, 0, 0)
+    assert run(narrow, False, differentiate=True) == (0, 1, 1, 0)
+    monkeypatch.setenv("SAP3D_FLASH_HYBRID", "1")
+    assert run(wide, True) == (0, 0, 0, 1)
+    assert run(narrow, True) == (0, 1, 1, 0)
+    assert run(wide, False, differentiate=True) == (0, 0, 0, 1)

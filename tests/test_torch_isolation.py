@@ -7,7 +7,7 @@
   without a GPU it exits non-zero and prints no result line.
 * Every entry point's default device is CUDA, and on this GPU-less host it
   raises instead of running on the CPU.
-* On a CUDA tensor each kernel wrapper (B1, B2, B3) launches its kernel
+* On a CUDA tensor each kernel wrapper (B1, B2, B3, B5) launches its kernel
   or raises: with the library absent it raises and never takes the plain
   path.
 """
@@ -46,6 +46,7 @@ def test_port_imports_nothing_of_jax():
     mods = _all_modules()
     assert "sap3d_tpu_torch.ops.cuda.flash_attention" in mods
     assert "sap3d_tpu_torch.cli" in mods
+    assert "sap3d_tpu_torch.ops.cbam" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -181,6 +182,24 @@ def test_training_wrappers_raise_on_cuda_tensors_when_the_library_is_absent(
     with pytest.raises(OSError, match="cannot open"):
         wrapper(*args)
     assert wrapper.launches == before
+
+
+def test_b5_raises_on_cuda_tensors_when_the_library_is_absent(monkeypatch):
+    from sap3d_tpu_torch.ops import attention
+
+    def absent(name):
+        raise OSError(f"lib{name}.so: cannot open shared object file")
+
+    monkeypatch.setattr(build, "load", absent)
+    monkeypatch.setattr(attention, "_dot_softmax_attend",
+                        lambda *a: pytest.fail("fell back to the plain version"))
+    q, k, v = (_fake_cuda_tensor(1, 256, 8), _fake_cuda_tensor(1, 64, 8),
+               _fake_cuda_tensor(1, 64, 64))
+    before = attention.flash_fwd_chunked_bwd.launches
+    ctx = types.SimpleNamespace(save_for_backward=lambda *a: None)
+    with pytest.raises(OSError, match="cannot open"):
+        attention._FlashForwardChunkedBackward.forward(ctx, q, k, v)
+    assert attention.flash_fwd_chunked_bwd.launches == before
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

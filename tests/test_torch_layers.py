@@ -122,6 +122,41 @@ def test_tconv_same_matches_flax(kernel, strides):
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
+# The transposed convs the other decoders add; at stride 4 the stride exceeds
+# the kernel, so some outputs see no input and hold the bias alone.
+WIDE_TCONV_CASES = [
+    ((3, 3, 3), (4, 4, 4)),  # deconv_pool4 of the concat and GN easy decoders
+    ((1, 3, 3), (4, 4, 4)),  # deconv_pool4 of the GN decoder block: k=1 s=4 in time
+    ((3, 3, 3), (1, 1, 1)),  # deconv_pool2
+    ((1, 3, 3), (2, 2, 2)),  # k=1 with a temporal stride of 2
+]
+
+
+@pytest.mark.parametrize("kernel,strides", WIDE_TCONV_CASES,
+                         ids=[f"k{''.join(map(str, k))}s{''.join(map(str, s))}"
+                              for k, s in WIDE_TCONV_CASES])
+def test_wide_stride_tconv_matches_flax_per_element(kernel, strides):
+    """Tolerance 1e-6: float32 sums of at most 27 * 3 terms in another order."""
+    shape = (2, 2, 3, 4, 3)
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=shape).astype(np.float32)
+    cin, cout = shape[-1], 4
+    fm = nn.ConvTranspose(cout, kernel, strides, padding="SAME")
+    params = {"kernel": rng.normal(size=(*kernel, cin, cout)).astype(np.float32) * 0.3,
+              "bias": rng.normal(size=(cout,)).astype(np.float32)}
+    want = np.asarray(fm.apply({"params": params}, jnp.asarray(x)))
+    tm = tl.ConvTranspose3d(cin, cout, kernel, strides)
+    _load(tm, params, "ConvTranspose_0")
+    got = _to_np(tm(_to_t(x)))
+    assert got.shape == want.shape == tuple(
+        [shape[0]] + [n * s for n, s in zip(shape[1:4], strides)] + [cout])
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    bias_only = np.isclose(want, params["bias"], atol=0).all(axis=-1)
+    # stride 4 along an axis of kernel 3 (or 1) leaves one (or three) of
+    # every four outputs on it with the bias alone
+    assert bias_only.any() == any(s > k for k, s in zip(kernel, strides))
+
+
 @pytest.mark.parametrize("window,strides,padding", [
     ((2, 1, 1), (2, 1, 1), "SAME"),   # temporal pools
     ((2, 3, 3), (2, 2, 2), "SAME"),   # stem pool: -inf padding on the high side
