@@ -73,9 +73,27 @@ result line):
      checkpoints; train clips/s and peak memory, plain, hybrid, hybrid,
      plain, and the same with the flag off;
   8. every registry name built on the card, one bf16 eval forward at batch
-     2: shape, finite values, B1 launches as the gate gives them; the
-     plain-path time of a site of at least 256 queries that B1 does not take;
-  9. a JSON line of per-kernel numbers, then the result line
+     2: shape, finite values, B1 launches as the gate gives them, no site of
+     256 queries or more on plain PyTorch; then B1, B2 and B3 at batch 2 at
+     the sites no earlier phase measured (the 'full' head's x_0_1_sa, d = 2,
+     C = 16: the kernels' narrow instantiation), as in phase 3;
+  9. long clips: the flagship on [4, 64, 112, 112, 3] bf16 with its
+     attention as rings over make_time_mesh(4, devices=[cuda:0] * 4), the
+     calibrated weights of phase 4:
+     (a) eval forward, ring against the gather path (B1 on the whole sites):
+     12 B2 launches and nothing else; mean distance under E2E_MEAN_TOL, which
+     the forward without attention must exceed;
+     (b) one train step (dropout 0): every B4 call held on the step's own
+     tensors against its plain version, B3 in its place (the lse cotangent
+     dropped) failing; the launches of one make_train_step call predicted
+     (24 B2, 12 B4) and counted; in fp32 at batch 1 the ring step's loss and
+     whole gradient against the gather step (B2 + B3), with B3 in B4's place
+     as the control;
+     (c) B4 at the per-shard shapes on random inputs, bf16 and fp32, beside
+     B3 on the same inputs, the plain version and the bound;
+     (d) ms, 64-frame clips/s and peak memory of the ring and the gather
+     train step, order gather, ring, ring, gather;
+ 10. a JSON line of per-kernel numbers, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Needs torch with CUDA and nvcc; imports nothing of JAX or ``sap3d_tpu``.
@@ -156,12 +174,13 @@ THROUGHPUT_CALLS = 10              # timed calls per path and round of clips/s
 GN_MODEL = "P3D_SA_DECODER"        # inference_p3d_sa_decoder_block
 # B1 launches of one eval forward of each registry name at 112 px: the
 # attention sites the forward gate takes (at least 256 queries, C a multiple
-# of 64): none without self-attention; x_3_1, x_2_2 and x_1_3 in the UNet++
-# models (x_4_0 has 49 queries; the 'full' head's x_0_1_sa has C = 16; 'nl'
-# has a non-local block at x_1_3); pool2 and pool3 in sa_concat (pool4 has
-# 49 tokens); all three sites of the two other GN SA decoders.
+# of 16): none without self-attention; x_3_1, x_2_2 and x_1_3 in the UNet++
+# models (x_4_0 has 49 queries; 'nl' has a non-local block at x_1_3), and the
+# 'full' head's x_0_1_sa (d = 2, C = 16: the kernels' narrow instantiation);
+# pool2 and pool3 in sa_concat (pool4 has 49 tokens); all three sites of the
+# two other GN SA decoders.
 ZOO_LAUNCHES = {
-    "p3d_unet": 0, "p3d_concat": 0, "p3d_unetplusplus": 3, "p3d_unetplusplus_ds": 3,
+    "p3d_unet": 0, "p3d_concat": 0, "p3d_unetplusplus": 4, "p3d_unetplusplus_ds": 3,
     "p3d_unetplusplus_nonsa": 0, "p3d_unetplusplus_nl": 2, "inference_p3d": 0,
     "inference_p3d_concat": 0, "inference_p3d_sa_concat": 2, "inference_p3d_sa_concat_2": 3,
     "inference_p3d_sa_decoder_block": 3, "inference_p3d_decoder_block": 0,
@@ -348,10 +367,10 @@ def check_b3(fb, label, q, k, v, o, lse, do, got):
     return dict(res, max_abs_err=max(r["max_abs_err"] for r in res.values()))
 
 
-def phase_kernels(torch, fa, fb, flush, sites=None):
-    """Phases 3 and 7(b): B1, B2 and B3 against their plain versions at the
-    shapes of ``sites`` (default: the flagship's), with their times; B2 and
-    B3 only where the backward gate takes the shape."""
+def phase_kernels(torch, fa, fb, flush, sites=None, batch=BATCH):
+    """Phases 3, 7(b) and 8: B1, B2 and B3 against their plain versions at
+    the shapes of ``sites`` (default: the flagship's) and ``batch``, with
+    their times; B2 and B3 only where the backward gate takes the shape."""
     sites = SITES if sites is None else sites
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -361,10 +380,10 @@ def phase_kernels(torch, fa, fb, flush, sites=None):
         dname = str(dtype).split(".")[-1]
         for site, (nq, nk, d, c) in sites.items():
             # q, k with std d^-1/4: unit-variance scores, a soft softmax
-            q = (torch.randn(BATCH, nq, d, device=DEVICE, generator=gen) * d ** -0.25).to(dtype)
-            k = (torch.randn(BATCH, nk, d, device=DEVICE, generator=gen) * d ** -0.25).to(dtype)
-            v = torch.randn(BATCH, nk, c, device=DEVICE, generator=gen).to(dtype)
-            do = torch.randn(BATCH, nq, c, device=DEVICE, generator=gen).to(dtype)
+            q = (torch.randn(batch, nq, d, device=DEVICE, generator=gen) * d ** -0.25).to(dtype)
+            k = (torch.randn(batch, nk, d, device=DEVICE, generator=gen) * d ** -0.25).to(dtype)
+            v = torch.randn(batch, nk, c, device=DEVICE, generator=gen).to(dtype)
+            do = torch.randn(batch, nq, c, device=DEVICE, generator=gen).to(dtype)
             shape = dict(site=site, dtype=dname, nq=nq, nk=nk, d=d, c=c)
             label = f"{site} {dname} (random inputs)"
             heavy = nq * nk * (d + c) > 5e9  # x_1_3 and the two wider GN sites
@@ -379,12 +398,12 @@ def phase_kernels(torch, fa, fb, flush, sites=None):
             row["plain_ms"] = time_ms(lambda: fa.flash_attend_tokens_reference(q, k, v),
                                       plain_iters, flush)
             row["library_ms"], row["library_backend"] = sdpa_yardstick(q, k, v, flush)
-            row["bound_ms"], row["bound_by"] = flash_bound(BATCH, nq, nk, d, c, dname,
+            row["bound_ms"], row["bound_by"] = flash_bound(batch, nq, nk, d, c, dname,
                                                            q.element_size())
             rows["B1"].append(row)
             ran = ["B1"]
             if not fb.backward_viable(nq, nk, d, c, dtype):
-                report_kernel_rows(rows, ran, site, dname, nq, nk, d, c)
+                report_kernel_rows(rows, ran, site, dname, nq, nk, d, c, batch)
                 del q, k, v, do
                 torch.cuda.empty_cache()
                 continue
@@ -397,7 +416,7 @@ def phase_kernels(torch, fa, fb, flush, sites=None):
                                       plain_iters, flush)
             row["library_ms"], row["library_backend"] = rows["B1"][-1]["library_ms"], \
                 rows["B1"][-1]["library_backend"]
-            row["bound_ms"], row["bound_by"] = flash_bound(BATCH, nq, nk, d, c, dname,
+            row["bound_ms"], row["bound_by"] = flash_bound(batch, nq, nk, d, c, dname,
                                                            q.element_size(), lse=True)
             rows["B2"].append(row)
 
@@ -408,20 +427,20 @@ def phase_kernels(torch, fa, fb, flush, sites=None):
             row["plain_ms"] = time_ms(lambda: fb.flash_backward_reference(q, k, v, o, lse, do),
                                       plain_iters, flush)
             row["library_ms"], row["library_backend"] = sdpa_yardstick(q, k, v, flush, do=do)
-            row["bound_ms"], row["bound_by"] = flash_bwd_bound(BATCH, nq, nk, d, c, dname,
+            row["bound_ms"], row["bound_by"] = flash_bwd_bound(batch, nq, nk, d, c, dname,
                                                                q.element_size())
             rows["B3"].append(row)
-            report_kernel_rows(rows, ran, site, dname, nq, nk, d, c)
+            report_kernel_rows(rows, ran, site, dname, nq, nk, d, c, batch)
             del q, k, v, do, o, lse
             torch.cuda.empty_cache()
     return rows
 
 
-def report_kernel_rows(rows, names, site, dname, nq, nk, d, c):
+def report_kernel_rows(rows, names, site, dname, nq, nk, d, c, batch=BATCH):
     for name in names:
         r = rows[name][-1]
         lib = r["library_ms"]
-        print(f"[kernel] {name} {site} {dname} B={BATCH} Nq={nq} Nk={nk} d={d} C={c}: "
+        print(f"[kernel] {name} {site} {dname} B={batch} Nq={nq} Nk={nk} d={d} C={c}: "
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"sdpa {lib if lib is None else f'{lib:.4f}'} ms "
               f"({r['library_backend']}), bound {r['bound_ms']:.4f} ms "
@@ -604,7 +623,7 @@ def phase_throughput(torch, model, x, card):
 
 # Device kernels by name -> layer of PERF.md, first match wins.
 _KERNEL_GROUPS = (
-    ("B3 flash_attention_bwd", ("flash_bwd", "bwd_delta", "round_to_bf16")),
+    ("B3/B4 flash_attention_bwd", ("flash_bwd", "bwd_delta", "round_to_bf16")),
     ("B1/B2 flash_attention_fwd", ("flash_fwd",)),
     ("group norm", ("groupnorm", "group_norm", "rowwisemoments", "computeinternalgradients",
                     "computefusedparams", "gammabeta")),
@@ -619,7 +638,7 @@ _KERNEL_GROUPS = (
 )
 
 
-def profile_device_time(torch, fn, label: str):
+def profile_device_time(torch, fn, label: str, batch: int | None = None):
     """Where one call of ``fn`` spends device time (torch.profiler): device
     time by layer group and the top kernels, against the host wall time of
     the same call (inflated by the tracing itself)."""
@@ -649,9 +668,9 @@ def profile_device_time(torch, fn, label: str):
         group = next((g for g, keys in _KERNEL_GROUPS if any(k in low for k in keys)),
                      "other")
         groups[group] = groups.get(group, 0.0) + ms
-    print(f"[profile] {label} (batch {BATCH}, bf16): device busy {device_ms:.3f} ms of "
-          f"{wall_ms:.3f} ms wall (idle share {max(0.0, 1 - device_ms / wall_ms):.3f})",
-          flush=True)
+    print(f"[profile] {label} (batch {BATCH if batch is None else batch}, bf16): device busy "
+          f"{device_ms:.3f} ms of {wall_ms:.3f} ms wall (idle share "
+          f"{max(0.0, 1 - device_ms / wall_ms):.3f})", flush=True)
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"[profile]   {ms:9.3f} ms  {100 * ms / device_ms:5.1f}%  {group}", flush=True)
     for ms, count, name in sorted(rows, reverse=True)[:12]:
@@ -699,13 +718,14 @@ def phase_predictor(torch, fa, model):
 
 def _launch_counts(fa, fb) -> dict[str, int]:
     return {"B1": fa.flash_attend_tokens.launches, "B2": fa.flash_forward_lse.launches,
-            "B3": fb.flash_backward.launches}
+            "B3": fb.flash_backward.launches, "B4": fb.flash_backward.launches_lse}
 
 
 def _zero_launch_counts(fa, fb) -> None:
     fa.flash_attend_tokens.launches = 0
     fa.flash_forward_lse.launches = 0
     fb.flash_backward.launches = 0
+    fb.flash_backward.launches_lse = 0
 
 
 @contextlib.contextmanager
@@ -753,12 +773,14 @@ def step_times(torch, fn, n: int) -> list[float]:
     return out
 
 
-def rate_summary(times: list[float]) -> dict:
-    """clips/s from the median, fastest and slowest call of ``times``."""
+def rate_summary(times: list[float], clips: int | None = None) -> dict:
+    """clips/s from the median, fastest and slowest call of ``times``, each
+    call ``clips`` clips (default ``BATCH``)."""
     import statistics
 
-    return dict(clips_per_s=BATCH / statistics.median(times), fastest=BATCH / min(times),
-                slowest=BATCH / max(times), calls=len(times))
+    clips = BATCH if clips is None else clips
+    return dict(clips_per_s=clips / statistics.median(times), fastest=clips / min(times),
+                slowest=clips / max(times), calls=len(times))
 
 
 def phase_train(torch, fa, fb, model, card, profile: bool = False):
@@ -903,7 +925,7 @@ def phase_train(torch, fa, fb, model, card, profile: bool = False):
         torch.cuda.synchronize()
         got = _launch_counts(fa, fb)
         want = {"B1": 0, "B2": len(SITES) if use_kernel else 0,
-                "B3": len(SITES) if use_kernel else 0}
+                "B3": len(SITES) if use_kernel else 0, "B4": 0}
         path = "kernel" if use_kernel else "plain"
         print(f"[train] launches in one make_train_step call ({path} path): {got}, "
               f"loss {loss.item():.4f}", flush=True)
@@ -959,7 +981,7 @@ def phase_train(torch, fa, fb, model, card, profile: bool = False):
         # side dumps at every logged step (steps < 10) and one validation
         # batch run the eval forward, B1
         want = {"B1": len(SITES) * (TRAIN_STEPS + 1), "B2": len(SITES) * TRAIN_STEPS,
-                "B3": len(SITES) * TRAIN_STEPS}
+                "B3": len(SITES) * TRAIN_STEPS, "B4": 0}
         print(f"[train] Trainer.fit: {TRAIN_STEPS} steps in {fit_s:.2f} s, losses "
               f"{[round(v, 3) for v in losses]}, launches {fit_launches}, validation "
               f"{valid_rec}, checkpoints at steps {steps}", flush=True)
@@ -1367,7 +1389,7 @@ def phase_gn_train(torch, fa, fb, ta, model, sites, card, profile: bool = False)
         with hybrid_flag("1" if hybrid else None):
             routes = [ta.attention_route(*shape, torch.bfloat16, train=True)
                       for shape, _ in sites.values()]
-        return {"B1": 0, "B2": routes.count("flash"), "B3": routes.count("flash"),
+        return {"B1": 0, "B2": routes.count("flash"), "B3": routes.count("flash"), "B4": 0,
                 "B5": routes.count("hybrid")}
 
     want_on, want_off = predicted(True), predicted(False)
@@ -1609,7 +1631,7 @@ def phase_gn_train(torch, fa, fb, ta, model, sites, card, profile: bool = False)
     # side dumps at every logged step (steps < 10) and one validation batch
     # run the eval forward: B1 at the three sites
     want = {"B1": 3 * (TRAIN_STEPS + 1), "B2": want_on["B2"] * TRAIN_STEPS,
-            "B3": want_on["B3"] * TRAIN_STEPS, "B5": want_on["B5"] * TRAIN_STEPS}
+            "B3": want_on["B3"] * TRAIN_STEPS, "B4": 0, "B5": want_on["B5"] * TRAIN_STEPS}
     falling = losses[-1] < losses[0]
     trend = "falling" if falling else "not falling: each step sees another random batch"
     print(f"[gn] Trainer.fit, hybrid on: {TRAIN_STEPS} steps in {fit_s:.2f} s, losses "
@@ -1639,17 +1661,17 @@ def phase_gn_train(torch, fa, fb, ta, model, sites, card, profile: bool = False)
     return res
 
 
-def phase_zoo(torch, fa, ta, flush):
+def phase_zoo(torch, fa, measured):
     """Phase 8: every registry name on the card, one bf16 eval forward at
-    batch 2.  A site of at least one query block that the forward gate
-    refuses (the 'full' head's x_0_1_sa: d = 2, C = 16) runs plain PyTorch on
-    the card, a shape still owed to B1: its plain-path time is printed."""
+    batch 2.  No site of at least one query block may run plain PyTorch.
+    Returns the (Nq, Nk, d, C) of each site of at least one query block
+    whose shape is not in ``measured`` (the 'full' head's x_0_1_sa, d = 2,
+    C = 16), by site name, for ``phase_kernels`` at batch 2."""
     from sap3d_tpu_torch.models.registry import LINEAR_OUTPUT, MODEL_REGISTRY, build_model
-    from sap3d_tpu_torch.train.steps import make_eval_step
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
     x = torch.randn(2, 16, SIZE, SIZE, 3, device=DEVICE, generator=gen) * 0.3
-    res = {}
+    res, new_sites = {}, {}
     for name in MODEL_REGISTRY:
         model = build_model(name, dtype="bfloat16", device=DEVICE, seed=SEED)
         # gamma nonzero, and BN statistics calibrated on the batch: at their
@@ -1673,20 +1695,472 @@ def phase_zoo(torch, fa, ta, flush):
             raise AssertionError(f"{name}: {launches} B1 launches, the gate gives {gated}, "
                                  f"expected {ZOO_LAUNCHES[name]}")
         res[name] = dict(launches=launches, min=lo, max=hi)
-        for site, ((nq, nk, d, c), route) in sites.items():
-            if route == "plain" and nq >= fa.BLOCK_Q:
-                q, k, v = (torch.randn(2, n, w, device=DEVICE, generator=gen).to(out.dtype)
-                           for n, w in ((nq, d), (nk, d), (nk, c)))
-                ms = time_ms(lambda: ta.attend_tokens(q, k, v), 3, flush)
-                print(f"[zoo] {name} site {site} (Nq, Nk, d, C) = {(nq, nk, d, c)} is not a "
-                      f"shape B1 takes: plain path on the card, {ms:.4f} ms at batch 2 "
-                      f"(random inputs, bf16), no kernel", flush=True)
-                res[name]["owed_to_b1"] = dict(site=site, shape=(nq, nk, d, c), plain_ms=ms)
-                del q, k, v
+        for site, (shape, route) in sites.items():
+            if route == "plain" and shape[0] >= fa.BLOCK_Q:
+                raise AssertionError(f"{name} site {site} {shape}: plain PyTorch on the card")
+            if shape[0] >= fa.BLOCK_Q and shape not in measured:
+                new_sites[site] = shape
         del model, out
         torch.cuda.empty_cache()
     if len(res) != 14:
         raise AssertionError(f"the registry holds {len(res)} names, not 14")
+    return res, new_sites
+
+
+# ---- phase 9: long clips, ring attention over a time mesh ------------------
+
+
+def check_b4(fb, label, q, k, v, o, lse, do, dlse, got):
+    """B4's dq, dk, dv against the plain version's (with ``dlse``).  Planted
+    faults: B3 in B4's place, the lse cotangent dropped (the B3 kernel on the
+    same inputs), for dq and dk; dv, which dlse does not reach, with its last
+    key tile dropped, held row by row too (``DV_ROW_TOLERANCE``)."""
+    want = fb.flash_backward_reference(q, k, v, o, lse, do, dlse)
+    b3 = fb.flash_backward(q, k, v, o, lse, do)
+    keep = KEY_TILE * ((k.shape[1] - 1) // KEY_TILE)
+    dv_dropped = want[2].clone()
+    dv_dropped[:, keep:] = 0
+    faults = (b3[0], b3[1], dv_dropped)
+    names = ("B3 in its place, dlse dropped",) * 2 + (_DROPPED,)
+    rows = (None, None, fb.DV_ROW_TOLERANCE)
+    res = {out: hold(f"B4 {out} {label}", g, w, f, n, fb.TOLERANCE, r)
+           for out, g, w, f, n, r in zip(("dq", "dk", "dv"), got, want, faults, names, rows)}
+    return dict(res, max_abs_err=max(r["max_abs_err"] for r in res.values()))
+
+
+def b4_bound(b, nq, nk, d, c, dtype_name: str, itemsize: int):
+    """(bound_ms, bound_by) of B4: B3's, and the [b, nq] float32 dlse read."""
+    nbytes = b * (2 * (nq * d + nk * d + nk * c) + 2 * nq * c) * itemsize + 8 * b * nq
+    return _bound(nbytes, 2 * b * nq * nk * (3 * d + 2 * c), dtype_name)
+
+
+def phase_b4(torch, fa, fb, flush):
+    """Phase 9(c): B4 at the ring's per-shard shapes (the flagship's SITES:
+    the 4 shards of a batch of 4 stack into one batch-16 launch per hop) on
+    random inputs, bf16 and fp32, against its plain version, with B3's time
+    on the same inputs beside it."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for site, (nq, nk, d, c) in SITES.items():
+            q = (torch.randn(BATCH, nq, d, device=DEVICE, generator=gen) * d ** -0.25).to(dtype)
+            k = (torch.randn(BATCH, nk, d, device=DEVICE, generator=gen) * d ** -0.25).to(dtype)
+            v = torch.randn(BATCH, nk, c, device=DEVICE, generator=gen).to(dtype)
+            do = torch.randn(BATCH, nq, c, device=DEVICE, generator=gen).to(dtype)
+            dlse = torch.randn(BATCH, nq, device=DEVICE, generator=gen)
+            o, lse = fa.flash_forward_lse(q, k, v)
+            got = fb.flash_backward(q, k, v, o, lse, do, dlse=dlse)
+            row = dict(check_b4(fb, f"{site} {dname} (random inputs)", q, k, v, o, lse, do,
+                                dlse, got), site=site, dtype=dname, nq=nq, nk=nk, d=d, c=c)
+            del got
+            heavy = nq * nk * (d + c) > 5e9
+            iters = (3 if dtype == torch.float32 else 5) if heavy else 20
+            row["ms"] = time_ms(lambda: fb.flash_backward(q, k, v, o, lse, do, dlse=dlse),
+                                iters, flush)
+            row["b3_ms"] = time_ms(lambda: fb.flash_backward(q, k, v, o, lse, do), iters, flush)
+            row["plain_ms"] = time_ms(
+                lambda: fb.flash_backward_reference(q, k, v, o, lse, do, dlse),
+                max(iters // 4, 3), flush)
+            row["library_ms"], row["library_backend"] = None, "none"
+            row["bound_ms"], row["bound_by"] = b4_bound(BATCH, nq, nk, d, c, dname,
+                                                        q.element_size())
+            print(f"[kernel] B4 {site} {dname} B={BATCH} Nq={nq} Nk={nk} d={d} C={c}: kernel "
+                  f"{row['ms']:.4f} ms, B3 on the same inputs {row['b3_ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, no library call returns an lse gradient, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+            rows.append(row)
+            del q, k, v, do, dlse, o, lse
+            torch.cuda.empty_cache()
+    return rows
+
+
+RING_SHARDS = 4
+# [4, 64, 112, 112, 3]: the activation volume of phase 6's batch of 16
+# 16-frame clips.  The per-shard sites of the flagship at 64 frames are
+# SITES (and x_4_0 at 49 queries, the chunked hop); the 4 shards of one
+# site share the card and run each hop as one batch-16 launch.
+RING_BATCH, RING_FRAMES = 4, 64
+RING_SITES = dict(SITES, x_4_0=(49, 49, 128, 1024))
+# Mean |ring - gather| of the bf16 eval forward (sigmoid output).  At 64
+# frames the random network carries bf16 rounding further than at 16
+# (E2E_MEAN_TOL): on an H100 the plain path read 4.5e-2 from the gather
+# path's kernels, the ring 3.1e-2, the forward without attention 0.50.  The
+# tight check of the forward is in float32 (RING_FP32_FWD_TOL).
+RING_E2E_MEAN_TOL = 0.1
+# fp32 eval forward at batch 1, ring against gather: mean |diff| of the
+# sigmoid output; the forward without attention must exceed it.  On an H100
+# the ring read 8.0e-6, the plain path 8.2e-6 from the gather path's
+# kernels, no attention 0.50.  The largest element is read, not held: 6.2e-2
+# for the ring and 2.4e-2 for the plain path (no attention 0.99).  The
+# random network amplifies any disturbance of the attention outputs: the
+# gather path with B1's o moved at random by the ring op's own relative
+# distance (2.2e-6, ``perturbed``) reads mean 4.3e-5 and max 0.29.
+RING_FP32_FWD_TOL = 1e-4
+# The fp32 train step, ring against gather, at batch 1 (dropout 0, cuDNN's
+# deterministic algorithms): (relative loss, relative L2 of the whole
+# gradient) limits.  On an H100 the loss read 2.1e-7 and the gradient
+# 2.05e-3, where the gather step run twice reads 1.0e-5 (B3's atomic dq),
+# the plain path 1.05e-3, the gather path with B2's o moved at random by the
+# ring op's own distance 1.6e-2, and the control, B3 in B4's place (the lse
+# cotangent dropped), 0.65.  The ring op alone is within 6.2e-6 of the gather
+# path at every site (RING_OP_TOL): the gap is the network's amplification
+# of float32 reordering, which BN on its running statistics makes larger
+# (ring 3.8e-2, moved o 0.20), not smaller.
+RING_FP32_BATCH = 1
+RING_FP32_TOL = (1e-5, 1e-2)
+# The ring op alone in float32 at each kernel-hop site's whole shape, against
+# the gather path's B2 + B3 on the same random inputs: relative L2 limits of
+# (o, and each of dq, dk, dv).  The ring's hops and merge reorder float32
+# sums (on an H100: o 7.6e-7 to 2.2e-6, gradients 7.4e-7 to 6.2e-6); the
+# limits are the CPU tests' (1e-5 values, 1e-4 gradients), which B3 in B4's
+# place exceeds in dq and dk (2.7e-2 to 9.5e-2).
+RING_OP_TOL = (1e-5, 1e-4)
+
+
+def phase_ring(torch, fa, fb, calibrated, flush, card, profile: bool = False):
+    """Phase 9: the flagship's long-clip mode on one card, 4 time shards
+    (``make_time_mesh(4, devices=[cuda:0] * 4)``), bf16, the calibrated
+    weights of phase 4; with ``profile``, one ring and one gather train step
+    are profiled as well."""
+    import numpy as np
+
+    from sap3d_tpu_torch.core.mesh import make_time_mesh
+    from sap3d_tpu_torch.models.registry import build_model
+    from sap3d_tpu_torch.ops import attention as ta
+    from sap3d_tpu_torch.train.state import create_train_state
+    from sap3d_tpu_torch.train.steps import loss_fn_saliency, make_eval_step, make_train_step
+
+    dev = torch.empty(0, device=DEVICE).device
+    mesh = make_time_mesh(RING_SHARDS, devices=[dev] * RING_SHARDS)
+
+    def twin(dtype, ring, dropout_rate=0.0):
+        m = build_model("unet++", dtype=dtype, device=DEVICE, seed=SEED,
+                        dropout_rate=dropout_rate, ring_mesh=mesh if ring else None)
+        m.load_state_dict(calibrated)
+        return m
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    x = torch.randn(RING_BATCH, RING_FRAMES, SIZE, SIZE, 3, device=DEVICE, generator=gen) * 0.3
+    y = torch.rand(RING_BATCH, RING_FRAMES, SIZE, SIZE, device=DEVICE, generator=gen)
+    ring, gather = twin("bfloat16", True), twin("bfloat16", False)
+    # the kernel hop where the backward gate takes the per-shard shape; B1
+    # on the gather path where the forward gate takes the whole site
+    kernel_sites = {name: shape for name, shape in RING_SITES.items()
+                    if fb.backward_viable(*shape, torch.bfloat16)}
+    n_kernel, n_gather = len(kernel_sites), sum(
+        fa.forward_viable(nq * RING_SHARDS, nk * RING_SHARDS, d, c, torch.bfloat16)
+        for nq, nk, d, c in RING_SITES.values())
+    want_fwd = {"B1": 0, "B2": n_kernel * RING_SHARDS, "B3": 0, "B4": 0}
+    want_step = {"B1": 0, "B2": 2 * n_kernel * RING_SHARDS, "B3": 0,
+                 "B4": n_kernel * RING_SHARDS}
+    print(f"[ring] flagship [{RING_BATCH}, {RING_FRAMES}, {SIZE}, {SIZE}, 3] bf16 on "
+          f"{RING_SHARDS} time shards of one card; per-shard sites {RING_SITES}; the kernel "
+          f"hop at {n_kernel} of them; predicted launches per ring forward {want_fwd}, per "
+          f"ring train step {want_step} (forward, checkpoint recompute, backward)", flush=True)
+    res = {"predicted": {"forward": want_fwd, "step": want_step}}
+
+    # (a) eval forward: the ring against the gather path (B1 on the whole sites)
+    def forward(m, use_kernel=True):
+        for sa in m.attention_modules():
+            sa.use_kernel = use_kernel
+        _zero_launch_counts(fa, fb)
+        out = make_eval_step(m)(x)
+        torch.cuda.synchronize()
+        return out, _launch_counts(fa, fb)
+
+    out_g, n_g = forward(gather)
+    out_r, n_r = forward(ring)  # the main path: counts zeroed just before, read just after
+    out_p, _ = forward(gather, use_kernel=False)
+    with torch.no_grad():
+        for sa in gather.attention_modules():
+            sa.gamma.zero_()
+        no_attn, _ = forward(gather, use_kernel=False)
+    gather.load_state_dict(calibrated)
+    for sa in gather.attention_modules():
+        sa.use_kernel = True
+    mean_rg = (out_r - out_g).abs().mean().item()
+    mean_pg = (out_p - out_g).abs().mean().item()
+    mean_na = (no_attn - out_g).abs().mean().item()
+    print(f"[ring] eval forward: launches ring {n_r}, gather {n_g}; mean |ring - gather| "
+          f"{mean_rg:.3e} (limit {RING_E2E_MEAN_TOL:g}), plain path - gather {mean_pg:.3e}, no "
+          f"attention - gather {mean_na:.3e}; output {tuple(out_r.shape)}", flush=True)
+    if n_r != want_fwd or n_g != {"B1": n_gather, "B2": 0, "B3": 0, "B4": 0}:
+        raise AssertionError(f"ring forward launches {n_r}, gather {n_g}")
+    if not bool(torch.isfinite(out_r).all()) or out_r.shape != (*x.shape[:4],):
+        raise AssertionError("ring forward: non-finite output or wrong shape")
+    if not mean_rg <= RING_E2E_MEAN_TOL:
+        raise AssertionError("ring forward disagrees with the gather path")
+    if not mean_na > RING_E2E_MEAN_TOL:
+        raise AssertionError("the ring forward's limit passes a model without attention; void")
+    res["forward"] = dict(launches=n_r, gather_launches=n_g, ring_vs_gather_mean=mean_rg,
+                          plain_vs_gather_mean=mean_pg, no_attention_vs_gather_mean=mean_na)
+    del out_g, out_r, out_p, no_attn
+
+    # (b) one ring train step: every B4 call held on the step's own tensors
+    calls = []
+
+    def spy_b4(q, k, v, o, lse, do, dlse=None):
+        out = fb.flash_backward(q, k, v, o, lse, do, dlse=dlse)
+        calls.append((q, k, v, o, lse, do, dlse, out))
+        return out
+
+    ring.train()
+    ring.zero_grad(set_to_none=True)
+    with function_calls(backward=spy_b4):
+        loss_fn_saliency(ring(x), y).backward()
+    torch.cuda.synchronize()
+    ring.zero_grad(set_to_none=True)
+    names = {shape: name for name, shape in kernel_sites.items()}
+    held = {}
+    for i, (q, k, v, o, lse, do, dlse, out) in enumerate(calls):
+        name = names[(q.shape[1], k.shape[1], q.shape[2], v.shape[2])]
+        if dlse is None or q.shape[0] != RING_SHARDS * RING_BATCH:
+            raise AssertionError(f"a ring hop's backward at {name} ran without dlse or "
+                                 f"unstacked (batch {q.shape[0]})")
+        held.setdefault(name, []).append(check_b4(
+            fb, f"{name} call {len(held.get(name, [])) + 1} bf16 (in the ring train step)",
+            q, k, v, o, lse, do, dlse, out))
+    del calls
+    torch.cuda.empty_cache()
+    if sorted(held) != sorted(kernel_sites) or any(len(h) != RING_SHARDS
+                                                   for h in held.values()):
+        raise AssertionError(f"B4 ran {({n: len(h) for n, h in held.items()})} times by site, "
+                             f"not {RING_SHARDS} at each of {sorted(kernel_sites)}")
+    res["b4_in_step"] = held
+
+    state = create_train_state(ring, lr=1e-4)
+    step = make_train_step(state)
+    step_gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    _zero_launch_counts(fa, fb)  # the main path: one make_train_step call
+    loss = step(x, y, step_gen)
+    torch.cuda.synchronize()
+    n_step = _launch_counts(fa, fb)
+    print(f"[ring] launches in one ring make_train_step call: predicted {want_step}, counted "
+          f"{n_step}, loss {loss.item():.4f}", flush=True)
+    if n_step != want_step or not np.isfinite(loss.item()):
+        raise AssertionError(f"ring train step: launches {n_step}, predicted {want_step}")
+    res["launches"] = {"forward": n_r, "step": n_step}
+
+    # fp32 at batch 1: the ring step against the gather step (B2 + B3)
+    xs, ys = x[:RING_FP32_BATCH].float(), y[:RING_FP32_BATCH]
+
+    def b3_in_place(q, k, v, o, lse, do, dlse=None):
+        return fb.flash_backward(q, k, v, o, lse, do)
+
+    def grads(m, forward=None, backward=None, train=True):
+        m.train(train)
+        m.zero_grad(set_to_none=True)
+        with function_calls(forward=forward, backward=backward):
+            loss_ = loss_fn_saliency(m(xs), ys)
+            loss_.backward()
+        torch.cuda.synchronize()
+        flat = torch.cat([p.grad.float().flatten() for p in m.parameters()])
+        m.zero_grad(set_to_none=True)
+        m.load_state_dict(calibrated)  # BN's running statistics as they were
+        return loss_.item(), flat
+
+    def rel(a, b):
+        return (a - b).norm().item() / b.norm().item()
+
+    was_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        op = ring_op_check(torch, fb, mesh)
+        # the yardstick of a forward disturbance: the ring op's own relative
+        # distance from the gather path's kernels
+        eps = max(r["o"] for r in op.values())
+        ring32, gather32 = twin("float32", True), twin("float32", False)
+        fwd_r, fwd_g = make_eval_step(ring32)(xs), make_eval_step(gather32)(xs)
+        b1 = ta.flash_attend_tokens
+        ta.flash_attend_tokens = perturbed(torch, b1, eps)
+        try:
+            fwd_n = make_eval_step(gather32)(xs)
+        finally:
+            ta.flash_attend_tokens = b1
+        for sa in gather32.attention_modules():
+            sa.use_kernel = False
+        fwd_p = make_eval_step(gather32)(xs)
+        with torch.no_grad():
+            for sa in gather32.attention_modules():
+                sa.gamma.zero_()
+        fwd_na = make_eval_step(gather32)(xs)
+        gather32.load_state_dict(calibrated)
+        for sa in gather32.attention_modules():
+            sa.use_kernel = True
+        fwd32 = {f"{name}_{stat}": getattr((out - fwd_g).abs(), stat)().item()
+                 for name, out in (("ring", fwd_r), ("plain", fwd_p), ("perturbed", fwd_n),
+                                   ("no_attention", fwd_na))
+                 for stat in ("mean", "max")}
+        fwd32["tol_mean"] = RING_FP32_FWD_TOL
+        print(f"[ring] eval forward, float32, batch {RING_FP32_BATCH}: |ring - gather| mean "
+              f"{fwd32['ring_mean']:.3e} (limit {RING_FP32_FWD_TOL:g}), max "
+              f"{fwd32['ring_max']:.3e}; plain path - gather mean {fwd32['plain_mean']:.3e}, "
+              f"max {fwd32['plain_max']:.3e}; gather with B1's o moved by {eps:.2e} - gather "
+              f"mean {fwd32['perturbed_mean']:.3e}, max {fwd32['perturbed_max']:.3e}; no "
+              f"attention - gather mean "
+              f"{fwd32['no_attention_mean']:.3e}, max {fwd32['no_attention_max']:.3e}",
+              flush=True)
+        res["fp32_forward"] = fwd32
+        del fwd_r, fwd_g, fwd_n, fwd_p, fwd_na
+        loss_g, g_g = grads(gather32)
+        _, g_g2 = grads(gather32)
+        loss_r, g_r = grads(ring32)
+        _, g_f = grads(ring32, backward=b3_in_place)
+        # yardsticks: another float32 order of the same sums (the plain
+        # path), and the gather path with its B2 outputs moved at random by
+        # the ring op's own relative distance from them
+        for sa in gather32.attention_modules():
+            sa.use_kernel = False
+        _, g_p = grads(gather32)
+        for sa in gather32.attention_modules():
+            sa.use_kernel = True
+        _, g_n = grads(gather32, forward=perturbed(torch, fa.flash_forward_lse, eps))
+        fp32 = dict(loss_ring=loss_r, loss_gather=loss_g,
+                    loss_rel=abs(loss_r - loss_g) / abs(loss_g), grad_rel_l2=rel(g_r, g_g),
+                    gather_again=rel(g_g2, g_g), plain_grad_rel_l2=rel(g_p, g_g),
+                    perturbed_eps=eps, perturbed_grad_rel_l2=rel(g_n, g_g),
+                    fault_grad_rel_l2=rel(g_f, g_g))
+        del g_g, g_g2, g_r, g_f, g_p, g_n
+        # the same with BN on its running statistics (eval mode; the sites
+        # are differentiated, so they route as in training)
+        _, g_g = grads(gather32, train=False)
+        _, g_g2 = grads(gather32, train=False)
+        _, g_r = grads(ring32, train=False)
+        _, g_n = grads(gather32, forward=perturbed(torch, fa.flash_forward_lse, eps),
+                       train=False)
+        fp32.update(bn_running_grad_rel_l2=rel(g_r, g_g), bn_running_gather_again=rel(g_g2, g_g),
+                    bn_running_perturbed_grad_rel_l2=rel(g_n, g_g))
+        del ring32, gather32, g_g, g_g2, g_r, g_n
+    finally:
+        torch.backends.cudnn.deterministic = was_deterministic
+    torch.cuda.empty_cache()
+    loss_tol, grad_tol = RING_FP32_TOL
+    fp32.update(tol_loss_rel=loss_tol, tol_grad_rel_l2=grad_tol)
+    print(f"[ring] one train step, float32, batch {RING_FP32_BATCH}, dropout 0: loss ring "
+          f"{loss_r:.6f}, gather {loss_g:.6f} (relative {fp32['loss_rel']:.3e}, limit "
+          f"{loss_tol:g}); whole-gradient relative L2 ring against gather "
+          f"{fp32['grad_rel_l2']:.3e} (limit {grad_tol:g}), the gather step again "
+          f"{fp32['gather_again']:.3e}, the plain path against gather "
+          f"{fp32['plain_grad_rel_l2']:.3e}, gather with B2's o moved by {eps:.2e} "
+          f"{fp32['perturbed_grad_rel_l2']:.3e}, control (B3 in B4's place) "
+          f"{fp32['fault_grad_rel_l2']:.3e}; with BN on its running statistics: ring against "
+          f"gather {fp32['bn_running_grad_rel_l2']:.3e}, the gather step again "
+          f"{fp32['bn_running_gather_again']:.3e}, gather with o moved "
+          f"{fp32['bn_running_perturbed_grad_rel_l2']:.3e}", flush=True)
+    res["fp32_step"] = fp32
+    res["fp32_op"] = op
+
+    # (c) B4's kernel times beside B3's
+    rows = phase_b4(torch, fa, fb, flush)
+
+    # (d) step times: gather, ring, ring, gather (dropout 0.5)
+    steps = {}
+    for label, m in (("gather", gather), ("ring", ring)):
+        m.decoder.dropout_rate = 0.5
+        steps[label] = make_train_step(create_train_state(m, lr=1e-4)) if m is gather else step
+    thr = {}
+    for label in ("gather", "ring", "ring2", "gather2"):
+        fn = steps[label.rstrip("2")]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = step_times(torch, lambda: fn(x, y, step_gen), THROUGHPUT_CALLS)
+        thr[label] = dict(rate_summary(times, RING_BATCH),
+                          ms=1e3 * float(np.median(times)),
+                          peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    res["train_clips_per_s"] = thr
+    if profile:
+        res["profile"] = {label: profile_device_time(
+            torch, lambda fn=fn: fn(x, y, step_gen), f"one {label} train step, 64-frame clips",
+            RING_BATCH)
+            for label, fn in steps.items()}
+
+    def one(r):
+        return (f"{r['ms']:.2f} ms, {r['clips_per_s']:.2f} [{r['slowest']:.2f}, "
+                f"{r['fastest']:.2f}] clips/s, peak {r['peak_gib']:.2f} GiB")
+    print(f"[ring] train step, {RING_FRAMES}-frame clips, batch {RING_BATCH}, bf16, dropout "
+          f"0.5 (median [slowest, fastest] of {THROUGHPUT_CALLS} steps each, order gather, "
+          f"ring, ring, gather): gather {one(thr['gather'])}; ring {one(thr['ring'])}; ring "
+          f"{one(thr['ring2'])}; gather {one(thr['gather2'])}  [{card}]", flush=True)
+    del steps, step, state, ring, gather
+    torch.cuda.empty_cache()
+    # (a)'s and (b)'s fp32 limits, held after the phase's other readings are taken
+    if not fwd32["ring_mean"] <= RING_FP32_FWD_TOL:
+        raise AssertionError("ring forward, float32: the ring disagrees with the gather path")
+    if not fwd32["no_attention_mean"] > RING_FP32_FWD_TOL:
+        raise AssertionError("the ring's float32 forward limit passes no attention; void")
+    if not (fp32["loss_rel"] <= loss_tol and fp32["grad_rel_l2"] <= grad_tol):
+        raise AssertionError("ring train step, float32: the ring disagrees with the gather path")
+    if not fp32["fault_grad_rel_l2"] > grad_tol:
+        raise AssertionError("the ring train-step limit passes B3 in B4's place; void")
+    for site, r in op.items():
+        if not all(r[out] <= tol for out, tol in zip(("o", "dq", "dk", "dv"), RING_OP_TOL)):
+            raise AssertionError(f"the ring op at {site}, float32, disagrees with the gather path")
+        if not min(r["fault_dq"], r["fault_dk"]) > RING_OP_TOL[1]:
+            raise AssertionError(f"the ring op's limit at {site} passes B3 in B4's place; void")
+    return res, rows
+
+
+def perturbed(torch, forward, eps):
+    """``forward`` (B1, or B2 and its lse) with o moved by a relative ``eps``
+    at random (o (1 + eps z), z ~ N(0, 1) from a fixed seed): a forward
+    disturbance of a given size at the gather path's sites, the yardstick
+    for the ring's."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+
+    def moved(q, k, v):
+        out = forward(q, k, v)
+        o = out[0] if isinstance(out, tuple) else out
+        z = torch.randn(o.shape, device=o.device, generator=gen, dtype=torch.float32)
+        o = (o.float() * (1 + eps * z)).to(o.dtype)
+        return (o,) + out[1:] if isinstance(out, tuple) else o
+    return moved
+
+
+def ring_op_check(torch, fb, mesh):
+    """The ring op alone at each kernel-hop site's whole shape (batch 1,
+    float32, random inputs and cotangent): o, dq, dk and dv of
+    ``ring_attend_sharded`` on ``mesh`` against the gather path's Function
+    (``flash_attend``: B2 + B3), as relative L2 distances; the control runs
+    the ring with B3 in B4's place (the merge's lse cotangent dropped)."""
+    from sap3d_tpu_torch.ops.attention import flash_attend
+    from sap3d_tpu_torch.ops.ring_attention import ring_attend_sharded
+
+    def b3_in_place(q, k, v, o, lse, do, dlse=None):
+        return fb.flash_backward(q, k, v, o, lse, do)
+
+    def rel(a, b):
+        return (a - b).norm().item() / b.norm().item()
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    res = {}
+    for site, (nq, nk, d, c) in RING_SITES.items():
+        if not fb.backward_viable(nq, nk, d, c, torch.float32):
+            continue
+        nq, nk = nq * RING_SHARDS, nk * RING_SHARDS
+        q = (torch.randn(1, nq, d, device=DEVICE, generator=gen) * d ** -0.25).requires_grad_()
+        k = (torch.randn(1, nk, d, device=DEVICE, generator=gen) * d ** -0.25).requires_grad_()
+        v = torch.randn(1, nk, c, device=DEVICE, generator=gen).requires_grad_()
+        do = torch.randn(1, nq, c, device=DEVICE, generator=gen)
+
+        def run(fn, backward=None):
+            with function_calls(backward=backward):
+                out = fn(q, k, v)
+                return (out.detach(),) + torch.autograd.grad(out, (q, k, v), do)
+
+        def ring(*a):
+            return ring_attend_sharded(mesh, *a)
+
+        want, got, fault = run(flash_attend), run(ring), run(ring, b3_in_place)
+        r = {out: rel(g, w) for out, g, w in zip(("o", "dq", "dk", "dv"), got, want)}
+        r.update(fault_dq=rel(fault[1], want[1]), fault_dk=rel(fault[2], want[2]))
+        print(f"[ring] the ring op alone at {site} (whole site {(nq, nk, d, c)}, batch 1, "
+              f"float32), relative L2 against the gather path: o {r['o']:.3e} (limit "
+              f"{RING_OP_TOL[0]:g}), dq {r['dq']:.3e}, dk {r['dk']:.3e}, dv {r['dv']:.3e} "
+              f"(limit {RING_OP_TOL[1]:g}); control (B3 in B4's place) dq {r['fault_dq']:.3e}, "
+              f"dk {r['fault_dk']:.3e}", flush=True)
+        res[site] = r
+        del q, k, v, do, want, got, fault
     return res
 
 
@@ -1758,6 +2232,7 @@ def main(argv=None) -> int:
         model = build_model("unet++", dtype="bfloat16", device=DEVICE, seed=SEED)
         x = torch.randn(BATCH, 16, SIZE, SIZE, 3, device=DEVICE, generator=gen) * 0.3
         calibrate_and_randomize_bn(torch, model, x, gen)
+        calibrated = {k: v.detach().clone() for k, v in model.state_dict().items()}
         fwd = phase_forward(torch, fa, model, x)
         thr = phase_throughput(torch, model, x, card)
         prof = phase_profile(torch, model, x) if args.json_out else None
@@ -1787,15 +2262,32 @@ def main(argv=None) -> int:
                                   card, profile=bool(args.json_out))
         del gn_model
         torch.cuda.empty_cache()
-        zoo = phase_zoo(torch, fa, ta, flush)
+        zoo, zoo_sites = phase_zoo(torch, fa, set(SITES.values()) | set(gn_sites.values()))
+        # B1, B2 and B3 at the sites no earlier phase measured (the 'full'
+        # head's x_0_1_sa), at the zoo's batch of 2
+        print(f"[zoo] sites of at least {fa.BLOCK_Q} queries no earlier phase measured: "
+              f"{zoo_sites}", flush=True)
+        if "x_0_1_sa" not in zoo_sites:
+            raise AssertionError("the 'full' head's x_0_1_sa did not reach a kernel")
+        zoo_rows = phase_kernels(torch, fa, fb, flush, zoo_sites, batch=2)
+        if not all(len(zoo_rows[n]) == 2 * len(zoo_sites) for n in ("B1", "B2", "B3")):
+            raise AssertionError("B1, B2 and B3 were not all held at the zoo's new sites")
+
+        ring, b4_rows = phase_ring(torch, fa, fb, calibrated, flush, card,
+                                   profile=bool(args.json_out))
+        del calibrated
+        torch.cuda.empty_cache()
 
         fit, gn_fit = train["fit"]["launches"], gn_train["fit"]["launches"]
+        ring_fwd, ring_step = ring["launches"]["forward"], ring["launches"]["step"]
         # every main path launched every kernel the gate gives it
         if not (launches > 0 and fit["B2"] > 0 and fit["B3"] > 0 and gn_launches > 0
-                and gn_fit["B2"] > 0 and gn_fit["B3"] > 0 and gn_fit["B5"] > 0):
+                and gn_fit["B2"] > 0 and gn_fit["B3"] > 0 and gn_fit["B5"] > 0
+                and ring_fwd["B2"] > 0 and ring_step["B2"] > 0 and ring_step["B4"] > 0):
             raise AssertionError("a kernel of a main path was never launched")
         print(f"[launches] flagship predictor B1 {launches}; flagship Trainer.fit {fit}; GN "
-              f"predictor B1 {gn_launches}; GN Trainer.fit (hybrid on) {gn_fit}", flush=True)
+              f"predictor B1 {gn_launches}; GN Trainer.fit (hybrid on) {gn_fit}; ring eval "
+              f"forward {ring_fwd}; ring train step {ring_step}", flush=True)
         in_step = {k: [r["max_abs_err"] for r in train[f"{k}_in_step"].values()]
                    for k in ("b2", "b3")}
         kernels = [
@@ -1804,13 +2296,19 @@ def main(argv=None) -> int:
             kernel_entry("flash_attention_fwd", fa.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:141", launches + gn_launches,
                          rows["B1"], [r["max_abs_err"] for r in gn_fwd["held"].values()],
-                         gn_rows["B1"]),
+                         gn_rows["B1"] + zoo_rows["B1"]),
             kernel_entry("flash_attention_fwd_lse", fa.SOURCE,
-                         "sap3d_tpu/ops/pallas/flash_attention.py:141", fit["B2"] + gn_fit["B2"],
-                         rows["B2"], in_step["b2"], gn_rows["B2"]),
+                         "sap3d_tpu/ops/pallas/flash_attention.py:141",
+                         fit["B2"] + gn_fit["B2"] + ring_fwd["B2"] + ring_step["B2"],
+                         rows["B2"], in_step["b2"], gn_rows["B2"] + zoo_rows["B2"]),
             kernel_entry("flash_attention_bwd", fb.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:274", fit["B3"] + gn_fit["B3"],
-                         rows["B3"], in_step["b3"], gn_rows["B3"]),
+                         rows["B3"], in_step["b3"], gn_rows["B3"] + zoo_rows["B3"]),
+            # B4: the ring train step's backward, times at the per-shard shapes
+            kernel_entry("flash_attention_bwd_lse", fb.SOURCE,
+                         "sap3d_tpu/ops/pallas/flash_attention.py:274", ring_step["B4"],
+                         b4_rows, [r["max_abs_err"] for by_site in ring["b4_in_step"].values()
+                                   for r in by_site]),
             # B5: forward + backward at the three GN sites
             kernel_entry("flash_fwd_chunked_bwd", fa.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:373", gn_fit["B5"], b5_rows,
@@ -1826,6 +2324,7 @@ def main(argv=None) -> int:
                                profile=prof, train=train, gn_forward=gn_fwd,
                                gn_profile=gn_prof, gn_kernel_rows=gn_rows, b5_rows=b5_rows,
                                b5_memory=b5_memory, gn_train=gn_train, zoo=zoo,
+                               zoo_kernel_rows=zoo_rows, ring=ring, b4_rows=b4_rows,
                                kernels=kernels), f, indent=1)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {

@@ -13,10 +13,13 @@ path).
 ``./logs/<run>/metrics.jsonl``.  ``predict --checkpoint`` takes such a
 run directory (its latest checkpoint) or a weights file (``torch.save`` of
 the model's ``state_dict``; ``interop/flax_bridge.py`` makes one from flax
-weights), under ``--model-dir`` or as a path.  Multi-device and multi-host
-training (``--devices`` > 1, ``--distributed``, ``--time-shards``) port
-with ROADMAP A.11, ``--tf-checkpoint`` with A.12, and the other subcommands
-with A.8.
+weights), under ``--model-dir`` or as a path.  ``train --time-shards N``
+(long clips, ``--videolength`` a multiple of 16 N) runs the UNet++ SA
+decoder's attention as rings over N devices: the visible cards (N more than
+them raises, as in the JAX package), or the CPU N times with ``--device
+cpu``.  Data-parallel and multi-host training (``--devices`` > 1,
+``--distributed``) port with ROADMAP A.11, ``--tf-checkpoint`` with A.12,
+and the other subcommands with A.8.
 """
 
 from __future__ import annotations
@@ -111,8 +114,12 @@ def cmd_train(argv) -> int:
     p.add_argument("--shuffle", type=parse_bool, default=True,
                    help="per-epoch clip shuffle")
     p.add_argument("--time-shards", type=int, default=0,
-                   help="long-clip time sharding: not ported yet (ROADMAP A.11)")
-    p.add_argument("--ring-attention", type=parse_bool, default=True)
+                   help="long clips: run the SA sites as ring attention over N "
+                        "devices (--videolength a multiple of 16*N; the other "
+                        "layers run unsharded)")
+    p.add_argument("--ring-attention", type=parse_bool, default=True,
+                   help="with --time-shards on an SA variant: ring attention "
+                        "across shards instead of attention over the whole clip")
     args = p.parse_args(argv)
     if args.distributed:
         raise NotImplementedError("--distributed is not ported yet "

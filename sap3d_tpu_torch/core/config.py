@@ -4,8 +4,8 @@ A copy of ``sap3d_tpu/core/config.py`` (``Config``, ``ModelConfig``,
 ``DataConfig``, ``TrainConfig``, ``DATASET_ROOTS``, ``parse_bool``); the port
 imports nothing of ``sap3d_tpu``.  The fields are the JAX package's, so a
 configuration reads the same in both.  Fields of paths that are not ported
-yet (``num_devices`` > 1, ``time_shards``, ``ring_attention``,
-``profile_dir``) are kept, and ``train/trainer.py`` raises on them.
+yet (``num_devices`` > 1, ``profile_dir``) are kept, and
+``train/trainer.py`` raises on them.
 """
 
 from __future__ import annotations

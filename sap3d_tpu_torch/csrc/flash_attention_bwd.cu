@@ -2,16 +2,24 @@
 // from the forward's saved o and lse, with one exponential per score.
 //
 // Replaces the Pallas TPU kernel `_bwd_kernel` as called by
-// `_flash_backward(dlse=None)` (sap3d_tpu/ops/pallas/flash_attention.py),
-// the custom_vjp backward rule `_bwd_rule` that training runs (B3).  The
-// lse-cotangent variant (`dlse=...`, ring attention only) is not here.
+// `_flash_backward` (sap3d_tpu/ops/pallas/flash_attention.py):
+//   * without dlse (a null dlse pointer), `_flash_backward(dlse=None)`, the
+//     custom_vjp backward rule `_bwd_rule` that training runs (B3);
+//   * with dlse, `_flash_backward(dlse=...)`, the backward rule
+//     `_bwd_rule_lse` of `flash_attend_tokens_lse` (B4), whose lse output
+//     the ring-attention hop merge consumes.  d lse_i / d s_ij = p_ij, so
+//     the lse cotangent folds into the row term: delta_i -= dlse_i.  The TPU
+//     kernel sums dlse over the 8 sublanes its lse is replicated on; here
+//     dlse is [B, Nq] float32, as lse is.
 //
 // Shapes: q [B, Nq, d], k [B, Nk, d], v [B, Nk, C], o and do [B, Nq, C], all
-// contiguous and of one dtype (float32 or bfloat16); lse [B, Nq] float32.
-// Outputs dq [B, Nq, d], dk [B, Nk, d], dv [B, Nk, C] in that dtype.  The
-// kernels take d <= 128 (bf16: d a multiple of 8) and C a multiple of 64 up
-// to 512.  Per query row i and key j:
-//   delta_i = sum_c do_ic o_ic                 (= sum_j dp_ij p_ij)
+// contiguous and of one dtype (float32 or bfloat16); lse and dlse [B, Nq]
+// float32.  Outputs dq [B, Nq, d], dk [B, Nk, d], dv [B, Nk, C] in that
+// dtype.  The kernels take d <= 128 with rows of q and k in whole 16-byte
+// chunks (bf16: d a multiple of 8; the wrapper pads q and k with zero
+// columns and drops those of dq and dk) and C a multiple of 64 up to 512 or
+// a multiple of 16 up to 128.  Per query row i and key j:
+//   delta_i = sum_c do_ic o_ic - dlse_i        (= sum_j dp_ij p_ij - dlse_i)
 //   p_ij    = exp(q_i . k_j - lse_i)
 //   dp_ij   = do_i . v_j
 //   ds_ij   = p_ij (dp_ij - delta_i)
@@ -45,13 +53,14 @@
 //      by float32 rounding (about 1e-6 relative).  The alternative, a second
 //      kernel per query tile, recomputes s, p and dp: two of the five
 //      products again.
-// Rows past Nq and keys past Nk are masked here (p = 0), where the TPU
-// version pads lse with +inf.
+// Rows past Nq and keys past Nk are masked here (p = 0, delta = 0), where
+// the TPU version pads lse with +inf and dlse with 0.
 //
 // Two main kernels:
 //   * bf16 (the training default): tensor cores through `mma.sync`
 //     m16n8k16 with float32 accumulation.  A warp owns 16 keys and a slab of
-//     CW (64 or 128) columns of C; the G = C/CW warps of a key group split
+//     CW (128 or 64 where C is a multiple of 64; else the narrow 16, at most
+//     8 slabs) columns of C; the G = C/CW warps of a key group split
 //     the contraction of dp over C and add their partial dp through shared
 //     memory, then each holds the full ds of its 16 keys.  Scores are
 //     computed transposed (keys are the rows), so that p and ds sit in
@@ -70,7 +79,9 @@ namespace {
 
 constexpr int MAX_D = 128;
 constexpr int MAX_C = 512;
-constexpr int C_MULTIPLE = 64;
+constexpr int C_MULTIPLE = 16;
+constexpr int WIDE_C_MULTIPLE = 64;  // C above NARROW_MAX_C is a multiple of this
+constexpr int NARROW_MAX_C = 128;    // 8 warps of 16 columns
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -78,12 +89,12 @@ template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x
     return __bfloat162float(x);
 }
 
-// ---- delta = rowsum(do * o), and the dq rounding --------------------------
+// ---- delta = rowsum(do * o) - dlse, and the dq rounding --------------------
 
 template <typename T>
 __global__ void __launch_bounds__(256)
-bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
-          int rows, int c) {
+bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+          const float* __restrict__ dlse, float* __restrict__ delta, int rows, int c) {
     const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
     if (row >= rows) return;
@@ -93,7 +104,7 @@ bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict
     for (int j = lane; j < c; j += 32) s = fmaf(to_f(orow[j]), to_f(drow[j]), s);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) delta[row] = s;
+    if (lane == 0) delta[row] = dlse == nullptr ? s : s - dlse[row];
 }
 
 __global__ void round_to_bf16(const float* __restrict__ src, __nv_bfloat16* __restrict__ dst,
@@ -236,10 +247,11 @@ flash_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 int launch_f32(const float* q, const float* k, const float* v, const float* o,
-               const float* dout, const float* lse, float* delta, float* dq, float* dk,
-               float* dv, int b, int nq, int nk, int d, int c, cudaStream_t stream) {
+               const float* dout, const float* lse, const float* dlse, float* delta,
+               float* dq, float* dk, float* dv, int b, int nq, int nk, int d, int c,
+               cudaStream_t stream) {
     const int rows = b * nq;
-    bwd_delta<float><<<(rows + 7) / 8, 256, 0, stream>>>(o, dout, delta, rows, c);
+    bwd_delta<float><<<(rows + 7) / 8, 256, 0, stream>>>(o, dout, dlse, delta, rows, c);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const size_t smem = sizeof(float) * ((size_t)(F_BK + F_BQ) * (d + 1 + c + 1)
@@ -609,17 +621,22 @@ int launch_bf16_d(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfl
     if (c % 128 == 0)
         return launch_bf16_dc<D, 128>(q, k, v, dout, lse, delta, dq, dk, dv, b, nq, nk, d, c,
                                       stream);
-    return launch_bf16_dc<D, 64>(q, k, v, dout, lse, delta, dq, dk, dv, b, nq, nk, d, c,
+    if (c % WIDE_C_MULTIPLE == 0)
+        return launch_bf16_dc<D, 64>(q, k, v, dout, lse, delta, dq, dk, dv, b, nq, nk, d, c,
+                                     stream);
+    return launch_bf16_dc<D, 16>(q, k, v, dout, lse, delta, dq, dk, dv, b, nq, nk, d, c,
                                  stream);
 }
 
 int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                 const __nv_bfloat16* o, const __nv_bfloat16* dout, const float* lse,
-                float* delta, float* dq_acc, __nv_bfloat16* dq, __nv_bfloat16* dk,
-                __nv_bfloat16* dv, int b, int nq, int nk, int d, int c, cudaStream_t stream) {
+                const float* dlse, float* delta, float* dq_acc, __nv_bfloat16* dq,
+                __nv_bfloat16* dk, __nv_bfloat16* dv, int b, int nq, int nk, int d, int c,
+                cudaStream_t stream) {
     if (d % 8) return (int)cudaErrorInvalidValue;  // 16-byte row chunks
     const int rows = b * nq;
-    bwd_delta<__nv_bfloat16><<<(rows + 7) / 8, 256, 0, stream>>>(o, dout, delta, rows, c);
+    bwd_delta<__nv_bfloat16><<<(rows + 7) / 8, 256, 0, stream>>>(o, dout, dlse, delta, rows,
+                                                                 c);
     int err = (int)cudaGetLastError();
     if (err) return err;
     if (d <= 16)
@@ -644,26 +661,29 @@ extern "C" {
 int sap3d_flash_bwd_max_d() { return MAX_D; }
 int sap3d_flash_bwd_max_c() { return MAX_C; }
 int sap3d_flash_bwd_c_multiple() { return C_MULTIPLE; }
+int sap3d_flash_bwd_wide_c_multiple() { return WIDE_C_MULTIPLE; }
+int sap3d_flash_bwd_narrow_max_c() { return NARROW_MAX_C; }
 
 // dtype: 0 = float32, 1 = bfloat16.  Inputs q, k, v, o, dout (= do) in that
-// dtype, lse [B, Nq] float32.  Scratch: delta [B, Nq] float32, and dq_acc
-// [B, Nq, d] float32 set to zero by the caller (for float32, dq_acc is dq
-// itself and dq is ignored).  Outputs dq, dk, dv.  Returns a cudaError_t
-// (0 = launched); invalid arguments return cudaErrorInvalidValue without
-// launching.
+// dtype, lse [B, Nq] float32, and dlse [B, Nq] float32 (B4) or null (B3).
+// Scratch: delta [B, Nq] float32, and dq_acc [B, Nq, d] float32 set to zero
+// by the caller (for float32, dq_acc is dq itself and dq is ignored).
+// Outputs dq, dk, dv.  Returns a cudaError_t (0 = launched); invalid
+// arguments return cudaErrorInvalidValue without launching.
 int sap3d_flash_bwd(const void* q, const void* k, const void* v, const void* o,
-                    const void* dout, const void* lse, void* delta, void* dq_acc, void* dq,
-                    void* dk, void* dv, int b, int nq, int nk, int d, int c, int dtype,
-                    void* stream) {
+                    const void* dout, const void* lse, const void* dlse, void* delta,
+                    void* dq_acc, void* dq, void* dk, void* dv, int b, int nq, int nk, int d,
+                    int c, int dtype, void* stream) {
     if (b <= 0 || nq <= 0 || nk <= 0 || d <= 0 || d > MAX_D || c <= 0 || c > MAX_C ||
-        c % C_MULTIPLE)
+        c % C_MULTIPLE || (c > NARROW_MAX_C && c % WIDE_C_MULTIPLE))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 0)
         return launch_f32(static_cast<const float*>(q), static_cast<const float*>(k),
                           static_cast<const float*>(v), static_cast<const float*>(o),
                           static_cast<const float*>(dout), static_cast<const float*>(lse),
-                          static_cast<float*>(delta), static_cast<float*>(dq_acc),
+                          static_cast<const float*>(dlse), static_cast<float*>(delta),
+                          static_cast<float*>(dq_acc),
                           static_cast<float*>(dk), static_cast<float*>(dv), b, nq, nk, d, c,
                           s);
     if (dtype == 1)
@@ -672,8 +692,9 @@ int sap3d_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                            static_cast<const __nv_bfloat16*>(v),
                            static_cast<const __nv_bfloat16*>(o),
                            static_cast<const __nv_bfloat16*>(dout),
-                           static_cast<const float*>(lse), static_cast<float*>(delta),
-                           static_cast<float*>(dq_acc), static_cast<__nv_bfloat16*>(dq),
+                           static_cast<const float*>(lse), static_cast<const float*>(dlse),
+                           static_cast<float*>(delta), static_cast<float*>(dq_acc),
+                           static_cast<__nv_bfloat16*>(dq),
                            static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
                            b, nq, nk, d, c, s);
     return (int)cudaErrorInvalidValue;

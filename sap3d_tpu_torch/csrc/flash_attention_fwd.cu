@@ -12,9 +12,10 @@
 //
 // Shapes: q [B, Nq, d], k [B, Nk, d], v [B, Nk, C] -> o [B, Nq, C], all
 // contiguous and of one dtype (float32 or bfloat16).  d = C/8 at every call
-// site of the model; the kernels take d <= 128 (bf16: d a multiple of 8)
-// and C a multiple of 64.  There is no
-// 1/sqrt(d) scale.  Scores, the softmax and the accumulator are float32; the
+// site of the model; the kernels take d <= 128 with rows of q and k in
+// whole 16-byte chunks (bf16: d a multiple of 8; the wrapper pads q and k
+// with zero columns, which add nothing to q.k) and C a multiple of 16.
+// There is no 1/sqrt(d) scale.  Scores, the softmax and the accumulator are float32; the
 // output is written in v's dtype.  A ragged Nq is masked here instead of
 // padded to a block multiple; a ragged Nk is masked with -inf scores.
 //
@@ -48,10 +49,15 @@
 //     the score fragments are rounded to bf16 in registers and reused as the
 //     A operand of P.V (the m16n8 accumulator layout of two adjacent score
 //     tiles is the m16n8k16 A layout), and V is read with `ldmatrix.trans`.
-//     d is padded to the next of 16/32/64/128 with zeros.  No pipelining, no
-//     TMA, no wgmma: those are a later change.
+//     d is padded to the next of 16/32/64/128 with zeros.  A block covers
+//     128 columns of C where C is a multiple of 64, and 16 otherwise (the
+//     narrow instantiation, for the 'full' head's x_0_1_sa: d = 2, C = 16,
+//     200704 queries, where a 128-column tile would spend 7/8 of its P.V
+//     products on zero columns).  No pipelining, no TMA, no wgmma: those
+//     are a later change.
 //   * fp32: scalar FMAs on the CUDA cores over 4x4 register tiles (256
-//     threads, 64 columns of C per block), exact fp32 throughout.
+//     threads, 64 columns of C per block; columns past C are masked),
+//     exact fp32 throughout.
 //
 // Precision against the TPU kernel: that kernel casts the normalised p to
 // v's dtype before p.v; the bf16 kernel here casts the unnormalised
@@ -66,7 +72,7 @@
 namespace {
 
 constexpr int MAX_D = 128;
-constexpr int C_MULTIPLE = 64;  // C must be a multiple of this
+constexpr int C_MULTIPLE = 16;  // C must be a multiple of this
 
 // ---- fp32: CUDA-core kernel ------------------------------------------------
 
@@ -134,7 +140,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         }
         for (int i = tid; i < BK * BC; i += THREADS) {
             const int r = i / BC, j = i - r * BC;
-            vs[i] = (k0 + r < nk) ? vb[(size_t)(k0 + r) * c + c0 + j] : 0.f;
+            vs[i] = (k0 + r < nk && c0 + j < c) ? vb[(size_t)(k0 + r) * c + c0 + j] : 0.f;
         }
         __syncthreads();
 
@@ -206,7 +212,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         if (r >= nq) continue;
         const float inv = 1.f / l[i];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) ob[(size_t)r * c + c0 + tx * 4 + j] = acc[i][j] * inv;
+        for (int j = 0; j < 4; ++j)
+            if (c0 + tx * 4 + j < c) ob[(size_t)r * c + c0 + tx * 4 + j] = acc[i][j] * inv;
         if (lse != nullptr && blockIdx.y == 0 && tx == 0)
             lse[(size_t)b * nq + r] = m[i] + logf(l[i]);
     }
@@ -218,7 +225,7 @@ int launch_f32(const float* q, const float* k, const float* v, float* o, float* 
     cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((nq + BQ - 1) / BQ, c / BC, b);
+    const dim3 grid((nq + BQ - 1) / BQ, (c + BC - 1) / BC, b);
     flash_fwd_f32<<<grid, THREADS, smem, stream>>>(q, k, v, o, lse, nq, nk, d, c);
     return (int)cudaGetLastError();
 }
@@ -227,7 +234,8 @@ int launch_f32(const float* q, const float* k, const float* v, float* o, float* 
 
 constexpr int TC_BQ = 64;        // query rows per block: 4 warps x 16
 constexpr int TC_BK = 64;        // keys per streamed tile
-constexpr int TC_BC = 128;       // output columns (of C) per block
+constexpr int TC_BC = 128;       // output columns (of C) per block, C a multiple of 64
+constexpr int TC_BC_NARROW = 16; // the same for any other C (a multiple of 16)
 constexpr int TC_THREADS = 128;
 constexpr int TC_PAD = 8;        // row padding (bf16): conflict-free fragment reads
 
@@ -269,20 +277,20 @@ __device__ __forceinline__ float quad_sum(float x) {
 //                   {a4,a5} (group, 2tig+8..+9), {a6,a7} (group+8, 2tig+8..+9)
 //   B (16x8, col):  {b0,b1} (k 2tig..+1, n group), {b2,b3} (k 2tig+8..+9, n group)
 //   C (16x8):       {c0,c1} (group, 2tig..+1), {c2,c3} (group+8, 2tig..+1)
-template <int D>
+template <int D, int BCOLS>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                float* __restrict__ lse, int nq, int nk, int d, int c) {
     constexpr int KLD = D + TC_PAD;      // row stride of the K tile
-    constexpr int VLD = TC_BC + TC_PAD;  // row stride of the V tile
+    constexpr int VLD = BCOLS + TC_PAD;  // row stride of the V tile
     __shared__ __align__(16) __nv_bfloat16 ks[TC_BK * KLD];
     __shared__ __align__(16) __nv_bfloat16 vs[TC_BK * VLD];
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31;
     const int group = lane >> 2, tig = lane & 3;
-    const int c0 = blockIdx.y * TC_BC;
+    const int c0 = blockIdx.y * BCOLS;
     const int b = blockIdx.z;
     const int r0 = blockIdx.x * TC_BQ + warp * 16 + group;  // this lane's rows
     const int r1 = r0 + 8;
@@ -306,9 +314,9 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
         qa[kk][3] = q2(r1, col + 8);
     }
 
-    float acc[TC_BC / 8][4];
+    float acc[BCOLS / 8][4];
 #pragma unroll
-    for (int n = 0; n < TC_BC / 8; ++n)
+    for (int n = 0; n < BCOLS / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows r0, r1
@@ -324,8 +332,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
                 val = *reinterpret_cast<const uint4*>(&kb[(size_t)(k0 + r) * d + col]);
             *reinterpret_cast<uint4*>(&ks[r * KLD + col]) = val;
         }
-        for (int i = tid; i < TC_BK * (TC_BC / 8); i += TC_THREADS) {
-            const int r = i / (TC_BC / 8), col = (i % (TC_BC / 8)) * 8;
+        for (int i = tid; i < TC_BK * (BCOLS / 8); i += TC_THREADS) {
+            const int r = i / (BCOLS / 8), col = (i % (BCOLS / 8)) * 8;
             uint4 val = zero;
             if (k0 + r < nk && c0 + col < c)
                 val = *reinterpret_cast<const uint4*>(&vb[(size_t)(k0 + r) * c + c0 + col]);
@@ -379,7 +387,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
         l0 = l0 * alpha0 + ps0;
         l1 = l1 * alpha1 + ps1;
 #pragma unroll
-        for (int n = 0; n < TC_BC / 8; ++n) {
+        for (int n = 0; n < BCOLS / 8; ++n) {
             acc[n][0] *= alpha0;
             acc[n][1] *= alpha0;
             acc[n][2] *= alpha1;
@@ -396,7 +404,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
                 pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
             const int vrow = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
-            for (int np = 0; np < TC_BC / 16; ++np) {
+            for (int np = 0; np < BCOLS / 16; ++np) {
                 uint32_t bv[4];
                 ldmatrix_x4_trans(bv, &vs[vrow * VLD + np * 16 + (lane >> 4) * 8]);
                 mma_bf16(acc[2 * np], pa, bv[0], bv[1]);
@@ -413,7 +421,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     }
     __nv_bfloat16* ob = o + (size_t)b * nq * c;
 #pragma unroll
-    for (int n = 0; n < TC_BC / 8; ++n) {
+    for (int n = 0; n < BCOLS / 8; ++n) {
         const int col = c0 + n * 8 + 2 * tig;
         if (col >= c) continue;
         if (r0 < nq)
@@ -425,13 +433,22 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     }
 }
 
+template <int D, int BCOLS>
+int launch_bf16_dc(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                   __nv_bfloat16* o, float* lse, int b, int nq, int nk, int d, int c,
+                   cudaStream_t stream) {
+    const dim3 grid((nq + TC_BQ - 1) / TC_BQ, (c + BCOLS - 1) / BCOLS, b);
+    flash_fwd_bf16<D, BCOLS><<<grid, TC_THREADS, 0, stream>>>(q, k, v, o, lse, nq, nk, d, c);
+    return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_bf16_d(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                   __nv_bfloat16* o, float* lse, int b, int nq, int nk, int d, int c,
                   cudaStream_t stream) {
-    const dim3 grid((nq + TC_BQ - 1) / TC_BQ, (c + TC_BC - 1) / TC_BC, b);
-    flash_fwd_bf16<D><<<grid, TC_THREADS, 0, stream>>>(q, k, v, o, lse, nq, nk, d, c);
-    return (int)cudaGetLastError();
+    if (c % 64 == 0)
+        return launch_bf16_dc<D, TC_BC>(q, k, v, o, lse, b, nq, nk, d, c, stream);
+    return launch_bf16_dc<D, TC_BC_NARROW>(q, k, v, o, lse, b, nq, nk, d, c, stream);
 }
 
 int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
@@ -449,7 +466,7 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloa
 extern "C" {
 
 // C must be a multiple of this, and d at most the next; the wrapper checks
-// both (and d % 8 == 0 for bf16).
+// both and pads q and k to 16-byte rows (d % 8 == 0 for bf16).
 int sap3d_flash_fwd_block_c() { return C_MULTIPLE; }
 int sap3d_flash_fwd_max_d() { return MAX_D; }
 

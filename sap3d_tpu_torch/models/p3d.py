@@ -222,10 +222,13 @@ class UNetPPDecoder(_Decoder):
                'none' no attention.
     head: 'ds'   dropout, then a single transposed conv straight to 1 channel;
           'full' transposed conv to 16 channels, self-attention with keys and
-                 values pooled by 4 (``x_0_1_sa``; d = 2, C = 16, which the
-                 fused kernel does not take: the chunked plain path), dropout,
-                 a 1x1x1 conv to 1 channel.
-    Output is sigmoid-activated.
+                 values pooled by 4 (``x_0_1_sa``; d = 2, C = 16: the
+                 kernels' narrow instantiation), dropout, a 1x1x1 conv to 1
+                 channel.
+    Output is sigmoid-activated.  ``ring_mesh`` (long-clip mode) sends every
+    self-attention site to ring attention over the mesh
+    (``ops/ring_attention.py``), ``x_4_0`` included; the other layers run
+    unsharded on the input's device.
 
     The JAX package's phase-layout train head (``fast_tconv.py``) is a TPU
     formulation whose summed loss is the same number; the interleaved head
@@ -233,7 +236,8 @@ class UNetPPDecoder(_Decoder):
 
     def __init__(self, skip_features: tuple[int, int, int, int],
                  attention: str = "sa", head: str = "ds", norm_mode: str = "bn",
-                 dtype: torch.dtype = torch.float32, dropout_rate: float = 0.5):
+                 dtype: torch.dtype = torch.float32, dropout_rate: float = 0.5,
+                 ring_mesh=None):
         super().__init__(norm_mode, dtype, dropout_rate)
         if attention not in ("sa", "nl", "none") or head not in ("ds", "full"):
             raise ValueError(f"unknown attention/head {attention!r}/{head!r}")
@@ -244,7 +248,7 @@ class UNetPPDecoder(_Decoder):
 
         def sa(name, ch, **extra):
             if attention != "none":
-                self.add_module(name, SelfAttention3D(ch, **kw, **extra))
+                self.add_module(name, SelfAttention3D(ch, **kw, **extra, ring_mesh=ring_mesh))
                 self.sites.append(name)
 
         def nl(name, ch, sub_sample):
@@ -450,13 +454,16 @@ class P3DSaliency(nn.Module):
     ``[B, T, H, W, 3]``, output ``[B, T, H, W, 1]`` float32, sigmoid or
     linear as the decoder gives it; the input is cast to the compute dtype.
     In train mode ``generator`` draws the dropout masks (the default
-    generator of the device when None)."""
+    generator of the device when None).  ``ring_mesh`` (a
+    ``core/mesh.make_time_mesh`` mesh) reaches the UNet++ decoder's
+    self-attention sites alone; the other decoders ignore it, as in the JAX
+    package.  The parameters are the same with and without it."""
 
     def __init__(self, decoder: str = "unetpp", decoder_kwargs: dict | None = None,
                  norm_mode: str = "bn", backbone_cbam: bool = False,
                  dtype: torch.dtype = torch.float32,
                  stages: tuple = _STAGES, stem_features: int = 64,
-                 dropout_rate: float = 0.5):
+                 dropout_rate: float = 0.5, ring_mesh=None):
         super().__init__()
         if decoder not in _DECODERS:
             raise ValueError(f"unknown decoder {decoder!r}; known: {sorted(_DECODERS)}")
@@ -464,9 +471,10 @@ class P3DSaliency(nn.Module):
         self.encoder = P3DEncoder(norm_mode, dtype, stages, stem_features,
                                   use_cbam=backbone_cbam)
         skips = (stem_features,) + tuple(p * BLOCK_EXPANSION for p, _ in stages)
+        extra = {"ring_mesh": ring_mesh} if ring_mesh is not None and decoder == "unetpp" else {}
         self.decoder = _DECODERS[decoder](skips, **(decoder_kwargs or {}),
                                           norm_mode=norm_mode, dtype=dtype,
-                                          dropout_rate=dropout_rate)
+                                          dropout_rate=dropout_rate, **extra)
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -476,3 +484,7 @@ class P3DSaliency(nn.Module):
 
     def attention_modules(self) -> list[SelfAttention3D]:
         return [m for m in self.modules() if isinstance(m, SelfAttention3D)]
+
+    def ring_sites(self) -> list[SelfAttention3D]:
+        """The self-attention sites that run as rings over ``ring_mesh``."""
+        return [m for m in self.attention_modules() if m.ring_mesh is not None]

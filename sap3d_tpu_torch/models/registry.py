@@ -136,16 +136,19 @@ def resolve_name(name: str) -> str:
 
 def build_model(name: str, dtype: str | torch.dtype | None = None,
                 device: str | torch.device = DEFAULT_DEVICE,
-                seed: int = 0, dropout_rate: float = 0.5) -> P3DSaliency:
+                seed: int = 0, dropout_rate: float = 0.5, ring_mesh=None) -> P3DSaliency:
     """The named model in eval mode on ``device``, its parameters made from
     ``seed`` (Glorot-uniform conv kernels, variance-scaling CBAM kernels,
     zero biases, unit norm scales and BN statistics, ``gamma`` = 0, as the
-    flax init); ``dropout_rate`` applies in
-    train mode."""
+    flax init); ``dropout_rate`` applies in train mode.  ``ring_mesh`` (a
+    ``core/mesh.make_time_mesh`` mesh) turns the UNet++ SA decoders'
+    attention sites into rings (``ops/ring_attention.py``); the parameters
+    are the same with and without it."""
     name = resolve_name(name)
     dev = resolve_device(device)
     cfg = dict(MODEL_REGISTRY[name])
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = P3DSaliency(**cfg, dtype=resolve_dtype(dtype), dropout_rate=dropout_rate)
+        model = P3DSaliency(**cfg, dtype=resolve_dtype(dtype), dropout_rate=dropout_rate,
+                            ring_mesh=ring_mesh)
     return model.to(dev).eval()

@@ -14,8 +14,7 @@ and on nothing of the TPU's VMEM budget:
 
 * eval mode, autograd not recording: a site the forward gate takes goes to
   ``flash_attend`` (kernel B1); any other to ``attend_tokens``, as ``x_4_0``
-  (Nq = 49, below one query block) and the 'full' head's ``x_0_1_sa``
-  (d = 2, C = 16);
+  (Nq = 49, below one query block);
 * train mode, or eval mode while autograd records the tokens (an input-
   gradient pass, fine-tuning under ``eval()``): the site will be
   differentiated, so a site the backward gate takes goes to ``flash_attend``
@@ -24,14 +23,20 @@ and on nothing of the TPU's VMEM budget:
   takes, to ``flash_fwd_chunked_bwd`` (kernel B5); else to
   ``attend_tokens``.  With the registry's widths only the GN decoders'
   C = 1024 site is refused by the backward gate (B3 takes C <= 512).
+* with a time mesh (``ring_mesh``, long-clip mode), every site goes to
+  ``ops/ring_attention.ring_attend_sharded``, whatever its shape, as in the
+  JAX package: its kernel hop is ``flash_attend_tokens_lse`` (B2 forward,
+  B4 backward), its chunked hop plain PyTorch.
 
 ``flash_attend`` is the counterpart of the JAX ``flash_attend_tokens``
 custom_vjp and ``flash_fwd_chunked_bwd`` of the JAX function of that name:
 its forward is kernel B1 (no lse; only q, k, v are saved) and its backward
 recomputes ``attend_tokens`` chunk by chunk and differentiates each chunk,
-so at most one ``[B, 4096, Nk]`` score block is alive.  Each kernel wrapper
-runs its plain version on CPU tensors.  The function is the same on every
-route.  ``ring_mesh`` is not ported yet (ROADMAP A.11).
+so at most one ``[B, 4096, Nk]`` score block is alive.
+``flash_attend_tokens_lse`` is the counterpart of the JAX function of that
+name: (o, lse) from kernel B2, and a backward that is kernel B4 (B3 when
+autograd gives lse no cotangent).  Each kernel wrapper runs its plain
+version on CPU tensors.  The function is the same on every route.
 """
 
 from __future__ import annotations
@@ -134,6 +139,35 @@ def flash_fwd_chunked_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
 flash_fwd_chunked_bwd.launches = 0
 
 
+class _FlashAttentionLse(torch.autograd.Function):
+    """Forward kernel B2 returning (o, lse [B, Nq]) and saving (q, k, v, o,
+    lse); backward kernel B4 on both cotangents, or B3 when lse has none
+    (the JAX ``_fwd_rule_lse`` / ``_bwd_rule_lse``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.set_materialize_grads(False)
+        o, lse = flash_forward_lse(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = torch.zeros_like(o) if do is None else do.to(v.dtype).contiguous()
+        if dlse is not None:
+            dlse = dlse.float().contiguous()
+        return flash_backward(q, k, v, o, lse, do, dlse=dlse)
+
+
+def flash_attend_tokens_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(softmax(q k^T) v, lse [B, Nq] float32), differentiable in both: the
+    ring-attention hop body (kernels B2 and B4; their plain versions on CPU
+    tensors)."""
+    return _FlashAttentionLse.apply(q, k, v)
+
+
 def attention_route(nq: int, nk: int, d: int, c: int, dtype: torch.dtype,
                     train: bool) -> str:
     """Where a site's tokens go: "flash" (``flash_attend``), "hybrid"
@@ -161,18 +195,21 @@ class SelfAttention3D(nn.Module):
     f/g project to max(1, C//8) channels, h to C, each a biased 1x1x1 conv
     (the JAX package's default "separate" projections).  With
     ``use_kernel=False`` every size takes ``attend_tokens`` (the plain path,
-    to compare the kernel path against); otherwise the dispatch rule above
-    applies."""
+    to compare the kernel path against; with a ``ring_mesh``, the ring's
+    chunked hop); otherwise the dispatch rule above applies.  ``ring_mesh``
+    (``core/mesh.make_time_mesh``) holds no parameters: the state dict is
+    the same with and without it."""
 
     def __init__(self, features: int, norm_mode: str = "bn",
                  subsample: bool = False, sub_size: int = 2,
                  dtype: torch.dtype = torch.float32,
-                 use_kernel: bool = True):
+                 use_kernel: bool = True, ring_mesh=None):
         super().__init__()
         inter = max(1, features // 8)
         self.subsample = subsample
         self.sub_size = sub_size
         self.use_kernel = use_kernel
+        self.ring_mesh = ring_mesh
         self.f = Conv3d(features, inter, 1, dtype=dtype)
         self.g = Conv3d(features, inter, 1, dtype=dtype)
         self.h = Conv3d(features, features, 1, dtype=dtype)
@@ -188,9 +225,19 @@ class SelfAttention3D(nn.Module):
         q, k, v = _tokens(g), _tokens(f), _tokens(hv)
         # a site autograd records is differentiated, whatever the mode
         train = self.training or (torch.is_grad_enabled() and q.requires_grad)
-        route = attention_route(q.shape[1], k.shape[1], q.shape[2], v.shape[2], q.dtype,
-                                train) if self.use_kernel else "plain"
-        if route == "flash":
+        if self.ring_mesh is not None:
+            route = "ring"
+        elif self.use_kernel:
+            route = attention_route(q.shape[1], k.shape[1], q.shape[2], v.shape[2], q.dtype,
+                                    train)
+        else:
+            route = "plain"
+        if route == "ring":
+            from sap3d_tpu_torch.ops.ring_attention import ring_attend_sharded
+
+            o = ring_attend_sharded(self.ring_mesh, q, k, v,
+                                    hop_impl=None if self.use_kernel else "xla")
+        elif route == "flash":
             o = flash_attend(q, k, v)
         elif route == "hybrid":
             o = flash_fwd_chunked_bwd(q, k, v)

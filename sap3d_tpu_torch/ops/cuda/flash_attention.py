@@ -19,10 +19,12 @@ for CPU tensors.  On a CUDA tensor it launches the kernel or raises; it
 never falls back.  ``<function>.launches`` counts kernel launches.
 
 ``forward_viable`` is the dispatch gate of the forward: the shapes and types
-the kernel takes (``MAX_D``, ``C_MULTIPLE``, 16-byte bf16 rows), kept here
-as constants so that a host without the library decides as the card does;
-``_library`` checks them against the library's own.  Nothing of the TPU
-kernel's VMEM model carries over.
+the kernel takes (``MAX_D``, ``C_MULTIPLE``), kept here as constants so that
+a host without the library decides as the card does; ``_library`` checks
+them against the library's own.  The kernel reads rows of q and k in whole
+16-byte chunks; the launcher pads a narrower row with zero columns
+(``pad_rows``: d to a multiple of 8 in bf16, of 4 in float32), which add
+nothing to q k^T.  Nothing of the TPU kernel's VMEM model carries over.
 """
 
 from __future__ import annotations
@@ -39,7 +41,9 @@ SOURCE = "flash_attention_fwd"
 BLOCK_Q = 256
 # The kernel's own limits (csrc/flash_attention_fwd.cu: MAX_D, C_MULTIPLE).
 MAX_D = 128
-C_MULTIPLE = 64
+C_MULTIPLE = 16
+# Bytes per chunk in which the kernels read a row of q or k.
+ROW_CHUNK_BYTES = 16
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The limits the kernel is held to against its plain version on the same
@@ -114,9 +118,12 @@ def flash_forward_lse_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     return torch.bmm(beta.to(v.dtype), v), torch.logsumexp(scores, dim=-1)
 
 
-def row_chunks_ok(d: int, dtype: torch.dtype) -> bool:
-    """The bf16 kernels read q and k rows in 16-byte chunks: d % 8 == 0."""
-    return dtype != torch.bfloat16 or d % 8 == 0
+def pad_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` [..., d] with zero columns appended up to whole 16-byte rows
+    (``t`` itself when they are whole already)."""
+    per_chunk = ROW_CHUNK_BYTES // t.element_size()
+    pad = -t.shape[-1] % per_chunk
+    return torch.nn.functional.pad(t, (0, pad)) if pad else t
 
 
 def forward_viable(nq: int, nk: int, d: int, c: int, dtype: torch.dtype) -> bool:
@@ -125,7 +132,7 @@ def forward_viable(nq: int, nk: int, d: int, c: int, dtype: torch.dtype) -> bool
     block of queries (below it the JAX package takes the plain path too) and
     a shape and type the kernel takes."""
     return (nq >= BLOCK_Q and nk >= 1 and dtype in _DTYPE_CODES and 0 < d <= MAX_D
-            and c > 0 and c % C_MULTIPLE == 0 and row_chunks_ok(d, dtype))
+            and c > 0 and c % C_MULTIPLE == 0)
 
 
 def _library() -> ctypes.CDLL:
@@ -167,16 +174,15 @@ def launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d > MAX_D or c % C_MULTIPLE:
         raise ValueError(f"flash kernel takes d <= {MAX_D} and C a multiple of "
                          f"{C_MULTIPLE}; got d={d}, C={c}")
-    if not row_chunks_ok(d, q.dtype):
-        raise ValueError(f"the bf16 kernel reads rows in 16-byte chunks: d={d} "
-                         "must be a multiple of 8")
-    q, k, v = (contiguous_aligned(t) for t in (q, k, v))
+    q, k, v = (contiguous_aligned(t) for t in (pad_rows(q), pad_rows(k), v))
     o = torch.empty((b, nq, c), dtype=v.dtype, device=v.device)
     lse = torch.empty((b, nq), dtype=torch.float32, device=v.device) if want_lse else None
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.sap3d_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                              None if lse is None else lse.data_ptr(), b, nq, nk, d, c,
-                              _DTYPE_CODES[q.dtype], stream)
+    # the launch goes to the current device: make it q's, and take its stream
+    with torch.cuda.device(q.device):
+        err = lib.sap3d_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                  None if lse is None else lse.data_ptr(), b, nq, nk,
+                                  q.shape[2], c, _DTYPE_CODES[q.dtype],
+                                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError("flash_attention_fwd launch failed: "
                            + lib.sap3d_cuda_error_string(err).decode())

@@ -1,5 +1,6 @@
 """The training loop: batches in, train steps, logging, validation,
-checkpoints.  Counterpart of ``sap3d_tpu/train/trainer.py`` on one device.
+checkpoints.  Counterpart of ``sap3d_tpu/train/trainer.py`` on one device
+(in long-clip mode, a time mesh of devices for the attention sites).
 
 * ``fit`` takes host batches (numpy ``(frames, targets)``, e.g. from
   ``data.pipeline.ClipLoader``), copies each to the device and steps; every
@@ -16,10 +17,19 @@ checkpoints.  Counterpart of ``sap3d_tpu/train/trainer.py`` on one device.
   nothing: the JAX trainer groups K batches into one ``lax.scan`` dispatch,
   which in eager PyTorch would be the same K single steps
   (``train/steps.py``).
+* Long-clip mode (``time_shards`` N > 1): a time mesh of N devices
+  (``core/mesh.py``), with the JAX trainer's guards (N no more than the
+  devices; the clip length a multiple of 16 N, so that every shard keeps a
+  frame at pool4).  With ``ring_attention`` the UNet++ SA decoder's sites run
+  as rings over it (``ops/ring_attention.py``); other decoders have no ring
+  sites.  The other layers run unsharded on the trainer's device: the JAX
+  package's GSPMD time-sharding of convolutions is not ported (ROADMAP
+  A.11).  On CUDA the mesh holds the visible cards; on the CPU it names the
+  CPU N times (the counterpart of the JAX tests' virtual devices).
 
 Not ported yet (ROADMAP A.11): a data mesh of more than one device,
-multi-host training, the time-sharded long-clip mode and profiler traces;
-the constructor raises ``NotImplementedError`` for them.
+multi-host training and profiler traces; the constructor raises
+``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import torch
 
 from sap3d_tpu_torch.core.config import Config
 from sap3d_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
+from sap3d_tpu_torch.core.mesh import make_time_mesh
 from sap3d_tpu_torch.eval import metrics
 from sap3d_tpu_torch.models.registry import build_model
 from sap3d_tpu_torch.train.checkpoint import CheckpointManager, try_restore_latest
@@ -57,11 +68,10 @@ class Trainer:
         tc = cfg.train
         if tc.num_devices > 1:
             raise NotImplementedError(f"a data mesh of {tc.num_devices} devices {_A11}")
-        if tc.time_shards > 1:
-            raise NotImplementedError(f"--time-shards {_A11}")
         if tc.profile_dir:
             raise NotImplementedError(f"profile_dir {_A11}")
         self.device = resolve_device(device)
+        self.time_mesh = self._time_mesh(cfg)
         self.cfg = cfg
         self.run = run or run_name(cfg)
         self.model_dir = os.path.join(tc.model_dir, self.run)
@@ -71,8 +81,13 @@ class Trainer:
         if tc.debug_nans:
             torch.autograd.set_detect_anomaly(True)
 
+        ring_mesh = self.time_mesh if tc.ring_attention else None
         self.model = build_model(cfg.model.name, dtype=cfg.model.dtype, device=self.device,
-                                 seed=tc.seed, dropout_rate=cfg.model.dropout)
+                                 seed=tc.seed, dropout_rate=cfg.model.dropout,
+                                 ring_mesh=ring_mesh)
+        if ring_mesh is not None and not self.model.ring_sites():
+            print(f"[time-shards] model '{cfg.model.name}' has no ring-attention sites; its "
+                  "attention runs unsharded")
         self.state = create_train_state(self.model, lr=tc.lr, weight_decay=tc.weight_decay)
         self.train_step = make_train_step(self.state)
         self.eval_step = make_eval_step(self.model)
@@ -84,6 +99,21 @@ class Trainer:
             pre_dir = os.path.join(tc.model_dir, tc.pretrain)
             self.state, ok = try_restore_latest(self.state, pre_dir)
             print(f"pretrain restore from {pre_dir}: {'ok' if ok else 'MISSING'}")
+
+    def _time_mesh(self, cfg: Config):
+        """The long-clip time mesh, or None (``time_shards`` 0 or 1)."""
+        n, t = int(cfg.train.time_shards or 0), cfg.data.video_length
+        if n <= 1:
+            return None
+        cpu = self.device.type == "cpu"
+        available = n if cpu else torch.cuda.device_count()
+        if n > available:
+            raise ValueError(f"--time-shards {n} exceeds the {available} available devices")
+        if t % (16 * n):
+            raise ValueError(f"--videolength {t} must be a multiple of 16x--time-shards {n} "
+                             "(the encoder pools time by 16; every shard needs >= 1 frame "
+                             "at pool4)")
+        return make_time_mesh(n, devices=[self.device] * n if cpu else None)
 
     # -- logging helpers ---------------------------------------------------
 

@@ -116,7 +116,7 @@ _ROUTES = {
     "gn_pool2": ((3136, 3136, 32, 256), ("flash", "flash", "flash")),
     "gn_deconv_pool3": ((3136, 3136, 64, 512), ("flash", "flash", "flash")),
     "gn_deconv_pool4": ((3136, 3136, 128, 1024), ("flash", "plain", "hybrid")),
-    "x_0_1": ((200704, 3136, 2, 16), ("plain", "plain", "plain")),
+    "x_0_1": ((200704, 3136, 2, 16), ("flash", "flash", "flash")),
 }
 
 
@@ -136,8 +136,9 @@ def test_gate_gives_each_site_its_route(site, dtype, monkeypatch):
 
 def test_gate_follows_the_kernels_own_limits():
     """A site the gate gives to a kernel is one its launcher takes: the
-    limits are the kernels' (d <= 128; C a multiple of 64, for the backward
-    up to 512; bf16 rows in 16-byte chunks; float32 or bfloat16 only)."""
+    limits are the kernels' (d <= 128; C a multiple of 16, for the backward
+    up to 128 or a multiple of 64 up to 512; float32 or bfloat16 only; a
+    row of q or k shorter than whole 16-byte chunks is padded)."""
     from sap3d_tpu_torch.ops.cuda import flash_attention as fa
     from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
 
@@ -145,14 +146,34 @@ def test_gate_follows_the_kernels_own_limits():
     assert fa.forward_viable(*ok) and fb.backward_viable(*ok)
     assert not fa.forward_viable(255, 3136, 64, 512, torch.bfloat16)   # under one block
     assert not fa.forward_viable(3136, 3136, 136, 1088, torch.bfloat16)  # d above 128
-    assert not fa.forward_viable(3136, 3136, 6, 48, torch.float32)     # C % 64
-    assert fa.forward_viable(3136, 3136, 12, 64, torch.float32)
-    assert not fa.forward_viable(3136, 3136, 12, 64, torch.bfloat16)   # 24-byte rows
+    assert not fa.forward_viable(3136, 3136, 5, 40, torch.float32)     # C % 16
+    assert fa.forward_viable(3136, 3136, 6, 48, torch.float32)
+    assert fa.forward_viable(3136, 3136, 12, 64, torch.bfloat16)       # padded to 16 columns
     assert not fa.forward_viable(*ok[:4], torch.float16)
     assert fa.forward_viable(3136, 3136, 72, 576, torch.bfloat16)
     assert not fb.backward_viable(3136, 3136, 72, 576, torch.bfloat16)  # C above 512
-    assert (fa.MAX_D, fa.C_MULTIPLE) == (128, 64)
-    assert (fb.MAX_D, fb.MAX_C, fb.C_MULTIPLE) == (128, 512, 64)
+    assert fb.backward_viable(3136, 3136, 16, 128, torch.bfloat16)
+    assert fa.forward_viable(3136, 3136, 18, 144, torch.bfloat16)
+    assert not fb.backward_viable(3136, 3136, 18, 144, torch.bfloat16)  # C > 128, C % 64
+    assert (fa.MAX_D, fa.C_MULTIPLE) == (128, 16)
+    assert (fb.MAX_D, fb.MAX_C, fb.C_MULTIPLE, fb.WIDE_C_MULTIPLE, fb.NARROW_MAX_C) == \
+        (128, 512, 16, 64, 128)
+
+
+@pytest.mark.parametrize("dtype,d,padded", [(torch.bfloat16, 2, 8), (torch.float32, 2, 4),
+                                            (torch.bfloat16, 16, 16), (torch.float32, 6, 8)])
+def test_launchers_pad_rows_to_whole_chunks(dtype, d, padded):
+    """The kernels read rows of q and k in 16-byte chunks: the launchers
+    append zero columns, which leave q k^T as it was."""
+    from sap3d_tpu_torch.ops.cuda import flash_attention as fa
+
+    q, k = torch.randn(2, 5, d).to(dtype), torch.randn(2, 3, d).to(dtype)
+    qp, kp = fa.pad_rows(q), fa.pad_rows(k)
+    assert qp.shape == (2, 5, padded) and kp.shape == (2, 3, padded)
+    assert (qp is q) == (padded == d)
+    assert torch.equal(qp[..., :d], q) and not qp[..., d:].any()
+    torch.testing.assert_close(torch.bmm(qp.float(), kp.float().transpose(1, 2)),
+                               torch.bmm(q.float(), k.float().transpose(1, 2)))
 
 
 def test_model_routes_follow_the_gate(monkeypatch):

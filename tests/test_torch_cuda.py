@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card (marker ``cuda``).
 
-Each test skips on a host without a GPU.  This file imports nothing of JAX,
+Each test skips on a host without a GPU, and those of a time mesh over
+distinct cards on a host with one.  This file imports nothing of JAX,
 so it also runs on the GPU host, which has no JAX; there the repo's
 conftest (which configures JAX) is left out:
 
@@ -58,6 +59,8 @@ def _inputs(b, nq, nk, d, c, dtype, seed=0):
     (1, 700, 500, 32, 256),  # x_2_2 proportions
     (2, 1000, 300, 16, 128), # x_1_3 proportions
     (1, 1, 1, 8, 64),        # one query, one key
+    (2, 700, 300, 2, 16),    # x_0_1_sa's d and C: rows padded, the narrow column tile
+    (1, 300, 100, 6, 48),    # three narrow column tiles
 ])
 def test_kernel_matches_plain(cuda, dtype, b, nq, nk, d, c):
     q, k, v = _inputs(b, nq, nk, d, c, dtype)
@@ -71,13 +74,13 @@ def test_kernel_matches_plain(cuda, dtype, b, nq, nk, d, c):
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
-    q, k, v = _inputs(1, 8, 8, 8, 48, torch.float32)  # C not a multiple of 64
+    q, k, v = _inputs(1, 8, 8, 8, 40, torch.float32)  # C not a multiple of 16
     with pytest.raises(ValueError):
         flash_attend_tokens(q, k, v)
     q, k, v = _inputs(1, 8, 8, 8, 64, torch.float16)
     with pytest.raises(TypeError):
         flash_attend_tokens(q, k, v)
-    q, k, v = _inputs(1, 8, 8, 12, 64, torch.bfloat16)  # bf16 needs d % 8 == 0
+    q, k, v = _inputs(1, 8, 8, 136, 64, torch.bfloat16)  # d above 128
     with pytest.raises(ValueError):
         flash_attend_tokens(q, k, v)
 
@@ -115,6 +118,8 @@ _SHAPES = [
     (2, 1000, 300, 16, 128), # x_1_3 proportions
     (2, 130, 70, 24, 192),   # three 64-column slabs of C
     (1, 1, 3, 8, 64),        # one query (with one key, dq and dk are 0)
+    (2, 700, 300, 2, 16),    # x_0_1_sa's d and C: rows padded, one narrow slab
+    (1, 300, 100, 6, 48),    # three narrow slabs
 ]
 
 
@@ -153,8 +158,39 @@ def test_b3_matches_plain(cuda, dtype, b, nq, nk, d, c):
         assert check["finite"] and check["excess"] <= 1, (name, check)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nq,nk,d,c", _SHAPES)
+def test_b4_matches_plain(cuda, dtype, b, nq, nk, d, c):
+    """Kernel B4 (B3 with the lse cotangent in delta) against its plain
+    version; B3 on the same inputs, the cotangent dropped, fails dq and dk
+    (where there is more than one key to spread them over)."""
+    q, k, v = _inputs(b, nq, nk, d, c, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    do = torch.randn(b, nq, c, device="cuda", generator=gen).to(dtype)
+    dlse = torch.randn(b, nq, device="cuda", generator=gen)
+    o, lse = flash_forward_lse_reference(q, k, v)
+    before = fb.flash_backward.launches, fb.flash_backward.launches_lse
+    got = fb.flash_backward(q, k, v, o, lse, do, dlse=dlse)
+    torch.cuda.synchronize()
+    assert (fb.flash_backward.launches, fb.flash_backward.launches_lse) == \
+        (before[0], before[1] + 1)
+    want = fb.flash_backward_reference(q, k, v, o, lse, do, dlse)
+    dropped = fb.flash_backward(q, k, v, o, lse, do)
+    for name, g, w, f, t in zip(("dq", "dk", "dv"), got, want, dropped, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == dtype, name
+        rows = fb.DV_ROW_TOLERANCE if name == "dv" else None
+        check = agreement(g, w, fb.TOLERANCE, rows)
+        assert check["finite"] and check["excess"] <= 1, (name, check)
+        if name != "dv" and nk > 1:
+            assert agreement(f, w, fb.TOLERANCE)["excess"] > 1, name
+
+
 def test_b3_rejects_what_it_does_not_take(cuda):
     q, k, v = _inputs(1, 8, 8, 8, 1024, torch.float32)  # C above 512
+    o, lse = flash_forward_lse_reference(q, k, v)
+    with pytest.raises(ValueError):
+        fb.flash_backward(q, k, v, o, lse, o)
+    q, k, v = _inputs(1, 8, 8, 8, 144, torch.float32)  # above 128, not a multiple of 64
     o, lse = flash_forward_lse_reference(q, k, v)
     with pytest.raises(ValueError):
         fb.flash_backward(q, k, v, o, lse, o)
@@ -294,3 +330,108 @@ def test_gn_site_routes_on_the_card(cuda, monkeypatch):
     assert run(wide, True) == (0, 0, 0, 1)
     assert run(narrow, True) == (0, 1, 1, 0)
     assert run(wide, False, differentiate=True) == (0, 0, 0, 1)
+
+
+@pytest.fixture
+def cards(cuda):
+    """The visible cards, up to 4: a time mesh over distinct devices."""
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices; run on a host with several cards")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("placement", ["one_card", "across_cards"])
+def test_ring_matches_the_gather_path(request, cuda, placement, dtype):
+    """The kernel hop against ``attend_tokens`` and autograd through it, on
+    4 shards of one card (one B2 launch per hop in the forward; per hop one
+    B2 recompute and one B4 in the backward, no B3) or on one shard per
+    visible card (``make_time_mesh`` over 2 to 4 cards: each card launches
+    its own shard's kernels, and the key/value shards cross cards between
+    hops; the result comes back to cuda:0).  In float32 the values 1e-5
+    and gradients 1e-4 of the largest (the CPU tests' limits), in bf16 the
+    B2 and B3 limits (``TOLERANCE``)."""
+    from sap3d_tpu_torch.core.mesh import make_time_mesh
+    from sap3d_tpu_torch.ops.ring_attention import ring_attend_sharded
+
+    if placement == "one_card":
+        mesh = make_time_mesh(4, devices=[cuda] * 4)
+    else:
+        mesh = make_time_mesh(len(request.getfixturevalue("cards")))
+    n, cards_used = len(mesh.devices), len(set(mesh.devices))
+    q, k, v = (t.requires_grad_() for t in _inputs(2, n * 300, n * 100, 16, 128, dtype))
+    do = torch.randn(2, n * 300, 128, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(1)).to(dtype)
+
+    def counts():
+        return (flash_attend_tokens.launches, flash_forward_lse.launches,
+                fb.flash_backward.launches, fb.flash_backward.launches_lse)
+
+    before = counts()
+    out = ring_attend_sharded(mesh, q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    for dev in set(mesh.devices):
+        torch.cuda.synchronize(dev)
+    # per hop, one launch on each card the mesh uses
+    assert tuple(a - b for a, b in zip(counts(), before)) == \
+        (0, 2 * n * cards_used, 0, n * cards_used)
+    assert out.device == q.device and all(g.device == q.device for g in got)
+    want_out = ta.attend_tokens(q, k, v)
+    want = torch.autograd.grad(want_out, (q, k, v), do)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want_out, rtol=1e-5,
+                                   atol=1e-5 * want_out.abs().max().item())
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * w.abs().max().item())
+    else:
+        assert agreement(out.detach(), want_out.detach())["excess"] <= 1
+        for g, w in zip(got, want):
+            assert agreement(g, w, fb.TOLERANCE)["excess"] <= 1
+
+
+def test_trainer_time_shards_across_cards(cards, tmp_path):
+    """``Trainer`` with ``time_shards=2`` on CUDA: the mesh holds cuda:0 and
+    cuda:1, the micro SA model's x_2_2 and x_1_3 sites (per shard (1024,
+    1024, 32, 256) and (8192, 1024, 16, 128) at 64 px) take the kernel hop,
+    and two float32 steps' losses match the unsharded run's.  The limit is
+    the CPU test's 1e-5 relative: the first loss is a forward (ring against
+    B2 on the whole site, float32 reordering, ~1e-7), the second follows one
+    Adam step from gradients that differ by that reordering."""
+    import json
+    import os
+
+    from sap3d_tpu_torch.core.config import Config, DataConfig, ModelConfig, TrainConfig
+    from sap3d_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(7)
+    batches = [((rng.normal(size=(2, 32, 64, 64, 3)) * 0.3).astype(np.float32),
+                rng.random((2, 32, 64, 64)).astype(np.float32)) for _ in range(2)]
+
+    def run(tag, time_shards):
+        cfg = Config(
+            model=ModelConfig(name="p3d_micro_sa", dtype="float32", dropout=0.0),
+            data=DataConfig(video_length=32, image_size=64),
+            train=TrainConfig(batch_size=2, max_steps=2, time_shards=time_shards,
+                              ring_attention=True, plot_iter=10**6, valid_iter=10**9,
+                              save_iter=10**9, model_dir=str(tmp_path / tag / "model"),
+                              logs_dir=str(tmp_path / tag / "logs")))
+        torch.backends.cudnn.deterministic = True
+        tr = Trainer(cfg, run=tag, device="cuda")
+        before = fb.flash_backward.launches_lse
+        try:
+            tr.fit(iter(batches))
+        finally:
+            tr.close()
+            torch.backends.cudnn.deterministic = False
+        with open(os.path.join(tr.logs_dir, "metrics.jsonl")) as f:
+            losses = [r["loss"] for r in map(json.loads, f) if "loss" in r]
+        return losses, tr.time_mesh, fb.flash_backward.launches_lse - before
+
+    base, no_mesh, base_b4 = run("base", 0)
+    sharded, mesh, b4 = run("tsharded", 2)
+    assert no_mesh is None and base_b4 == 0
+    assert mesh.devices == tuple(cards[:2])
+    assert b4 == 2 * 2 * 2 * 2  # steps x kernel-hop sites x hops x cards (a launch each)
+    assert len(base) == len(sharded) == 2
+    np.testing.assert_allclose(sharded, base, rtol=1e-5)

@@ -216,14 +216,14 @@ def _port_step(gn_pair):
 @pytest.mark.parametrize("hybrid", ["0", "1"], ids=["hybrid_off", "hybrid_on"])
 def test_gn_micro_train_step_matches_jax(gn_pair, monkeypatch, hybrid):
     """With SAP3D_FLASH_HYBRID unset the C = 1024 site trains through
-    ``attend_tokens`` and the C = 512 site through B2 + B3; with "1" the
-    C = 1024 site goes through B5.  The function is the same."""
+    ``attend_tokens`` and the C = 32 and C = 512 sites through B2 + B3; with
+    "1" the C = 1024 site goes through B5.  The function is the same."""
     monkeypatch.setenv("SAP3D_FLASH_HYBRID", hybrid)
     seen = record_routes(monkeypatch)
     tm, loss = _port_step(gn_pair)
     assert not list(tm.buffers())
     routes = {shape[3]: route for shape, route in seen}
-    assert routes == {32: "plain", 512: "flash", 1024: "hybrid" if hybrid == "1" else "plain"}
+    assert routes == {32: "flash", 512: "flash", 1024: "hybrid" if hybrid == "1" else "plain"}
     np.testing.assert_allclose(loss.item(), gn_pair["loss"], rtol=1e-6)
     total, per = _grad_distance({n: p.grad for n, p in tm.named_parameters()},
                                 gn_pair["grads"])
@@ -236,7 +236,8 @@ def test_gn_micro_train_step_matches_jax(gn_pair, monkeypatch, hybrid):
 
 
 def test_gn_micro_train_step_limits_fail_a_backward_without_delta(gn_pair, monkeypatch):
-    """The control: the plain B3 with delta left out, at the C = 512 site."""
+    """The control: the plain B3 with delta left out, at the C = 32 and
+    C = 512 sites."""
     from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
 
     def without_delta(q, k, v, o, lse, do):
@@ -261,8 +262,8 @@ def test_trainer_checkpoint_and_predictor_take_a_gn_model(gn_pair, monkeypatch, 
     the full-width one the registry builds."""
     import copy
 
-    def micro(name, dtype=None, device="cpu", seed=0, dropout_rate=0.5):
-        assert name == "P3D_SA_DECODER"
+    def micro(name, dtype=None, device="cpu", seed=0, dropout_rate=0.5, ring_mesh=None):
+        assert name == "P3D_SA_DECODER" and ring_mesh is None
         model = copy.deepcopy(gn_pair["tm"])
         model.decoder.dropout_rate = dropout_rate
         return model

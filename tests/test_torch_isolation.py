@@ -7,9 +7,9 @@
   without a GPU it exits non-zero and prints no result line.
 * Every entry point's default device is CUDA, and on this GPU-less host it
   raises instead of running on the CPU.
-* On a CUDA tensor each kernel wrapper (B1, B2, B3, B5) launches its kernel
-  or raises: with the library absent it raises and never takes the plain
-  path.
+* On a CUDA tensor each kernel wrapper (B1, B2, B3, B4, B5) launches its
+  kernel or raises: with the library absent it raises and never takes the
+  plain path; a ring over CUDA devices takes the kernel hop.
 """
 
 import ast
@@ -47,6 +47,8 @@ def test_port_imports_nothing_of_jax():
     assert "sap3d_tpu_torch.ops.cuda.flash_attention" in mods
     assert "sap3d_tpu_torch.cli" in mods
     assert "sap3d_tpu_torch.ops.cbam" in mods
+    assert "sap3d_tpu_torch.ops.ring_attention" in mods
+    assert "sap3d_tpu_torch.core.mesh" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -163,7 +165,7 @@ def test_wrapper_raises_on_cuda_tensors_when_the_library_is_absent(monkeypatch):
     assert fa.flash_attend_tokens.launches == before
 
 
-@pytest.mark.parametrize("kernel", ["B2", "B3"])
+@pytest.mark.parametrize("kernel", ["B2", "B3", "B4"])
 def test_training_wrappers_raise_on_cuda_tensors_when_the_library_is_absent(
         monkeypatch, kernel):
     def absent(name):
@@ -176,12 +178,15 @@ def test_training_wrappers_raise_on_cuda_tensors_when_the_library_is_absent(
     q, k, v = (_fake_cuda_tensor(1, 256, 8), _fake_cuda_tensor(1, 64, 8),
                _fake_cuda_tensor(1, 64, 64))
     o, lse = _fake_cuda_tensor(1, 256, 64), _fake_cuda_tensor(1, 256)
-    wrapper, args = ((fa.flash_forward_lse, (q, k, v)) if kernel == "B2"
-                     else (fb.flash_backward, (q, k, v, o, lse, o)))
-    before = wrapper.launches
+    wrapper, args = {"B2": (fa.flash_forward_lse, (q, k, v)),
+                     "B3": (fb.flash_backward, (q, k, v, o, lse, o)),
+                     "B4": (fb.flash_backward, (q, k, v, o, lse, o, lse))}[kernel]
+    before = fa.flash_forward_lse.launches, fb.flash_backward.launches, \
+        fb.flash_backward.launches_lse
     with pytest.raises(OSError, match="cannot open"):
         wrapper(*args)
-    assert wrapper.launches == before
+    assert (fa.flash_forward_lse.launches, fb.flash_backward.launches,
+            fb.flash_backward.launches_lse) == before
 
 
 def test_b5_raises_on_cuda_tensors_when_the_library_is_absent(monkeypatch):
@@ -212,3 +217,24 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         pytest.skip("nvcc is installed at /usr/local/cuda on this host")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build(fa.SOURCE)
+
+
+def test_ring_on_cuda_devices_takes_the_kernel_hop(monkeypatch):
+    """Shards on CUDA devices whose per-shard shape the backward gate takes
+    run the kernel hop (B2 + B4, whose wrappers raise above without the
+    library), never the plain chunked hop."""
+    from sap3d_tpu_torch.core.mesh import make_time_mesh
+    from sap3d_tpu_torch.ops import ring_attention as ra
+
+    def kernel_hop(*args):
+        raise RuntimeError("the kernel hop")
+
+    monkeypatch.delenv("SAP3D_RING_HOP", raising=False)
+    monkeypatch.setitem(ra._HOPS, "xla", (lambda *a: pytest.fail("took the chunked hop"),
+                                          None))
+    monkeypatch.setitem(ra._HOPS, "pallas", (kernel_hop, None))
+    monkeypatch.setattr(torch.Tensor, "to", lambda t, *a, **kw: t)  # no card here
+    mesh = make_time_mesh(2, devices=["cuda:0"] * 2)
+    q, k, v = torch.randn(1, 512, 8), torch.randn(1, 64, 8), torch.randn(1, 64, 64)
+    with pytest.raises(RuntimeError, match="the kernel hop"):
+        ra.ring_attend_sharded(mesh, q, k, v)

@@ -128,8 +128,7 @@ def test_checkpoint_keeps_the_last_k_and_resumes_exactly(tmp_path):
         assert torch.equal(a, b), name
 
 
-@pytest.mark.parametrize("field,value", [("num_devices", 2), ("time_shards", 2),
-                                         ("profile_dir", "trace")])
+@pytest.mark.parametrize("field,value", [("num_devices", 2), ("profile_dir", "trace")])
 def test_trainer_raises_on_paths_not_ported(tmp_path, field, value):
     cfg = Config(model=ModelConfig(name="p3d_micro"),
                  train=TrainConfig(model_dir=str(tmp_path), logs_dir=str(tmp_path),
