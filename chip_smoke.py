@@ -93,7 +93,27 @@ result line):
      B3 on the same inputs, the plain version and the bound;
      (d) ms, 64-frame clips/s and peak memory of the ring and the gather
      train step, order gather, ring, ring, gather;
- 10. a JSON line of per-kernel numbers, then the result line
+ 10. the inference bisect (``sap3d_tpu_torch.scripts.bisect_infer``) and
+     kernel B6 (the lse-free forward that rounds the normalised p, as the
+     TPU kernel does):
+     (a) B6 at the flagship's sites on random inputs, bf16 and fp32,
+     against its plain version under ``flash_attention_nolse.TOLERANCE``,
+     the last key tile dropped failing; B1 on the same inputs read against
+     the same plain version, whose mean error B6's must not exceed in bf16;
+     times of B6, B1, the plain version and SDPA beside B6's bound;
+     (b) the bisect's ``main()`` at full width, batch 16: the current
+     forward (B1), B6 swapped in, the plain path, the x_1_3 projection
+     products fused against separate; launches per forward 3 B1 / 3 B6 /
+     3 B1 after the swap / none on the plain path; every B6 call of one
+     swapped forward held on the model's own tensors;
+ 11. the evaluator without files or cv2: (a) evaluate_prediction_batches
+     with the calibrated flagship in fp32 on in-memory batches (densities
+     and fixations at 1080 x 960 made from the plain path's own maps): B1
+     launches, the five means against the plain path's run, the forward
+     without attention failing the limit, clips scored per second; (b) the
+     batched device metrics on a [32, 1080, 960] stack against the NumPy
+     oracle, frames per second of both;
+ 12. a JSON line of per-kernel numbers, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Needs torch with CUDA and nvcc; imports nothing of JAX or ``sap3d_tpu``.
@@ -483,20 +503,6 @@ def calibrate_and_randomize_bn(torch, model, x, gen):
             h.remove()
 
 
-@contextlib.contextmanager
-def attention_call(replacement):
-    """Route the model's kernel-path attention calls through
-    ``replacement(q, k, v)`` for the duration."""
-    from sap3d_tpu_torch.ops import attention
-
-    orig = attention.flash_attend_tokens
-    attention.flash_attend_tokens = replacement
-    try:
-        yield
-    finally:
-        attention.flash_attend_tokens = orig
-
-
 def phase_forward(torch, fa, model, x):
     """Phase 4: the flagship forward, kernel path against plain path.
 
@@ -510,6 +516,7 @@ def phase_forward(torch, fa, model, x):
     end too; the random network's amplification of rounding noise keeps the
     end-to-end check too coarse to be held to it (PERF.md)."""
     from sap3d_tpu_torch.models.registry import build_model
+    from sap3d_tpu_torch.ops import attention as ta
     from sap3d_tpu_torch.train.steps import make_eval_step
 
     model32 = build_model("unet++", dtype="float32", device=DEVICE)
@@ -546,7 +553,7 @@ def phase_forward(torch, fa, model, x):
         calls.append((q, k, v, o))
         return o
 
-    with attention_call(spy):
+    with ta.forward_kernel(spy):
         kern16 = run(model, True)
     names = {(nq, nk, d, c): name for name, (nq, nk, d, c) in SITES.items()}
     sites = {}
@@ -554,7 +561,7 @@ def phase_forward(torch, fa, model, x):
         name = names[(q.shape[1], k.shape[1], q.shape[2], v.shape[2])]
         sites[name] = check_b1(fa, f"{name} bf16 (in the flagship forward)", q, k, v, o)
     del calls
-    with attention_call(lambda q, k, v: drop_last_key_tile(fa, q, k, v)):
+    with ta.forward_kernel(lambda q, k, v: drop_last_key_tile(fa, q, k, v)):
         fault16 = run(model, True, launches=0)
     gammas = [sa.gamma.detach().clone() for sa in model.attention_modules()]
     with torch.no_grad():
@@ -1111,6 +1118,7 @@ def build_gn_model(torch, dtype: str, gen=None, like=None, dropout_rate: float =
 
 def phase_gn_forward(torch, fa, model, x, card):
     """Phase 7(a): the GN SA decoder's eval forward."""
+    from sap3d_tpu_torch.ops import attention as ta
     from sap3d_tpu_torch.train.steps import make_eval_step
 
     def run(m, use_kernel, want_launches):
@@ -1131,7 +1139,7 @@ def phase_gn_forward(torch, fa, model, x, card):
         calls.append((q, k, v, o))
         return o
 
-    with attention_call(spy), attention_sites(model) as sites:
+    with ta.forward_kernel(spy), attention_sites(model) as sites:
         kern16 = run(model, True, 3)
     for name, (shape, route) in sites.items():
         print(f"[gn] site {name}: (Nq, Nk, d, C) = {shape}, eval route {route}", flush=True)
@@ -1147,7 +1155,7 @@ def phase_gn_forward(torch, fa, model, x, card):
         raise AssertionError(f"B1 ran at {sorted(held)}, not at every GN site")
     del calls
     plain16 = run(model, False, 0)
-    with attention_call(lambda q, k, v: drop_heaviest_key_tile(fa, q, k, v)):
+    with ta.forward_kernel(lambda q, k, v: drop_heaviest_key_tile(fa, q, k, v)):
         fault16 = run(model, True, 0)
     gammas = [sa.gamma.detach().clone() for sa in model.attention_modules()]
     with torch.no_grad():
@@ -2164,6 +2172,264 @@ def ring_op_check(torch, fb, mesh):
     return res
 
 
+# ---- phase 10: the inference bisect and kernel B6 ----------------------------
+
+
+def check_b6(fa, nolse, label, q, k, v, got):
+    """B6's output against its plain version under ``nolse.TOLERANCE``, the
+    last key tile dropped failing; B1 on the same inputs read against the
+    same plain version (the TPU kernel's rounding point) beside it."""
+    import torch
+
+    want = nolse.flash_nolse_reference(q, k, v)
+    keep = KEY_TILE * ((k.shape[1] - 1) // KEY_TILE)
+    res = hold(f"B6 {label}", got, want, nolse.flash_nolse_reference(q, k[:, :keep], v[:, :keep]),
+               _DROPPED, nolse.TOLERANCE)
+    b1 = fa.agreement(fa.flash_attend_tokens(q, k, v), want, nolse.TOLERANCE)
+    print(f"[check] B1 on the same inputs against B6's plain version: max_abs_err "
+          f"{b1['max_abs_err']:.3e}, mean {b1['mean_abs_err']:.3e}, excess under B6's limits "
+          f"{b1['excess']:.3f}", flush=True)
+    res.update(b1_max_abs_err=b1["max_abs_err"], b1_mean_abs_err=b1["mean_abs_err"],
+               b1_excess=b1["excess"])
+    if q.dtype == torch.bfloat16 and not res["mean_abs_err"] <= res["b1_mean_abs_err"]:
+        raise AssertionError(f"B6 {label}: its mean error exceeds B1's; it does not round "
+                             "where the TPU kernel rounds")
+    return res
+
+
+def phase_b6(torch, fa, nolse, flush):
+    """Phase 10(a): B6 at the flagship's sites on random inputs, bf16 and
+    fp32, against its plain version, with B1's errors and time on the same
+    inputs beside it."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for site, (nq, nk, d, c) in SITES.items():
+            q = (torch.randn(BATCH, nq, d, device=DEVICE, generator=gen) * d ** -0.25).to(dtype)
+            k = (torch.randn(BATCH, nk, d, device=DEVICE, generator=gen) * d ** -0.25).to(dtype)
+            v = torch.randn(BATCH, nk, c, device=DEVICE, generator=gen).to(dtype)
+            got = nolse.flash_nolse(q, k, v)
+            row = dict(check_b6(fa, nolse, f"{site} {dname} (random inputs)", q, k, v, got),
+                       site=site, dtype=dname, nq=nq, nk=nk, d=d, c=c)
+            del got
+            heavy = nq * nk * (d + c) > 5e9
+            iters = (3 if dtype == torch.float32 else 5) if heavy else 20
+            row["ms"] = time_ms(lambda: nolse.flash_nolse(q, k, v), iters, flush)
+            row["b1_ms"] = time_ms(lambda: fa.flash_attend_tokens(q, k, v), iters, flush)
+            row["plain_ms"] = time_ms(lambda: nolse.flash_nolse_reference(q, k, v),
+                                      max(iters // 4, 3), flush)
+            row["library_ms"], row["library_backend"] = sdpa_yardstick(q, k, v, flush)
+            # B1's function: the second QK^T pass is this kernel's design,
+            # not work the function needs, and is not counted
+            row["bound_ms"], row["bound_by"] = flash_bound(BATCH, nq, nk, d, c, dname,
+                                                           q.element_size())
+            print(f"[kernel] B6 {site} {dname} B={BATCH} Nq={nq} Nk={nk} d={d} C={c}: kernel "
+                  f"{row['ms']:.4f} ms, B1 on the same inputs {row['b1_ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']} ms "
+                  f"({row['library_backend']}), bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']})", flush=True)
+            rows.append(row)
+            del q, k, v
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_bisect(torch, fa, nolse, ta, card):
+    """Phase 10(b): the bisect (``scripts/bisect_infer.main``) at full width,
+    batch 16: its four readings and each variant's launches per forward
+    (current 3 B1, swapped 3 B6, B1 again after the swap, plain none); then
+    every B6 call of one swapped forward held on the model's own tensors,
+    with B1 on them beside it."""
+    from sap3d_tpu_torch.scripts import bisect_infer
+    from sap3d_tpu_torch.train.steps import make_eval_step
+
+    res = bisect_infer.main(DEVICE, BATCH)
+    n = len(SITES)
+    want = {"current": {"B1": n, "B6": 0}, "nolse": {"B1": 0, "B6": n},
+            "after": {"B1": n, "B6": 0}, "plain": {"B1": 0, "B6": 0}}
+    print(f"[bisect] {card}: launches per forward {res['launches']} (want {want})", flush=True)
+    if res["launches"] != want:
+        raise AssertionError("the bisect's forwards did not launch the kernels of their route")
+    model, frames = bisect_infer.flagship(BATCH, DEVICE)
+    calls = []
+
+    def spy(q, k, v):
+        o = nolse.flash_nolse(q, k, v)
+        calls.append((q, k, v, o))
+        return o
+
+    with ta.forward_kernel(spy):
+        make_eval_step(model)(frames)
+    torch.cuda.synchronize()
+    names = {(nq, nk, d, c): name for name, (nq, nk, d, c) in SITES.items()}
+    held = {}
+    for q, k, v, o in calls:
+        name = names[(q.shape[1], k.shape[1], q.shape[2], v.shape[2])]
+        held[name] = check_b6(fa, nolse, f"{name} bf16 (in the bisect's swapped forward)",
+                              q, k, v, o)
+    if sorted(held) != sorted(SITES):
+        raise AssertionError(f"the swapped forward reached B6 at {sorted(held)}")
+    del calls, model, frames
+    torch.cuda.empty_cache()
+    return dict(res, held=held)
+
+
+# ---- phase 11: the evaluator on the card, without files or cv2 --------------
+
+
+EVAL_BATCHES = 3   # batches of 4 clips through evaluate_prediction_batches
+EVAL_CLIPS = 4
+# The five means of the kernel path against the plain path: |difference| <=
+# EVAL_MEAN_TOL * max(1, |plain value|).  fp32, where B1 and the plain path
+# differ by float32 reordering (~1e-6 of an attention output) and phase 4
+# holds the whole forward to 1e-3; the ground truth is made from the plain
+# path's own maps, so the metrics sit near their best values and a small
+# change of the maps moves them.  The forward without attention must exceed
+# it.
+EVAL_MEAN_TOL = 1e-3
+# The batched device metrics against the NumPy oracle on the same maps: cc,
+# sim and nss to 1e-4 (float32 against float64 sums); AUC-Judd to 1e-3 (its
+# tie-breaking jitter is 1e-4 on the device and 1e-7 on the host, which
+# moves a fixation's rank among 10^6 pixels spread over [0, 1] by about
+# 1e-4 of them); the sampled AUCs (AUC-Borji, shuffled) draw other
+# negatives, 100 repetitions of n_fix draws each: their Monte-Carlo spread
+# per map is about 0.3 / sqrt(100 n_fix), 2.4e-3 at the 150 fixations
+# drawn here, held to 0.02.
+METRIC_TOL = {"cc": 1e-4, "sim": 1e-4, "nss": 1e-4, "auc_judd": 1e-3,
+              "auc_borji": 0.02, "auc_shuffled": 0.02}
+
+
+def eval_truth(torch, maps, gen):
+    """Densities and fixations at (1080, 960) made from ``maps`` [B, T, 112,
+    112] (the plain path's own last frames): the bilinear resize plus noise,
+    and the top 0.02% of each density's pixels as fixations."""
+    from sap3d_tpu_torch.eval.evaluator import resize_bilinear
+
+    b, t = maps.shape[:2]
+    dens = resize_bilinear(maps.reshape(b * t, *maps.shape[2:]), (960, 1080))
+    dens = (dens + 0.05 * torch.rand(dens.shape, device=DEVICE, generator=gen)).clamp(0, 1)
+    cut = torch.quantile(dens[:, ::8, ::8].reshape(b * t, -1), 0.9998, dim=1)
+    fix = (dens >= cut[:, None, None]).float()
+    shape = (b, t, 1080, 960)
+    return dens.reshape(shape).cpu().numpy(), fix.reshape(shape).cpu().numpy()
+
+
+def phase_eval(torch, fa, calibrated, card):
+    """Phase 11: (a) ``evaluate_prediction_batches`` with the calibrated
+    flagship in fp32 (``cli eval``'s dtype) on in-memory batches: B1
+    launches, the five means against the plain path's run and the forward
+    without attention as the control, scored clips per second; (b) the
+    batched device metrics (``score_density``, ``score_fixations``) on a
+    [32, 1080, 960] stack against the NumPy oracle, frames per second of
+    both."""
+    import numpy as np
+
+    from sap3d_tpu_torch.eval import metrics_np as M
+    from sap3d_tpu_torch.eval.evaluator import (
+        evaluate_prediction_batches,
+        score_density,
+        score_fixations,
+    )
+    from sap3d_tpu_torch.models.registry import build_model
+    from sap3d_tpu_torch.train.steps import make_eval_step
+
+    model = build_model("unet++", dtype="float32", device=DEVICE, seed=SEED)
+    model.load_state_dict(calibrated)
+    ev = make_eval_step(model)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+    frames = [torch.randn(EVAL_CLIPS, 16, SIZE, SIZE, 3, device=DEVICE, generator=gen) * 0.3
+              for _ in range(EVAL_BATCHES)]
+    for sa in model.attention_modules():
+        sa.use_kernel = False
+    truth = [eval_truth(torch, ev(f)[:, -1:], gen) for f in frames]
+    batches = [(f.cpu().numpy(), np.broadcast_to(d, (EVAL_CLIPS, 16, *d.shape[2:])),
+                np.broadcast_to(x, (EVAL_CLIPS, 16, *x.shape[2:])))
+               for f, (d, x) in zip(frames, truth)]
+
+    def run(use_kernel):
+        for sa in model.attention_modules():
+            sa.use_kernel = use_kernel
+        fa.flash_attend_tokens.launches = 0
+        t0 = time.perf_counter()
+        out = evaluate_prediction_batches(
+            batches, lambda f: ev(torch.from_numpy(f).to(DEVICE)),
+            rng=np.random.default_rng(SEED))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, fa.flash_attend_tokens.launches
+
+    plain, plain_s, plain_launches = run(False)
+    kern, kern_s, launches = run(True)
+    gammas = [sa.gamma.detach().clone() for sa in model.attention_modules()]
+    with torch.no_grad():
+        for sa in model.attention_modules():
+            sa.gamma.zero_()
+    no_attn, _, _ = run(False)
+    del model, ev, frames, batches, truth
+    torch.cuda.empty_cache()
+    names = ("cc", "sim", "nss", "auc_judd", "auc_borji")
+    diff = {m: abs(kern[m] - plain[m]) / max(1.0, abs(plain[m])) for m in names}
+    control = {m: abs(no_attn[m] - plain[m]) / max(1.0, abs(plain[m])) for m in names}
+    n_clips = EVAL_BATCHES * EVAL_CLIPS
+    print(f"[eval] evaluate_prediction_batches, flagship fp32, {n_clips} clips scored at "
+          f"(1080, 960): kernel path {kern}, plain path {plain}; B1 launches {launches} "
+          f"(plain path {plain_launches}); scaled |kernel - plain| "
+          f"{ {m: f'{v:.2e}' for m, v in diff.items()} } (limit {EVAL_MEAN_TOL:g}); no "
+          f"attention {no_attn}; {n_clips / kern_s:.2f} clips/s scored (plain path "
+          f"{n_clips / plain_s:.2f})  [{card}]", flush=True)
+    if launches != EVAL_BATCHES * len(SITES) or plain_launches:
+        raise AssertionError(f"evaluate_prediction_batches launched B1 {launches} times")
+    if not all(v <= EVAL_MEAN_TOL for v in diff.values()):
+        raise AssertionError("evaluation: the kernel path's means disagree with the plain path's")
+    if not max(control.values()) > EVAL_MEAN_TOL:
+        raise AssertionError("evaluation: the limit passes the forward without attention; void")
+    res = dict(kernel=kern, plain=plain, no_attention=no_attn, scaled_diff=diff,
+               clips_per_s=n_clips / kern_s, plain_clips_per_s=n_clips / plain_s,
+               b1_launches=launches)
+
+    # (b) the batched device metrics against the NumPy oracle
+    rng = np.random.default_rng(SEED + 15)
+    n, h, w = 32, 1080, 960
+    lo = rng.random((n, h // 40, w // 40))
+    pred = torch.nn.functional.interpolate(torch.from_numpy(lo)[:, None], size=(h, w),
+                                           mode="bilinear")[:, 0].numpy().astype(np.float32)
+    pred += 0.01 * rng.random(pred.shape, dtype=np.float32)
+    gt = np.clip(pred + 0.3 * rng.random(pred.shape, dtype=np.float32), 0, None)
+    fix = np.zeros((n, h, w), np.float32)
+    for i in range(n):
+        fix[i].flat[rng.choice(h * w, 150, replace=False)] = 1.0
+    other = np.zeros((h, w), bool)
+    other.flat[rng.choice(h * w, 3000, replace=False)] = True
+    pool = np.flatnonzero(other)
+    dev_metrics = ("cc", "sim", "nss", "auc_judd", "auc_borji", "auc_shuffled")
+    generator = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = score_density(dev_metrics, pred, gt, DEVICE)
+    got.update(score_fixations(dev_metrics, pred, fix, np.ones(n, bool), generator, rng,
+                               DEVICE, pool=pool))
+    dev_s = time.perf_counter() - t0
+    host_rng = np.random.default_rng(SEED + 17)
+    t0 = time.perf_counter()
+    want = {"cc": [M.CC(p, g) for p, g in zip(pred, gt)],
+            "sim": [M.SIM(p, g) for p, g in zip(pred, gt)],
+            "nss": [M.NSS(p, f) for p, f in zip(pred, fix)],
+            "auc_judd": [M.AUC_Judd(p, f, rng=host_rng) for p, f in zip(pred, fix)],
+            "auc_borji": [M.AUC_Borji(p, f, rng=host_rng) for p, f in zip(pred, fix)],
+            "auc_shuffled": [M.AUC_shuffled(p, f, other, rng=host_rng)
+                             for p, f in zip(pred, fix)]}
+    host_s = time.perf_counter() - t0
+    err = {m: float(np.max(np.abs(np.asarray(got[m]) - np.asarray(want[m])))) for m in want}
+    print(f"[eval] device metrics on [{n}, {h}, {w}] against the NumPy oracle, largest "
+          f"|difference| per metric {({m: f'{v:.2e}' for m, v in err.items()})} (limits "
+          f"{METRIC_TOL}); {n / dev_s:.2f} frames/s on the device, {n / host_s:.2f} frames/s "
+          f"on the host  [{card}]", flush=True)
+    if not all(err[m] <= METRIC_TOL[m] for m in want):
+        raise AssertionError("the device metrics disagree with the NumPy oracle")
+    return dict(res, metric_err=err, device_frames_per_s=n / dev_s,
+                host_frames_per_s=n / host_s)
+
+
 def kernel_entry(name, source, replaces, launches, rows, extra_err=(), more_rows=()):
     """One kernel's entry of the JSON line: times summed over the bf16 site
     calls of ``rows`` (one batch-16 step of the model whose sites they are);
@@ -2211,14 +2477,15 @@ def main(argv=None) -> int:
         from sap3d_tpu_torch.ops.cuda import build
         from sap3d_tpu_torch.ops.cuda import flash_attention as fa
         from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
+        from sap3d_tpu_torch.ops.cuda import flash_attention_nolse as nolse
 
         def timed_build(source):
             t0 = time.perf_counter()
             return build.build(source), time.perf_counter() - t0
 
-        with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-            builds = dict(zip((fa.SOURCE, fb.SOURCE), pool.map(timed_build,
-                                                              (fa.SOURCE, fb.SOURCE))))
+        sources = (fa.SOURCE, fb.SOURCE, nolse.SOURCE)
+        with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
+            builds = dict(zip(sources, pool.map(timed_build, sources)))
         for source, (log, secs) in builds.items():
             print(f"[build] {source}.cu built in {secs:.2f} s", flush=True)
             for line in log.splitlines():
@@ -2275,26 +2542,35 @@ def main(argv=None) -> int:
 
         ring, b4_rows = phase_ring(torch, fa, fb, calibrated, flush, card,
                                    profile=bool(args.json_out))
+        torch.cuda.empty_cache()
+        b6_rows = phase_b6(torch, fa, nolse, flush)
+        bisect = phase_bisect(torch, fa, nolse, ta, card)
+        evaluation = phase_eval(torch, fa, calibrated, card)
         del calibrated
         torch.cuda.empty_cache()
 
         fit, gn_fit = train["fit"]["launches"], gn_train["fit"]["launches"]
         ring_fwd, ring_step = ring["launches"]["forward"], ring["launches"]["step"]
+        b6_launches = bisect["launches"]["nolse"]["B6"]
         # every main path launched every kernel the gate gives it
         if not (launches > 0 and fit["B2"] > 0 and fit["B3"] > 0 and gn_launches > 0
                 and gn_fit["B2"] > 0 and gn_fit["B3"] > 0 and gn_fit["B5"] > 0
-                and ring_fwd["B2"] > 0 and ring_step["B2"] > 0 and ring_step["B4"] > 0):
+                and ring_fwd["B2"] > 0 and ring_step["B2"] > 0 and ring_step["B4"] > 0
+                and b6_launches > 0 and evaluation["b1_launches"] > 0):
             raise AssertionError("a kernel of a main path was never launched")
         print(f"[launches] flagship predictor B1 {launches}; flagship Trainer.fit {fit}; GN "
               f"predictor B1 {gn_launches}; GN Trainer.fit (hybrid on) {gn_fit}; ring eval "
-              f"forward {ring_fwd}; ring train step {ring_step}", flush=True)
+              f"forward {ring_fwd}; ring train step {ring_step}; the bisect's swapped forward "
+              f"{bisect['launches']['nolse']}; evaluate_prediction_batches B1 "
+              f"{evaluation['b1_launches']}", flush=True)
         in_step = {k: [r["max_abs_err"] for r in train[f"{k}_in_step"].values()]
                    for k in ("b2", "b3")}
         kernels = [
             # B1 to B3: times at the flagship's sites, as in earlier runs;
             # launches summed over the flagship's and the GN model's main paths
             kernel_entry("flash_attention_fwd", fa.SOURCE,
-                         "sap3d_tpu/ops/pallas/flash_attention.py:141", launches + gn_launches,
+                         "sap3d_tpu/ops/pallas/flash_attention.py:141",
+                         launches + gn_launches + evaluation["b1_launches"],
                          rows["B1"], [r["max_abs_err"] for r in gn_fwd["held"].values()],
                          gn_rows["B1"] + zoo_rows["B1"]),
             kernel_entry("flash_attention_fwd_lse", fa.SOURCE,
@@ -2314,6 +2590,10 @@ def main(argv=None) -> int:
                          "sap3d_tpu/ops/pallas/flash_attention.py:373", gn_fit["B5"], b5_rows,
                          [r["max_abs_err"] for by_site in gn_train["b5_in_step"].values()
                           for r in by_site.values()]),
+            # B6: the bisect's swapped forward, times at the flagship's sites
+            kernel_entry("flash_attention_nolse", nolse.SOURCE, "scripts/bisect_infer.py:96",
+                         b6_launches, b6_rows,
+                         [r["max_abs_err"] for r in bisect["held"].values()]),
         ]
         if args.json_out:
             import os
@@ -2325,6 +2605,7 @@ def main(argv=None) -> int:
                                gn_profile=gn_prof, gn_kernel_rows=gn_rows, b5_rows=b5_rows,
                                b5_memory=b5_memory, gn_train=gn_train, zoo=zoo,
                                zoo_kernel_rows=zoo_rows, ring=ring, b4_rows=b4_rows,
+                               b6_rows=b6_rows, bisect=bisect, evaluation=evaluation,
                                kernels=kernels), f, indent=1)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {

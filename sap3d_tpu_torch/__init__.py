@@ -12,14 +12,13 @@ Public functions keep the JAX package's layouts: model input
 tokens ``[B, N, C]``.  Every entry point takes ``device`` (default
 ``"cuda"``) and raises where no GPU is present instead of running on the CPU.
 
-Ported so far, for the flagship (``p3d_unetplusplus_ds``): the inference
-path (layers, self-attention with the hand-written CUDA flash forward
-``csrc/flash_attention_fwd.cu``, the P3D encoder and UNet++ decoder, the
-flax weight bridge, the eval forward, the sliding-window predictor, ``cli
-predict``) and the train path (train-mode BN and dropout, the loss, Adam,
-the train step with the flash forward's lse output and the hand-written
-flash backward ``csrc/flash_attention_bwd.cu``, checkpoints, validation
-metrics, the trainer, ``cli train``).  ``ROADMAP.md`` queues the rest.
+Ported so far: every model of the registry, the inference path (the
+sliding-window predictor, ``cli predict``), the train path (``cli train``,
+long clips with ring attention), the evaluation path (``cli eval``,
+``eval-dirs``, ``make-video``, ``inspect``, ``plot``) and the inference
+bisect (``scripts/bisect_infer.py``), with a hand-written CUDA kernel in
+``csrc/`` for every Pallas kernel of the JAX package.  ``ROADMAP.md``
+queues the rest.
 """
 
 __version__ = "0.1.0"

@@ -1,25 +1,38 @@
-"""Command-line interface of the port: ``train`` and ``predict``.
+"""Command-line interface of the port.
 
-Counterpart of ``sap3d_tpu/cli.py``'s subcommands of the same names, with
-the same flags plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
-path).
+Counterpart of ``sap3d_tpu/cli.py``: ``train``, ``eval``, ``predict``,
+``make-video``, ``eval-dirs``, ``inspect`` and ``plot``, with the same flags
+plus ``--device`` (default ``cuda``; ``cpu`` runs the plain path) where a
+subcommand runs on a device.
 
     python -m sap3d_tpu_torch.cli train --structure unet++ \\
         --frames <frames root> --densities <density root> [--device cuda]
     python -m sap3d_tpu_torch.cli predict --checkpoint <run or weights.pt> \\
         --data <frames root> --out <output root> [--device cuda]
+    python -m sap3d_tpu_torch.cli eval --checkpoint <run or glob> \\
+        --frames <root> --densities <root> --fixations <root> [--device cuda]
+    python -m sap3d_tpu_torch.cli eval-dirs --pred <maps root> \\
+        --density <root> [--fixation <root>] [--device cuda|cpu|host]
+    python -m sap3d_tpu_torch.cli make-video --results <maps root> --out <dir>
+    python -m sap3d_tpu_torch.cli inspect <run dir or weights.pt> [filter]
+    python -m sap3d_tpu_torch.cli plot <logs dir>
 
 ``train`` writes ``./model/<run>/ckpt_<step>.pt`` checkpoints and
-``./logs/<run>/metrics.jsonl``.  ``predict --checkpoint`` takes such a
-run directory (its latest checkpoint) or a weights file (``torch.save`` of
-the model's ``state_dict``; ``interop/flax_bridge.py`` makes one from flax
-weights), under ``--model-dir`` or as a path.  ``train --time-shards N``
-(long clips, ``--videolength`` a multiple of 16 N) runs the UNet++ SA
-decoder's attention as rings over N devices: the visible cards (N more than
-them raises, as in the JAX package), or the CPU N times with ``--device
-cpu``.  Data-parallel and multi-host training (``--devices`` > 1,
-``--distributed``) port with ROADMAP A.11, ``--tf-checkpoint`` with A.12,
-and the other subcommands with A.8.
+``./logs/<run>/metrics.jsonl``.  ``predict --checkpoint`` and ``eval
+--checkpoint`` take such a run directory (its latest checkpoint) or a
+weights file (``torch.save`` of the model's ``state_dict``;
+``interop/flax_bridge.py`` makes one from flax weights), under
+``--model-dir`` or as a path; ``eval`` also takes globs under
+``--model-dir`` and scores every match, each with the structure its run
+name starts with.  ``eval-dirs --device`` is a torch device on which the
+batched metrics run (``cuda``, the default, or ``cpu``), or ``host`` for the
+per-frame NumPy metrics on a thread pool (the JAX package's default, its
+``--device false``).  ``train --time-shards N`` (long clips,
+``--videolength`` a multiple of 16 N) runs the UNet++ SA decoder's
+attention as rings over N devices: the visible cards (N more than them
+raises, as in the JAX package), or the CPU N times with ``--device cpu``.
+Multi-device and multi-host runs (``--devices`` > 1, ``--distributed``)
+port with ROADMAP A.11, ``--tf-checkpoint`` and ``--bn-quirk`` with A.12.
 """
 
 from __future__ import annotations
@@ -27,6 +40,8 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+import numpy as np
 
 from sap3d_tpu_torch.core.config import (
     DATASET_ROOTS,
@@ -229,7 +244,203 @@ def cmd_predict(argv) -> int:
     return 0
 
 
-COMMANDS = {"train": cmd_train, "predict": cmd_predict}
+def infer_structure_from_run_name(run_name: str) -> str | None:
+    """The model name or alias that prefixes a run directory's name
+    (``<model>_<batch>_<lr>_<info>_<date>``, train/trainer.py), the longest
+    that does; None when none does (reference test.py:129-136)."""
+    from sap3d_tpu_torch.models.registry import MODEL_REGISTRY, STRUCTURE_ALIASES
+
+    base = os.path.basename(run_name.rstrip("/"))
+    for cand in sorted(list(MODEL_REGISTRY) + list(STRUCTURE_ALIASES), key=len, reverse=True):
+        if base == cand or base.startswith(cand + "_"):
+            return cand
+    return None
+
+
+def cmd_eval(argv) -> int:
+    p = argparse.ArgumentParser(prog="sap3d_tpu_torch eval")
+    # float32 default: the reference evaluates in fp32 (TF1 default dtype)
+    _add_common_model_flags(p, dtype="float32")
+    _add_data_flags(p)
+    p.add_argument("--batch", type=int, default=2)
+    p.add_argument("--checkpoint", type=str, nargs="+", default=[],
+                   help="run directory name(s) or weights files under --model-dir; globs "
+                        "allowed: every match is evaluated in one invocation")
+    p.add_argument("--model-dir", type=str, default="./model")
+    p.add_argument("--tf-checkpoint", type=str, default=None,
+                   help="not ported yet (ROADMAP A.12, TF interop)")
+    p.add_argument("--bn-quirk", action="store_true",
+                   help="not ported yet (ROADMAP A.12, bn_reference_quirk)")
+    p.add_argument("--devices", type=int, default=-1,
+                   help="data-parallel devices; more than one is not ported yet "
+                        "(ROADMAP A.11)")
+    args = p.parse_args(argv)
+    if args.tf_checkpoint or args.bn_quirk:
+        raise NotImplementedError("--tf-checkpoint and --bn-quirk are not ported yet "
+                                  "(ROADMAP A.12, TF interop and bn_reference_quirk)")
+    if args.devices > 1:
+        raise NotImplementedError("--devices > 1 is not ported yet (ROADMAP A.11, "
+                                  "multi-device evaluation)")
+    if not args.checkpoint:
+        p.error("--checkpoint is required")
+
+    import glob as globlib
+
+    import torch
+
+    from sap3d_tpu_torch.core.device import resolve_device
+    from sap3d_tpu_torch.data.indexer import ClipIndex
+    from sap3d_tpu_torch.data.pipeline import ClipLoader
+    from sap3d_tpu_torch.eval.evaluator import evaluate_prediction_batches
+    from sap3d_tpu_torch.models.registry import build_model
+    from sap3d_tpu_torch.train.steps import make_eval_step
+
+    device = resolve_device(args.device)
+    data = _data_config(args)
+    if not data.fixation_dir:
+        # NSS and the AUCs are scored against fixation maps (reference
+        # test.py:173-175); the named DATASET_ROOTS carry densities only
+        p.error("eval needs fixation maps: pass --fixations <dir> "
+                "(NSS/AUC-Judd/AUC-Borji are fixation-based)")
+    idx = ClipIndex(data.frame_dirs, data.density_dirs, fixation_dir=data.fixation_dir,
+                    video_length=data.video_length).setup(
+        overlap=data.overlap, training_props=0.0, skip_head=data.skip_head)
+    print(idx.summary())
+
+    runs: list[str] = []
+    for pat in args.checkpoint:
+        matches = sorted(globlib.glob(os.path.join(args.model_dir, pat)))
+        runs += [os.path.basename(m) for m in matches] if matches else [pat]
+    runs = list(dict.fromkeys(runs))
+
+    results: dict[str, dict] = {}
+    failures = 0
+    for run in runs:
+        structure = infer_structure_from_run_name(run) or args.structure
+        model = build_model(structure, dtype=args.dtype, device=device)
+        try:
+            weights = _model_weights(run, args.model_dir, device)
+        except FileNotFoundError as e:
+            print(f"no checkpoint found under {args.model_dir}/{run}: {e}", file=sys.stderr)
+            failures += 1
+            continue
+        model.load_state_dict(weights, strict=True)
+        ev = make_eval_step(model)
+        loader = ClipLoader(idx.valid_clips(with_fixations=True), args.batch,
+                            size=data.image_size, num_threads=data.num_threads,
+                            shuffle=False, test_mode=True)
+        with loader:
+            result = evaluate_prediction_batches(
+                iter(loader), lambda f: ev(torch.from_numpy(f).to(device)))
+        results[run] = result
+        print(
+            f"Model: {run} (structure {structure})\n"
+            f" All: {result['n']}, Metrics: CC: {result['cc']:.3f}  "
+            f"SIM: {result['sim']:.3f}   NSS: {result['nss']:.3f}  "
+            f"AUC_Judd: {result['auc_judd']:.3f}   "
+            f"AUC_Borji: {result['auc_borji']:.3f}"
+            f"   (compute dtype: {args.dtype})"
+        )
+    if len(results) > 1:
+        print("\nmodel                                    CC     SIM    NSS    "
+              "AUC_J  AUC_B")
+        for run, r in results.items():
+            print(f"{run:<40} {r['cc']:.3f}  {r['sim']:.3f}  {r['nss']:.3f}  "
+                  f"{r['auc_judd']:.3f}  {r['auc_borji']:.3f}")
+    return 0 if results and not failures else 1
+
+
+def cmd_make_video(argv) -> int:
+    p = argparse.ArgumentParser(prog="sap3d_tpu_torch make-video")
+    p.add_argument("--results", type=str, required=True)
+    p.add_argument("--out", type=str, required=True)
+    p.add_argument("--fps", type=float, default=25.0)
+    args = p.parse_args(argv)
+    from sap3d_tpu_torch.infer.video import export_all_videos
+
+    n = export_all_videos(args.results, args.out, fps=args.fps)
+    print(f"wrote {n} videos")
+    return 0
+
+
+def cmd_eval_dirs(argv) -> int:
+    p = argparse.ArgumentParser(prog="sap3d_tpu_torch eval-dirs")
+    p.add_argument("--dsname", type=str, default=None,
+                   help="named dataset (core/config.py EVAL_DATASETS); resolves "
+                        "--pred/--density/--fixation under $SAP3D_DATA_ROOT")
+    p.add_argument("--pred", type=str, default=None)
+    p.add_argument("--density", type=str, default=None)
+    p.add_argument("--fixation", type=str, default=None)
+    p.add_argument("--metrics", type=str, nargs="*", default=["cc", "sim", "auc_judd"],
+                   choices=["cc", "sim", "kldiv", "nss", "auc_judd", "auc_borji",
+                            "auc_shuffled"],
+                   help="auc_shuffled/auc_borji/nss need --fixation")
+    p.add_argument("--workers", type=int, default=None,
+                   help="videos scored concurrently with --device host "
+                        "(default: min(8, cpus))")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device of the batched metrics (default cuda; cpu), or "
+                        "'host' for the per-frame NumPy metrics")
+    args = p.parse_args(argv)
+    if args.dsname:
+        from sap3d_tpu_torch.core.config import EVAL_DATASETS
+
+        if args.dsname not in EVAL_DATASETS:
+            print(f"unknown dsname {args.dsname!r}; known: {sorted(EVAL_DATASETS)}",
+                  file=sys.stderr)
+            return 2
+        ds = EVAL_DATASETS[args.dsname]
+        args.pred = args.pred or ds["saliency_dir"]
+        args.density = args.density or ds["density_dir"]
+        args.fixation = args.fixation or ds["fixation_dir"]
+    if not args.pred or not args.density:
+        print("--pred and --density are required (or use --dsname)", file=sys.stderr)
+        return 2
+    from sap3d_tpu_torch.eval.evaluator import evaluate_saliency_dirs
+
+    results = evaluate_saliency_dirs(args.pred, args.density, args.fixation,
+                                     tuple(args.metrics), workers=args.workers,
+                                     device=args.device)
+    for video, scores in results.items():
+        line = "  ".join(f"{k}: {v:.4f}" for k, v in scores.items())
+        print(f"{video}: {line}")
+    if results:
+        for m in args.metrics:
+            vals = [s[m] for s in results.values() if m in s]
+            if vals:
+                print(f"MEAN {m}: {float(np.nanmean(vals)):.4f}")
+    return 0
+
+
+def cmd_inspect(argv) -> int:
+    """Checkpoint variable inspector (reference utils/test_model.py parity)."""
+    from sap3d_tpu_torch.train.inspect_ckpt import main as inspect_main
+
+    return inspect_main(argv)
+
+
+def cmd_plot(argv) -> int:
+    """Draw the 4-pane training-curve figure again from a run's logs."""
+    p = argparse.ArgumentParser(prog="sap3d_tpu_torch plot")
+    p.add_argument("logs_dir", type=str)
+    p.add_argument("--out", type=str, default=None)
+    args = p.parse_args(argv)
+    from sap3d_tpu_torch.train.plotting import plot_curves
+
+    out = plot_curves(args.logs_dir, args.out)
+    print(out or "matplotlib unavailable")
+    return 0
+
+
+COMMANDS = {
+    "train": cmd_train,
+    "eval": cmd_eval,
+    "predict": cmd_predict,
+    "make-video": cmd_make_video,
+    "eval-dirs": cmd_eval_dirs,
+    "inspect": cmd_inspect,
+    "plot": cmd_plot,
+}
 
 
 def main(argv=None) -> int:

@@ -1,16 +1,17 @@
 """Configuration dataclasses of the trainer.
 
 A copy of ``sap3d_tpu/core/config.py`` (``Config``, ``ModelConfig``,
-``DataConfig``, ``TrainConfig``, ``DATASET_ROOTS``, ``parse_bool``); the port
-imports nothing of ``sap3d_tpu``.  The fields are the JAX package's, so a
-configuration reads the same in both.  Fields of paths that are not ported
-yet (``num_devices`` > 1, ``profile_dir``) are kept, and
-``train/trainer.py`` raises on them.
+``DataConfig``, ``TrainConfig``, ``DATASET_ROOTS``, ``EVAL_DATASETS``,
+``parse_bool``); the port imports nothing of ``sap3d_tpu``.  The fields are
+the JAX package's, so a configuration reads the same in both.  Fields of
+paths that are not ported yet (``num_devices`` > 1, ``profile_dir``) are
+kept, and ``train/trainer.py`` raises on them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass, field
 from typing import Any, Sequence
 
@@ -136,4 +137,67 @@ DATASET_ROOTS: dict[str, dict[str, Any]] = {
         "density_dirs": ["/data/svsd/train/left_density_svsd/", "/data/DHF1K/density/"],
         "fixation_dir": None,
     },
+}
+
+
+def _eval_ds(density: str, saliency: str, fixation: str) -> dict[str, str]:
+    return {"density_dir": density, "saliency_dir": saliency,
+            "fixation_dir": fixation}
+
+
+# Batch-scoring dataset map: the 9 --dsname values of the reference's MATLAB
+# evaluator orchestrator (reference utils/matlab_metric/eval_vid.py:22-61),
+# each resolving to (density, produced-saliency, fixation) roots.  The
+# reference hard-codes absolute /data paths; here the common root is
+# overridable via $SAP3D_DATA_ROOT (default "/data") so the map is config,
+# not code.
+_DR = os.environ.get("SAP3D_DATA_ROOT", "/data")
+EVAL_DATASETS: dict[str, dict[str, str]] = {
+    "videoset": _eval_ds(
+        f"{_DR}/SaliencyDataset/Video/VideoSet/ImageSet/Seperate/density/sigma32",
+        f"{_DR}/SaliencyDataset/Video/VideoSet/Results/saliency_map_1128",
+        f"{_DR}/SaliencyDataset/Video/VideoSet/ImageSet/Seperate/fixation",
+    ),
+    "msu": _eval_ds(
+        f"{_DR}/SaliencyDataset/Video/MSU/density/sigma32",
+        f"{_DR}/SaliencyDataset/Video/MSU/saliency_map_1128",
+        f"{_DR}/SaliencyDataset/Video/MSU/fixation/image",
+    ),
+    "ledov": _eval_ds(
+        f"{_DR}/SaliencyDataset/Video/LEDOV/density/sigma32",
+        f"{_DR}/SaliencyDataset/Video/LEDOV/saliency_map_1128",
+        f"{_DR}/SaliencyDataset/Video/LEDOV/fixation",
+    ),
+    "hollywood": _eval_ds(
+        f"{_DR}/SaliencyDataset/Video/ActionInTheEye/Hollywood2/density",
+        f"{_DR}/SaliencyDataset/Video/ActionInTheEye/Hollywood2/saliency_map_1128",
+        f"{_DR}/SaliencyDataset/Video/ActionInTheEye/Hollywood2/fixation",
+    ),
+    "dhf1k": _eval_ds(
+        f"{_DR}/SaliencyDataset/Video/DHF1K/density",
+        f"{_DR}/SaliencyDataset/Video/DHF1K/saliency_map_1128",
+        f"{_DR}/SaliencyDataset/Video/DHF1K/fixation",
+    ),
+    "diem": _eval_ds(
+        f"{_DR}/SaliencyDataset/Video/DIEM/density/sigma32",
+        f"{_DR}/SaliencyDataset/Video/DIEM/saliency_map_1128",
+        f"{_DR}/SaliencyDataset/Video/DIEM/fixation_map/image",
+    ),
+    "gazecom": _eval_ds(
+        f"{_DR}/SaliencyDataset/Video/GAZECOM/density/sigma32",
+        f"{_DR}/SaliencyDataset/Video/GAZECOM/saliency_map_1128",
+        f"{_DR}/SaliencyDataset/Video/GAZECOM/fixations",
+    ),
+    "coutort2": _eval_ds(
+        f"{_DR}/SaliencyDataset/Video/Coutort2/density/sigma32",
+        f"{_DR}/SaliencyDataset/Video/Coutort2/saliency_map_1128",
+        f"{_DR}/SaliencyDataset/Video/Coutort2/fixations",
+    ),
+    # the reference's svsd entry points its density at a DHF1K dir — kept
+    # verbatim for parity (reference eval_vid.py:58-61)
+    "svsd": _eval_ds(
+        f"{_DR}/lishikai/svsd/DHF1K/density",
+        f"{_DR}/SaliencyDataset/Video/DHF1K/saliency_map_1128",
+        f"{_DR}/SaliencyDataset/Video/DHF1K/fixation",
+    ),
 }

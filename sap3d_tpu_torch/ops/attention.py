@@ -41,6 +41,7 @@ version on CPU tensors.  The function is the same on every route.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -92,6 +93,22 @@ def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Ten
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v)
     return flash_attend_tokens(q, k, v)
+
+
+@contextlib.contextmanager
+def forward_kernel(replacement):
+    """Route the calls that ``flash_attend`` gives B1 (the eval-mode sites
+    the forward gate takes) through ``replacement(q, k, v)`` for the
+    duration, and B1 again afterwards: the inference bisect's swap of kernel
+    B6 (``ops/cuda/flash_attention_nolse.flash_nolse``) for B1, as the JAX
+    script monkeypatches ``flash_attend_tokens``."""
+    global flash_attend_tokens
+    orig = flash_attend_tokens
+    flash_attend_tokens = replacement
+    try:
+        yield
+    finally:
+        flash_attend_tokens = orig
 
 
 class _FlashForwardChunkedBackward(torch.autograd.Function):

@@ -21,6 +21,7 @@ import torch
 from sap3d_tpu_torch.ops import attention as ta
 from sap3d_tpu_torch.ops.attention import SelfAttention3D
 from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
+from sap3d_tpu_torch.ops.cuda import flash_attention_nolse as nolse
 from sap3d_tpu_torch.ops.cuda.flash_attention import (
     LSE_TOLERANCE,
     agreement,
@@ -183,6 +184,48 @@ def test_b4_matches_plain(cuda, dtype, b, nq, nk, d, c):
         assert check["finite"] and check["excess"] <= 1, (name, check)
         if name != "dv" and nk > 1:
             assert agreement(f, w, fb.TOLERANCE)["excess"] > 1, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nq,nk,d,c", _SHAPES + [(2, 700, 500, 128, 1024)])
+def test_b6_matches_plain(cuda, dtype, b, nq, nk, d, c):
+    """B6 against its plain version under its own limits; in bf16 its mean
+    error is no larger than B1's on the same inputs (B6 rounds the
+    normalised p, as the TPU kernel does)."""
+    q, k, v = _inputs(b, nq, nk, d, c, dtype)
+    before = nolse.flash_nolse.launches
+    got = nolse.flash_nolse(q, k, v)
+    torch.cuda.synchronize()
+    assert nolse.flash_nolse.launches == before + 1
+    assert got.shape == (b, nq, c) and got.dtype == dtype
+    want = nolse.flash_nolse_reference(q, k, v)
+    check = agreement(got, want, nolse.TOLERANCE)
+    assert check["finite"] and check["excess"] <= 1
+    if dtype == torch.bfloat16:
+        b1 = agreement(flash_attend_tokens(q, k, v), want, nolse.TOLERANCE)
+        assert check["mean_abs_err"] <= b1["mean_abs_err"]
+
+
+def test_b6_swapped_into_the_micro_forward(cuda):
+    """The bisect's swap on the card: every site B1 takes launches B6
+    instead, and B1 again afterwards."""
+    from sap3d_tpu_torch.models.registry import build_model
+    from sap3d_tpu_torch.train.steps import make_eval_step
+
+    model = build_model("p3d_micro_sa", dtype="bfloat16", device=cuda)
+    for sa in model.attention_modules():
+        with torch.no_grad():
+            sa.gamma.fill_(1.0)
+    x = torch.randn(2, 16, 64, 64, 3, device=cuda) * 0.3
+    fwd = make_eval_step(model)
+    b1, b6 = flash_attend_tokens.launches, nolse.flash_nolse.launches
+    current = fwd(x)
+    assert (flash_attend_tokens.launches - b1, nolse.flash_nolse.launches - b6) == (2, 0)
+    with ta.forward_kernel(nolse.flash_nolse):
+        swapped = fwd(x)
+    assert (flash_attend_tokens.launches - b1, nolse.flash_nolse.launches - b6) == (2, 2)
+    assert ta.flash_attend_tokens is flash_attend_tokens
+    assert (swapped - current).abs().mean().item() <= 1e-2
 
 
 def test_b3_rejects_what_it_does_not_take(cuda):

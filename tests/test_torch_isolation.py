@@ -7,7 +7,7 @@
   without a GPU it exits non-zero and prints no result line.
 * Every entry point's default device is CUDA, and on this GPU-less host it
   raises instead of running on the CPU.
-* On a CUDA tensor each kernel wrapper (B1, B2, B3, B4, B5) launches its
+* On a CUDA tensor each kernel wrapper (B1 to B6) launches its
   kernel or raises: with the library absent it raises and never takes the
   plain path; a ring over CUDA devices takes the kernel hop.
 """
@@ -26,6 +26,7 @@ import sap3d_tpu_torch
 from sap3d_tpu_torch.ops.cuda import build
 from sap3d_tpu_torch.ops.cuda import flash_attention as fa
 from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
+from sap3d_tpu_torch.ops.cuda import flash_attention_nolse as nolse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sap3d_tpu")
@@ -49,6 +50,9 @@ def test_port_imports_nothing_of_jax():
     assert "sap3d_tpu_torch.ops.cbam" in mods
     assert "sap3d_tpu_torch.ops.ring_attention" in mods
     assert "sap3d_tpu_torch.core.mesh" in mods
+    for new in ("ops.cuda.flash_attention_nolse", "scripts.bisect_infer", "eval.metrics_np",
+                "eval.evaluator", "infer.video", "train.inspect_ckpt"):
+        assert f"sap3d_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -129,6 +133,24 @@ def test_default_device_raises_without_a_gpu(tmp_path):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_eval_and_bisect_entry_points_default_to_cuda_and_raise_without_a_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU; the default device is valid here")
+    from sap3d_tpu_torch import cli
+    from sap3d_tpu_torch.eval.evaluator import evaluate_saliency_dirs
+    from sap3d_tpu_torch.scripts import bisect_infer
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        bisect_infer.main(batch=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        evaluate_saliency_dirs(str(tmp_path), str(tmp_path))
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["eval", "--checkpoint", "r", "--frames", str(tmp_path), "--densities",
+                  str(tmp_path), "--fixations", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["eval-dirs", "--pred", str(tmp_path), "--density", str(tmp_path)])
+
+
 def test_train_entry_points_default_to_cuda_and_raise_without_a_gpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU; the default device is valid here")
@@ -163,6 +185,21 @@ def test_wrapper_raises_on_cuda_tensors_when_the_library_is_absent(monkeypatch):
     with pytest.raises(OSError, match="cannot open"):
         fa.flash_attend_tokens(q, k, v)
     assert fa.flash_attend_tokens.launches == before
+
+
+def test_b6_raises_on_cuda_tensors_when_the_library_is_absent(monkeypatch):
+    def absent(name):
+        raise OSError(f"lib{name}.so: cannot open shared object file")
+
+    monkeypatch.setattr(build, "load", absent)
+    monkeypatch.setattr(nolse, "flash_nolse_reference",
+                        lambda *a: pytest.fail("fell back to the plain version"))
+    q, k, v = (_fake_cuda_tensor(1, 256, 8), _fake_cuda_tensor(1, 64, 8),
+               _fake_cuda_tensor(1, 64, 64))
+    before = nolse.flash_nolse.launches
+    with pytest.raises(OSError, match="cannot open"):
+        nolse.flash_nolse(q, k, v)
+    assert nolse.flash_nolse.launches == before
 
 
 @pytest.mark.parametrize("kernel", ["B2", "B3", "B4"])
