@@ -7,7 +7,8 @@ Phases (each prints its lines; any failure exits non-zero and prints no
 result line):
   1. card: name and power limit from nvidia-smi;
   2. kernel build: the port's CUDA sources, one nvcc each, started
-     together; build time and ptxas register/spill report;
+     together; build time and ptxas register/spill report (per kernel
+     instantiation for the backward, whose bf16 kernels must not spill);
   3. kernels against their plain versions at the three flagship
      self-attention sites (batch 16), bf16 and fp32, on one set of random
      inputs: the flash forward without lse (B1), with lse (B2: o and lse)
@@ -17,7 +18,10 @@ result line):
      also held row by row; delta left out for dq and dk); with the
      kernel's, the plain version's and a PyTorch yardstick's times
      (scaled_dot_product_attention, forward or autograd backward; the port
-     never calls it) beside the bound;
+     never calls it) beside the bound; for B3 (and B4 in phase 9) also the
+     largest excess, the query split S, the CTAs per launch and, in bf16,
+     the dkdq kernel's CTAs resident per SM, from the card's occupancy
+     calculator, held to the split rule's model (``resident_ctas``);
   4. full-width forward: the flagship (p3d_unetplusplus_ds) on
      [16, 16, 112, 112, 3] bf16, seeded weights, gamma nonzero and random BN
      statistics; each B1 call held against its plain version on the tensors
@@ -384,7 +388,8 @@ def check_b3(fb, label, q, k, v, o, lse, do, got):
     rows = (None, None, fb.DV_ROW_TOLERANCE)
     res = {out: hold(f"B3 {out} {label}", g, w, f, n, fb.TOLERANCE, r)
            for out, g, w, f, n, r in zip(("dq", "dk", "dv"), got, want, faults, names, rows)}
-    return dict(res, max_abs_err=max(r["max_abs_err"] for r in res.values()))
+    return dict(res, max_abs_err=max(r["max_abs_err"] for r in res.values()),
+                excess=max(r["excess"] for r in res.values()))
 
 
 def phase_kernels(torch, fa, fb, flush, sites=None, batch=BATCH):
@@ -449,6 +454,7 @@ def phase_kernels(torch, fa, fb, flush, sites=None, batch=BATCH):
             row["library_ms"], row["library_backend"] = sdpa_yardstick(q, k, v, flush, do=do)
             row["bound_ms"], row["bound_by"] = flash_bwd_bound(batch, nq, nk, d, c, dname,
                                                                q.element_size())
+            row.update(backward_grid(fb, batch, nq, nk, d, c, dtype))
             rows["B3"].append(row)
             report_kernel_rows(rows, ran, site, dname, nq, nk, d, c, batch)
             del q, k, v, do, o, lse
@@ -456,15 +462,39 @@ def phase_kernels(torch, fa, fb, flush, sites=None, batch=BATCH):
     return rows
 
 
+def backward_grid(fb, batch, nq, nk, d, c, dtype) -> dict:
+    """The backward's query split and CTAs per launch at a shape; in bf16
+    also the dkdq kernel's CTAs resident per SM, from the card's occupancy
+    calculator, which must be what the split rule assumed, and its dynamic
+    shared memory."""
+    import torch
+
+    grid = fb.launch_grid(batch, nq, nk, d, c, dtype)
+    if dtype == torch.bfloat16:
+        grid["resident"] = fb.card_resident_ctas(d, c)
+        grid["smem_bytes"] = fb.dkdq_smem_bytes(d, c)
+        if grid["resident"] != fb.resident_ctas(d, c):
+            raise AssertionError(f"d={d} C={c}: {grid['resident']} dkdq CTAs per SM on the "
+                                 f"card, the split rule assumes {fb.resident_ctas(d, c)}")
+    return grid
+
+
+def describe_grid(r) -> str:
+    more = f", {r['resident']} resident per SM, {r['smem_bytes']} B of shared memory each" \
+        if "resident" in r else ""
+    return f"query split S={r['split']}, {r['ctas']} CTAs per launch{more}"
+
+
 def report_kernel_rows(rows, names, site, dname, nq, nk, d, c, batch=BATCH):
     for name in names:
         r = rows[name][-1]
         lib = r["library_ms"]
+        grid = f", excess {r['excess']:.3f}, {describe_grid(r)}" if name == "B3" else ""
         print(f"[kernel] {name} {site} {dname} B={batch} Nq={nq} Nk={nk} d={d} C={c}: "
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"sdpa {lib if lib is None else f'{lib:.4f}'} ms "
               f"({r['library_backend']}), bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})", flush=True)
+              f"({r['bound_by']}){grid}", flush=True)
 
 
 def calibrate_and_randomize_bn(torch, model, x, gen):
@@ -630,7 +660,7 @@ def phase_throughput(torch, model, x, card):
 
 # Device kernels by name -> layer of PERF.md, first match wins.
 _KERNEL_GROUPS = (
-    ("B3/B4 flash_attention_bwd", ("flash_bwd", "bwd_delta", "round_to_bf16")),
+    ("B3/B4 flash_attention_bwd", ("flash_bwd", "bwd_delta", "bwd_row_stats", "round_to_bf16")),
     ("B1/B2 flash_attention_fwd", ("flash_fwd",)),
     ("group norm", ("groupnorm", "group_norm", "rowwisemoments", "computeinternalgradients",
                     "computefusedparams", "gammabeta")),
@@ -1733,7 +1763,8 @@ def check_b4(fb, label, q, k, v, o, lse, do, dlse, got):
     rows = (None, None, fb.DV_ROW_TOLERANCE)
     res = {out: hold(f"B4 {out} {label}", g, w, f, n, fb.TOLERANCE, r)
            for out, g, w, f, n, r in zip(("dq", "dk", "dv"), got, want, faults, names, rows)}
-    return dict(res, max_abs_err=max(r["max_abs_err"] for r in res.values()))
+    return dict(res, max_abs_err=max(r["max_abs_err"] for r in res.values()),
+                excess=max(r["excess"] for r in res.values()))
 
 
 def b4_bound(b, nq, nk, d, c, dtype_name: str, itemsize: int):
@@ -1773,10 +1804,12 @@ def phase_b4(torch, fa, fb, flush):
             row["library_ms"], row["library_backend"] = None, "none"
             row["bound_ms"], row["bound_by"] = b4_bound(BATCH, nq, nk, d, c, dname,
                                                         q.element_size())
+            row.update(backward_grid(fb, BATCH, nq, nk, d, c, dtype))
             print(f"[kernel] B4 {site} {dname} B={BATCH} Nq={nq} Nk={nk} d={d} C={c}: kernel "
                   f"{row['ms']:.4f} ms, B3 on the same inputs {row['b3_ms']:.4f} ms, plain "
                   f"{row['plain_ms']:.4f} ms, no library call returns an lse gradient, bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}), excess {row['excess']:.3f}, "
+                  f"{describe_grid(row)}", flush=True)
             rows.append(row)
             del q, k, v, do, dlse, o, lse
             torch.cuda.empty_cache()
@@ -2430,6 +2463,34 @@ def phase_eval(torch, fa, calibrated, card):
                 host_frames_per_s=n / host_s)
 
 
+def report_bwd_build(log: str) -> None:
+    """Phase 2 for csrc/flash_attention_bwd.cu: registers, spills and static
+    shared memory of each kernel from ptxas (the wgmma kernels' shared
+    memory is dynamic: phase 3 prints it per shape); a bf16 kernel that
+    spills fails the run, since the gate reaches every instantiation."""
+    import re
+
+    kernel, spill = None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(flash_bwd_dkdq|flash_bwd_dv|flash_bwd_f32|bwd_row_stats|bwd_delta"
+                          r"|round_to_bf16)(I((?:Li\d+E)+))?", line)
+            args = re.findall(r"Li(\d+)E", m.group(2) or "") if m else []
+            kernel = (m.group(1) + (f"<{','.join(args)}>" if args else "")) if m else "?"
+        elif kernel and "spill stores" in line:
+            spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        elif kernel and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            smem = re.search(r"(\d+) bytes smem", line)
+            print(f"[build]   {kernel}: {regs} registers, {spill} bytes spilled, "
+                  f"{smem.group(1) if smem else 0} bytes of static shared memory", flush=True)
+            if spill and kernel.startswith(("flash_bwd_dkdq", "flash_bwd_dv")):
+                raise AssertionError(f"{kernel} spills {spill} bytes")
+            kernel, spill = None, None
+        elif "C7515" in line or "C7508" in line:
+            print(f"[build]   {line.strip()[:200]}", flush=True)
+
+
 def kernel_entry(name, source, replaces, launches, rows, extra_err=(), more_rows=()):
     """One kernel's entry of the JSON line: times summed over the bf16 site
     calls of ``rows`` (one batch-16 step of the model whose sites they are);
@@ -2488,6 +2549,9 @@ def main(argv=None) -> int:
             builds = dict(zip(sources, pool.map(timed_build, sources)))
         for source, (log, secs) in builds.items():
             print(f"[build] {source}.cu built in {secs:.2f} s", flush=True)
+            if source == fb.SOURCE:
+                report_bwd_build(log)
+                continue
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"[build]   {line.strip()}", flush=True)

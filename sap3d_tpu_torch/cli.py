@@ -12,7 +12,7 @@ subcommand runs on a device.
     python -m sap3d_tpu_torch.cli eval --checkpoint <run or glob> \\
         --frames <root> --densities <root> --fixations <root> [--device cuda]
     python -m sap3d_tpu_torch.cli eval-dirs --pred <maps root> \\
-        --density <root> [--fixation <root>] [--device cuda|cpu|host]
+        --density <root> [--fixation <root>] [--device cuda|cpu|host|true|false]
     python -m sap3d_tpu_torch.cli make-video --results <maps root> --out <dir>
     python -m sap3d_tpu_torch.cli inspect <run dir or weights.pt> [filter]
     python -m sap3d_tpu_torch.cli plot <logs dir>
@@ -25,9 +25,10 @@ weights file (``torch.save`` of the model's ``state_dict``;
 ``--model-dir`` or as a path; ``eval`` also takes globs under
 ``--model-dir`` and scores every match, each with the structure its run
 name starts with.  ``eval-dirs --device`` is a torch device on which the
-batched metrics run (``cuda``, the default, or ``cpu``), or ``host`` for the
-per-frame NumPy metrics on a thread pool (the JAX package's default, its
-``--device false``).  ``train --time-shards N`` (long clips,
+batched metrics run (``cuda``, the default, ``cuda:N`` or ``cpu``), or
+``host`` for the per-frame NumPy metrics on a thread pool; it also takes the
+JAX package's bool spellings (``parse_bool``): true means ``cuda``, false
+``host`` (the JAX package's default).  ``train --time-shards N`` (long clips,
 ``--videolength`` a multiple of 16 N) runs the UNet++ SA decoder's
 attention as rings over N devices: the visible cards (N more than them
 raises, as in the JAX package), or the CPU N times with ``--device cpu``.
@@ -363,6 +364,17 @@ def cmd_make_video(argv) -> int:
     return 0
 
 
+def eval_dirs_device(value: str) -> str:
+    """``eval-dirs --device``: a bool spelling of the JAX command line
+    (``parse_bool``) names the card (``cuda``) when true and the per-frame
+    NumPy path (``host``) when false; any other value is kept as given (a
+    torch device, or ``host``)."""
+    try:
+        return "cuda" if parse_bool(value) else "host"
+    except ValueError:
+        return value
+
+
 def cmd_eval_dirs(argv) -> int:
     p = argparse.ArgumentParser(prog="sap3d_tpu_torch eval-dirs")
     p.add_argument("--dsname", type=str, default=None,
@@ -378,9 +390,10 @@ def cmd_eval_dirs(argv) -> int:
     p.add_argument("--workers", type=int, default=None,
                    help="videos scored concurrently with --device host "
                         "(default: min(8, cpus))")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="torch device of the batched metrics (default cuda; cpu), or "
-                        "'host' for the per-frame NumPy metrics")
+    p.add_argument("--device", type=eval_dirs_device, default="cuda",
+                   help="torch device of the batched metrics (default cuda; cuda:N, "
+                        "cpu), or 'host' for the per-frame NumPy metrics; true and "
+                        "false (the JAX command line's bool) mean cuda and host")
     args = p.parse_args(argv)
     if args.dsname:
         from sap3d_tpu_torch.core.config import EVAL_DATASETS

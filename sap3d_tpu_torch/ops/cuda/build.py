@@ -3,8 +3,9 @@
 Each ``sap3d_tpu_torch/csrc/<name>.cu`` has a plain C interface.  It is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the repo root
 (git-ignored) at first use, and loaded with ``ctypes``.  The library's file
-name carries a hash of its source and flags, so an edited source is rebuilt
-and an unchanged one is reused.  Nothing is built at import time: the CPU
+name carries a hash of its source, of every shared header ``csrc/*.cuh``
+and of the flags, so an edited source or header is rebuilt and an
+unchanged one is reused.  Nothing is built at import time: the CPU
 tests import every module on a host without ``nvcc``.
 
 Missing ``nvcc`` or a failed build raises; there is no fallback.
@@ -13,6 +14,7 @@ Missing ``nvcc`` or a failed build raises; there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -44,8 +46,10 @@ def find_nvcc() -> str:
 
 def _library_path(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src, *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     return src, os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

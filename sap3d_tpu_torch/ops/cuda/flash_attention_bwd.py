@@ -22,13 +22,16 @@ tensor it launches the kernel or raises; it never falls back.
 ``flash_backward.launches_lse`` B4's.
 
 ``backward_viable`` is the dispatch gate of a differentiated site: B2's gate
-and the backward kernel's further limits on C (``backward_c_ok``); the
-constants are checked against the library's own when it loads.
+and the backward kernel's further limits, on C (``backward_c_ok``) and, in
+bf16, on d (``BF16_MAX_D``); the constants are checked against the
+library's own when it loads.  ``query_split`` is the rule by which the
+bf16 kernel splits a key tile's query range over several CTAs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -43,11 +46,26 @@ from sap3d_tpu_torch.ops.cuda.flash_attention import (
 
 SOURCE = "flash_attention_bwd"
 # The kernel's own limits beyond the forward's (csrc/flash_attention_bwd.cu):
-# C up to MAX_C; above NARROW_MAX_C (8 warps of 16 columns) a multiple of
-# WIDE_C_MULTIPLE.
+# C up to MAX_C; above NARROW_MAX_C a multiple of WIDE_C_MULTIPLE; in bf16,
+# d up to BF16_MAX_D (the wgmma kernels' widest q and k tile; every
+# backward-gated site of the registry has d = C/8 <= 64).
 MAX_C = 512
 WIDE_C_MULTIPLE = 64
 NARROW_MAX_C = 128
+BF16_MAX_D = 64
+# Keys per CTA and queries per tile of the bf16 kernels.
+BLOCK = 64
+# What ``query_split`` knows of the card: an H100's SMs, shared memory per
+# SM, the runtime's reserve per CTA, and the most splits it makes.
+SM_COUNT = 132
+SMEM_PER_SM = 233472
+CTA_SMEM_RESERVE = 1024
+MAX_SPLIT = 16
+SETUP_TILES = 2
+# C at which the bf16 dkdq kernel also computes dv (128 only where d <=
+# 16: wider, its registers would spill); elsewhere a second kernel does, by
+# column slab.
+FUSED_DV_C = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Query rows per step of the plain version: bounds its [B, rows, Nk] float32
 # temporaries (about 0.8 GB each at the flagship's x_1_3 site, batch 16).
@@ -58,8 +76,9 @@ _REFERENCE_CHUNK = 4096
 # ``flash_attention.agreement`` reads them.
 # bf16: both sides round p and ds to bf16 before their products and round
 # each output to bf16 once.  Their float32 values differ by the order of
-# the sums (the kernel's dq sum across key tiles is made of atomic adds in
-# an order that changes from run to run) and by __expf, ~1e-6 relative, which
+# the sums (the kernel's dq sum across key tiles, and dk and dv across
+# query splits, are atomic bulk adds in an order that changes from run to
+# run) and by the kernel's exponential (ex2.approx), ~1e-6 relative, which
 # flips the bf16 rounding of a few p and ds: a relative 2^-8 on those terms,
 # averaging out over the sums.  The output rounding adds up to one ulp
 # (2^-8 relative) per element.  ds = p (dp - delta) cancels, so an element
@@ -119,31 +138,113 @@ def backward_c_ok(c: int) -> bool:
             and (c <= NARROW_MAX_C or c % WIDE_C_MULTIPLE == 0))
 
 
+def backward_max_d(dtype: torch.dtype) -> int:
+    """The widest d the backward kernel takes in ``dtype``."""
+    return BF16_MAX_D if dtype == torch.bfloat16 else MAX_D
+
+
 def backward_viable(nq: int, nk: int, d: int, c: int, dtype: torch.dtype) -> bool:
     """True where the dispatch gives a site that autograd differentiates to
-    B2 + B3 (and a ring hop to B2 + B4): the forward's gate, and a C the
-    backward kernel takes."""
-    return forward_viable(nq, nk, d, c, dtype) and backward_c_ok(c)
+    B2 + B3 (and a ring hop to B2 + B4): the forward's gate, a C the
+    backward kernel takes, and a d it takes in ``dtype``."""
+    return (forward_viable(nq, nk, d, c, dtype) and backward_c_ok(c)
+            and d <= backward_max_d(dtype))
+
+
+def _align1k(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+def _d_tile(d: int) -> int:
+    return 16 if d <= 16 else 32 if d <= 32 else 64
+
+
+def dv_in_dkdq(d: int, c: int) -> bool:
+    """Whether the bf16 dkdq kernel also computes dv at (d, C)."""
+    return c in FUSED_DV_C and (c < 128 or _d_tile(d) == 16)
+
+
+def dv_slab(c: int) -> int:
+    """Columns of C per CTA of the bf16 dv kernel (where dv is its)."""
+    return 256 if c % 256 == 0 else 64 if c % 64 == 0 else 16
+
+
+def dkdq_smem_bytes(d: int, c: int) -> int:
+    """Dynamic shared memory of one bf16 dkdq CTA (``smem_layout`` in the
+    source: K, V and two stages of q tile, do tile or ds and dq, lse and
+    delta, the mbarriers, 1 KB of alignment)."""
+    d_tile = _d_tile(d)
+    tile = max(BLOCK * c * 2, BLOCK * BLOCK * 2 + BLOCK * d_tile * 4)
+    stage = _align1k(BLOCK * d_tile * 2) + _align1k(tile) + _align1k(BLOCK * 8)
+    return _align1k(BLOCK * d_tile * 2) + _align1k(BLOCK * c * 2) + 2 * stage + 8 * 5 + 1024
+
+
+def resident_ctas(d: int, c: int) -> int:
+    """CTAs of the bf16 dkdq kernel resident on one SM at (d, C): the fewer
+    of what its launch bounds leave room for in registers (4 at d <= 16
+    without dv or with C <= 32, else 3) and what fits in shared memory.
+    ``chip_smoke.py`` and the card tests hold it to the card's occupancy
+    calculator."""
+    by_regs = 4 if _d_tile(d) == 16 and (c <= 32 or not dv_in_dkdq(d, c)) else 3
+    return max(1, min(by_regs, SMEM_PER_SM // (dkdq_smem_bytes(d, c) + CTA_SMEM_RESERVE)))
+
+
+def launch_grid(b: int, nq: int, nk: int, d: int, c: int, dtype: torch.dtype) -> dict:
+    """The backward kernels' CTAs per call: the query split and the CTAs of
+    each kernel (float32: one kernel of 32 keys per CTA)."""
+    if dtype == torch.float32:
+        return dict(split=1, ctas=b * math.ceil(nk / 32))
+    split = query_split(b, nq, nk, d, c)
+    dkdq = b * math.ceil(nk / BLOCK) * split
+    dv = 0 if dv_in_dkdq(d, c) else dkdq * (c // dv_slab(c))
+    return dict(split=split, ctas=dkdq + dv, dkdq_ctas=dkdq, dv_ctas=dv)
+
+
+def query_split(b: int, nq: int, nk: int, d: int, c: int) -> int:
+    """S, the query ranges each key tile's work is split into (bf16
+    kernels).  ``b * ceil(nk / BLOCK)`` CTAs per range run in waves of
+    ``SM_COUNT * resident_ctas(d, c)``; a CTA walks ceil(tiles / S) query
+    tiles after a set-up (K and V loads, the dk and dv epilogue) worth
+    about ``SETUP_TILES`` tiles.  S is the smallest of 1 .. min(tiles,
+    MAX_SPLIT) that minimises waves x (tiles per range + SETUP_TILES).  The
+    ranges' dk and dv are summed in float32 scratch."""
+    ctas, tiles = b * math.ceil(nk / BLOCK), math.ceil(nq / BLOCK)
+    slots = SM_COUNT * resident_ctas(d, c)
+    best, best_cost = 1, math.inf
+    for split in range(1, min(tiles, MAX_SPLIT) + 1):
+        cost = math.ceil(ctas * split / slots) * (math.ceil(tiles / split) + SETUP_TILES)
+        if cost < best_cost:
+            best, best_cost = split, cost
+    return best
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if not getattr(lib, "_sap3d_typed", False):
-        lib.sap3d_flash_bwd.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 \
+        lib.sap3d_flash_bwd.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         lib.sap3d_flash_bwd.restype = ctypes.c_int
-        names = ("max_d", "max_c", "c_multiple", "wide_c_multiple", "narrow_max_c")
+        names = ("max_d", "bf16_max_d", "max_c", "c_multiple", "wide_c_multiple",
+                 "narrow_max_c", "block")
         for name in names:
             getattr(lib, f"sap3d_flash_bwd_{name}").restype = ctypes.c_int
+        lib.sap3d_flash_bwd_resident_ctas.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.sap3d_flash_bwd_resident_ctas.restype = ctypes.c_int
         lib.sap3d_cuda_error_string.argtypes = [ctypes.c_int]
         lib.sap3d_cuda_error_string.restype = ctypes.c_char_p
         limits = tuple(getattr(lib, f"sap3d_flash_bwd_{name}")() for name in names)
-        ours = (MAX_D, MAX_C, C_MULTIPLE, WIDE_C_MULTIPLE, NARROW_MAX_C)
+        ours = (MAX_D, BF16_MAX_D, MAX_C, C_MULTIPLE, WIDE_C_MULTIPLE, NARROW_MAX_C, BLOCK)
         if limits != ours:
             raise RuntimeError(f"csrc/{SOURCE}.cu takes ({', '.join(names)}) = {limits}; "
                                f"the gate's constants say {ours}")
         lib._sap3d_typed = True
     return lib
+
+
+def card_resident_ctas(d: int, c: int) -> int:
+    """``resident_ctas`` as the card's occupancy calculator reads it for the
+    kernel the library launches at (d, C) in bf16 (d padded to 8)."""
+    return _library().sap3d_flash_bwd_resident_ctas(-(-d // 8) * 8, c)
 
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
@@ -179,9 +280,10 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
                          f"v {tuple(v.shape)}, o {tuple(o.shape)}, "
                          f"lse {tuple(lse.shape)}, do {tuple(do.shape)}"
                          + ("" if dlse is None else f", dlse {tuple(dlse.shape)}"))
-    if d > MAX_D or not backward_c_ok(c):
-        raise ValueError(f"flash backward takes d <= {MAX_D} and C a multiple of "
-                         f"{C_MULTIPLE} up to {NARROW_MAX_C} or of {WIDE_C_MULTIPLE} up to "
+    max_d = backward_max_d(q.dtype)
+    if d > max_d or not backward_c_ok(c):
+        raise ValueError(f"flash backward takes d <= {max_d} in {q.dtype} and C a multiple "
+                         f"of {C_MULTIPLE} up to {NARROW_MAX_C} or of {WIDE_C_MULTIPLE} up to "
                          f"{MAX_C}; got d={d}, C={c}")
     # rows of q and k in whole 16-byte chunks; the padded columns of dq and
     # dk are dropped below
@@ -189,18 +291,29 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
     q, k, v, o, lse, do = (contiguous_aligned(t) for t in (q, k, v, o, lse, do))
     dlse = None if dlse is None else contiguous_aligned(dlse)
     dp = q.shape[2]
-    delta = torch.empty((b, nq), dtype=torch.float32, device=q.device)
-    dq_acc = torch.zeros((b, nq, dp), dtype=torch.float32, device=q.device)
-    dq = dq_acc if q.dtype == torch.float32 else torch.empty_like(q)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq_acc = torch.zeros((b, nq, dp), **f32)
+    dk_acc = dv_acc = None
+    if q.dtype == torch.float32:
+        stats, splits = torch.empty((b, nq), **f32), 1  # delta
+        dq, dk, dv = dq_acc, torch.empty_like(k), torch.empty_like(v)
+    else:
+        # (lse, delta) of each row, padded to whole query tiles; over query
+        # splits, dk and dv summed in float32, then rounded
+        stats = torch.empty((b, math.ceil(nq / BLOCK) * BLOCK, 2), **f32)
+        splits = query_split(b, nq, nk, d, c)
+        if splits > 1:
+            dk_acc, dv_acc = torch.zeros(k.shape, **f32), torch.zeros(v.shape, **f32)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # the launches go to the current device: make it q's, and take its stream
     with torch.cuda.device(q.device):
-        err = lib.sap3d_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                  do.data_ptr(), lse.data_ptr(),
-                                  None if dlse is None else dlse.data_ptr(), delta.data_ptr(),
-                                  dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                                  dv.data_ptr(), b, nq, nk, dp, c, _DTYPE_CODES[q.dtype],
-                                  torch.cuda.current_stream().cuda_stream)
+        err = lib.sap3d_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), None if dlse is None else dlse.data_ptr(), stats.data_ptr(),
+            dq_acc.data_ptr(), None if dk_acc is None else dk_acc.data_ptr(),
+            None if dv_acc is None else dv_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, nq, nk, dp, c, splits, _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError("flash_attention_bwd launch failed: "
                            + lib.sap3d_cuda_error_string(err).decode())

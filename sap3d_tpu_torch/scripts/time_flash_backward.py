@@ -1,0 +1,142 @@
+"""Time kernels B3 and B4 (the bf16 flash backward) of a checkout of the port
+at the sites ``PERF.md`` reports, so that two versions can be read on one
+card in one session.
+
+    python sap3d_tpu_torch/scripts/time_flash_backward.py --root <checkout> [--label L]
+        [--profile] [--splits 1,2,4,8]
+
+``--root`` names the checkout whose ``sap3d_tpu_torch`` is imported (its
+kernels are built into its own ``build/kernels``); run the file by its path,
+not with ``-m``, so that no other copy of the package is imported first.
+Comparing two commits: unpack each (``git archive``) and run parent,
+change, change, parent in one command.
+
+Per site (B, Nq, Nk, d, C), bf16: q, k with std d^-1/4, v and do unit
+normal and dlse normal, from one seed; o and lse from the checkout's own
+kernel B2; each time the mean of CUDA events over ``iters`` calls, the L2
+evicted (a 256 MB write) before each, after one warm-up call.  Prints one
+line per site and a last JSON line, with the card's name and power limit.
+``--profile`` adds B3's device time per kernel (torch.profiler, the mean
+of 3 calls); ``--splits`` times B3 with the query split forced to each
+value (a checkout whose ``flash_attention_bwd`` has ``query_split``) at the
+sites whose key tiles alone leave SMs idle (fewer than 264 CTAs).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+# (name, B, Nq, Nk, d, C): the flagship's three sites at batch 16 (also the
+# ring hops' stacked shapes), the GN decoders' deconv_pool3 (their pool2 is
+# x_2_2's shape), the 'full' head's x_0_1_sa at batch 2
+SITES = (("x_3_1", 16, 392, 392, 64, 512), ("x_2_2", 16, 3136, 3136, 32, 256),
+         ("x_1_3", 16, 25088, 3136, 16, 128), ("deconv_pool3", 16, 3136, 3136, 64, 512),
+         ("x_0_1_sa", 2, 200704, 3136, 2, 16))
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, iters: int, flush) -> float:
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def kernel_times(torch, fn, calls: int = 3) -> dict[str, float]:
+    """Device ms per call of each kernel ``fn`` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.key[:90]] = us / 1e3 / calls
+    return out
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--root", required=True, help="checkout whose sap3d_tpu_torch is timed")
+    p.add_argument("--label", default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--profile", action="store_true")
+    p.add_argument("--splits", default=None, help="comma-separated query splits to sweep")
+    args = p.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.root))
+
+    import torch
+
+    from sap3d_tpu_torch.ops.cuda import flash_attention as fa
+    from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
+
+    if not torch.cuda.is_available():
+        raise SystemExit("time_flash_backward: needs a GPU")
+    if not os.path.abspath(fb.__file__).startswith(os.path.abspath(args.root)):
+        raise SystemExit(f"imported {fb.__file__}, not the checkout at {args.root}")
+    label = args.label or args.root
+    card = card_line()
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    res = {}
+    for name, b, nq, nk, d, c in SITES:
+        q = (torch.randn(b, nq, d, device="cuda", generator=gen) * d ** -0.25).bfloat16()
+        k = (torch.randn(b, nk, d, device="cuda", generator=gen) * d ** -0.25).bfloat16()
+        v = torch.randn(b, nk, c, device="cuda", generator=gen).bfloat16()
+        do = torch.randn(b, nq, c, device="cuda", generator=gen).bfloat16()
+        dlse = torch.randn(b, nq, device="cuda", generator=gen)
+        o, lse = fa.flash_forward_lse(q, k, v)
+        iters = 5 if nq * nk * (d + c) > 5e9 else 20
+        b3 = time_ms(torch, lambda: fb.flash_backward(q, k, v, o, lse, do), iters, flush)
+        b4 = time_ms(torch, lambda: fb.flash_backward(q, k, v, o, lse, do, dlse=dlse), iters,
+                     flush)
+        res[name] = {"B3_ms": b3, "B4_ms": b4}
+        print(f"[{label}] {name} B={b} Nq={nq} Nk={nk} d={d} C={c}: B3 {b3:.4f} ms, "
+              f"B4 {b4:.4f} ms ({card})", flush=True)
+        if args.profile:
+            res[name]["B3_kernels_ms"] = kernel_times(
+                torch, lambda: fb.flash_backward(q, k, v, o, lse, do))
+            for kernel, ms in res[name]["B3_kernels_ms"].items():
+                print(f"[{label}]   {ms:.4f} ms  {kernel}", flush=True)
+        if args.splits and b * -(-nk // 64) < 264:
+            rule, res[name]["B3_ms_by_split"] = fb.query_split, {}
+            try:
+                for split in (int(x) for x in args.splits.split(",")):
+                    fb.query_split = lambda *_, split=split: min(split, -(-nq // 64))
+                    ms = time_ms(torch, lambda: fb.flash_backward(q, k, v, o, lse, do), iters,
+                                 flush)
+                    res[name]["B3_ms_by_split"][split] = ms
+                    print(f"[{label}]   query split {split}: B3 {ms:.4f} ms", flush=True)
+            finally:
+                fb.query_split = rule
+        del q, k, v, do, dlse, o, lse
+        torch.cuda.empty_cache()
+    out = {"label": label, "card": card, "sites": res}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -111,7 +111,11 @@ def test_self_attention_kernel_path_matches_plain_path(cuda):
 
 
 # ragged shapes and the flagship sites' proportions (d = C/8), plus a C
-# that is a multiple of 64 but not of 128
+# that is a multiple of 64 but not of 128; then the bf16 backward's paths:
+# query splits (``fb.query_split``), dv in the dkdq kernel (C <= 64, and
+# 128 at d <= 16) or in column slabs, C's k-steps unrolled (16 ... 512) or
+# counted at run time, d zero-filled to 16 / 32 / 64, Nk not a multiple of
+# the 64-key tile
 _SHAPES = [
     (3, 300, 200, 16, 128),  # ragged Nq and Nk
     (1, 392, 392, 64, 512),  # x_3_1
@@ -121,6 +125,12 @@ _SHAPES = [
     (1, 1, 3, 8, 64),        # one query (with one key, dq and dk are 0)
     (2, 700, 300, 2, 16),    # x_0_1_sa's d and C: rows padded, one narrow slab
     (1, 300, 100, 6, 48),    # three narrow slabs
+    (1, 5000, 150, 2, 16),   # 16 query ranges; d 2 zero-filled to 16
+    (2, 2000, 100, 8, 64),   # 16 query ranges; d = 8 zero-filled to 16; dv fused
+    (2, 300, 130, 64, 512),  # C = 512, ragged Nq and Nk, 5 query ranges
+    (1, 200, 100, 8, 32),    # C = 32: dv fused, narrow boxes
+    (1, 300, 200, 32, 128),  # C = 128 at d = 32: dv in two 64-column slabs
+    (1, 300, 200, 40, 320),  # C = 320: k-steps counted at run time, d to 64
 ]
 
 
@@ -241,6 +251,22 @@ def test_b3_rejects_what_it_does_not_take(cuda):
     o, lse = flash_forward_lse_reference(q, k, v)
     with pytest.raises(TypeError):
         fb.flash_backward(q, k, v, o, lse.half(), o)
+    q, k, v = _inputs(1, 8, 8, 72, 512, torch.bfloat16)  # bf16 d above 64
+    o, lse = flash_forward_lse_reference(q, k, v)
+    with pytest.raises(ValueError, match="d <= 64"):
+        fb.flash_backward(q, k, v, o, lse, o)
+    q, k, v = _inputs(1, 8, 8, 72, 512, torch.float32)  # float32 takes it
+    o, lse = flash_forward_lse_reference(q, k, v)
+    fb.flash_backward(q, k, v, o, lse, o)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("d,c", sorted({(d, c) for _, _, _, d, c in _SHAPES}
+                                       | {(64, 512), (32, 256), (16, 128), (2, 16)}))
+def test_split_rule_knows_the_kernels_residency(cuda, d, c):
+    """``fb.resident_ctas``, the split rule's model, against the card's
+    occupancy calculator for the kernel the library launches at (d, C)."""
+    assert fb.card_resident_ctas(d, c) == fb.resident_ctas(d, c)
 
 
 # The kernel path against B2 with the plain B3 (the same forward; the

@@ -206,6 +206,68 @@ def test_evaluate_saliency_dirs_matches_jax(tmp_path, tree, capsys):
         assert "dense targets" in capsys.readouterr().out
 
 
+def _printed_scores(out: str) -> dict[str, dict[str, float]]:
+    """``eval-dirs``'s printed lines as {video or "MEAN": {metric: value}}."""
+    scores: dict[str, dict[str, float]] = {}
+    for line in out.strip().splitlines():
+        if line.startswith("MEAN "):
+            metric, value = line[len("MEAN "):].split(": ")
+            scores.setdefault("MEAN", {})[metric] = float(value)
+        else:
+            video, rest = line.split(": ", 1)
+            scores[video] = {m: float(v) for m, v in
+                             (pair.split(": ") for pair in rest.split("  "))}
+    return scores
+
+
+_JAX_EVAL_DIRS: dict[str, str] = {}
+
+
+@pytest.mark.parametrize("spelling,path", [
+    ("true", "card"), ("1", "card"), ("yes", "card"),
+    ("false", "host"), ("0", "host"), ("no", "host"), ("host", "host"),
+    ("cpu", "batched"),
+])
+def test_cli_eval_dirs_device_takes_the_jax_spellings(tmp_path, capsys, spelling, path):
+    """``eval-dirs --device``: the JAX command line's bool spellings beside
+    the port's device names.  True names the card (on a host without one,
+    ``resolve_device`` raises); false and ``host`` the per-frame NumPy path,
+    whose printed scores equal the JAX ``eval-dirs --device false`` run's on
+    the same tree; ``cpu`` the batched metrics, within the device-vs-host
+    limits of the JAX device path's printed scores."""
+    from sap3d_tpu import cli as jcli
+
+    _blob_tree(tmp_path)
+    roots = ["--pred", str(tmp_path / "pred"), "--density", str(tmp_path / "density"),
+             "--fixation", str(tmp_path / "fixation"), "--metrics", "cc", "sim", "nss",
+             "auc_judd"]
+    assert cli.eval_dirs_device(spelling) == {"card": "cuda", "host": "host"}.get(path, spelling)
+    if path == "card":
+        if torch.cuda.is_available():
+            assert cli.main(["eval-dirs", *roots, "--device", spelling]) == 0
+        else:
+            with pytest.raises(RuntimeError, match="cuda"):
+                cli.main(["eval-dirs", *roots, "--device", spelling])
+        return
+    jax_device = "false" if path == "host" else "true"
+    if jax_device not in _JAX_EVAL_DIRS:
+        assert jcli.main(["eval-dirs", *roots, "--device", jax_device]) == 0
+        _JAX_EVAL_DIRS[jax_device] = capsys.readouterr().out
+    want = _JAX_EVAL_DIRS[jax_device]
+    capsys.readouterr()
+    assert cli.main(["eval-dirs", *roots, "--device", spelling]) == 0
+    got = capsys.readouterr().out
+    if path == "host":
+        assert got == want
+        return
+    got, want = _printed_scores(got), _printed_scores(want)
+    assert set(got) == set(want) == {"video0", "video1", "MEAN"}
+    for video, scores in want.items():
+        assert set(got[video]) == set(scores)
+        for m, value in scores.items():  # printed to 4 decimals
+            assert got[video][m] == pytest.approx(value, abs=AUC_LIMITS.get(m, 1e-4)), (video, m)
+
+
 def test_cli_eval_scores_a_saved_port_checkpoint_as_the_evaluator_does(tmp_path, monkeypatch,
                                                                        capsys):
     """The port's ``cli eval`` (its loader in test mode, the fp32 eval

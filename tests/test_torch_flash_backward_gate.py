@@ -1,0 +1,133 @@
+"""The bf16 backward kernel's gate, query split and build, on the CPU.
+
+* Every registry name at full width ([1, 16, 112, 112, 3], built on the
+  meta device, so nothing is computed): the route of every self-attention
+  site in train mode, in bf16 and float32, held to the routes the port
+  gives today (``attention_route``; ``SAP3D_FLASH_HYBRID`` unset).  Each
+  site the backward gate takes reaches kernel B3 (B4 in a ring hop); the
+  gate's bf16 limit on d (64) refuses none of them.
+* ``query_split`` and ``resident_ctas`` at the sites the kernel is timed
+  at, and the rule's own bounds.
+* ``build._library_path`` hashes the shared headers (``csrc/*.cuh``) and the
+  flags beside the source: editing a header names a new library.
+"""
+
+import pytest
+import torch
+
+from sap3d_tpu_torch.models.registry import MODEL_REGISTRY, build_model
+from sap3d_tpu_torch.ops import attention
+from sap3d_tpu_torch.ops.cuda import build
+from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
+
+X_4_0, X_3_1, X_2_2, X_1_3 = ((49, 49, 128, 1024), (392, 392, 64, 512),
+                              (3136, 3136, 32, 256), (25088, 3136, 16, 128))
+X_0_1_SA = (200704, 3136, 2, 16)
+GN_POOL2, GN_DECONV3, GN_DECONV4 = ((3136, 3136, 32, 256), (3136, 3136, 64, 512),
+                                    (3136, 3136, 128, 1024))
+# (Nq, Nk, d, C) -> route of each name's sites in train mode, as the port
+# routes them
+ROUTES = {
+    "p3d_unet": {},
+    "p3d_concat": {},
+    "p3d_unetplusplus": {X_4_0: "plain", X_3_1: "flash", X_2_2: "flash", X_1_3: "flash",
+                         X_0_1_SA: "flash"},
+    "p3d_unetplusplus_ds": {X_4_0: "plain", X_3_1: "flash", X_2_2: "flash", X_1_3: "flash"},
+    "p3d_unetplusplus_nonsa": {},
+    "p3d_unetplusplus_nl": {X_4_0: "plain", X_3_1: "flash", X_2_2: "flash"},
+    "inference_p3d": {},
+    "inference_p3d_concat": {},
+    "inference_p3d_sa_concat": {X_4_0: "plain", X_3_1: "flash", X_2_2: "flash"},
+    "inference_p3d_sa_concat_2": {GN_POOL2: "flash", GN_DECONV3: "flash"},
+    "inference_p3d_sa_decoder_block": {GN_POOL2: "flash", GN_DECONV3: "flash",
+                                       GN_DECONV4: "plain"},
+    "inference_p3d_decoder_block": {},
+    "p3d_micro": {},
+    "p3d_micro_sa": {(49, 49, 16, 128): "plain", X_3_1: "flash", X_2_2: "flash",
+                     X_1_3: "flash"},
+}
+
+
+def test_the_table_names_every_registry_name():
+    assert set(ROUTES) == set(MODEL_REGISTRY) and len(ROUTES) == 14
+
+
+@pytest.mark.parametrize("name", sorted(ROUTES))
+def test_backward_gated_sites_keep_their_routes(name, monkeypatch):
+    monkeypatch.delenv("SAP3D_FLASH_HYBRID", raising=False)
+    orig, seen = attention.attention_route, {}
+
+    def spy(nq, nk, d, c, dtype, train):
+        route = orig(nq, nk, d, c, dtype, train)
+        seen[(nq, nk, d, c)] = route
+        return "plain"  # meta tensors take the plain path whatever the route
+
+    monkeypatch.setattr(attention, "attention_route", spy)
+    for dtype in ("bfloat16", "float32"):
+        seen.clear()
+        with torch.device("meta"):
+            model = build_model(name, dtype=dtype, device="meta")
+        model.train()
+        out = model(torch.empty(1, 16, 112, 112, 3, device="meta", dtype=getattr(torch, dtype)))
+        assert tuple(out.shape) == (1, 16, 112, 112, 1)
+        assert seen == ROUTES[name], dtype
+        for (nq, nk, d, c), route in seen.items():
+            assert (route == "flash") == fb.backward_viable(nq, nk, d, c, getattr(torch, dtype))
+
+
+def test_gate_states_the_bf16_limit_on_d():
+    assert (fb.BF16_MAX_D, fb.MAX_D) == (64, 128)
+    assert fb.backward_max_d(torch.bfloat16) == 64 and fb.backward_max_d(torch.float32) == 128
+    assert fb.backward_viable(3136, 3136, 64, 512, torch.bfloat16)
+    assert not fb.backward_viable(3136, 3136, 72, 512, torch.bfloat16)  # d above 64
+    assert fb.backward_viable(3136, 3136, 72, 512, torch.float32)
+    assert fb.backward_viable(3136, 3136, 128, 128, torch.float32)
+    assert not fb.backward_viable(3136, 3136, 128, 128, torch.bfloat16)
+
+
+# (B, Nq, Nk, d, C) -> (resident dkdq CTAs per SM, query split S)
+SPLITS = {
+    (16,) + X_3_1: (1, 1),       # 112 CTAs, one wave: splitting only reloads K and V
+    (16,) + X_2_2: (2, 1),       # 784 CTAs, 2.97 waves of 264
+    (16,) + X_1_3: (3, 1),       # 784 CTAs, 1.98 waves of 396
+    (16,) + GN_POOL2: (2, 1),
+    (16,) + GN_DECONV3: (1, 1),  # 224 KB of shared memory: one CTA per SM
+    (2,) + X_0_1_SA: (4, 16),    # 98 CTAs: 16 ranges make 3 waves of 528
+    (1, 5000, 150, 2, 16): (4, 16),
+    (2, 2000, 100, 8, 64): (3, 16),
+    (2, 300, 130, 64, 512): (1, 5),
+    (1, 200, 100, 8, 32): (4, 4),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(SPLITS))
+def test_query_split_at_the_sites(shape):
+    b, nq, nk, d, c = shape
+    resident, split = SPLITS[shape]
+    assert fb.resident_ctas(d, c) == resident
+    assert fb.query_split(b, nq, nk, d, c) == split
+    assert 1 <= split <= min(-(-nq // fb.BLOCK), fb.MAX_SPLIT)
+
+
+def test_query_split_never_exceeds_the_query_tiles():
+    for nq in (1, 63, 64, 65, 200):
+        assert fb.query_split(1, nq, 64, 16, 16) <= -(-nq // fb.BLOCK)
+    assert fb.query_split(1, 1, 1, 8, 64) == 1
+
+
+def test_library_path_hashes_headers_and_flags(tmp_path, monkeypatch):
+    """No nvcc needed: the path is a hash of what would be compiled."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "out"))
+    first = build._library_path("k")[1]
+    assert build._library_path("k")[1] == first  # unchanged: the same library
+    (tmp_path / "h.cuh").write_text("// two\n")
+    edited = build._library_path("k")[1]
+    assert edited != first
+    (tmp_path / "other.cuh").write_text("// new\n")
+    added = build._library_path("k")[1]
+    assert added not in (first, edited)
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
+    assert build._library_path("k")[1] not in (first, edited, added)
