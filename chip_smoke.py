@@ -8,7 +8,9 @@ result line):
   1. card: name and power limit from nvidia-smi;
   2. kernel build: the port's CUDA sources, one nvcc each, started
      together; build time and ptxas register/spill report (per kernel
-     instantiation for the backward, whose bf16 kernels must not spill);
+     instantiation for the forward and the backward, whose bf16 kernels
+     must not spill); the bf16 forward kernels' SASS (cuobjdump) must hold
+     HGMMA (wgmma) and UTMALDG (TMA loads);
   3. kernels against their plain versions at the three flagship
      self-attention sites (batch 16), bf16 and fp32, on one set of random
      inputs: the flash forward without lse (B1), with lse (B2: o and lse)
@@ -18,8 +20,11 @@ result line):
      also held row by row; delta left out for dq and dk); with the
      kernel's, the plain version's and a PyTorch yardstick's times
      (scaled_dot_product_attention, forward or autograd backward; the port
-     never calls it) beside the bound; for B3 (and B4 in phase 9) also the
-     largest excess, the query split S, the CTAs per launch and, in bf16,
+     never calls it) beside the bound; for bf16 B1 and B2 the launch plan
+     (warpgroups per CTA, column slabs, key tile, stages, shared memory,
+     CTAs), the library's own held to ``launch_plan``, and the CTAs
+     resident per SM on the card, at least what the plan counts on; for
+     B3 (and B4 in phase 9) also the largest excess, the query split S, the CTAs per launch and, in bf16,
      the dkdq kernel's CTAs resident per SM, from the card's occupancy
      calculator, held to the split rule's model (``resident_ctas``);
   4. full-width forward: the flagship (p3d_unetplusplus_ds) on
@@ -149,7 +154,7 @@ SITES = {
 BATCH = 16
 SIZE = 112                         # frame height and width of the model input
 DEVICE = "cuda"
-KEY_TILE = 64                      # keys per streamed tile in both B1 kernels
+KEY_TILE = 64                      # keys of the planted faults' dropped tile
 # Mean |kernel path - plain path| of the bf16 flagship's sigmoid output.
 # The two paths differ by bf16 rounding inside attention, which the random
 # 47-block network amplifies (about 3e-3 on an H100, PERF.md).  The forward
@@ -425,6 +430,7 @@ def phase_kernels(torch, fa, fb, flush, sites=None, batch=BATCH):
             row["library_ms"], row["library_backend"] = sdpa_yardstick(q, k, v, flush)
             row["bound_ms"], row["bound_by"] = flash_bound(batch, nq, nk, d, c, dname,
                                                            q.element_size())
+            row.update(forward_grid(fa, batch, nq, nk, d, c, dtype))
             rows["B1"].append(row)
             ran = ["B1"]
             if not fb.backward_viable(nq, nk, d, c, dtype):
@@ -443,6 +449,7 @@ def phase_kernels(torch, fa, fb, flush, sites=None, batch=BATCH):
                 rows["B1"][-1]["library_backend"]
             row["bound_ms"], row["bound_by"] = flash_bound(batch, nq, nk, d, c, dname,
                                                            q.element_size(), lse=True)
+            row.update(forward_grid(fa, batch, nq, nk, d, c, dtype))
             rows["B2"].append(row)
 
             got = fb.flash_backward(q, k, v, o, lse, do)
@@ -479,6 +486,34 @@ def backward_grid(fb, batch, nq, nk, d, c, dtype) -> dict:
     return grid
 
 
+def forward_grid(fa, batch, nq, nk, d, c, dtype) -> dict:
+    """In bf16, the forward kernel's launch plan at a shape as the library
+    makes it, which must be ``launch_plan``'s (the CPU tests hold that), and
+    its CTAs resident per SM from the card's occupancy calculator, which
+    must be at least what the plan counts on."""
+    import torch
+
+    if dtype != torch.bfloat16:
+        return {}
+    plan = fa.card_launch_plan(batch, nq, nk, d, c)
+    if plan != fa.launch_plan(batch, nq, nk, d, c):
+        raise AssertionError(f"d={d} C={c}: the library plans {plan}, launch_plan says "
+                             f"{fa.launch_plan(batch, nq, nk, d, c)}")
+    card = fa.card_resident_ctas(batch, nq, nk, d, c)
+    if card < plan["resident"]:
+        raise AssertionError(f"d={d} C={c}: {card} CTAs per SM on the card, the plan counts "
+                             f"on {plan['resident']}")
+    return {"plan": plan, "card_resident": card}
+
+
+def describe_forward_plan(r) -> str:
+    p = r["plan"]
+    return (f", {p['wgs']} warpgroup(s) per CTA, {p['slabs']} slab(s) of {p['cw']} columns, "
+            f"{p['bk']}-key tiles, {p['stages']} stages, {p['smem']} B of shared memory, "
+            f"{p['grid'][0] * p['grid'][1] * p['grid'][2]} CTAs, {r['card_resident']} "
+            f"resident per SM (plan: {p['resident']})")
+
+
 def describe_grid(r) -> str:
     more = f", {r['resident']} resident per SM, {r['smem_bytes']} B of shared memory each" \
         if "resident" in r else ""
@@ -489,7 +524,8 @@ def report_kernel_rows(rows, names, site, dname, nq, nk, d, c, batch=BATCH):
     for name in names:
         r = rows[name][-1]
         lib = r["library_ms"]
-        grid = f", excess {r['excess']:.3f}, {describe_grid(r)}" if name == "B3" else ""
+        grid = f", excess {r['excess']:.3f}, {describe_grid(r)}" if name == "B3" else \
+            describe_forward_plan(r) if "plan" in r else ""
         print(f"[kernel] {name} {site} {dname} B={batch} Nq={nq} Nk={nk} d={d} C={c}: "
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"sdpa {lib if lib is None else f'{lib:.4f}'} ms "
@@ -2463,18 +2499,29 @@ def phase_eval(torch, fa, calibrated, card):
                 host_frames_per_s=n / host_s)
 
 
-def report_bwd_build(log: str) -> None:
-    """Phase 2 for csrc/flash_attention_bwd.cu: registers, spills and static
-    shared memory of each kernel from ptxas (the wgmma kernels' shared
-    memory is dynamic: phase 3 prints it per shape); a bf16 kernel that
-    spills fails the run, since the gate reaches every instantiation."""
+# Per source of phase 2: the kernels ptxas reports on, and those of them
+# that must not spill (the bf16 kernels, which the gates reach at every
+# instantiation).
+BUILD_KERNELS = {
+    "flash_attention_fwd": (("flash_fwd_bf16", "flash_fwd_f32"), ("flash_fwd_bf16",)),
+    "flash_attention_bwd": (("flash_bwd_dkdq", "flash_bwd_dv", "flash_bwd_f32", "bwd_row_stats",
+                             "bwd_delta", "round_to_bf16"), ("flash_bwd_dkdq", "flash_bwd_dv")),
+}
+
+
+def report_build(source: str, log: str) -> None:
+    """Phase 2 for a source of ``BUILD_KERNELS``: registers, spills and
+    static shared memory of each kernel instantiation from ptxas (the wgmma
+    kernels' shared memory is dynamic: phase 3 prints it per shape), and
+    ptxas's warnings that it serialised a kernel's wgmma (C7514, C7515,
+    C7508); a kernel that must not spill and does fails the run."""
     import re
 
+    names, no_spill = BUILD_KERNELS[source]
     kernel, spill = None, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(flash_bwd_dkdq|flash_bwd_dv|flash_bwd_f32|bwd_row_stats|bwd_delta"
-                          r"|round_to_bf16)(I((?:Li\d+E)+))?", line)
+            m = re.search(rf"({'|'.join(names)})(I((?:Li\d+E)+))?", line)
             args = re.findall(r"Li(\d+)E", m.group(2) or "") if m else []
             kernel = (m.group(1) + (f"<{','.join(args)}>" if args else "")) if m else "?"
         elif kernel and "spill stores" in line:
@@ -2484,11 +2531,43 @@ def report_bwd_build(log: str) -> None:
             smem = re.search(r"(\d+) bytes smem", line)
             print(f"[build]   {kernel}: {regs} registers, {spill} bytes spilled, "
                   f"{smem.group(1) if smem else 0} bytes of static shared memory", flush=True)
-            if spill and kernel.startswith(("flash_bwd_dkdq", "flash_bwd_dv")):
+            if spill and kernel.startswith(no_spill):
                 raise AssertionError(f"{kernel} spills {spill} bytes")
             kernel, spill = None, None
-        elif "C7515" in line or "C7508" in line:
+        elif "C7515" in line or "C7514" in line or "C7508" in line:
             print(f"[build]   {line.strip()[:200]}", flush=True)
+
+
+def check_forward_sass(build, fa) -> dict:
+    """Phase 2: the bf16 forward kernels issue wgmma and take their tiles
+    by TMA: cuobjdump's SASS of every ``flash_fwd_bf16`` instantiation holds
+    HGMMA and UTMALDG instructions.  Returns their counts per
+    instantiation."""
+    import os
+    import re
+
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", build._library_path(fa.SOURCE)[1]],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_fwd_bf16ILi(\d+)ELi(\d+)E", line)
+            kernel = f"flash_fwd_bf16<{m.group(1)},{m.group(2)}>" if m else None
+            if kernel:
+                counts[kernel] = {"HGMMA": 0, "UTMALDG": 0}
+        elif kernel:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[kernel][op] += op in line
+    missing = [k for k, n in counts.items() if not (n["HGMMA"] and n["UTMALDG"])]
+    print(f"[build]   SASS of {len(counts)} bf16 forward instantiations: HGMMA "
+          f"{min(n['HGMMA'] for n in counts.values())}-{max(n['HGMMA'] for n in counts.values())}"
+          f", UTMALDG {min(n['UTMALDG'] for n in counts.values())}-"
+          f"{max(n['UTMALDG'] for n in counts.values())} per kernel", flush=True)
+    if len(counts) != len(fa.INSTANTIATIONS) or missing:
+        raise AssertionError(f"bf16 forward kernels without HGMMA or UTMALDG: {missing} "
+                             f"({len(counts)} of {len(fa.INSTANTIATIONS)} found)")
+    return counts
 
 
 def kernel_entry(name, source, replaces, launches, rows, extra_err=(), more_rows=()):
@@ -2549,12 +2628,13 @@ def main(argv=None) -> int:
             builds = dict(zip(sources, pool.map(timed_build, sources)))
         for source, (log, secs) in builds.items():
             print(f"[build] {source}.cu built in {secs:.2f} s", flush=True)
-            if source == fb.SOURCE:
-                report_bwd_build(log)
+            if source in BUILD_KERNELS:
+                report_build(source, log)
                 continue
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"[build]   {line.strip()}", flush=True)
+        check_forward_sass(build, fa)
 
         flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
         rows = phase_kernels(torch, fa, fb, flush)

@@ -105,6 +105,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -438,14 +439,8 @@ __device__ __forceinline__ void tile_range(const BwdParams& p, int split, int& t
     t1 = (int)((long long)(split + 1) * p.nqt / p.splits);
 }
 
-constexpr float LOG2E = 1.4426950408889634f;
-
-// 2^x on the SFU (what __expf runs after its multiply by log2(e))
-__device__ __forceinline__ float ex2(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-    return y;
-}
+using flash::ex2;
+using flash::LOG2E;
 
 // p^T = exp(s^T - lse) = 2^(s^T log2(e) - lse log2(e)), one FMA and one
 // ex2 per score: rows are keys, columns queries (the stats hold

@@ -19,55 +19,75 @@
 // output is written in v's dtype.  A ragged Nq is masked here instead of
 // padded to a block multiple; a ragged Nk is masked with -inf scores.
 //
-// What bounds it on an H100: at the flagship's sites (batch 16, bf16)
-//   x_3_1  Nq=Nk=392,   d=64, C=512:   2.8 GFLOP, 14.5 MB  -> memory-bound
-//   x_2_2  Nq=Nk=3136,  d=32, C=256:  90.6 GFLOP, 57.8 MB  -> compute-bound
-//   x_1_3  Nq=25088, Nk=3136, d=16, C=128: 362 GFLOP, 130 MB -> compute-bound
-// (989 TFLOP/s bf16 tensor-core peak, 3.35 TB/s).  The two compute-bound
-// sites also issue d + C = 144 FLOPs per exponential, so the exp unit is
-// within an order of magnitude of the tensor-core bound at x_1_3.  lse adds
-// 4 bytes per query row (0.4 MB at x_1_3), nothing to the bound.
+// What bounds it on an H100 (bf16, batch 16 unless said; 989 TFLOP/s
+// tensor-core peak, 3.35 TB/s; B Nq Nk exponentials at the SFU's ~16 per
+// clock per SM, ~4e12/s, which the bound leaves out):
+//   site                 Nq     Nk    d     C  GFLOP    MB  bound (ms)  exps (ms)
+//   flagship x_3_1      392    392   64   512    2.8  14.5  0.0043 memory  0.0006
+//   flagship x_2_2     3136   3136   32   256   90.6  57.8  0.0916 compute 0.039
+//   flagship x_1_3    25088   3136   16   128    362   130  0.3666 compute 0.315
+//   GN deconv_pool3    3136   3136   64   512    181   116  0.1833 compute 0.039
+//   GN deconv_pool4    3136   3136  128  1024    362   231  0.3666 compute 0.039
+//   x_0_1_sa (B = 2) 200704   3136    2    16   45.3  26.1  0.0458 compute 0.315
+// lse adds 4 bytes per query row, nothing to the bound.  At x_1_3 and
+// x_0_1_sa the exponentials take as long as the products or longer.
 //
-// Design, and why it differs from the TPU kernel.  The TPU kernel keeps all
-// of K and V for one batch element resident in VMEM and runs one query block
-// per grid step.  At C = 512 that does not fit in 227 KB of shared memory,
-// and Hopper's blocks run in parallel rather than in sequence.  So here:
-//   * one block per (tile of 64 query rows, tile of columns of C, batch
-//     element); the fp32 accumulator of the block's output tile lives in
-//     registers;
-//   * K and V stream through shared memory in tiles of 64 keys, and an
-//     online softmax keeps a running row max m and sum l, rescaling the
-//     accumulator when m grows and dividing by l at the end;
-//   * the d-wide scores are recomputed for each column tile of C; since
-//     d = C/8 that costs d/BC of the P.V work per tile.
-//   * lse: every column tile of a row computes the same m and l (same scores,
-//     same order), so the blocks of the first column tile write it.
-// Two kernels implement this:
-//   * bf16 (the inference default): tensor cores through `mma.sync`
-//     m16n8k16 with fp32 accumulation.  Four warps own 16 query rows each
-//     and 128 columns of C; Q stays in registers as the A operand of Q.K^T,
-//     the score fragments are rounded to bf16 in registers and reused as the
-//     A operand of P.V (the m16n8 accumulator layout of two adjacent score
-//     tiles is the m16n8k16 A layout), and V is read with `ldmatrix.trans`.
-//     d is padded to the next of 16/32/64/128 with zeros.  A block covers
-//     128 columns of C where C is a multiple of 64, and 16 otherwise (the
-//     narrow instantiation, for the 'full' head's x_0_1_sa: d = 2, C = 16,
-//     200704 queries, where a 128-column tile would spend 7/8 of its P.V
-//     products on zero columns).  No pipelining, no TMA, no wgmma: those
-//     are a later change.
-//   * fp32: scalar FMAs on the CUDA cores over 4x4 register tiles (256
-//     threads, 64 columns of C per block; columns past C are masked),
-//     exact fp32 throughout.
+// Design of the bf16 kernel (B1 and B2 run one body; the fp32 kernel below
+// is the first port's, on the CUDA cores).  The TPU kernel keeps all of K
+// and V of a batch element in VMEM and runs one query block per grid step;
+// Hopper's blocks run in parallel and a block has 227 KB of shared memory,
+// so here one CTA owns 128 query rows (two warpgroups of 64, wgmma's M, that
+// share each K and V tile), or 64 rows and one warpgroup where that cut
+// takes fewer waves over the SMs (x_2_2 and the GN sites), a slab of CW
+// columns of C and one batch element, and streams the keys:
+//   * Q comes in once by TMA; K and V tiles of BK keys stream through a
+//     ring of 2 or 3 stages, each a full mbarrier (TMA completes the bytes)
+//     and an empty one (one arrival per warp when the stage is consumed).
+//     Thread 0 of the CTA issues every load, refilling the stage of tile
+//     t - 1 while the product of tile t runs.  Rows past Nq and Nk, columns
+//     from d to the box width (16, 32, 64, 2 x 64) and from C to the slab
+//     width are TMA's zero fill of 3-D tensor maps [B, N, width]; keys past
+//     Nk are masked to -inf in the last key tile only.
+//   * S = Q K^T by wgmma from shared memory (both operands K-major), f32;
+//     O += P V by wgmma with P from registers (the S accumulator rounded
+//     to bf16, `accum_to_a`) and V MN-major; O stays f32 in registers.
+//   * CW = 16, 32, 64, 128 or 256, the least that covers C up to 256; wider
+//     C is cut into ceil(C/256) slabs of 256, each recomputing S (2 d of
+//     the slab's 2 (d + 256) FLOPs per score: at C = 1024 the work is
+//     2 N^2 (4 d + C), where 128-column tiles cost 2 N^2 (8 d + C) and
+//     twice the exponentials).  BK = 64 from CW = 64 up, 128 below; up to
+//     CW = 128 a thread fits in 128 registers, so two 256-thread CTAs share
+//     an SM (16 warps: at x_1_3 15% faster than one CTA of 128-key tiles).
+//   * Exponentials: the scores' running max is kept in log2 units and
+//     p = 2^(s log2(e) - m) is one FMA and one ex2.approx.  A warp moves
+//     its rows' max (and rescales l and its O rows) only when a row's tile
+//     max exceeds it by more than 2^8: p then stays below 256, and the
+//     rescale of CW/2 accumulator registers runs a few times per row
+//     instead of once per tile.  lse = (m + log2 l) ln 2.
+//   * Each warpgroup runs S, softmax, P V in sequence: issuing S(t + 1)
+//     before the softmax of tile t, or the two warpgroups taking turns at
+//     the tensor cores under named barriers, measured no faster on an H100
+//     (PERF.md).
+//   * lse: every slab of a row computes the same m and l (same scores, same
+//     order), so the CTAs of the first slab write it.
+//   * The choice of CW, BK, the warpgroups per CTA, the stages and the grid
+//     is one host function, `plan`, mirrored in Python by
+//     `ops/cuda/flash_attention.py:launch_plan` (the card tests hold the
+//     two equal, `sap3d_flash_fwd_plan`).
 //
-// Precision against the TPU kernel: that kernel casts the normalised p to
-// v's dtype before p.v; the bf16 kernel here casts the unnormalised
-// exp(s - m) to bf16 and divides by l (summed in fp32) at the end.  Both sit
-// within bf16 rounding of the fp32 result.
+// Rounding: the TPU kernel casts the normalised p to v's dtype before p.v;
+// this kernel rounds the unnormalised p = 2^(s log2(e) - m) (m a running
+// max, within 2^8 of the row's true running max) to bf16, sums l from the
+// f32 p, and divides by l at the end.  Both sit within bf16 rounding of
+// the fp32 result.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -84,16 +104,8 @@ constexpr int THREADS = 256; // 16 x 16 threads, each owning a 4 x 4 sub-tile
 
 // Max / sum over the 16 lanes that share a row group (lanes differ in tx,
 // the low 4 bits of the lane id).
-__device__ __forceinline__ float group16_max(float x) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-    return x;
-}
-__device__ __forceinline__ float group16_sum(float x) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-    return x;
-}
+using flash::group16_max;
+using flash::group16_sum;
 
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
@@ -230,236 +242,374 @@ int launch_f32(const float* q, const float* k, const float* v, float* o, float* 
     return (int)cudaGetLastError();
 }
 
-// ---- bf16: tensor-core kernel (mma.sync m16n8k16) ---------------------------
+// ---- bf16: wgmma kernel fed by TMA ---------------------------------------------
 
-constexpr int TC_BQ = 64;        // query rows per block: 4 warps x 16
-constexpr int TC_BK = 64;        // keys per streamed tile
-constexpr int TC_BC = 128;       // output columns (of C) per block, C a multiple of 64
-constexpr int TC_BC_NARROW = 16; // the same for any other C (a multiple of 16)
-constexpr int TC_THREADS = 128;
-constexpr int TC_PAD = 8;        // row padding (bf16): conflict-free fragment reads
+namespace wg {
 
-__device__ __forceinline__ void mma_bf16(float (&acc)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+constexpr int ROWS = 64;             // query rows per warpgroup: wgmma's M
+constexpr int WG_THREADS = 128;
+constexpr int MAX_WGS = 2;           // consumer warpgroups per CTA
+constexpr int SM_COUNT = 132;        // an H100 SXM's SMs: the plan fills them
+constexpr float RESCALE_LOG2 = 8.f;  // a row's max moves only past this (log2 units)
+// Bytes allocated beyond the layout to align its base to 1024: the dynamic
+// shared memory starts at least 128-byte aligned, so at most 896 are
+// skipped (a kernel that finds more traps).  With a whole 1024 the CTA of
+// one warpgroup at d = 128, C = 1024 would miss two CTAs per SM by 40 bytes.
+constexpr uint32_t SMEM_SLACK = 896;
+
+// Keys per streamed tile beside an accumulator of CW columns: 64 from
+// CW = 64 up (at CW = 256 beside 128 accumulator registers a thread; at 64
+// and 128 so that a thread fits in 128 registers and two 256-thread CTAs
+// share an SM), 128 below (the narrow slabs: fewer, longer tiles).
+__host__ __device__ constexpr int key_tile(int cw) { return cw >= 64 ? 64 : 128; }
+
+__host__ __device__ constexpr uint32_t align1k(uint32_t x) { return (x + 1023u) & ~1023u; }
+
+// Shared memory from a 1024-byte aligned base: Q (wgs x 64 rows), then the
+// ring's stages of (K tile, V tile), then the mbarriers (Q, full[stages],
+// empty[stages]).  Every tile starts on a 1024-byte boundary, so that TMA's
+// and wgmma's swizzles agree.
+struct Layout {
+    uint32_t stage, v, stage_bytes, bars, total;
+};
+
+__host__ __device__ inline Layout layout(int d_tile, int cw, int wgs, int stages) {
+    const int bk = key_tile(cw);
+    Layout L;
+    L.stage = align1k(wgs * ROWS * d_tile * 2);
+    L.v = align1k(bk * d_tile * 2);
+    L.stage_bytes = L.v + align1k(bk * cw * 2);
+    L.bars = L.stage + stages * L.stage_bytes;
+    L.total = L.bars + 8 * (1 + 2 * stages);
+    return L;
 }
 
-// Four 8x8 bf16 matrices from shared memory, transposed: lane l gives the
-// address of row (l & 7) of matrix (l >> 3).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-}
+// How one call is cut: d padded to the q and k box width (d_tile), the slab
+// of C per CTA (cw) and the slabs, keys per tile (bk), warpgroups per CTA
+// (64 query rows each), ring stages, dynamic shared memory, the grid, and
+// the CTAs per SM that the plan counts on (registers and shared memory).
+struct Plan {
+    int d_tile, cw, slabs, bk, wgs, stages, smem, gx, gy, gz, resident;
+};
 
-// Two floats as bf16x2, the lower column in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
+constexpr int SMEM_PER_SM = 233472;  // an H100's shared memory per SM
+constexpr int CTA_RESERVE = 1024;    // the runtime's reserve per CTA
 
-__device__ __forceinline__ float quad_max(float x) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-    return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-    x += __shfl_xor_sync(0xffffffffu, x, 1);
-    return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 * group + tig.
-//   A (16x16, row): {a0,a1} (group, 2tig..+1), {a2,a3} (group+8, 2tig..+1),
-//                   {a4,a5} (group, 2tig+8..+9), {a6,a7} (group+8, 2tig+8..+9)
-//   B (16x8, col):  {b0,b1} (k 2tig..+1, n group), {b2,b3} (k 2tig+8..+9, n group)
-//   C (16x8):       {c0,c1} (group, 2tig..+1), {c2,c3} (group+8, 2tig..+1)
-template <int D, int BCOLS>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-               float* __restrict__ lse, int nq, int nk, int d, int c) {
-    constexpr int KLD = D + TC_PAD;      // row stride of the K tile
-    constexpr int VLD = BCOLS + TC_PAD;  // row stride of the V tile
-    __shared__ __align__(16) __nv_bfloat16 ks[TC_BK * KLD];
-    __shared__ __align__(16) __nv_bfloat16 vs[TC_BK * VLD];
-
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5, lane = tid & 31;
-    const int group = lane >> 2, tig = lane & 3;
-    const int c0 = blockIdx.y * BCOLS;
-    const int b = blockIdx.z;
-    const int r0 = blockIdx.x * TC_BQ + warp * 16 + group;  // this lane's rows
-    const int r1 = r0 + 8;
-
-    const __nv_bfloat16* qb = q + (size_t)b * nq * d;
-    const __nv_bfloat16* kb = k + (size_t)b * nk * d;
-    const __nv_bfloat16* vb = v + (size_t)b * nk * c;
-
-    // Q as A fragments, once; rows past nq and columns past d are zero.
-    auto q2 = [&](int r, int col) -> uint32_t {
-        return (r < nq && col < d)
-            ? *reinterpret_cast<const uint32_t*>(&qb[(size_t)r * d + col]) : 0u;
-    };
-    uint32_t qa[D / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-        const int col = kk * 16 + 2 * tig;
-        qa[kk][0] = q2(r0, col);
-        qa[kk][1] = q2(r1, col);
-        qa[kk][2] = q2(r0, col + 8);
-        qa[kk][3] = q2(r1, col + 8);
+inline Plan plan(int b, int nq, int nk, int dp, int c) {
+    (void)nk;  // every key tile costs the same: nk does not change the cut
+    Plan p;
+    p.d_tile = dp <= 16 ? 16 : dp <= 32 ? 32 : dp <= 64 ? 64 : 128;
+    p.cw = c <= 16 ? 16 : c <= 32 ? 32 : c <= 64 ? 64 : c <= 128 ? 128 : 256;
+    p.slabs = (c + p.cw - 1) / p.cw;
+    p.bk = key_tile(p.cw);
+    // Two warpgroups share each K and V tile (half the L2 reads per query
+    // row) unless 64-row CTAs take fewer waves over the SMs.  Registers hold
+    // one 256-thread CTA per SM (two at CW <= 128, the launch bounds) or
+    // twice as many of 128 threads; one warpgroup keeps 2 stages, so that
+    // two CTAs fit in shared memory, two keep 3.
+    long long best = 0;
+    for (int w = MAX_WGS; w >= 1; --w) {
+        const int stages = w == 1 ? 2 : 3;
+        const int smem = (int)(layout(p.d_tile, p.cw, w, stages).total + SMEM_SLACK);
+        const int by_regs = (p.cw <= 128 ? 2 : 1) * (MAX_WGS / w);
+        const int by_smem = SMEM_PER_SM / (smem + CTA_RESERVE);
+        const int resident = by_regs < by_smem ? by_regs : by_smem;
+        const long long ctas = (long long)b * ((nq + w * ROWS - 1) / (w * ROWS)) * p.slabs;
+        const long long slots = (long long)SM_COUNT * resident;
+        const long long waves = (ctas + slots - 1) / slots;
+        if (best == 0 || waves < best) {  // ties keep two warpgroups
+            best = waves;
+            p.wgs = w;
+            p.stages = stages;
+            p.smem = smem;
+            p.resident = resident;
+        }
     }
+    p.gx = (nq + ROWS * p.wgs - 1) / (ROWS * p.wgs);
+    p.gy = p.slabs;
+    p.gz = b;
+    return p;
+}
 
-    float acc[BCOLS / 8][4];
-#pragma unroll
-    for (int n = 0; n < BCOLS / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-    float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows r0, r1
-    float l0 = 0.f, l1 = 0.f;              // this lane's share of the row sums
+struct Params {
+    __nv_bfloat16* o;  // [B, nq, c]
+    float* lse;        // [B, nq], or null (B1)
+    int nq, nk, c, stages;
+};
 
-    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-    for (int k0 = 0; k0 < nk; k0 += TC_BK) {
-        __syncthreads();  // the previous tile is consumed
-        for (int i = tid; i < TC_BK * (D / 8); i += TC_THREADS) {
-            const int r = i / (D / 8), col = (i % (D / 8)) * 8;
-            uint4 val = zero;
-            if (k0 + r < nk && col < d)
-                val = *reinterpret_cast<const uint4*>(&kb[(size_t)(k0 + r) * d + col]);
-            *reinterpret_cast<uint4*>(&ks[r * KLD + col]) = val;
+__device__ __forceinline__ uint8_t* smem_base() {
+    extern __shared__ __align__(128) uint8_t dyn_smem[];
+    const uint32_t pad = (1024u - (hopper::smem_u32(dyn_smem) & 1023u)) & 1023u;
+    if (pad > SMEM_SLACK) __trap();
+    return dyn_smem + pad;
+}
+
+// Operand descriptors of a tile stored as boxes of R rows x W bf16 columns
+// (hopper.cuh states the layouts).  K-major: k-step kk covers columns
+// 16 kk ..; MN-major: rows 16 kk ...
+template <int W, int R>
+__device__ __forceinline__ uint64_t kmajor(const uint8_t* tile, int kk) {
+    return hopper::smem_desc(tile + (kk * 16 / W) * (R * W * 2) + (kk * 16 % W) * 2, 16, 16 * W,
+                             2 * W);
+}
+
+template <int W, int R>
+__device__ __forceinline__ uint64_t mnmajor(const uint8_t* tile, int kk) {
+    return hopper::smem_desc(tile + kk * 32 * W, R * W * 2, 16 * W, 2 * W);
+}
+
+// D: d padded to 16/32/64/128 (q and k boxes of min(D, 64) columns); CW:
+// the slab of C (v boxes of 16 columns below 64, else 64).
+template <int D, int CW>
+__global__ void __launch_bounds__(MAX_WGS * WG_THREADS, CW <= 128 ? 2 : 1)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const Params p) {
+    using namespace hopper;
+    using flash::ex2;
+    using flash::LOG2E;
+    constexpr int BK = key_tile(CW);
+    constexpr int KW = D < 64 ? D : 64;
+    constexpr int VW = CW < 64 ? 16 : 64;
+    const int wgs = blockDim.x / WG_THREADS, stages = p.stages;
+    const Layout L = layout(D, CW, wgs, stages);
+    uint8_t* sm = smem_base();
+    const int q0 = blockIdx.x * wgs * ROWS, c0 = blockIdx.y * CW, b = blockIdx.z;
+    const int active = min(wgs, (p.nq - q0 + ROWS - 1) / ROWS);  // warpgroups with rows
+    const int nt = (p.nk + BK - 1) / BK;
+    uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L.bars);
+    uint64_t* full = bars + 1;
+    uint64_t* empty = bars + 1 + stages;
+    // v boxes wholly past C (a last slab narrower than CW) are not loaded;
+    // their columns of O are never stored
+    const int v_boxes = min(CW / VW, (p.c - c0 + VW - 1) / VW);
+    const uint32_t tile_bytes = BK * D * 2 + v_boxes * BK * VW * 2;
+    auto load_tile = [&](int t, int st) {
+        uint8_t* stage = sm + L.stage + st * L.stage_bytes;
+        mbar_arrive_expect_tx(&full[st], tile_bytes);
+        for (int j = 0; j < D / KW; ++j)
+            tma_load_3d(stage + j * BK * KW * 2, &tk, &full[st], j * KW, t * BK, b);
+        for (int j = 0; j < v_boxes; ++j)
+            tma_load_3d(stage + L.v + j * BK * VW * 2, &tv, &full[st], c0 + j * VW, t * BK, b);
+    };
+    if (threadIdx.x == 0) {
+        mbar_init(&bars[0], 1);
+        for (int s = 0; s < stages; ++s) {
+            mbar_init(&full[s], 1);            // thread 0's arrival + the bytes
+            mbar_init(&empty[s], 4 * active);  // one arrival per warp
         }
-        for (int i = tid; i < TC_BK * (BCOLS / 8); i += TC_THREADS) {
-            const int r = i / (BCOLS / 8), col = (i % (BCOLS / 8)) * 8;
-            uint4 val = zero;
-            if (k0 + r < nk && c0 + col < c)
-                val = *reinterpret_cast<const uint4*>(&vb[(size_t)(k0 + r) * c + c0 + col]);
-            *reinterpret_cast<uint4*>(&vs[r * VLD + col]) = val;
-        }
-        __syncthreads();
+        fence_barrier_init();
+    }
+    __syncthreads();
+    const int wg = threadIdx.x / WG_THREADS;
+    if (wg >= active) return;  // all of this warpgroup's rows lie past nq
+    if (threadIdx.x == 0) {
+        mbar_arrive_expect_tx(&bars[0], active * ROWS * D * 2);
+        for (int w = 0; w < active; ++w)
+            for (int j = 0; j < D / KW; ++j)
+                tma_load_3d(sm + w * ROWS * D * 2 + j * ROWS * KW * 2, &tq, &bars[0], j * KW,
+                            q0 + w * ROWS, b);
+        for (int t = 0; t < stages && t < nt; ++t) load_tile(t, t);
+    }
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, qd = lane & 3;
+    const uint8_t* qs = sm + wg * ROWS * D * 2;
+    float o[CW / 2];
+#pragma unroll
+    for (int i = 0; i < CW / 2; ++i) o[i] = 0.f;
+    // running max (log2 units) and this thread's share of the sums of rows
+    // g and g + 8 of its warp
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    mbar_wait(&bars[0], 0);
 
-        // s = q k^T for this lane's two rows and 64 keys (8 tiles of 8)
-        float s[TC_BK / 8][4];
+    for (int t = 0; t < nt; ++t) {
+        const int st = t % stages;
+        const uint8_t* ks = sm + L.stage + st * L.stage_bytes;
+        const uint8_t* vs = ks + L.v;
+        mbar_wait(&full[st], (t / stages) & 1);
+        float s[BK / 2];
+        wgmma_fence();
 #pragma unroll
-        for (int nt = 0; nt < TC_BK / 8; ++nt) {
+        for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss<BK, 0, 0>(s, kmajor<KW, ROWS>(qs, kk), kmajor<KW, BK>(ks, kk), kk > 0);
+        wgmma_commit();
+        // under the product: once every warp is done with tile t - 1, its
+        // stage takes tile t - 1 + stages
+        if (threadIdx.x == 0 && t > 0 && t - 1 + stages < nt) {
+            const int ps = (t - 1) % stages;
+            mbar_wait(&empty[ps], ((t - 1) / stages) & 1);
+            load_tile(t - 1 + stages, ps);
+        }
+        __syncwarp();
+        wgmma_wait<0>();
+        fence_regs(s);
+        if (t == nt - 1 && nt * BK > p.nk) {  // keys past nk score -inf
+            const int valid = p.nk - t * BK;
 #pragma unroll
-            for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-            for (int kk = 0; kk < D / 16; ++kk) {
-                const __nv_bfloat16* kp = &ks[(nt * 8 + group) * KLD + kk * 16 + 2 * tig];
-                mma_bf16(s[nt], qa[kk], *reinterpret_cast<const uint32_t*>(kp),
-                         *reinterpret_cast<const uint32_t*>(kp + 8));
+            for (int j = 0; j < BK / 8; ++j) {
+                const int col = 8 * j + 2 * qd;
+                if (col >= valid) s[4 * j] = s[4 * j + 2] = -INFINITY;
+                if (col + 1 >= valid) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
             }
         }
-        if (k0 + TC_BK > nk) {  // ragged last tile: keys past nk score -inf
-#pragma unroll
-            for (int nt = 0; nt < TC_BK / 8; ++nt)
-#pragma unroll
-                for (int j = 0; j < 2; ++j)
-                    if (k0 + nt * 8 + 2 * tig + j >= nk) s[nt][j] = s[nt][2 + j] = -INFINITY;
-        }
-
-        // online softmax; every tile holds at least one valid key
         float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-        for (int nt = 0; nt < TC_BK / 8; ++nt) {
-            mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-            mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+        for (int j = 0; j < BK / 8; ++j) {
+            mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+            mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
         }
-        const float mn0 = fmaxf(m0, quad_max(mx0));
-        const float mn1 = fmaxf(m1, quad_max(mx1));
-        const float alpha0 = __expf(m0 - mn0), alpha1 = __expf(m1 - mn1);  // 0 at first
-        m0 = mn0;
-        m1 = mn1;
-        float ps0 = 0.f, ps1 = 0.f;
+        mx0 = flash::quad_max(mx0) * LOG2E;  // finite: every tile holds a valid key
+        mx1 = flash::quad_max(mx1) * LOG2E;
+        if (__any_sync(0xffffffffu, mx0 > m0 + RESCALE_LOG2 || mx1 > m1 + RESCALE_LOG2)) {
+            const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+            const float a0 = ex2(m0 - n0), a1 = ex2(m1 - n1);  // 0 on the first tile
+            m0 = n0;
+            m1 = n1;
+            l0 *= a0;
+            l1 *= a1;
 #pragma unroll
-        for (int nt = 0; nt < TC_BK / 8; ++nt) {
-            s[nt][0] = __expf(s[nt][0] - mn0);
-            s[nt][1] = __expf(s[nt][1] - mn0);
-            s[nt][2] = __expf(s[nt][2] - mn1);
-            s[nt][3] = __expf(s[nt][3] - mn1);
-            ps0 += s[nt][0] + s[nt][1];
-            ps1 += s[nt][2] + s[nt][3];
-        }
-        l0 = l0 * alpha0 + ps0;
-        l1 = l1 * alpha1 + ps1;
-#pragma unroll
-        for (int n = 0; n < BCOLS / 8; ++n) {
-            acc[n][0] *= alpha0;
-            acc[n][1] *= alpha0;
-            acc[n][2] *= alpha1;
-            acc[n][3] *= alpha1;
-        }
-
-        // acc += p v: p from registers (two score tiles = one A fragment),
-        // v through ldmatrix.trans (two B fragments per call)
-#pragma unroll
-        for (int kk = 0; kk < TC_BK / 16; ++kk) {
-            const uint32_t pa[4] = {
-                pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-            const int vrow = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-            for (int np = 0; np < BCOLS / 16; ++np) {
-                uint32_t bv[4];
-                ldmatrix_x4_trans(bv, &vs[vrow * VLD + np * 16 + (lane >> 4) * 8]);
-                mma_bf16(acc[2 * np], pa, bv[0], bv[1]);
-                mma_bf16(acc[2 * np + 1], pa, bv[2], bv[3]);
+            for (int j = 0; j < CW / 8; ++j) {
+                o[4 * j] *= a0;
+                o[4 * j + 1] *= a0;
+                o[4 * j + 2] *= a1;
+                o[4 * j + 3] *= a1;
             }
         }
+        const float nm0 = -m0, nm1 = -m1;
+        float sa0 = 0.f, sa1 = 0.f, sb0 = 0.f, sb1 = 0.f;  // two chains per row
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+            s[4 * j] = ex2(fmaf(s[4 * j], LOG2E, nm0));
+            s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], LOG2E, nm0));
+            s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], LOG2E, nm1));
+            s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], LOG2E, nm1));
+            if (j & 1) {
+                sb0 += s[4 * j] + s[4 * j + 1];
+                sb1 += s[4 * j + 2] + s[4 * j + 3];
+            } else {
+                sa0 += s[4 * j] + s[4 * j + 1];
+                sa1 += s[4 * j + 2] + s[4 * j + 3];
+            }
+        }
+        l0 += sa0 + sb0;
+        l1 += sa1 + sb1;
+        // o += p v, p rounded to bf16 as the register A operand
+        uint32_t pa[BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) accum_to_a(s, kk, pa[kk]);
+        fence_regs(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+            wgmma_rs<CW, 1>(o, pa[kk], mnmajor<VW, BK>(vs, kk), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(pa);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[st]);
     }
 
-    const float sum0 = quad_sum(l0), sum1 = quad_sum(l1);
-    const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
-    if (lse != nullptr && blockIdx.y == 0 && tig == 0) {
-        if (r0 < nq) lse[(size_t)b * nq + r0] = m0 + logf(sum0);
-        if (r1 < nq) lse[(size_t)b * nq + r1] = m1 + logf(sum1);
+    l0 = flash::quad_sum(l0);
+    l1 = flash::quad_sum(l1);
+    const int row0 = q0 + wg * ROWS + 16 * warp + g, row1 = row0 + 8;
+    if (p.lse != nullptr && blockIdx.y == 0 && qd == 0) {
+        if (row0 < p.nq) p.lse[(size_t)b * p.nq + row0] = (m0 + log2f(l0)) * flash::LN2;
+        if (row1 < p.nq) p.lse[(size_t)b * p.nq + row1] = (m1 + log2f(l1)) * flash::LN2;
     }
-    __nv_bfloat16* ob = o + (size_t)b * nq * c;
+    const float i0 = 1.f / l0, i1 = 1.f / l1;
+    __nv_bfloat16* ob = p.o + (size_t)b * p.nq * p.c;
 #pragma unroll
-    for (int n = 0; n < BCOLS / 8; ++n) {
-        const int col = c0 + n * 8 + 2 * tig;
-        if (col >= c) continue;
-        if (r0 < nq)
-            *reinterpret_cast<uint32_t*>(&ob[(size_t)r0 * c + col]) =
-                pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
-        if (r1 < nq)
-            *reinterpret_cast<uint32_t*>(&ob[(size_t)r1 * c + col]) =
-                pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
+    for (int j = 0; j < CW / 8; ++j) {
+        const int col = c0 + 8 * j + 2 * qd;
+        if (col >= p.c) continue;
+        if (row0 < p.nq)
+            *reinterpret_cast<uint32_t*>(&ob[(size_t)row0 * p.c + col]) =
+                pack_bf16(o[4 * j] * i0, o[4 * j + 1] * i0);
+        if (row1 < p.nq)
+            *reinterpret_cast<uint32_t*>(&ob[(size_t)row1 * p.c + col]) =
+                pack_bf16(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
     }
 }
 
-template <int D, int BCOLS>
-int launch_bf16_dc(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                   __nv_bfloat16* o, float* lse, int b, int nq, int nk, int d, int c,
-                   cudaStream_t stream) {
-    const dim3 grid((nq + TC_BQ - 1) / TC_BQ, (c + BCOLS - 1) / BCOLS, b);
-    flash_fwd_bf16<D, BCOLS><<<grid, TC_THREADS, 0, stream>>>(q, k, v, o, lse, nq, nk, d, c);
+template <int D, int CW>
+int launch_dc(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+              const Params& prm, const Plan& pl, cudaStream_t stream) {
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16<D, CW>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_fwd_bf16<D, CW><<<dim3(pl.gx, pl.gy, pl.gz), pl.wgs * WG_THREADS, pl.smem, stream>>>(
+        tq, tk, tv, prm);
     return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_bf16_d(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                  __nv_bfloat16* o, float* lse, int b, int nq, int nk, int d, int c,
-                  cudaStream_t stream) {
-    if (c % 64 == 0)
-        return launch_bf16_dc<D, TC_BC>(q, k, v, o, lse, b, nq, nk, d, c, stream);
-    return launch_bf16_dc<D, TC_BC_NARROW>(q, k, v, o, lse, b, nq, nk, d, c, stream);
+// CTAs of the instantiation a plan launches resident on one SM, from the
+// card's occupancy calculator (-1 if it cannot say).
+template <int D, int CW>
+int resident_dc(const Plan& pl) {
+    int n = -1;
+    if (cudaFuncSetAttribute(flash_fwd_bf16<D, CW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             pl.smem) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flash_fwd_bf16<D, CW>,
+                                                      pl.wgs * WG_THREADS,
+                                                      pl.smem) != cudaSuccess)
+        return -1;
+    return n;
 }
 
-int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                __nv_bfloat16* o, float* lse, int b, int nq, int nk, int d, int c,
-                cudaStream_t stream) {
-    if (d % 8) return (int)cudaErrorInvalidValue;  // 16-byte row chunks
-    if (d <= 16) return launch_bf16_d<16>(q, k, v, o, lse, b, nq, nk, d, c, stream);
-    if (d <= 32) return launch_bf16_d<32>(q, k, v, o, lse, b, nq, nk, d, c, stream);
-    if (d <= 64) return launch_bf16_d<64>(q, k, v, o, lse, b, nq, nk, d, c, stream);
-    return launch_bf16_d<128>(q, k, v, o, lse, b, nq, nk, d, c, stream);
+// Calls f.template run<D, CW>() for the plan's instantiation: the 20 of
+// D in {16, 32, 64, 128} x CW in {16, 32, 64, 128, 256}.
+template <int D, typename F>
+int by_cw(const Plan& pl, const F& f) {
+    switch (pl.cw) {
+        case 16: return f.template run<D, 16>();
+        case 32: return f.template run<D, 32>();
+        case 64: return f.template run<D, 64>();
+        case 128: return f.template run<D, 128>();
+        default: return f.template run<D, 256>();
+    }
 }
+
+template <typename F>
+int dispatch(const Plan& pl, const F& f) {
+    switch (pl.d_tile) {
+        case 16: return by_cw<16>(pl, f);
+        case 32: return by_cw<32>(pl, f);
+        case 64: return by_cw<64>(pl, f);
+        default: return by_cw<128>(pl, f);
+    }
+}
+
+struct Launch {
+    const CUtensorMap &tq, &tk, &tv;
+    const Params& prm;
+    const Plan& pl;
+    cudaStream_t stream;
+    template <int D, int CW>
+    int run() const { return launch_dc<D, CW>(tq, tk, tv, prm, pl, stream); }
+};
+
+struct Resident {
+    const Plan& pl;
+    template <int D, int CW>
+    int run() const { return resident_dc<D, CW>(pl); }
+};
+
+int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+           __nv_bfloat16* o, float* lse, int b, int nq, int nk, int dp, int c,
+           cudaStream_t stream) {
+    if (dp % 8) return (int)cudaErrorInvalidValue;  // 16-byte rows
+    const Plan pl = plan(b, nq, nk, dp, c);
+    const int kw = pl.d_tile < 64 ? pl.d_tile : 64, vw = pl.cw < 64 ? 16 : 64;
+    CUtensorMap tq, tk, tv;
+    int err;
+    if ((err = hopper::make_map_bf16_3d(&tq, q, dp, nq, b, kw, ROWS))) return err;
+    if ((err = hopper::make_map_bf16_3d(&tk, k, dp, nk, b, kw, pl.bk))) return err;
+    if ((err = hopper::make_map_bf16_3d(&tv, v, c, nk, b, vw, pl.bk))) return err;
+    const Params prm{o, lse, nq, nk, c, pl.stages};
+    return dispatch(pl, Launch{tq, tk, tv, prm, pl, stream});
+}
+
+}  // namespace wg
 
 }  // namespace
 
@@ -470,9 +620,35 @@ extern "C" {
 int sap3d_flash_fwd_block_c() { return C_MULTIPLE; }
 int sap3d_flash_fwd_max_d() { return MAX_D; }
 
+// The bf16 kernel's plan for a call with d (a multiple of 8) and C into
+// out[11]: d_tile, cw, slabs, bk, wgs, stages, smem bytes, grid x, y, z,
+// and the CTAs per SM it counts on.
+// Returns cudaErrorInvalidValue for arguments the kernel does not take.
+int sap3d_flash_fwd_plan(int b, int nq, int nk, int d, int c, int* out) {
+    if (b <= 0 || nq <= 0 || nk <= 0 || d <= 0 || d > MAX_D || d % 8 || c <= 0 ||
+        c % C_MULTIPLE)
+        return (int)cudaErrorInvalidValue;
+    const wg::Plan p = wg::plan(b, nq, nk, d, c);
+    const int v[11] = {p.d_tile, p.cw, p.slabs, p.bk, p.wgs,     p.stages,
+                       p.smem,   p.gx, p.gy,    p.gz, p.resident};
+    for (int i = 0; i < 11; ++i) out[i] = v[i];
+    return 0;
+}
+
+// CTAs of the bf16 kernel that the plan of such a call launches resident on
+// one SM, from the card's occupancy calculator; -1 if it cannot say.
+int sap3d_flash_fwd_resident_ctas(int b, int nq, int nk, int d, int c) {
+    if (b <= 0 || nq <= 0 || nk <= 0 || d <= 0 || d > MAX_D || d % 8 || c <= 0 ||
+        c % C_MULTIPLE)
+        return -1;
+    const wg::Plan p = wg::plan(b, nq, nk, d, c);
+    return wg::dispatch(p, wg::Resident{p});
+}
+
 // dtype: 0 = float32, 1 = bfloat16.  lse: float32 [B, Nq], or null for the
 // forward without lse.  Returns a cudaError_t (0 = launched); invalid
-// arguments return cudaErrorInvalidValue without launching.
+// arguments, and in bf16 a tensor map that cuTensorMapEncodeTiled refuses,
+// return an error without launching.
 int sap3d_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                     int b, int nq, int nk, int d, int c, int dtype, void* stream) {
     if (b <= 0 || nq <= 0 || nk <= 0 || d <= 0 || d > MAX_D || c <= 0 || c % C_MULTIPLE)
@@ -483,11 +659,11 @@ int sap3d_flash_fwd(const void* q, const void* k, const void* v, void* o, void* 
                           static_cast<const float*>(v), static_cast<float*>(o),
                           static_cast<float*>(lse), b, nq, nk, d, c, s);
     if (dtype == 1)
-        return launch_bf16(static_cast<const __nv_bfloat16*>(q),
-                           static_cast<const __nv_bfloat16*>(k),
-                           static_cast<const __nv_bfloat16*>(v),
-                           static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-                           b, nq, nk, d, c, s);
+        return wg::launch(static_cast<const __nv_bfloat16*>(q),
+                          static_cast<const __nv_bfloat16*>(k),
+                          static_cast<const __nv_bfloat16*>(v),
+                          static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+                          b, nq, nk, d, c, s);
     return (int)cudaErrorInvalidValue;
 }
 

@@ -40,10 +40,11 @@
 // (one per pass), against B1's one: costs of the design, not of the
 // function, so the bound does not count them.
 //
-// Layout of the work, as B1's: one block per (64 query rows, a column tile
-// of C, batch element).  bf16 on the tensor cores through `mma.sync`
-// m16n8k16 with fp32 accumulation: four warps of 16 query rows, Q in
-// registers as the A operand, the rounded p fragments reused in registers
+// Layout of the work, the first port's design of B1 (B1 has since been
+// redesigned for wgmma and TMA; this kernel keeps the first design): one
+// block per (64 query rows, a column tile of C, batch element).  bf16 on
+// the tensor cores through `mma.sync` m16n8k16 with fp32 accumulation:
+// four warps of 16 query rows, Q in registers as the A operand, the rounded p fragments reused in registers
 // as the A operand of P.V, V through `ldmatrix.trans`; a column tile of
 // 128 where C is a multiple of 64, else 16.  Each column tile repeats pass
 // 1.  fp32 on the CUDA cores over 4x4 register tiles (256 threads, 64
@@ -54,7 +55,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+#include "hopper.cuh"
+
 namespace {
+
+// Shared helpers (row reductions; bf16 pairs rounded to nearest even, the
+// lower column in the low half).
+using flash::group16_max;
+using flash::group16_sum;
+using flash::quad_max;
+using flash::quad_sum;
+using hopper::pack_bf16;
 
 constexpr int MAX_D = 128;
 constexpr int C_MULTIPLE = 16;  // C must be a multiple of this
@@ -66,18 +78,6 @@ constexpr int BK = 64;       // keys per streamed tile
 constexpr int BC = 64;       // output columns (of C) per block
 constexpr int LDT = BQ + 4;  // padded row stride of the transposed tiles
 constexpr int THREADS = 256; // 16 x 16 threads, each owning a 4 x 4 sub-tile
-
-// Max / sum over the 16 lanes that share a row group.
-__device__ __forceinline__ float group16_max(float x) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-    return x;
-}
-__device__ __forceinline__ float group16_sum(float x) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-    return x;
-}
 
 // s[i][j] = q[row ty*4+i] . k[key tx*4+j] from the transposed tiles, keys
 // past nk at -inf.
@@ -251,21 +251,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                  : "r"(addr));
-}
-
-// Two floats as bf16x2 (round to nearest even), the lower column in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-    return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-    x += __shfl_xor_sync(0xffffffffu, x, 1);
-    return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // One tile of TC_BK keys of K (rows past nk and columns past d zero).

@@ -25,6 +25,12 @@ them against the library's own.  The kernel reads rows of q and k in whole
 16-byte chunks; the launcher pads a narrower row with zero columns
 (``pad_rows``: d to a multiple of 8 in bf16, of 4 in float32), which add
 nothing to q k^T.  Nothing of the TPU kernel's VMEM model carries over.
+
+``launch_plan`` mirrors the bf16 kernel's host function ``plan``: how a call
+is cut into CTAs (query rows, a slab of C's columns, a batch element each),
+which of the compiled instantiations runs (``INSTANTIATIONS``), its key
+tile, ring stages and shared memory.  The CPU tests hold the plan at every
+site; on the card ``card_launch_plan`` reads the library's own.
 """
 
 from __future__ import annotations
@@ -44,6 +50,22 @@ MAX_D = 128
 C_MULTIPLE = 16
 # Bytes per chunk in which the kernels read a row of q or k.
 ROW_CHUNK_BYTES = 16
+# The bf16 kernels' launch plans (here and in flash_attention_bwd) count on
+# an H100 SXM: its SMs, the most dynamic shared memory one CTA may take,
+# shared memory per SM and the runtime's reserve per CTA.
+SM_COUNT = 132
+MAX_CTA_SMEM = 232448
+SMEM_PER_SM = 233472
+CTA_SMEM_RESERVE = 1024
+# The bf16 forward kernel (csrc/flash_attention_fwd.cu, namespace wg): query
+# rows per warpgroup, warpgroups per CTA at most, the bytes beyond a CTA's
+# layout that align its base to 1024 (the dynamic shared memory starts at
+# least 128-byte aligned), and the compiled (d tile, column slab)
+# instantiations.
+WG_ROWS = 64
+MAX_WGS = 2
+SMEM_SLACK = 896
+INSTANTIATIONS = frozenset((d, cw) for d in (16, 32, 64, 128) for cw in (16, 32, 64, 128, 256))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The limits the kernel is held to against its plain version on the same
@@ -135,12 +157,85 @@ def forward_viable(nq: int, nk: int, d: int, c: int, dtype: torch.dtype) -> bool
             and c > 0 and c % C_MULTIPLE == 0)
 
 
+def _align1k(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+def key_tile(cw: int) -> int:
+    """Keys per streamed tile of the bf16 kernel beside a ``cw``-column
+    accumulator: 64 from ``cw`` = 64 up (beside 128 accumulator registers a
+    thread at 256; at 64 and 128 so that a thread fits in 128 registers),
+    128 below."""
+    return 64 if cw >= 64 else 128
+
+
+def launch_plan(b: int, nq: int, nk: int, d: int, c: int) -> dict:
+    """How the bf16 forward kernel cuts a call (q [b, nq, d], k [b, nk, d],
+    v [b, nk, c]), as the kernel's host function ``plan`` does: d padded to
+    8 and then to the q and k box width ``d_tile`` (16, 32, 64 or 128);
+    ``cw``, the least of 16 ... 256 that covers C up to 256, and ``slabs`` of
+    it cover C (each slab's CTAs recompute the scores); ``bk`` keys per tile;
+    ``wgs`` warpgroups of 64 query rows per CTA and ``stages`` of the ring
+    of K and V tiles (3 with two warpgroups, 2 with one); ``smem``, the
+    CTA's dynamic shared memory (Q, the ring, the mbarriers, ``SMEM_SLACK``
+    of alignment); ``resident``, the CTAs per SM the plan counts on
+    (registers: one 256-thread CTA, two at ``cw`` <= 128 as the launch
+    bounds ask, or twice as many of 128 threads; and shared memory); ``grid`` (query
+    tiles, slabs, batch) and ``threads``, 128 per warpgroup.  Two
+    warpgroups (each K and V tile then serves 128 rows) unless one takes
+    fewer waves over the SMs.  ``nk`` does not change the cut: every key
+    tile costs the same."""
+    dp = -(-d // 8) * 8
+    d_tile = next(w for w in (16, 32, 64, 128) if dp <= w)
+    cw = next((w for w in (16, 32, 64, 128) if c <= w), 256)
+    slabs = -(-c // cw)
+    bk = key_tile(cw)
+    best = None
+    for wgs in (MAX_WGS, 1):
+        stages = 3 if wgs == MAX_WGS else 2
+        stage = _align1k(bk * d_tile * 2) + _align1k(bk * cw * 2)  # one K and one V tile
+        smem = (_align1k(wgs * WG_ROWS * d_tile * 2) + stages * stage + 8 * (1 + 2 * stages)
+                + SMEM_SLACK)
+        resident = min((2 if cw <= 128 else 1) * (MAX_WGS // wgs),
+                       SMEM_PER_SM // (smem + CTA_SMEM_RESERVE))
+        ctas = b * -(-nq // (WG_ROWS * wgs)) * slabs
+        waves = -(-ctas // (SM_COUNT * resident))
+        if best is None or waves < best[0]:  # ties keep two warpgroups
+            best = (waves, dict(wgs=wgs, stages=stages, smem=smem, resident=resident))
+    cut = best[1]
+    grid = (-(-nq // (WG_ROWS * cut["wgs"])), slabs, b)
+    return dict(d_tile=d_tile, cw=cw, slabs=slabs, bk=bk, **cut, grid=grid,
+                threads=128 * cut["wgs"])
+
+
+def card_launch_plan(b: int, nq: int, nk: int, d: int, c: int) -> dict:
+    """``launch_plan``'s keys as the library's own ``plan`` reads them (the
+    card tests and ``chip_smoke.py`` hold the two equal)."""
+    out = (ctypes.c_int * 11)()
+    err = _library().sap3d_flash_fwd_plan(b, nq, nk, -(-d // 8) * 8, c, out)
+    if err:
+        raise ValueError(f"the bf16 forward kernel does not take d={d}, C={c}")
+    v = list(out)
+    return dict(d_tile=v[0], cw=v[1], slabs=v[2], bk=v[3], wgs=v[4], stages=v[5], smem=v[6],
+                resident=v[10], grid=tuple(v[7:10]), threads=128 * v[4])
+
+
+def card_resident_ctas(b: int, nq: int, nk: int, d: int, c: int) -> int:
+    """CTAs of the bf16 kernel that such a call launches resident on one SM,
+    from the card's occupancy calculator."""
+    return _library().sap3d_flash_fwd_resident_ctas(b, nq, nk, -(-d // 8) * 8, c)
+
+
 def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if not getattr(lib, "_sap3d_typed", False):
         lib.sap3d_flash_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         lib.sap3d_flash_fwd.restype = ctypes.c_int
+        lib.sap3d_flash_fwd_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.sap3d_flash_fwd_plan.restype = ctypes.c_int
+        lib.sap3d_flash_fwd_resident_ctas.argtypes = [ctypes.c_int] * 5
+        lib.sap3d_flash_fwd_resident_ctas.restype = ctypes.c_int
         lib.sap3d_flash_fwd_block_c.restype = ctypes.c_int
         lib.sap3d_flash_fwd_max_d.restype = ctypes.c_int
         lib.sap3d_cuda_error_string.argtypes = [ctypes.c_int]

@@ -38,7 +38,10 @@ import torch
 from sap3d_tpu_torch.ops.cuda import build
 from sap3d_tpu_torch.ops.cuda.flash_attention import (
     C_MULTIPLE,
+    CTA_SMEM_RESERVE,
     MAX_D,
+    SM_COUNT,
+    SMEM_PER_SM,
     contiguous_aligned,
     forward_viable,
     pad_rows,
@@ -55,11 +58,8 @@ NARROW_MAX_C = 128
 BF16_MAX_D = 64
 # Keys per CTA and queries per tile of the bf16 kernels.
 BLOCK = 64
-# What ``query_split`` knows of the card: an H100's SMs, shared memory per
-# SM, the runtime's reserve per CTA, and the most splits it makes.
-SM_COUNT = 132
-SMEM_PER_SM = 233472
-CTA_SMEM_RESERVE = 1024
+# What ``query_split`` knows beyond the card (``flash_attention``'s
+# SM_COUNT, SMEM_PER_SM, CTA_SMEM_RESERVE): the most splits it makes.
 MAX_SPLIT = 16
 SETUP_TILES = 2
 # C at which the bf16 dkdq kernel also computes dv (128 only where d <=

@@ -238,6 +238,47 @@ def test_b6_swapped_into_the_micro_forward(cuda):
     assert (swapped - current).abs().mean().item() <= 1e-2
 
 
+# The bf16 forward's launch plan at its edges: Nq below one 64-row tile,
+# Nk below one key tile (64 at C > 128 and C <= 32, 128 between) and not a
+# multiple of it, C = 16, 48 and 1024, d = 8, 120 and 128
+_FORWARD_EDGES = [
+    (2, 50, 300, 16, 128),      # Nq below one tile
+    (1, 300, 30, 32, 256),      # Nk below one 64-key tile
+    (1, 300, 100, 8, 128),      # Nk below one 128-key tile, d = 8
+    (2, 700, 130, 16, 128),     # Nk not a multiple of the key tile
+    (2, 700, 300, 2, 16),       # C = 16: the narrow instantiation
+    (1, 300, 100, 6, 48),       # C = 48: 16 columns of the slab past C
+    (2, 700, 500, 128, 1024),   # d = 128, C = 1024: four slabs
+    (2, 70, 63, 120, 1024),     # d = 120, one CTA's rows, one ragged key tile
+    (1, 20, 129, 8, 32),        # C = 32
+    (1, 300, 200, 40, 320),     # C = 320: the second slab narrower than 256
+    (16, 392, 392, 128, 128),   # d = 128 at a 128-column slab
+    (16, 3136, 3136, 32, 256),  # x_2_2: the plan cuts 64-row CTAs of one warpgroup
+]
+
+
+@pytest.mark.parametrize("b,nq,nk,d,c", _FORWARD_EDGES)
+def test_b1_b2_at_the_plans_edges(cuda, b, nq, nk, d, c):
+    """B1 and B2 (bf16) against their plain versions at the plan's edge
+    shapes; the library's plan is ``launch_plan``'s, and the card holds at
+    least the CTAs per SM it counts on."""
+    from sap3d_tpu_torch.ops.cuda import flash_attention as fa
+
+    plan = fa.card_launch_plan(b, nq, nk, d, c)
+    assert plan == fa.launch_plan(b, nq, nk, d, c)
+    assert fa.card_resident_ctas(b, nq, nk, d, c) >= plan["resident"]
+    q, k, v = _inputs(b, nq, nk, d, c, torch.bfloat16)
+    got = flash_attend_tokens(q, k, v)
+    o, lse = flash_forward_lse(q, k, v)
+    torch.cuda.synchronize()
+    want_o, want_lse = flash_forward_lse_reference(q, k, v)
+    for out in (got, o):
+        check = agreement(out, want_o)
+        assert check["finite"] and check["excess"] <= 1, check
+    check = agreement(lse, want_lse, LSE_TOLERANCE)
+    assert check["finite"] and check["excess"] <= 1, check
+
+
 def test_b3_rejects_what_it_does_not_take(cuda):
     q, k, v = _inputs(1, 8, 8, 8, 1024, torch.float32)  # C above 512
     o, lse = flash_forward_lse_reference(q, k, v)
