@@ -8,9 +8,9 @@ result line):
   1. card: name and power limit from nvidia-smi;
   2. kernel build: the port's CUDA sources, one nvcc each, started
      together; build time and ptxas register/spill report (per kernel
-     instantiation for the forward and the backward, whose bf16 kernels
-     must not spill); the bf16 forward kernels' SASS (cuobjdump) must hold
-     HGMMA (wgmma) and UTMALDG (TMA loads);
+     instantiation for the forward and the backward, whose wgmma kernels,
+     bf16 and split fp32, must not spill); every wgmma instantiation's
+     SASS (cuobjdump) must hold HGMMA (wgmma) and UTMALDG (TMA loads);
   3. kernels against their plain versions at the three flagship
      self-attention sites (batch 16), bf16 and fp32, on one set of random
      inputs: the flash forward without lse (B1), with lse (B2: o and lse)
@@ -20,13 +20,15 @@ result line):
      also held row by row; delta left out for dq and dk); with the
      kernel's, the plain version's and a PyTorch yardstick's times
      (scaled_dot_product_attention, forward or autograd backward; the port
-     never calls it) beside the bound; for bf16 B1 and B2 the launch plan
-     (warpgroups per CTA, column slabs, key tile, stages, shared memory,
+     never calls it) beside the bound (in fp32 at the split-bf16 rate, the
+     CUDA cores' beside it); for B1 and B2 the launch plan (planes,
+     warpgroups per CTA, column slabs, key tile, stages, shared memory,
      CTAs), the library's own held to ``launch_plan``, and the CTAs
      resident per SM on the card, at least what the plan counts on; for
-     B3 (and B4 in phase 9) also the largest excess, the query split S, the CTAs per launch and, in bf16,
-     the dkdq kernel's CTAs resident per SM, from the card's occupancy
-     calculator, held to the split rule's model (``resident_ctas``);
+     B3 (and B4 in phase 9) also the largest excess, the query split S,
+     the CTAs per launch and the dkdq kernel's CTAs resident per SM, from
+     the card's occupancy calculator, held to the split rule's model
+     (``resident_ctas``);
   4. full-width forward: the flagship (p3d_unetplusplus_ds) on
      [16, 16, 112, 112, 3] bf16, seeded weights, gamma nonzero and random BN
      statistics; each B1 call held against its plain version on the tensors
@@ -41,7 +43,8 @@ result line):
      (a) 3 B2 + 3 B3 launches and no B1 per make_train_step call;
      (b) with dropout 0, each B2 and B3 call held against its plain version
      on the tensors the model gave it, with its planted faults failing;
-     (c) one step end to end in bf16 and in fp32: the loss against the
+     (c) one step end to end in bf16 and in fp32 (the fp32 step's launches
+     counted: the fp32 train path's B2 and B3): the loss against the
      attention Function on the plain B2 and B3, the whole gradient against
      B2 with the plain B3 (the same forward), with a B3 without delta as
      the control that fails; the gradient's distance from the plain B2 and
@@ -95,7 +98,8 @@ result line):
      (b) one train step (dropout 0): every B4 call held on the step's own
      tensors against its plain version, B3 in its place (the lse cotangent
      dropped) failing; the launches of one make_train_step call predicted
-     (24 B2, 12 B4) and counted; in fp32 at batch 1 the ring step's loss and
+     (24 B2, 12 B4) and counted; in fp32 at batch 1 (its launches counted)
+     the ring step's loss and
      whole gradient against the gather step (B2 + B3), with B3 in B4's place
      as the control;
      (c) B4 at the per-shard shapes on random inputs, bf16 and fp32, beside
@@ -122,7 +126,8 @@ result line):
      without attention failing the limit, clips scored per second; (b) the
      batched device metrics on a [32, 1080, 960] stack against the NumPy
      oracle, frames per second of both;
- 12. a JSON line of per-kernel numbers, then the result line
+ 12. a JSON line of per-kernel numbers (B1-B4 also in fp32, the split-bf16
+     instantiations), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Needs torch with CUDA and nvcc; imports nothing of JAX or ``sap3d_tpu``.
@@ -142,8 +147,14 @@ import warnings
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-PEAK_OPS = {"bfloat16": 989e12,    # dense bf16 tensor-core rate
-            "float32": 67e12}      # fp32 outside the tensor cores
+# Operations per second that bound a kernel, per dtype: the dense bf16
+# tensor-core rate; for float32, the same rate over the six bf16 products a
+# float32 product takes on the kernels' split-bf16 route (csrc/split_bf16.cuh),
+# the least time for fp32-accurate products on the card.  The fp32 rate of
+# the CUDA cores, SDPA's in float32, is read beside it (cuda_core_bound_ms).
+PEAK_OPS = {"bfloat16": 989e12,
+            "float32": 989e12 / 6,
+            "float32_cuda_cores": 67e12}
 # The flagship's attention sites that take the kernel (batch 16):
 # name -> (Nq, Nk, d, C)
 SITES = {
@@ -263,6 +274,14 @@ def flash_bwd_bound(b, nq, nk, d, c, dtype_name: str, itemsize: int):
     read, dq, dk, dv written; five products, 2*b*nq*nk*(3d + 2C) FLOPs."""
     nbytes = b * (2 * (nq * d + nk * d + nk * c) + 2 * nq * c) * itemsize + 4 * b * nq
     return _bound(nbytes, 2 * b * nq * nk * (3 * d + 2 * c), dtype_name)
+
+
+def cuda_core_bound(bound, b, nq, nk, d, c, dtype_name: str, **kw) -> dict:
+    """In float32, ``bound``'s time at the fp32 rate of the CUDA cores
+    (SDPA's yardstick; the kernels' own bound is the split rate)."""
+    if dtype_name != "float32":
+        return {}
+    return {"cuda_core_bound_ms": bound(b, nq, nk, d, c, "float32_cuda_cores", 4, **kw)[0]}
 
 
 def sdpa_yardstick(q, k, v, flush, do=None):
@@ -430,6 +449,7 @@ def phase_kernels(torch, fa, fb, flush, sites=None, batch=BATCH):
             row["library_ms"], row["library_backend"] = sdpa_yardstick(q, k, v, flush)
             row["bound_ms"], row["bound_by"] = flash_bound(batch, nq, nk, d, c, dname,
                                                            q.element_size())
+            row.update(cuda_core_bound(flash_bound, batch, nq, nk, d, c, dname))
             row.update(forward_grid(fa, batch, nq, nk, d, c, dtype))
             rows["B1"].append(row)
             ran = ["B1"]
@@ -449,6 +469,7 @@ def phase_kernels(torch, fa, fb, flush, sites=None, batch=BATCH):
                 rows["B1"][-1]["library_backend"]
             row["bound_ms"], row["bound_by"] = flash_bound(batch, nq, nk, d, c, dname,
                                                            q.element_size(), lse=True)
+            row.update(cuda_core_bound(flash_bound, batch, nq, nk, d, c, dname, lse=True))
             row.update(forward_grid(fa, batch, nq, nk, d, c, dtype))
             rows["B2"].append(row)
 
@@ -461,6 +482,7 @@ def phase_kernels(torch, fa, fb, flush, sites=None, batch=BATCH):
             row["library_ms"], row["library_backend"] = sdpa_yardstick(q, k, v, flush, do=do)
             row["bound_ms"], row["bound_by"] = flash_bwd_bound(batch, nq, nk, d, c, dname,
                                                                q.element_size())
+            row.update(cuda_core_bound(flash_bwd_bound, batch, nq, nk, d, c, dname))
             row.update(backward_grid(fb, batch, nq, nk, d, c, dtype))
             rows["B3"].append(row)
             report_kernel_rows(rows, ran, site, dname, nq, nk, d, c, batch)
@@ -470,36 +492,29 @@ def phase_kernels(torch, fa, fb, flush, sites=None, batch=BATCH):
 
 
 def backward_grid(fb, batch, nq, nk, d, c, dtype) -> dict:
-    """The backward's query split and CTAs per launch at a shape; in bf16
-    also the dkdq kernel's CTAs resident per SM, from the card's occupancy
-    calculator, which must be what the split rule assumed, and its dynamic
-    shared memory."""
-    import torch
-
+    """The backward's query split and CTAs per launch at a shape, the dkdq
+    kernel's CTAs resident per SM, from the card's occupancy calculator,
+    which must be what the split rule assumed, and its dynamic shared
+    memory."""
     grid = fb.launch_grid(batch, nq, nk, d, c, dtype)
-    if dtype == torch.bfloat16:
-        grid["resident"] = fb.card_resident_ctas(d, c)
-        grid["smem_bytes"] = fb.dkdq_smem_bytes(d, c)
-        if grid["resident"] != fb.resident_ctas(d, c):
-            raise AssertionError(f"d={d} C={c}: {grid['resident']} dkdq CTAs per SM on the "
-                                 f"card, the split rule assumes {fb.resident_ctas(d, c)}")
+    grid["resident"] = fb.card_resident_ctas(d, c, dtype)
+    grid["smem_bytes"] = fb.dkdq_smem_bytes(d, c, dtype)
+    if grid["resident"] != fb.resident_ctas(d, c, dtype):
+        raise AssertionError(f"d={d} C={c} {dtype}: {grid['resident']} dkdq CTAs per SM on "
+                             f"the card, the split rule assumes {fb.resident_ctas(d, c, dtype)}")
     return grid
 
 
 def forward_grid(fa, batch, nq, nk, d, c, dtype) -> dict:
-    """In bf16, the forward kernel's launch plan at a shape as the library
-    makes it, which must be ``launch_plan``'s (the CPU tests hold that), and
-    its CTAs resident per SM from the card's occupancy calculator, which
-    must be at least what the plan counts on."""
-    import torch
-
-    if dtype != torch.bfloat16:
-        return {}
-    plan = fa.card_launch_plan(batch, nq, nk, d, c)
-    if plan != fa.launch_plan(batch, nq, nk, d, c):
-        raise AssertionError(f"d={d} C={c}: the library plans {plan}, launch_plan says "
-                             f"{fa.launch_plan(batch, nq, nk, d, c)}")
-    card = fa.card_resident_ctas(batch, nq, nk, d, c)
+    """The forward kernel's launch plan at a shape as the library makes it,
+    which must be ``launch_plan``'s (the CPU tests hold that), and its CTAs
+    resident per SM from the card's occupancy calculator, which must be at
+    least what the plan counts on."""
+    plan = fa.card_launch_plan(batch, nq, nk, d, c, dtype)
+    if plan != fa.launch_plan(batch, nq, nk, d, c, dtype):
+        raise AssertionError(f"d={d} C={c} {dtype}: the library plans {plan}, launch_plan "
+                             f"says {fa.launch_plan(batch, nq, nk, d, c, dtype)}")
+    card = fa.card_resident_ctas(batch, nq, nk, d, c, dtype)
     if card < plan["resident"]:
         raise AssertionError(f"d={d} C={c}: {card} CTAs per SM on the card, the plan counts "
                              f"on {plan['resident']}")
@@ -508,7 +523,8 @@ def forward_grid(fa, batch, nq, nk, d, c, dtype) -> dict:
 
 def describe_forward_plan(r) -> str:
     p = r["plan"]
-    return (f", {p['wgs']} warpgroup(s) per CTA, {p['slabs']} slab(s) of {p['cw']} columns, "
+    return (f", {p['planes']} plane(s), {p['wgs']} warpgroup(s) per CTA, {p['slabs']} slab(s) "
+            f"of {p['cw']} columns, "
             f"{p['bk']}-key tiles, {p['stages']} stages, {p['smem']} B of shared memory, "
             f"{p['grid'][0] * p['grid'][1] * p['grid'][2]} CTAs, {r['card_resident']} "
             f"resident per SM (plan: {p['resident']})")
@@ -526,11 +542,13 @@ def report_kernel_rows(rows, names, site, dname, nq, nk, d, c, batch=BATCH):
         lib = r["library_ms"]
         grid = f", excess {r['excess']:.3f}, {describe_grid(r)}" if name == "B3" else \
             describe_forward_plan(r) if "plan" in r else ""
+        cores = f", fp32 CUDA-core bound {r['cuda_core_bound_ms']:.4f} ms" \
+            if "cuda_core_bound_ms" in r else ""
         print(f"[kernel] {name} {site} {dname} B={batch} Nq={nq} Nk={nk} d={d} C={c}: "
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"sdpa {lib if lib is None else f'{lib:.4f}'} ms "
               f"({r['library_backend']}), bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}){grid}", flush=True)
+              f"({r['bound_by']}){cores}{grid}", flush=True)
 
 
 def calibrate_and_randomize_bn(torch, model, x, gen):
@@ -948,7 +966,9 @@ def phase_train(torch, fa, fb, model, card, profile: bool = False):
         plain path (autograd of softmax attention), and the reference with a
         plain forward that rounds where the kernel does."""
         ref = fb.flash_backward_reference
+        _zero_launch_counts(fa, fb)  # the float32 step's kernel path: one main-path run
         loss_k_, g_k_ = (loss_k, g_k) if bf16 else grads(m, True)
+        launches = _launch_counts(fa, fb)
         loss_s, g_s = grads(m, True, backward=ref)
         _, g_f = grads(m, True, backward=no_delta)
         loss_r, g_r = grads(m, True, forward=fa.flash_forward_lse_reference, backward=ref)
@@ -961,7 +981,8 @@ def phase_train(torch, fa, fb, model, card, profile: bool = False):
                     reference_again=rel(g_r2, g_r), b2_forward_vs_reference=rel(g_s, g_r),
                     kernel_rounding_forward_vs_reference=rel(g_o, g_r),
                     plain_vs_reference=rel(g_p, g_r), kernel_vs_plain=rel(g_k_, g_p),
-                    same_forward_loss_rel=abs(loss_k_ - loss_s) / abs(loss_s))
+                    same_forward_loss_rel=abs(loss_k_ - loss_s) / abs(loss_s),
+                    **({} if bf16 else {"launches": launches}))
 
     e2e = {"bf16": one_step(model, True)}
     del g_k
@@ -2082,7 +2103,9 @@ def phase_ring(torch, fa, fb, calibrated, flush, card, profile: bool = False):
         del fwd_r, fwd_g, fwd_n, fwd_p, fwd_na
         loss_g, g_g = grads(gather32)
         _, g_g2 = grads(gather32)
+        _zero_launch_counts(fa, fb)  # the float32 ring step: one main-path run
         loss_r, g_r = grads(ring32)
+        res["launches"]["fp32_step"] = _launch_counts(fa, fb)
         _, g_f = grads(ring32, backward=b3_in_place)
         # yardsticks: another float32 order of the same sums (the plain
         # path), and the gather path with its B2 outputs moved at random by
@@ -2499,14 +2522,21 @@ def phase_eval(torch, fa, calibrated, card):
                 host_frames_per_s=n / host_s)
 
 
-# Per source of phase 2: the kernels ptxas reports on, and those of them
-# that must not spill (the bf16 kernels, which the gates reach at every
-# instantiation).
+# Per source of phase 2: the kernels ptxas reports on (a longer name before
+# its prefix), and those of them that must not spill (the wgmma kernels,
+# bf16 and split fp32, which the gates reach at every instantiation, and
+# the split prep).
 BUILD_KERNELS = {
-    "flash_attention_fwd": (("flash_fwd_bf16", "flash_fwd_f32"), ("flash_fwd_bf16",)),
-    "flash_attention_bwd": (("flash_bwd_dkdq", "flash_bwd_dv", "flash_bwd_f32", "bwd_row_stats",
-                             "bwd_delta", "round_to_bf16"), ("flash_bwd_dkdq", "flash_bwd_dv")),
+    "flash_attention_fwd": (("flash_fwd_bf16", "split_planes"), ("flash_fwd_bf16", "split_planes")),
+    "flash_attention_bwd": (("flash_bwd_dkdq_split", "flash_bwd_dkdq", "flash_bwd_dv",
+                             "bwd_row_stats", "round_to_bf16", "split_planes"),
+                            ("flash_bwd_dkdq", "flash_bwd_dv", "split_planes")),
 }
+# The wgmma kernels of each source whose SASS must hold HGMMA and UTMALDG
+# (phase 2); the forward's instantiations are ``INSTANTIATIONS``'s, the
+# backward's follow its dispatch on C.
+SASS_KERNELS = {"flash_attention_fwd": "flash_fwd_bf16",
+                "flash_attention_bwd": "flash_bwd_dkdq_split|flash_bwd_dkdq|flash_bwd_dv"}
 
 
 def report_build(source: str, log: str) -> None:
@@ -2538,44 +2568,48 @@ def report_build(source: str, log: str) -> None:
             print(f"[build]   {line.strip()[:200]}", flush=True)
 
 
-def check_forward_sass(build, fa) -> dict:
-    """Phase 2: the bf16 forward kernels issue wgmma and take their tiles
-    by TMA: cuobjdump's SASS of every ``flash_fwd_bf16`` instantiation holds
-    HGMMA and UTMALDG instructions.  Returns their counts per
-    instantiation."""
+def check_sass(build, source: str) -> dict:
+    """Phase 2: the wgmma kernels of ``source`` (``SASS_KERNELS``; bf16 and
+    split fp32) issue wgmma and take their tiles by TMA: cuobjdump's SASS of
+    every instantiation holds HGMMA and UTMALDG instructions.  Returns their
+    counts per instantiation."""
     import os
     import re
 
+    names = SASS_KERNELS[source]
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", build._library_path(fa.SOURCE)[1]],
+    sass = subprocess.run([tool, "-sass", build._library_path(source)[1]],
                           capture_output=True, text=True, timeout=300, check=True).stdout
     counts, kernel = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"flash_fwd_bf16ILi(\d+)ELi(\d+)E", line)
-            kernel = f"flash_fwd_bf16<{m.group(1)},{m.group(2)}>" if m else None
+            m = re.search(rf"({names})I((?:Li\d+E)+)", line)
+            args = ",".join(re.findall(r"Li(\d+)E", m.group(2))) if m else ""
+            kernel = f"{m.group(1)}<{args}>" if m else None
             if kernel:
                 counts[kernel] = {"HGMMA": 0, "UTMALDG": 0}
         elif kernel:
             for op in ("HGMMA", "UTMALDG"):
                 counts[kernel][op] += op in line
     missing = [k for k, n in counts.items() if not (n["HGMMA"] and n["UTMALDG"])]
-    print(f"[build]   SASS of {len(counts)} bf16 forward instantiations: HGMMA "
+    print(f"[build]   SASS of {len(counts)} wgmma instantiations of {source}.cu: HGMMA "
           f"{min(n['HGMMA'] for n in counts.values())}-{max(n['HGMMA'] for n in counts.values())}"
           f", UTMALDG {min(n['UTMALDG'] for n in counts.values())}-"
           f"{max(n['UTMALDG'] for n in counts.values())} per kernel", flush=True)
-    if len(counts) != len(fa.INSTANTIATIONS) or missing:
-        raise AssertionError(f"bf16 forward kernels without HGMMA or UTMALDG: {missing} "
-                             f"({len(counts)} of {len(fa.INSTANTIATIONS)} found)")
+    if missing or not counts:
+        raise AssertionError(f"{source}: wgmma kernels without HGMMA or UTMALDG: {missing} "
+                             f"({len(counts)} found)")
     return counts
 
 
-def kernel_entry(name, source, replaces, launches, rows, extra_err=(), more_rows=()):
-    """One kernel's entry of the JSON line: times summed over the bf16 site
-    calls of ``rows`` (one batch-16 step of the model whose sites they are);
-    bound_by is the term that holds most of the summed bound.  ``more_rows``
-    (the same kernel at another model's sites) count towards max_abs_err."""
-    main_rows = [r for r in rows if r["dtype"] == "bfloat16"]
+def kernel_entry(name, source, replaces, launches, rows, extra_err=(), more_rows=(),
+                 dtype="bfloat16"):
+    """One kernel's entry of the JSON line: times summed over the ``dtype``
+    site calls of ``rows`` (one batch-16 step of the model whose sites they
+    are); bound_by is the term that holds most of the summed bound.
+    ``more_rows`` (the same kernel at another model's sites) count towards
+    max_abs_err."""
+    main_rows = [r for r in rows if r["dtype"] == dtype]
     total = {key: sum(r[key] for r in main_rows) for key in ("ms", "plain_ms", "bound_ms")}
     lib = [r["library_ms"] for r in main_rows]
     t_ops = sum(r["bound_ms"] for r in main_rows if r["bound_by"] == "operations")
@@ -2634,7 +2668,10 @@ def main(argv=None) -> int:
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"[build]   {line.strip()}", flush=True)
-        check_forward_sass(build, fa)
+        sass = {source: check_sass(build, source) for source in SASS_KERNELS}
+        if len(sass[fa.SOURCE]) != len(fa.INSTANTIATIONS):
+            raise AssertionError(f"{len(sass[fa.SOURCE])} forward instantiations compiled, "
+                                 f"launch_plan names {len(fa.INSTANTIATIONS)}")
 
         flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
         rows = phase_kernels(torch, fa, fb, flush)
@@ -2696,17 +2733,22 @@ def main(argv=None) -> int:
         fit, gn_fit = train["fit"]["launches"], gn_train["fit"]["launches"]
         ring_fwd, ring_step = ring["launches"]["forward"], ring["launches"]["step"]
         b6_launches = bisect["launches"]["nolse"]["B6"]
+        fit32 = train["end_to_end"]["float32"]["launches"]
+        ring32 = ring["launches"]["fp32_step"]
         # every main path launched every kernel the gate gives it
         if not (launches > 0 and fit["B2"] > 0 and fit["B3"] > 0 and gn_launches > 0
                 and gn_fit["B2"] > 0 and gn_fit["B3"] > 0 and gn_fit["B5"] > 0
                 and ring_fwd["B2"] > 0 and ring_step["B2"] > 0 and ring_step["B4"] > 0
-                and b6_launches > 0 and evaluation["b1_launches"] > 0):
+                and b6_launches > 0 and evaluation["b1_launches"] > 0
+                and fit32["B2"] > 0 and fit32["B3"] > 0 and ring32["B2"] > 0
+                and ring32["B4"] > 0):
             raise AssertionError("a kernel of a main path was never launched")
         print(f"[launches] flagship predictor B1 {launches}; flagship Trainer.fit {fit}; GN "
               f"predictor B1 {gn_launches}; GN Trainer.fit (hybrid on) {gn_fit}; ring eval "
               f"forward {ring_fwd}; ring train step {ring_step}; the bisect's swapped forward "
               f"{bisect['launches']['nolse']}; evaluate_prediction_batches B1 "
-              f"{evaluation['b1_launches']}", flush=True)
+              f"{evaluation['b1_launches']} (float32); the float32 train step {fit32}; the "
+              f"float32 ring step {ring32}", flush=True)
         in_step = {k: [r["max_abs_err"] for r in train[f"{k}_in_step"].values()]
                    for k in ("b2", "b3")}
         kernels = [
@@ -2738,6 +2780,24 @@ def main(argv=None) -> int:
             kernel_entry("flash_attention_nolse", nolse.SOURCE, "scripts/bisect_infer.py:96",
                          b6_launches, b6_rows,
                          [r["max_abs_err"] for r in bisect["held"].values()]),
+            # B1 to B4 in float32, the split-bf16 instantiations: times at
+            # the flagship's sites (B4 at the ring's per-shard shapes);
+            # launches of the float32 main paths: cli eval's forward (phase
+            # 11), the float32 train step (phase 6(c)) and ring step (9(b))
+            kernel_entry("flash_attention_fwd_split_f32", fa.SOURCE,
+                         "sap3d_tpu/ops/pallas/flash_attention.py:141",
+                         evaluation["b1_launches"], rows["B1"], (),
+                         gn_rows["B1"] + zoo_rows["B1"], dtype="float32"),
+            kernel_entry("flash_attention_fwd_lse_split_f32", fa.SOURCE,
+                         "sap3d_tpu/ops/pallas/flash_attention.py:141",
+                         fit32["B2"] + ring32["B2"], rows["B2"], (),
+                         gn_rows["B2"] + zoo_rows["B2"], dtype="float32"),
+            kernel_entry("flash_attention_bwd_split_f32", fb.SOURCE,
+                         "sap3d_tpu/ops/pallas/flash_attention.py:274", fit32["B3"],
+                         rows["B3"], (), gn_rows["B3"] + zoo_rows["B3"], dtype="float32"),
+            kernel_entry("flash_attention_bwd_lse_split_f32", fb.SOURCE,
+                         "sap3d_tpu/ops/pallas/flash_attention.py:274", ring32["B4"], b4_rows,
+                         dtype="float32"),
         ]
         if args.json_out:
             import os

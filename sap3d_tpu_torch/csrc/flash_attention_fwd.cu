@@ -12,9 +12,10 @@
 //
 // Shapes: q [B, Nq, d], k [B, Nk, d], v [B, Nk, C] -> o [B, Nq, C], all
 // contiguous and of one dtype (float32 or bfloat16).  d = C/8 at every call
-// site of the model; the kernels take d <= 128 with rows of q and k in
-// whole 16-byte chunks (bf16: d a multiple of 8; the wrapper pads q and k
-// with zero columns, which add nothing to q.k) and C a multiple of 16.
+// site of the model; the kernel takes d <= 128 with rows of q and k in
+// whole 16-byte chunks (d a multiple of 8: in bf16 the wrapper pads q and k
+// with zero columns, which add nothing to q.k; in float32 the split pass
+// writes the planes so) and C a multiple of 16.
 // There is no 1/sqrt(d) scale.  Scores, the softmax and the accumulator are float32; the
 // output is written in v's dtype.  A ragged Nq is masked here instead of
 // padded to a block multiple; a ragged Nk is masked with -inf scores.
@@ -31,9 +32,12 @@
 //   x_0_1_sa (B = 2) 200704   3136    2    16   45.3  26.1  0.0458 compute 0.315
 // lse adds 4 bytes per query row, nothing to the bound.  At x_1_3 and
 // x_0_1_sa the exponentials take as long as the products or longer.
+// float32 takes six bf16 products per product (split_bf16.cuh): its bound
+// is 6x the FLOPs at 989 TFLOP/s (x_2_2 0.550 ms, x_1_3 2.20, deconv_pool4
+// 2.20), the exponentials unchanged; the split pass reads q, k, v once and
+// writes three bf16 planes of each (10 bytes per element).
 //
-// Design of the bf16 kernel (B1 and B2 run one body; the fp32 kernel below
-// is the first port's, on the CUDA cores).  The TPU kernel keeps all of K
+// Design (B1 and B2, bf16 and float32, run one body).  The TPU kernel keeps all of K
 // and V of a batch element in VMEM and runs one query block per grid step;
 // Hopper's blocks run in parallel and a block has 227 KB of shared memory,
 // so here one CTA owns 128 query rows (two warpgroups of 64, wgmma's M, that
@@ -70,6 +74,20 @@
 //     (PERF.md).
 //   * lse: every slab of a row computes the same m and l (same scores, same
 //     order), so the CTAs of the first slab write it.
+//   * float32 (NP = 3 planes): `split_planes` first writes the hi, mid and
+//     lo bf16 planes of q, k and v into one scratch tensor, each a 3-D
+//     tensor map over [3 B, N, width]; every tile of Q, K and V is then the
+//     three planes of its box, S is the six SS products of split_bf16.cuh
+//     (small first, hi.hi last) into one f32 accumulator, P is split in
+//     registers (`accum_to_a3`) and each tile's P V, six RS products, goes
+//     to a fresh accumulator that is added to O in float32: the tensor
+//     core's own sum over many key tiles drops low bits (o 6e-5 from a
+//     float32 order of the same sums over 392 key tiles, where float32
+//     adds keep 1e-6).  Two accumulators cap the slab at 128 columns.  The
+//     softmax, the lazily moved max, l, lse and the plan's rules are
+//     unchanged; o is stored in float32.  Tripled tiles take 32-key tiles
+//     at d = 128, two stages where three do not fit, and one 256-thread CTA
+//     per SM.
 //   * The choice of CW, BK, the warpgroups per CTA, the stages and the grid
 //     is one host function, `plan`, mirrored in Python by
 //     `ops/cuda/flash_attention.py:launch_plan` (the card tests hold the
@@ -79,7 +97,8 @@
 // this kernel rounds the unnormalised p = 2^(s log2(e) - m) (m a running
 // max, within 2^8 of the row's true running max) to bf16, sums l from the
 // f32 p, and divides by l at the end.  Both sit within bf16 rounding of
-// the fp32 result.
+// the fp32 result.  In float32 nothing is rounded to bf16 beyond the
+// planes, whose six products are an fp32 product to within 2^-24.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -88,161 +107,14 @@
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
+#include "split_bf16.cuh"
 
 namespace {
 
 constexpr int MAX_D = 128;
 constexpr int C_MULTIPLE = 16;  // C must be a multiple of this
 
-// ---- fp32: CUDA-core kernel ------------------------------------------------
-
-constexpr int BQ = 64;       // query rows per block
-constexpr int BK = 64;       // keys per streamed tile
-constexpr int BC = 64;       // output columns (of C) per block
-constexpr int LDT = BQ + 4;  // padded row stride of the transposed tiles
-constexpr int THREADS = 256; // 16 x 16 threads, each owning a 4 x 4 sub-tile
-
-// Max / sum over the 16 lanes that share a row group (lanes differ in tx,
-// the low 4 bits of the lane id).
-using flash::group16_max;
-using flash::group16_sum;
-
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o,
-              float* __restrict__ lse, int nq, int nk, int d, int c) {
-    extern __shared__ float smem[];
-    float* qs = smem;              // [d][LDT]  q tile, transposed
-    float* ks = qs + d * LDT;      // [d][LDT]  k tile, transposed
-    float* vs = ks + d * LDT;      // [BK][BC]  v tile
-    float* ps = vs + BK * BC;      // [BK][LDT] exp(s - m), transposed
-
-    const int tid = threadIdx.x;
-    const int tx = tid & 15;   // column group: keys (scores) / C columns (output)
-    const int ty = tid >> 4;   // row group: query rows
-    const int q0 = blockIdx.x * BQ;
-    const int c0 = blockIdx.y * BC;
-    const int b = blockIdx.z;
-
-    const float* qb = q + (size_t)b * nq * d;
-    const float* kb = k + (size_t)b * nk * d;
-    const float* vb = v + (size_t)b * nk * c;
-
-    // q tile, transposed to [d][row]; rows past nq are zero (never stored).
-    for (int i = tid; i < BQ * d; i += THREADS) {
-        const int r = i / d, j = i - r * d;
-        qs[j * LDT + r] = (q0 + r < nq) ? qb[(size_t)(q0 + r) * d + j] : 0.f;
-    }
-
-    float acc[4][4];
-    float m[4], l[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        m[i] = -INFINITY;
-        l[i] = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    }
-
-    for (int k0 = 0; k0 < nk; k0 += BK) {
-        __syncthreads();  // previous tile's ks/vs/ps fully consumed
-        for (int i = tid; i < BK * d; i += THREADS) {
-            const int r = i / d, j = i - r * d;
-            ks[j * LDT + r] = (k0 + r < nk) ? kb[(size_t)(k0 + r) * d + j] : 0.f;
-        }
-        for (int i = tid; i < BK * BC; i += THREADS) {
-            const int r = i / BC, j = i - r * BC;
-            vs[i] = (k0 + r < nk && c0 + j < c) ? vb[(size_t)(k0 + r) * c + c0 + j] : 0.f;
-        }
-        __syncthreads();
-
-        // scores s[i][j] = q[row ty*4+i] . k[key tx*4+j]
-        float s[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-        for (int dd = 0; dd < d; ++dd) {
-            const float4 a = *reinterpret_cast<const float4*>(&qs[dd * LDT + ty * 4]);
-            const float4 bk = *reinterpret_cast<const float4*>(&ks[dd * LDT + tx * 4]);
-            const float av[4] = {a.x, a.y, a.z, a.w};
-            const float bv[4] = {bk.x, bk.y, bk.z, bk.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-        }
-
-        // online softmax over this tile's keys
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            float tmax = -INFINITY;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                if (k0 + tx * 4 + j >= nk) s[i][j] = -INFINITY;
-                tmax = fmaxf(tmax, s[i][j]);
-            }
-            tmax = group16_max(tmax);
-            const float m_new = fmaxf(m[i], tmax);  // finite: every tile has a valid key
-            const float alpha = __expf(m[i] - m_new);  // 0 on the first tile
-            float tsum = 0.f;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                s[i][j] = __expf(s[i][j] - m_new);
-                tsum += s[i][j];
-            }
-            tsum = group16_sum(tsum);
-            l[i] = l[i] * alpha + tsum;
-            m[i] = m_new;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) ps[(tx * 4 + j) * LDT + ty * 4 + i] = s[i][j];
-        __syncthreads();
-
-        // acc[i][j] += sum_k p[row ty*4+i][k] * v[k][col tx*4+j]
-        const int kmax = min(BK, nk - k0);
-        for (int kk = 0; kk < kmax; ++kk) {
-            const float4 a = *reinterpret_cast<const float4*>(&ps[kk * LDT + ty * 4]);
-            const float4 bv4 = *reinterpret_cast<const float4*>(&vs[kk * BC + tx * 4]);
-            const float av[4] = {a.x, a.y, a.z, a.w};
-            const float bv[4] = {bv4.x, bv4.y, bv4.z, bv4.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
-    }
-
-    float* ob = o + (size_t)b * nq * c;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int r = q0 + ty * 4 + i;
-        if (r >= nq) continue;
-        const float inv = 1.f / l[i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-            if (c0 + tx * 4 + j < c) ob[(size_t)r * c + c0 + tx * 4 + j] = acc[i][j] * inv;
-        if (lse != nullptr && blockIdx.y == 0 && tx == 0)
-            lse[(size_t)b * nq + r] = m[i] + logf(l[i]);
-    }
-}
-
-int launch_f32(const float* q, const float* k, const float* v, float* o, float* lse,
-               int b, int nq, int nk, int d, int c, cudaStream_t stream) {
-    const size_t smem = sizeof(float) * (2 * (size_t)d * LDT + BK * BC + BK * LDT);
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((nq + BQ - 1) / BQ, (c + BC - 1) / BC, b);
-    flash_fwd_f32<<<grid, THREADS, smem, stream>>>(q, k, v, o, lse, nq, nk, d, c);
-    return (int)cudaGetLastError();
-}
-
-// ---- bf16: wgmma kernel fed by TMA ---------------------------------------------
+// ---- wgmma kernel fed by TMA: bf16 operands, or fp32 as split bf16 planes --------
 
 namespace wg {
 
@@ -257,28 +129,42 @@ constexpr float RESCALE_LOG2 = 8.f;  // a row's max moves only past this (log2 u
 // one warpgroup at d = 128, C = 1024 would miss two CTAs per SM by 40 bytes.
 constexpr uint32_t SMEM_SLACK = 896;
 
-// Keys per streamed tile beside an accumulator of CW columns: 64 from
-// CW = 64 up (at CW = 256 beside 128 accumulator registers a thread; at 64
-// and 128 so that a thread fits in 128 registers and two 256-thread CTAs
-// share an SM), 128 below (the narrow slabs: fewer, longer tiles).
-__host__ __device__ constexpr int key_tile(int cw) { return cw >= 64 ? 64 : 128; }
+// Keys per streamed tile beside an accumulator of CW columns.  bf16 (one
+// plane): 64 from CW = 64 up (at CW = 256 beside 128 accumulator registers
+// a thread; at 64 and 128 so that a thread fits in 128 registers and two
+// 256-thread CTAs share an SM), 128 below (the narrow slabs: fewer, longer
+// tiles).  Split fp32 (three planes): 64, or 32 at D = 128, where three
+// planes of 64-key K tiles would not fit.
+__host__ __device__ constexpr int key_tile(int d_tile, int cw, int np) {
+    return np == 1 ? (cw >= 64 ? 64 : 128) : (d_tile >= 128 ? 32 : 64);
+}
+
+// The slab of C per CTA: the least of 16 ... 256 that covers C (128 in
+// split fp32, whose slab keeps a second accumulator, each tile's, beside O).
+__host__ __device__ constexpr int slab_width(int c, int np) {
+    return c <= 16 ? 16 : c <= 32 ? 32 : c <= 64 ? 64 : c <= 128 || np != 1 ? 128 : 256;
+}
 
 __host__ __device__ constexpr uint32_t align1k(uint32_t x) { return (x + 1023u) & ~1023u; }
 
-// Shared memory from a 1024-byte aligned base: Q (wgs x 64 rows), then the
-// ring's stages of (K tile, V tile), then the mbarriers (Q, full[stages],
+// Shared memory from a 1024-byte aligned base: the np planes of Q (wgs x 64
+// rows each), then the ring's stages of (np planes of the K tile, np
+// planes of the V tile), then the mbarriers (Q, full[stages],
 // empty[stages]).  Every tile starts on a 1024-byte boundary, so that TMA's
 // and wgmma's swizzles agree.
 struct Layout {
-    uint32_t stage, v, stage_bytes, bars, total;
+    uint32_t q_plane, k_plane, v_plane, stage, v, stage_bytes, bars, total;
 };
 
-__host__ __device__ inline Layout layout(int d_tile, int cw, int wgs, int stages) {
-    const int bk = key_tile(cw);
+__host__ __device__ inline Layout layout(int d_tile, int cw, int wgs, int stages, int np) {
+    const int bk = key_tile(d_tile, cw, np);
     Layout L;
-    L.stage = align1k(wgs * ROWS * d_tile * 2);
-    L.v = align1k(bk * d_tile * 2);
-    L.stage_bytes = L.v + align1k(bk * cw * 2);
+    L.q_plane = align1k(wgs * ROWS * d_tile * 2);
+    L.k_plane = align1k(bk * d_tile * 2);
+    L.v_plane = align1k(bk * cw * 2);
+    L.stage = np * L.q_plane;
+    L.v = np * L.k_plane;
+    L.stage_bytes = L.v + np * L.v_plane;
     L.bars = L.stage + stages * L.stage_bytes;
     L.total = L.bars + 8 * (1 + 2 * stages);
     return L;
@@ -292,26 +178,32 @@ struct Plan {
     int d_tile, cw, slabs, bk, wgs, stages, smem, gx, gy, gz, resident;
 };
 
-constexpr int SMEM_PER_SM = 233472;  // an H100's shared memory per SM
-constexpr int CTA_RESERVE = 1024;    // the runtime's reserve per CTA
+constexpr int SMEM_PER_SM = 233472;   // an H100's shared memory per SM
+constexpr int MAX_CTA_SMEM = 232448;  // the most one CTA may take
+constexpr int CTA_RESERVE = 1024;     // the runtime's reserve per CTA
 
-inline Plan plan(int b, int nq, int nk, int dp, int c) {
+// np: 1 for bf16 operands, 3 for split fp32 (split_bf16.cuh).
+inline Plan plan(int b, int nq, int nk, int dp, int c, int np) {
     (void)nk;  // every key tile costs the same: nk does not change the cut
     Plan p;
     p.d_tile = dp <= 16 ? 16 : dp <= 32 ? 32 : dp <= 64 ? 64 : 128;
-    p.cw = c <= 16 ? 16 : c <= 32 ? 32 : c <= 64 ? 64 : c <= 128 ? 128 : 256;
+    p.cw = slab_width(c, np);
     p.slabs = (c + p.cw - 1) / p.cw;
-    p.bk = key_tile(p.cw);
+    p.bk = key_tile(p.d_tile, p.cw, np);
     // Two warpgroups share each K and V tile (half the L2 reads per query
     // row) unless 64-row CTAs take fewer waves over the SMs.  Registers hold
-    // one 256-thread CTA per SM (two at CW <= 128, the launch bounds) or
-    // twice as many of 128 threads; one warpgroup keeps 2 stages, so that
-    // two CTAs fit in shared memory, two keep 3.
+    // one 256-thread CTA per SM (two in bf16 at CW <= 128, the launch
+    // bounds) or twice as many of 128 threads; one warpgroup keeps 2
+    // stages, so that two CTAs fit in shared memory, two keep 3, or 2 where
+    // 3 do not fit (split planes), and a cut that does not fit is not taken.
     long long best = 0;
     for (int w = MAX_WGS; w >= 1; --w) {
-        const int stages = w == 1 ? 2 : 3;
-        const int smem = (int)(layout(p.d_tile, p.cw, w, stages).total + SMEM_SLACK);
-        const int by_regs = (p.cw <= 128 ? 2 : 1) * (MAX_WGS / w);
+        int stages = w == 1 ? 2 : 3;
+        int smem = (int)(layout(p.d_tile, p.cw, w, stages, np).total + SMEM_SLACK);
+        if (smem > MAX_CTA_SMEM && stages > 2)
+            smem = (int)(layout(p.d_tile, p.cw, w, --stages, np).total + SMEM_SLACK);
+        if (smem > MAX_CTA_SMEM) continue;
+        const int by_regs = (np == 1 && p.cw <= 128 ? 2 : 1) * (MAX_WGS / w);
         const int by_smem = SMEM_PER_SM / (smem + CTA_RESERVE);
         const int resident = by_regs < by_smem ? by_regs : by_smem;
         const long long ctas = (long long)b * ((nq + w * ROWS - 1) / (w * ROWS)) * p.slabs;
@@ -332,9 +224,9 @@ inline Plan plan(int b, int nq, int nk, int dp, int c) {
 }
 
 struct Params {
-    __nv_bfloat16* o;  // [B, nq, c]
-    float* lse;        // [B, nq], or null (B1)
-    int nq, nk, c, stages;
+    void* o;     // [B, nq, c], bf16 (one plane) or float32 (split)
+    float* lse;  // [B, nq], or null (B1)
+    int nq, nk, c, stages, batch;
 };
 
 __device__ __forceinline__ uint8_t* smem_base() {
@@ -359,19 +251,24 @@ __device__ __forceinline__ uint64_t mnmajor(const uint8_t* tile, int kk) {
 }
 
 // D: d padded to 16/32/64/128 (q and k boxes of min(D, 64) columns); CW:
-// the slab of C (v boxes of 16 columns below 64, else 64).
-template <int D, int CW>
-__global__ void __launch_bounds__(MAX_WGS * WG_THREADS, CW <= 128 ? 2 : 1)
+// the slab of C (v boxes of 16 columns below 64, else 64); NP: planes per
+// operand, 1 (bf16 in and out) or 3 (fp32 in and out, each product the six
+// of split_bf16.cuh).
+template <int D, int CW, int NP>
+__global__ void __launch_bounds__(MAX_WGS * WG_THREADS, NP == 1 && CW <= 128 ? 2 : 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, const Params p) {
     using namespace hopper;
     using flash::ex2;
     using flash::LOG2E;
-    constexpr int BK = key_tile(CW);
+    using split::plane_a;
+    using split::plane_b;
+    constexpr int BK = key_tile(D, CW, NP);
     constexpr int KW = D < 64 ? D : 64;
     constexpr int VW = CW < 64 ? 16 : 64;
+    constexpr int FIRST = split::first_product(NP);
     const int wgs = blockDim.x / WG_THREADS, stages = p.stages;
-    const Layout L = layout(D, CW, wgs, stages);
+    const Layout L = layout(D, CW, wgs, stages, NP);
     uint8_t* sm = smem_base();
     const int q0 = blockIdx.x * wgs * ROWS, c0 = blockIdx.y * CW, b = blockIdx.z;
     const int active = min(wgs, (p.nq - q0 + ROWS - 1) / ROWS);  // warpgroups with rows
@@ -382,14 +279,19 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     // v boxes wholly past C (a last slab narrower than CW) are not loaded;
     // their columns of O are never stored
     const int v_boxes = min(CW / VW, (p.c - c0 + VW - 1) / VW);
-    const uint32_t tile_bytes = BK * D * 2 + v_boxes * BK * VW * 2;
+    const uint32_t tile_bytes = NP * (BK * D * 2 + v_boxes * BK * VW * 2);
+    // plane pl of batch element b is z = pl B + b of the tensor maps
     auto load_tile = [&](int t, int st) {
         uint8_t* stage = sm + L.stage + st * L.stage_bytes;
         mbar_arrive_expect_tx(&full[st], tile_bytes);
-        for (int j = 0; j < D / KW; ++j)
-            tma_load_3d(stage + j * BK * KW * 2, &tk, &full[st], j * KW, t * BK, b);
-        for (int j = 0; j < v_boxes; ++j)
-            tma_load_3d(stage + L.v + j * BK * VW * 2, &tv, &full[st], c0 + j * VW, t * BK, b);
+        for (int pl = 0; pl < NP; ++pl) {
+            for (int j = 0; j < D / KW; ++j)
+                tma_load_3d(stage + pl * L.k_plane + j * BK * KW * 2, &tk, &full[st], j * KW,
+                            t * BK, pl * p.batch + b);
+            for (int j = 0; j < v_boxes; ++j)
+                tma_load_3d(stage + L.v + pl * L.v_plane + j * BK * VW * 2, &tv, &full[st],
+                            c0 + j * VW, t * BK, pl * p.batch + b);
+        }
     };
     if (threadIdx.x == 0) {
         mbar_init(&bars[0], 1);
@@ -403,11 +305,12 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     const int wg = threadIdx.x / WG_THREADS;
     if (wg >= active) return;  // all of this warpgroup's rows lie past nq
     if (threadIdx.x == 0) {
-        mbar_arrive_expect_tx(&bars[0], active * ROWS * D * 2);
-        for (int w = 0; w < active; ++w)
-            for (int j = 0; j < D / KW; ++j)
-                tma_load_3d(sm + w * ROWS * D * 2 + j * ROWS * KW * 2, &tq, &bars[0], j * KW,
-                            q0 + w * ROWS, b);
+        mbar_arrive_expect_tx(&bars[0], NP * active * ROWS * D * 2);
+        for (int pl = 0; pl < NP; ++pl)
+            for (int w = 0; w < active; ++w)
+                for (int j = 0; j < D / KW; ++j)
+                    tma_load_3d(sm + pl * L.q_plane + w * ROWS * D * 2 + j * ROWS * KW * 2, &tq,
+                                &bars[0], j * KW, q0 + w * ROWS, pl * p.batch + b);
         for (int t = 0; t < stages && t < nt; ++t) load_tile(t, t);
     }
     const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
@@ -429,8 +332,12 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
         float s[BK / 2];
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-            wgmma_ss<BK, 0, 0>(s, kmajor<KW, ROWS>(qs, kk), kmajor<KW, BK>(ks, kk), kk > 0);
+        for (int i = FIRST; i < split::PRODUCTS; ++i)
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk)
+                wgmma_ss<BK, 0, 0>(s, kmajor<KW, ROWS>(qs + plane_a(i) * L.q_plane, kk),
+                                   kmajor<KW, BK>(ks + plane_b(i) * L.k_plane, kk),
+                                   i > FIRST || kk > 0);
         wgmma_commit();
         // under the product: once every warp is done with tile t - 1, its
         // stage takes tile t - 1 + stages
@@ -492,18 +399,36 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
         }
         l0 += sa0 + sb0;
         l1 += sa1 + sb1;
-        // o += p v, p rounded to bf16 as the register A operand
-        uint32_t pa[BK / 16][4];
+        // o += p v, p as the register A operand: rounded to bf16 (one
+        // plane), or split into three
+        uint32_t pa[NP][BK / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) accum_to_a(s, kk, pa[kk]);
-        fence_regs(o);
-        wgmma_fence();
+        for (int kk = 0; kk < BK / 16; ++kk) {
+            if constexpr (NP == 1) accum_to_a(s, kk, pa[0][kk]);
+            else accum_to_a3(s, kk, pa[0][kk], pa[1][kk], pa[2][kk]);
+        }
+        auto products = [&](float(&acc)[CW / 2], bool overwrite) {
+            wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)
-            wgmma_rs<CW, 1>(o, pa[kk], mnmajor<VW, BK>(vs, kk), 1);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(o);
+            for (int i = FIRST; i < split::PRODUCTS; ++i)
+#pragma unroll
+                for (int kk = 0; kk < BK / 16; ++kk)
+                    wgmma_rs<CW, 1>(acc, pa[plane_a(i)][kk],
+                                    mnmajor<VW, BK>(vs + plane_b(i) * L.v_plane, kk),
+                                    !overwrite || i > FIRST || kk > 0);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(acc);
+        };
+        if constexpr (NP == 1) {
+            fence_regs(o);
+            products(o, false);
+        } else {  // this tile's products in a fresh accumulator, added in float32
+            float ot[CW / 2];
+            products(ot, true);
+#pragma unroll
+            for (int i = 0; i < CW / 2; ++i) o[i] += ot[i];
+        }
         fence_regs(pa);
         __syncwarp();
         if (lane == 0) mbar_arrive(&empty[st]);
@@ -517,66 +442,82 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
         if (row1 < p.nq) p.lse[(size_t)b * p.nq + row1] = (m1 + log2f(l1)) * flash::LN2;
     }
     const float i0 = 1.f / l0, i1 = 1.f / l1;
-    __nv_bfloat16* ob = p.o + (size_t)b * p.nq * p.c;
 #pragma unroll
     for (int j = 0; j < CW / 8; ++j) {
         const int col = c0 + 8 * j + 2 * qd;
         if (col >= p.c) continue;
-        if (row0 < p.nq)
-            *reinterpret_cast<uint32_t*>(&ob[(size_t)row0 * p.c + col]) =
-                pack_bf16(o[4 * j] * i0, o[4 * j + 1] * i0);
-        if (row1 < p.nq)
-            *reinterpret_cast<uint32_t*>(&ob[(size_t)row1 * p.c + col]) =
-                pack_bf16(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
+        const size_t e0 = ((size_t)b * p.nq + row0) * p.c + col, e1 = e0 + 8 * (size_t)p.c;
+        if constexpr (NP == 1) {
+            __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o);
+            if (row0 < p.nq)
+                *reinterpret_cast<uint32_t*>(&ob[e0]) = pack_bf16(o[4 * j] * i0, o[4 * j + 1] * i0);
+            if (row1 < p.nq)
+                *reinterpret_cast<uint32_t*>(&ob[e1]) =
+                    pack_bf16(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
+        } else {
+            float* ob = static_cast<float*>(p.o);
+            if (row0 < p.nq)
+                *reinterpret_cast<float2*>(&ob[e0]) = make_float2(o[4 * j] * i0, o[4 * j + 1] * i0);
+            if (row1 < p.nq)
+                *reinterpret_cast<float2*>(&ob[e1]) =
+                    make_float2(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
+        }
     }
 }
 
-template <int D, int CW>
+template <int D, int CW, int NP>
 int launch_dc(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
               const Params& prm, const Plan& pl, cudaStream_t stream) {
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16<D, CW>,
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16<D, CW, NP>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
     if (err != cudaSuccess) return (int)err;
-    flash_fwd_bf16<D, CW><<<dim3(pl.gx, pl.gy, pl.gz), pl.wgs * WG_THREADS, pl.smem, stream>>>(
-        tq, tk, tv, prm);
+    flash_fwd_bf16<D, CW, NP><<<dim3(pl.gx, pl.gy, pl.gz), pl.wgs * WG_THREADS, pl.smem,
+                                stream>>>(tq, tk, tv, prm);
     return (int)cudaGetLastError();
 }
 
 // CTAs of the instantiation a plan launches resident on one SM, from the
 // card's occupancy calculator (-1 if it cannot say).
-template <int D, int CW>
+template <int D, int CW, int NP>
 int resident_dc(const Plan& pl) {
     int n = -1;
-    if (cudaFuncSetAttribute(flash_fwd_bf16<D, CW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             pl.smem) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flash_fwd_bf16<D, CW>,
+    if (cudaFuncSetAttribute(flash_fwd_bf16<D, CW, NP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flash_fwd_bf16<D, CW, NP>,
                                                       pl.wgs * WG_THREADS,
                                                       pl.smem) != cudaSuccess)
         return -1;
     return n;
 }
 
-// Calls f.template run<D, CW>() for the plan's instantiation: the 20 of
-// D in {16, 32, 64, 128} x CW in {16, 32, 64, 128, 256}.
-template <int D, typename F>
+// Calls f.template run<D, CW, NP>() for the plan's instantiation: the 36 of
+// D in {16, 32, 64, 128} x CW in {16, 32, 64, 128, 256} (split: up to 128)
+// x NP in {1, 3}.
+template <int D, int NP, typename F>
 int by_cw(const Plan& pl, const F& f) {
     switch (pl.cw) {
-        case 16: return f.template run<D, 16>();
-        case 32: return f.template run<D, 32>();
-        case 64: return f.template run<D, 64>();
-        case 128: return f.template run<D, 128>();
-        default: return f.template run<D, 256>();
+        case 16: return f.template run<D, 16, NP>();
+        case 32: return f.template run<D, 32, NP>();
+        case 64: return f.template run<D, 64, NP>();
+        case 128: return f.template run<D, 128, NP>();
+    }
+    if constexpr (NP == 1) return f.template run<D, 256, NP>();
+    return (int)cudaErrorInvalidValue;
+}
+
+template <int NP, typename F>
+int by_d(const Plan& pl, const F& f) {
+    switch (pl.d_tile) {
+        case 16: return by_cw<16, NP>(pl, f);
+        case 32: return by_cw<32, NP>(pl, f);
+        case 64: return by_cw<64, NP>(pl, f);
+        default: return by_cw<128, NP>(pl, f);
     }
 }
 
 template <typename F>
-int dispatch(const Plan& pl, const F& f) {
-    switch (pl.d_tile) {
-        case 16: return by_cw<16>(pl, f);
-        case 32: return by_cw<32>(pl, f);
-        case 64: return by_cw<64>(pl, f);
-        default: return by_cw<128>(pl, f);
-    }
+int dispatch(const Plan& pl, int np, const F& f) {
+    return np == 1 ? by_d<1>(pl, f) : by_d<split::PLANES>(pl, f);
 }
 
 struct Launch {
@@ -584,86 +525,107 @@ struct Launch {
     const Params& prm;
     const Plan& pl;
     cudaStream_t stream;
-    template <int D, int CW>
-    int run() const { return launch_dc<D, CW>(tq, tk, tv, prm, pl, stream); }
+    template <int D, int CW, int NP>
+    int run() const { return launch_dc<D, CW, NP>(tq, tk, tv, prm, pl, stream); }
 };
 
 struct Resident {
     const Plan& pl;
-    template <int D, int CW>
-    int run() const { return resident_dc<D, CW>(pl); }
+    template <int D, int CW, int NP>
+    int run() const { return resident_dc<D, CW, NP>(pl); }
 };
 
-int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-           __nv_bfloat16* o, float* lse, int b, int nq, int nk, int dp, int c,
-           cudaStream_t stream) {
+// q [np B, nq, dp], k [np B, nk, dp], v [np B, nk, c] bf16 (plane p of
+// batch element b at p B + b); o [B, nq, c], bf16 (np = 1) or float32.
+int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, void* o,
+           float* lse, int b, int nq, int nk, int dp, int c, int np, cudaStream_t stream) {
     if (dp % 8) return (int)cudaErrorInvalidValue;  // 16-byte rows
-    const Plan pl = plan(b, nq, nk, dp, c);
+    const Plan pl = plan(b, nq, nk, dp, c, np);
     const int kw = pl.d_tile < 64 ? pl.d_tile : 64, vw = pl.cw < 64 ? 16 : 64;
     CUtensorMap tq, tk, tv;
     int err;
-    if ((err = hopper::make_map_bf16_3d(&tq, q, dp, nq, b, kw, ROWS))) return err;
-    if ((err = hopper::make_map_bf16_3d(&tk, k, dp, nk, b, kw, pl.bk))) return err;
-    if ((err = hopper::make_map_bf16_3d(&tv, v, c, nk, b, vw, pl.bk))) return err;
-    const Params prm{o, lse, nq, nk, c, pl.stages};
-    return dispatch(pl, Launch{tq, tk, tv, prm, pl, stream});
+    if ((err = hopper::make_map_bf16_3d(&tq, q, dp, nq, np * b, kw, ROWS))) return err;
+    if ((err = hopper::make_map_bf16_3d(&tk, k, dp, nk, np * b, kw, pl.bk))) return err;
+    if ((err = hopper::make_map_bf16_3d(&tv, v, c, nk, np * b, vw, pl.bk))) return err;
+    const Params prm{o, lse, nq, nk, c, pl.stages, b};
+    return dispatch(pl, np, Launch{tq, tk, tv, prm, pl, stream});
+}
+
+// fp32: q, k, v split into their planes in `planes` (3 B (nq dp + nk dp +
+// nk c) bf16, dp = d rounded up to 8), then the split kernel.
+int launch_split(const float* q, const float* k, const float* v, float* o, float* lse,
+                 __nv_bfloat16* planes, int b, int nq, int nk, int d, int c,
+                 cudaStream_t stream) {
+    const int dp = (d + 7) / 8 * 8;
+    __nv_bfloat16* qp = planes;
+    __nv_bfloat16* kp = qp + (size_t)split::PLANES * b * nq * dp;
+    __nv_bfloat16* vp = kp + (size_t)split::PLANES * b * nk * dp;
+    int err;
+    if ((err = split::split(q, qp, (long long)b * nq, d, dp, stream))) return err;
+    if ((err = split::split(k, kp, (long long)b * nk, d, dp, stream))) return err;
+    if ((err = split::split(v, vp, (long long)b * nk, c, c, stream))) return err;
+    return launch(qp, kp, vp, o, lse, b, nq, nk, dp, c, split::PLANES, stream);
 }
 
 }  // namespace wg
+
+int np_of(int dtype) { return dtype == 0 ? split::PLANES : 1; }
+
+bool takes(int b, int nq, int nk, int d, int c) {
+    return b > 0 && nq > 0 && nk > 0 && d > 0 && d <= MAX_D && c > 0 && c % C_MULTIPLE == 0;
+}
 
 }  // namespace
 
 extern "C" {
 
 // C must be a multiple of this, and d at most the next; the wrapper checks
-// both and pads q and k to 16-byte rows (d % 8 == 0 for bf16).
+// both (and in bf16 pads q and k to 16-byte rows, d % 8 == 0).
 int sap3d_flash_fwd_block_c() { return C_MULTIPLE; }
 int sap3d_flash_fwd_max_d() { return MAX_D; }
 
-// The bf16 kernel's plan for a call with d (a multiple of 8) and C into
-// out[11]: d_tile, cw, slabs, bk, wgs, stages, smem bytes, grid x, y, z,
-// and the CTAs per SM it counts on.
-// Returns cudaErrorInvalidValue for arguments the kernel does not take.
-int sap3d_flash_fwd_plan(int b, int nq, int nk, int d, int c, int* out) {
-    if (b <= 0 || nq <= 0 || nk <= 0 || d <= 0 || d > MAX_D || d % 8 || c <= 0 ||
-        c % C_MULTIPLE)
-        return (int)cudaErrorInvalidValue;
-    const wg::Plan p = wg::plan(b, nq, nk, d, c);
+// The kernel's plan for a call with d (rounded up to 8 here) and C in
+// `dtype` (0 = float32, split; 1 = bfloat16) into out[11]: d_tile, cw,
+// slabs, bk, wgs, stages, smem bytes, grid x, y, z, and the CTAs per SM it
+// counts on.  Returns cudaErrorInvalidValue for arguments the kernel does
+// not take.
+int sap3d_flash_fwd_plan(int b, int nq, int nk, int d, int c, int dtype, int* out) {
+    if (!takes(b, nq, nk, d, c) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+    const wg::Plan p = wg::plan(b, nq, nk, (d + 7) / 8 * 8, c, np_of(dtype));
     const int v[11] = {p.d_tile, p.cw, p.slabs, p.bk, p.wgs,     p.stages,
                        p.smem,   p.gx, p.gy,    p.gz, p.resident};
     for (int i = 0; i < 11; ++i) out[i] = v[i];
     return 0;
 }
 
-// CTAs of the bf16 kernel that the plan of such a call launches resident on
-// one SM, from the card's occupancy calculator; -1 if it cannot say.
-int sap3d_flash_fwd_resident_ctas(int b, int nq, int nk, int d, int c) {
-    if (b <= 0 || nq <= 0 || nk <= 0 || d <= 0 || d > MAX_D || d % 8 || c <= 0 ||
-        c % C_MULTIPLE)
-        return -1;
-    const wg::Plan p = wg::plan(b, nq, nk, d, c);
-    return wg::dispatch(p, wg::Resident{p});
+// CTAs of the kernel that the plan of such a call launches resident on one
+// SM, from the card's occupancy calculator; -1 if it cannot say.
+int sap3d_flash_fwd_resident_ctas(int b, int nq, int nk, int d, int c, int dtype) {
+    if (!takes(b, nq, nk, d, c) || (dtype != 0 && dtype != 1)) return -1;
+    const wg::Plan p = wg::plan(b, nq, nk, (d + 7) / 8 * 8, c, np_of(dtype));
+    return wg::dispatch(p, np_of(dtype), wg::Resident{p});
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  lse: float32 [B, Nq], or null for the
-// forward without lse.  Returns a cudaError_t (0 = launched); invalid
-// arguments, and in bf16 a tensor map that cuTensorMapEncodeTiled refuses,
-// return an error without launching.
+// forward without lse.  float32: d as it is, `planes` bf16 scratch of
+// 3 B (Nq dp + Nk dp + Nk C) elements, dp = d rounded up to 8; bfloat16: d
+// a multiple of 8, `planes` not read.  Returns a cudaError_t (0 =
+// launched); invalid arguments, and a tensor map that
+// cuTensorMapEncodeTiled refuses, return an error without launching.
 int sap3d_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                    int b, int nq, int nk, int d, int c, int dtype, void* stream) {
-    if (b <= 0 || nq <= 0 || nk <= 0 || d <= 0 || d > MAX_D || c <= 0 || c % C_MULTIPLE)
-        return (int)cudaErrorInvalidValue;
+                    void* planes, int b, int nq, int nk, int d, int c, int dtype, void* stream) {
+    if (!takes(b, nq, nk, d, c)) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 0)
-        return launch_f32(static_cast<const float*>(q), static_cast<const float*>(k),
-                          static_cast<const float*>(v), static_cast<float*>(o),
-                          static_cast<float*>(lse), b, nq, nk, d, c, s);
+        return wg::launch_split(static_cast<const float*>(q), static_cast<const float*>(k),
+                                static_cast<const float*>(v), static_cast<float*>(o),
+                                static_cast<float*>(lse), static_cast<__nv_bfloat16*>(planes),
+                                b, nq, nk, d, c, s);
     if (dtype == 1)
         return wg::launch(static_cast<const __nv_bfloat16*>(q),
                           static_cast<const __nv_bfloat16*>(k),
-                          static_cast<const __nv_bfloat16*>(v),
-                          static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-                          b, nq, nk, d, c, s);
+                          static_cast<const __nv_bfloat16*>(v), o, static_cast<float*>(lse),
+                          b, nq, nk, d, c, 1, s);
     return (int)cudaErrorInvalidValue;
 }
 

@@ -14,7 +14,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // Max / sum over the 16 lanes that share a row group (lanes differ in the
-// low 4 bits of the lane id): the fp32 kernels' 16 x 16 thread tiles.
+// low 4 bits of the lane id): the 16 x 16 thread tiles of B6's fp32 kernel.
 __device__ __forceinline__ float group16_max(float x) {
 #pragma unroll
     for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));

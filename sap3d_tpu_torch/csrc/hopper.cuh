@@ -186,6 +186,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
         for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
+template <int P, int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[P][R][4]) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) fence_regs(a[p]);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
@@ -199,6 +205,34 @@ __device__ __forceinline__ void accum_to_a(const float (&d)[R], int kk, uint32_t
     a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
     a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
     a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// Two f32 values as three bf16 pairs, hi = rn(x), mid = rn(x - hi),
+// lo = rn(x - hi - mid): hi + mid + lo gives x back to within 2^-24 |x|
+// (fp32's 24 bits in three planes of 8), so that a product of two split
+// operands, six bf16 products summed in f32 (split_bf16.cuh), is an fp32
+// product to within fp32 rounding.
+__device__ __forceinline__ void split_pack_bf16(float x, float y, uint32_t& hi, uint32_t& mid,
+                                                uint32_t& lo) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    const float2 hf = __bfloat1622float2(h);
+    const float rx = x - hf.x, ry = y - hf.y;
+    const __nv_bfloat162 m = __floats2bfloat162_rn(rx, ry);
+    const float2 mf = __bfloat1622float2(m);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(rx - mf.x, ry - mf.y);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    mid = *reinterpret_cast<const uint32_t*>(&m);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// `accum_to_a` for a split operand: the three bf16 planes (hi, mid, lo) of
+// k-step kk's register A operand, a[plane][register].
+template <int R>
+__device__ __forceinline__ void accum_to_a3(const float (&d)[R], int kk, uint32_t (&hi)[4],
+                                            uint32_t (&mid)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+        split_pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1], hi[i], mid[i], lo[i]);
 }
 
 // D (+)= A B^T-style products, M = 64, K = 16, f32 accumulation.  SS: A and

@@ -22,15 +22,24 @@ never falls back.  ``<function>.launches`` counts kernel launches.
 the kernel takes (``MAX_D``, ``C_MULTIPLE``), kept here as constants so that
 a host without the library decides as the card does; ``_library`` checks
 them against the library's own.  The kernel reads rows of q and k in whole
-16-byte chunks; the launcher pads a narrower row with zero columns
-(``pad_rows``: d to a multiple of 8 in bf16, of 4 in float32), which add
-nothing to q k^T.  Nothing of the TPU kernel's VMEM model carries over.
+16-byte chunks; in bf16 the launcher pads a narrower row with zero columns
+(``pad_rows``: d to a multiple of 8), which add nothing to q k^T.  Nothing
+of the TPU kernel's VMEM model carries over.
 
-``launch_plan`` mirrors the bf16 kernel's host function ``plan``: how a call
-is cut into CTAs (query rows, a slab of C's columns, a batch element each),
+Both dtypes run one wgmma kernel on bf16 operands.  A float32 call first
+splits q, k and v into three bf16 planes each (hi + mid + lo, padded to
+whole 16-byte rows as they are written; ``split_bf16x3`` is the plain
+version, ``csrc/split_bf16.cuh`` the kernel) in a scratch tensor the
+launcher allocates, and each product of the kernel is then six bf16
+products (``split_product`` emulates one), an fp32 product to within fp32
+rounding; o stays float32.
+
+``launch_plan`` mirrors the kernel's host function ``plan``: how a call is
+cut into CTAs (query rows, a slab of C's columns, a batch element each),
 which of the compiled instantiations runs (``INSTANTIATIONS``), its key
-tile, ring stages and shared memory.  The CPU tests hold the plan at every
-site; on the card ``card_launch_plan`` reads the library's own.
+tile, ring stages and shared memory, per dtype.  The CPU tests hold the
+plan at every site; on the card ``card_launch_plan`` reads the library's
+own.
 """
 
 from __future__ import annotations
@@ -57,15 +66,19 @@ SM_COUNT = 132
 MAX_CTA_SMEM = 232448
 SMEM_PER_SM = 233472
 CTA_SMEM_RESERVE = 1024
-# The bf16 forward kernel (csrc/flash_attention_fwd.cu, namespace wg): query
+# The forward kernel (csrc/flash_attention_fwd.cu, namespace wg): query
 # rows per warpgroup, warpgroups per CTA at most, the bytes beyond a CTA's
 # layout that align its base to 1024 (the dynamic shared memory starts at
-# least 128-byte aligned), and the compiled (d tile, column slab)
-# instantiations.
+# least 128-byte aligned), the bf16 planes of an operand per dtype (float32:
+# hi, mid, lo; csrc/split_bf16.cuh), and the compiled (d tile, column slab,
+# planes) instantiations (float32 slabs up to 128 columns).
 WG_ROWS = 64
 MAX_WGS = 2
 SMEM_SLACK = 896
-INSTANTIATIONS = frozenset((d, cw) for d in (16, 32, 64, 128) for cw in (16, 32, 64, 128, 256))
+PLANES = {torch.bfloat16: 1, torch.float32: 3}
+INSTANTIATIONS = frozenset((d, cw, np) for d in (16, 32, 64, 128)
+                           for cw in (16, 32, 64, 128, 256) for np in (1, 3)
+                           if cw <= 128 or np == 1)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The limits the kernel is held to against its plain version on the same
@@ -77,7 +90,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # of the probabilities (the plain version rounds p, the kernel exp(s - m)),
 # a relative ~2^-9 per key that averages out over the keys.  rtol allows two
 # ulps, atol and mean_tol cover the probability rounding.
-# fp32: summation order and __expf, ~1e-6 relative.
+# fp32: summation order and the exponential (ex2.approx), ~1e-6 relative;
+# the kernel's six bf16 products per fp32 product (split_bf16.cuh) add
+# terms of 2^-24 relative, the fp32 reordering level, where one bf16
+# product (the inputs rounded to bf16) exceeds these limits 60-150 times.
 TOLERANCE = {torch.bfloat16: (2.0 ** -6, 2.0 ** -8, 2.0 ** -7),
              torch.float32: (1e-5, 1e-4, 1e-4)}
 # lse (float32 in both dtypes, from the same float32 scores): the kernel's
@@ -140,6 +156,34 @@ def flash_forward_lse_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     return torch.bmm(beta.to(v.dtype), v), torch.logsumexp(scores, dim=-1)
 
 
+def split_bf16x3(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch: the three bf16 planes of float32 ``t``, hi = rn(t),
+    mid = rn(t - hi), lo = rn(t - hi - mid), whose sum gives ``t`` back to
+    within 2^-24 of each value (what ``csrc/split_bf16.cuh`` writes)."""
+    hi = t.to(torch.bfloat16)
+    r = t - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
+# The products of a split product in the order the kernels add them, small
+# first: (plane of a, plane of b), 0 = hi, 1 = mid, 2 = lo (split_bf16.cuh).
+SPLIT_PRODUCTS = ((1, 1), (0, 2), (2, 0), (0, 1), (1, 0), (0, 0))
+
+
+def split_product(a: torch.Tensor, b: torch.Tensor, products=SPLIT_PRODUCTS) -> torch.Tensor:
+    """Plain PyTorch emulation of the kernels' float32 ``a @ b`` (batched):
+    the sum of the bf16 plane products ``products`` (default the six the
+    kernels take; ``((0, 0),)`` is one bf16 product), each exact in float32,
+    added in order in float32."""
+    pa, pb = split_bf16x3(a.float()), split_bf16x3(b.float())
+    out = None
+    for i, j in products:
+        term = torch.matmul(pa[i].float(), pb[j].float())
+        out = term if out is None else out + term
+    return out
+
+
 def pad_rows(t: torch.Tensor) -> torch.Tensor:
     """``t`` [..., d] with zero columns appended up to whole 16-byte rows
     (``t`` itself when they are whole already)."""
@@ -161,42 +205,55 @@ def _align1k(n: int) -> int:
     return -(-n // 1024) * 1024
 
 
-def key_tile(cw: int) -> int:
-    """Keys per streamed tile of the bf16 kernel beside a ``cw``-column
-    accumulator: 64 from ``cw`` = 64 up (beside 128 accumulator registers a
-    thread at 256; at 64 and 128 so that a thread fits in 128 registers),
-    128 below."""
-    return 64 if cw >= 64 else 128
+def key_tile(d_tile: int, cw: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Keys per streamed tile of the kernel beside a ``cw``-column
+    accumulator.  bf16: 64 from ``cw`` = 64 up (beside 128 accumulator
+    registers a thread at 256; at 64 and 128 so that a thread fits in 128
+    registers), 128 below.  float32 (three planes per tile): 64, or 32 at
+    ``d_tile`` = 128."""
+    if PLANES[dtype] == 1:
+        return 64 if cw >= 64 else 128
+    return 32 if d_tile >= 128 else 64
 
 
-def launch_plan(b: int, nq: int, nk: int, d: int, c: int) -> dict:
-    """How the bf16 forward kernel cuts a call (q [b, nq, d], k [b, nk, d],
-    v [b, nk, c]), as the kernel's host function ``plan`` does: d padded to
-    8 and then to the q and k box width ``d_tile`` (16, 32, 64 or 128);
-    ``cw``, the least of 16 ... 256 that covers C up to 256, and ``slabs`` of
-    it cover C (each slab's CTAs recompute the scores); ``bk`` keys per tile;
-    ``wgs`` warpgroups of 64 query rows per CTA and ``stages`` of the ring
-    of K and V tiles (3 with two warpgroups, 2 with one); ``smem``, the
-    CTA's dynamic shared memory (Q, the ring, the mbarriers, ``SMEM_SLACK``
-    of alignment); ``resident``, the CTAs per SM the plan counts on
-    (registers: one 256-thread CTA, two at ``cw`` <= 128 as the launch
-    bounds ask, or twice as many of 128 threads; and shared memory); ``grid`` (query
-    tiles, slabs, batch) and ``threads``, 128 per warpgroup.  Two
-    warpgroups (each K and V tile then serves 128 rows) unless one takes
-    fewer waves over the SMs.  ``nk`` does not change the cut: every key
-    tile costs the same."""
+def launch_plan(b: int, nq: int, nk: int, d: int, c: int,
+                dtype: torch.dtype = torch.bfloat16) -> dict:
+    """How the forward kernel cuts a call (q [b, nq, d], k [b, nk, d],
+    v [b, nk, c]) of ``dtype``, as the kernel's host function ``plan`` does:
+    d padded to 8 and then to the q and k box width ``d_tile`` (16, 32, 64
+    or 128); ``cw``, the least of 16 ... 256 that covers C up to 256 (in
+    float32 up to 128), and ``slabs`` of it cover C (each slab's CTAs
+    recompute the scores); ``bk``
+    keys per tile; ``wgs`` warpgroups of 64 query rows per CTA and
+    ``stages`` of the ring of K and V tiles (3 with two warpgroups, or 2
+    where 3 do not fit; 2 with one); ``smem``, the CTA's dynamic shared
+    memory (the ``planes`` of Q, the ring's planes of K and V tiles, the
+    mbarriers, ``SMEM_SLACK`` of alignment), at most ``MAX_CTA_SMEM`` (a cut
+    above it is not taken); ``resident``, the CTAs per SM the plan counts on
+    (registers: one 256-thread CTA, two in bf16 at ``cw`` <= 128 as the
+    launch bounds ask, or twice as many of 128 threads; and shared memory);
+    ``grid`` (query tiles, slabs, batch) and ``threads``, 128 per
+    warpgroup.  Two warpgroups (each K and V tile then serves 128 rows)
+    unless one takes fewer waves over the SMs.  ``nk`` does not change the
+    cut: every key tile costs the same."""
+    planes = PLANES[dtype]
     dp = -(-d // 8) * 8
     d_tile = next(w for w in (16, 32, 64, 128) if dp <= w)
-    cw = next((w for w in (16, 32, 64, 128) if c <= w), 256)
+    cw = next((w for w in (16, 32, 64, 128) if c <= w), 256 if planes == 1 else 128)
     slabs = -(-c // cw)
-    bk = key_tile(cw)
+    bk = key_tile(d_tile, cw, dtype)
+    # one K and one V tile, each of `planes` planes
+    stage = planes * (_align1k(bk * d_tile * 2) + _align1k(bk * cw * 2))
     best = None
     for wgs in (MAX_WGS, 1):
-        stages = 3 if wgs == MAX_WGS else 2
-        stage = _align1k(bk * d_tile * 2) + _align1k(bk * cw * 2)  # one K and one V tile
-        smem = (_align1k(wgs * WG_ROWS * d_tile * 2) + stages * stage + 8 * (1 + 2 * stages)
-                + SMEM_SLACK)
-        resident = min((2 if cw <= 128 else 1) * (MAX_WGS // wgs),
+        for stages in ((3, 2) if wgs == MAX_WGS else (2,)):
+            smem = (planes * _align1k(wgs * WG_ROWS * d_tile * 2) + stages * stage
+                    + 8 * (1 + 2 * stages) + SMEM_SLACK)
+            if smem <= MAX_CTA_SMEM:
+                break
+        if smem > MAX_CTA_SMEM:
+            continue
+        resident = min((2 if planes == 1 and cw <= 128 else 1) * (MAX_WGS // wgs),
                        SMEM_PER_SM // (smem + CTA_SMEM_RESERVE))
         ctas = b * -(-nq // (WG_ROWS * wgs)) * slabs
         waves = -(-ctas // (SM_COUNT * resident))
@@ -205,36 +262,38 @@ def launch_plan(b: int, nq: int, nk: int, d: int, c: int) -> dict:
     cut = best[1]
     grid = (-(-nq // (WG_ROWS * cut["wgs"])), slabs, b)
     return dict(d_tile=d_tile, cw=cw, slabs=slabs, bk=bk, **cut, grid=grid,
-                threads=128 * cut["wgs"])
+                threads=128 * cut["wgs"], planes=planes)
 
 
-def card_launch_plan(b: int, nq: int, nk: int, d: int, c: int) -> dict:
+def card_launch_plan(b: int, nq: int, nk: int, d: int, c: int,
+                     dtype: torch.dtype = torch.bfloat16) -> dict:
     """``launch_plan``'s keys as the library's own ``plan`` reads them (the
     card tests and ``chip_smoke.py`` hold the two equal)."""
     out = (ctypes.c_int * 11)()
-    err = _library().sap3d_flash_fwd_plan(b, nq, nk, -(-d // 8) * 8, c, out)
+    err = _library().sap3d_flash_fwd_plan(b, nq, nk, d, c, _DTYPE_CODES[dtype], out)
     if err:
-        raise ValueError(f"the bf16 forward kernel does not take d={d}, C={c}")
+        raise ValueError(f"the forward kernel does not take d={d}, C={c}")
     v = list(out)
     return dict(d_tile=v[0], cw=v[1], slabs=v[2], bk=v[3], wgs=v[4], stages=v[5], smem=v[6],
-                resident=v[10], grid=tuple(v[7:10]), threads=128 * v[4])
+                resident=v[10], grid=tuple(v[7:10]), threads=128 * v[4], planes=PLANES[dtype])
 
 
-def card_resident_ctas(b: int, nq: int, nk: int, d: int, c: int) -> int:
-    """CTAs of the bf16 kernel that such a call launches resident on one SM,
-    from the card's occupancy calculator."""
-    return _library().sap3d_flash_fwd_resident_ctas(b, nq, nk, -(-d // 8) * 8, c)
+def card_resident_ctas(b: int, nq: int, nk: int, d: int, c: int,
+                       dtype: torch.dtype = torch.bfloat16) -> int:
+    """CTAs of the kernel that such a call launches resident on one SM, from
+    the card's occupancy calculator."""
+    return _library().sap3d_flash_fwd_resident_ctas(b, nq, nk, d, c, _DTYPE_CODES[dtype])
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if not getattr(lib, "_sap3d_typed", False):
-        lib.sap3d_flash_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+        lib.sap3d_flash_fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         lib.sap3d_flash_fwd.restype = ctypes.c_int
-        lib.sap3d_flash_fwd_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.sap3d_flash_fwd_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.sap3d_flash_fwd_plan.restype = ctypes.c_int
-        lib.sap3d_flash_fwd_resident_ctas.argtypes = [ctypes.c_int] * 5
+        lib.sap3d_flash_fwd_resident_ctas.argtypes = [ctypes.c_int] * 6
         lib.sap3d_flash_fwd_resident_ctas.restype = ctypes.c_int
         lib.sap3d_flash_fwd_block_c.restype = ctypes.c_int
         lib.sap3d_flash_fwd_max_d.restype = ctypes.c_int
@@ -269,13 +328,23 @@ def launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d > MAX_D or c % C_MULTIPLE:
         raise ValueError(f"flash kernel takes d <= {MAX_D} and C a multiple of "
                          f"{C_MULTIPLE}; got d={d}, C={c}")
-    q, k, v = (contiguous_aligned(t) for t in (pad_rows(q), pad_rows(k), v))
+    planes = None
+    if q.dtype == torch.float32:
+        # the three bf16 planes of q, k and v, rows padded to 16 bytes as
+        # the kernel writes them
+        dp = -(-d // 8) * 8
+        planes = torch.empty(PLANES[q.dtype] * b * (nq * dp + nk * dp + nk * c),
+                             dtype=torch.bfloat16, device=q.device)
+    else:
+        q, k = pad_rows(q), pad_rows(k)
+    q, k, v = (contiguous_aligned(t) for t in (q, k, v))
     o = torch.empty((b, nq, c), dtype=v.dtype, device=v.device)
     lse = torch.empty((b, nq), dtype=torch.float32, device=v.device) if want_lse else None
     # the launch goes to the current device: make it q's, and take its stream
     with torch.cuda.device(q.device):
         err = lib.sap3d_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                  None if lse is None else lse.data_ptr(), b, nq, nk,
+                                  None if lse is None else lse.data_ptr(),
+                                  None if planes is None else planes.data_ptr(), b, nq, nk,
                                   q.shape[2], c, _DTYPE_CODES[q.dtype],
                                   torch.cuda.current_stream().cuda_stream)
     if err:

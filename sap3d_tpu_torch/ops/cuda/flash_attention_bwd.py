@@ -22,10 +22,18 @@ tensor it launches the kernel or raises; it never falls back.
 ``flash_backward.launches_lse`` B4's.
 
 ``backward_viable`` is the dispatch gate of a differentiated site: B2's gate
-and the backward kernel's further limits, on C (``backward_c_ok``) and, in
-bf16, on d (``BF16_MAX_D``); the constants are checked against the
-library's own when it loads.  ``query_split`` is the rule by which the
-bf16 kernel splits a key tile's query range over several CTAs.
+and the backward kernel's further limits, on C (``backward_c_ok``) and on d
+(``BACKWARD_MAX_D``); the constants are checked against the library's own
+when it loads.  ``query_split`` is the rule by which the kernels split a
+key tile's query range over several CTAs.
+
+Both dtypes run wgmma kernels on bf16 operands.  A float32 call splits q,
+k, v and do into three bf16 planes each (``flash_attention.split_bf16x3``
+is the plain version) in a scratch tensor the launcher allocates; each
+product is then six bf16 products, an fp32 product to within fp32
+rounding.  V does not stay resident at three planes: its dk and dq kernel
+streams V and do in chunks of C per query tile (``dkdq_split_smem_bytes``),
+and dv is a second kernel's, by column slab (``dv_slab``).
 """
 
 from __future__ import annotations
@@ -39,7 +47,9 @@ from sap3d_tpu_torch.ops.cuda import build
 from sap3d_tpu_torch.ops.cuda.flash_attention import (
     C_MULTIPLE,
     CTA_SMEM_RESERVE,
-    MAX_D,
+    MAX_CTA_SMEM,
+    MAX_D,  # the forward's limit on d, which backward_viable applies first
+    PLANES,
     SM_COUNT,
     SMEM_PER_SM,
     contiguous_aligned,
@@ -49,14 +59,15 @@ from sap3d_tpu_torch.ops.cuda.flash_attention import (
 
 SOURCE = "flash_attention_bwd"
 # The kernel's own limits beyond the forward's (csrc/flash_attention_bwd.cu):
-# C up to MAX_C; above NARROW_MAX_C a multiple of WIDE_C_MULTIPLE; in bf16,
-# d up to BF16_MAX_D (the wgmma kernels' widest q and k tile; every
-# backward-gated site of the registry has d = C/8 <= 64).
+# C up to MAX_C; above NARROW_MAX_C a multiple of WIDE_C_MULTIPLE; d up to
+# BACKWARD_MAX_D in both dtypes (the kernels' widest q and k tile: three
+# planes of a wider one do not fit the float32 kernel's shared memory;
+# every backward-gated site of the registry has d = C/8 <= 64).
 MAX_C = 512
 WIDE_C_MULTIPLE = 64
 NARROW_MAX_C = 128
-BF16_MAX_D = 64
-# Keys per CTA and queries per tile of the bf16 kernels.
+BACKWARD_MAX_D = 64
+# Keys per CTA and queries per tile of the kernels.
 BLOCK = 64
 # What ``query_split`` knows beyond the card (``flash_attention``'s
 # SM_COUNT, SMEM_PER_SM, CTA_SMEM_RESERVE): the most splits it makes.
@@ -139,8 +150,9 @@ def backward_c_ok(c: int) -> bool:
 
 
 def backward_max_d(dtype: torch.dtype) -> int:
-    """The widest d the backward kernel takes in ``dtype``."""
-    return BF16_MAX_D if dtype == torch.bfloat16 else MAX_D
+    """The widest d the backward kernel takes in ``dtype`` (the same in
+    both)."""
+    return BACKWARD_MAX_D
 
 
 def backward_viable(nq: int, nk: int, d: int, c: int, dtype: torch.dtype) -> bool:
@@ -159,57 +171,103 @@ def _d_tile(d: int) -> int:
     return 16 if d <= 16 else 32 if d <= 32 else 64
 
 
-def dv_in_dkdq(d: int, c: int) -> bool:
-    """Whether the bf16 dkdq kernel also computes dv at (d, C)."""
-    return c in FUSED_DV_C and (c < 128 or _d_tile(d) == 16)
+def dv_in_dkdq(d: int, c: int, dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether the dkdq kernel also computes dv at (d, C) (never in
+    float32)."""
+    return PLANES[dtype] == 1 and c in FUSED_DV_C and (c < 128 or _d_tile(d) == 16)
 
 
-def dv_slab(c: int) -> int:
-    """Columns of C per CTA of the bf16 dv kernel (where dv is its)."""
-    return 256 if c % 256 == 0 else 64 if c % 64 == 0 else 16
+def dv_slab(c: int, dtype: torch.dtype = torch.bfloat16, d: int = 64) -> int:
+    """Columns of C per CTA of the dv kernel (where dv is its): in bf16 256
+    where they divide C; in float32 (each slab beside a per-tile
+    accumulator) 128 at d above 32 where they divide C (one CTA per SM
+    either way, half the slabs recomputing the scores); else 64 where they
+    divide C, else 16."""
+    widest = 256 if PLANES[dtype] == 1 else 128 if _d_tile(d) == 64 else 64
+    return widest if c % widest == 0 else 64 if c % 64 == 0 else 16
 
 
-def dkdq_smem_bytes(d: int, c: int) -> int:
-    """Dynamic shared memory of one bf16 dkdq CTA (``smem_layout`` in the
-    source: K, V and two stages of q tile, do tile or ds and dq, lse and
-    delta, the mbarriers, 1 KB of alignment)."""
+def _chunk_cols(c: int) -> int:
+    """Columns of C per chunk of V and do in the float32 dkdq kernel."""
+    return 64 if c % 64 == 0 else 16
+
+
+def _split_smem(d_tile: int, cb: int, stages: int) -> int:
+    """``split_layout`` in the source, with 1 KB of alignment: three planes
+    of K, two stages of (three planes of a q tile, lse and delta), the
+    chunk stages of (three planes of v and of do), three planes of ds^T,
+    the dq and dk staging rows, the mbarriers."""
+    plane = _align1k(BLOCK * d_tile * 2)
+    qstage = 3 * plane + _align1k(BLOCK * 8)
+    chunk = 6 * _align1k(BLOCK * cb * 2)
+    return (3 * plane + 2 * qstage + stages * chunk + 3 * BLOCK * BLOCK * 2
+            + _align1k(BLOCK * d_tile * 4) + 8 * (5 + 2 * stages) + 1024)
+
+
+def split_chunk_stages(d: int, c: int) -> int:
+    """Chunk stages of the float32 dkdq kernel: the most, 2 to 4, that fit
+    one CTA."""
+    d_tile, cb = _d_tile(d), _chunk_cols(c)
+    return next((s for s in (4, 3) if _split_smem(d_tile, cb, s) <= MAX_CTA_SMEM), 2)
+
+
+def dkdq_smem_bytes(d: int, c: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory of one dkdq CTA.  bf16 (``smem_layout`` in the
+    source): K, V and two stages of q tile, do tile or ds and dq, lse and
+    delta, the mbarriers, 1 KB of alignment; float32: ``_split_smem``."""
     d_tile = _d_tile(d)
+    if PLANES[dtype] != 1:
+        return _split_smem(d_tile, _chunk_cols(c), split_chunk_stages(d, c))
     tile = max(BLOCK * c * 2, BLOCK * BLOCK * 2 + BLOCK * d_tile * 4)
     stage = _align1k(BLOCK * d_tile * 2) + _align1k(tile) + _align1k(BLOCK * 8)
     return _align1k(BLOCK * d_tile * 2) + _align1k(BLOCK * c * 2) + 2 * stage + 8 * 5 + 1024
 
 
-def resident_ctas(d: int, c: int) -> int:
-    """CTAs of the bf16 dkdq kernel resident on one SM at (d, C): the fewer
-    of what its launch bounds leave room for in registers (4 at d <= 16
-    without dv or with C <= 32, else 3) and what fits in shared memory.
-    ``chip_smoke.py`` and the card tests hold it to the card's occupancy
-    calculator."""
-    by_regs = 4 if _d_tile(d) == 16 and (c <= 32 or not dv_in_dkdq(d, c)) else 3
-    return max(1, min(by_regs, SMEM_PER_SM // (dkdq_smem_bytes(d, c) + CTA_SMEM_RESERVE)))
+def dv_smem_bytes(d: int, c: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory of one dv CTA (``smem_layout`` in the source):
+    the planes of K and two stages of (the planes of a q tile and of a do
+    slab, lse and delta), the mbarriers, 1 KB of alignment."""
+    planes, d_tile = PLANES[dtype], _d_tile(d)
+    stage = planes * (_align1k(BLOCK * d_tile * 2) + _align1k(BLOCK * dv_slab(c, dtype, d) * 2)) \
+        + _align1k(BLOCK * 8)
+    return planes * _align1k(BLOCK * d_tile * 2) + 2 * stage + 8 * 5 + 1024
+
+
+def resident_ctas(d: int, c: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """CTAs of the dkdq kernel resident on one SM at (d, C): the fewer of
+    what its launch bounds leave room for in registers (bf16: 4 at d <= 16
+    without dv or with C <= 32, else 3; float32: 2) and what fits in shared
+    memory.  ``chip_smoke.py`` and the card tests hold it to the card's
+    occupancy calculator."""
+    if PLANES[dtype] != 1:
+        by_regs = 2
+    else:
+        by_regs = 4 if _d_tile(d) == 16 and (c <= 32 or not dv_in_dkdq(d, c)) else 3
+    return max(1, min(by_regs,
+                      SMEM_PER_SM // (dkdq_smem_bytes(d, c, dtype) + CTA_SMEM_RESERVE)))
 
 
 def launch_grid(b: int, nq: int, nk: int, d: int, c: int, dtype: torch.dtype) -> dict:
     """The backward kernels' CTAs per call: the query split and the CTAs of
-    each kernel (float32: one kernel of 32 keys per CTA)."""
-    if dtype == torch.float32:
-        return dict(split=1, ctas=b * math.ceil(nk / 32))
-    split = query_split(b, nq, nk, d, c)
+    each kernel."""
+    split = query_split(b, nq, nk, d, c, dtype)
     dkdq = b * math.ceil(nk / BLOCK) * split
-    dv = 0 if dv_in_dkdq(d, c) else dkdq * (c // dv_slab(c))
+    dv = 0 if dv_in_dkdq(d, c, dtype) else dkdq * (c // dv_slab(c, dtype, d))
     return dict(split=split, ctas=dkdq + dv, dkdq_ctas=dkdq, dv_ctas=dv)
 
 
-def query_split(b: int, nq: int, nk: int, d: int, c: int) -> int:
-    """S, the query ranges each key tile's work is split into (bf16
-    kernels).  ``b * ceil(nk / BLOCK)`` CTAs per range run in waves of
-    ``SM_COUNT * resident_ctas(d, c)``; a CTA walks ceil(tiles / S) query
-    tiles after a set-up (K and V loads, the dk and dv epilogue) worth
+def query_split(b: int, nq: int, nk: int, d: int, c: int,
+                dtype: torch.dtype = torch.bfloat16) -> int:
+    """S, the query ranges each key tile's work is split into.
+    ``b * ceil(nk / BLOCK)`` CTAs per range run in waves of
+    ``SM_COUNT * resident_ctas(d, c, dtype)``; a CTA walks ceil(tiles / S)
+    query tiles after a set-up (K and V loads, the dk and dv epilogue) worth
     about ``SETUP_TILES`` tiles.  S is the smallest of 1 .. min(tiles,
     MAX_SPLIT) that minimises waves x (tiles per range + SETUP_TILES).  The
-    ranges' dk and dv are summed in float32 scratch."""
+    ranges' dk and dv are summed in float32 (bf16: scratch, then
+    rounded)."""
     ctas, tiles = b * math.ceil(nk / BLOCK), math.ceil(nq / BLOCK)
-    slots = SM_COUNT * resident_ctas(d, c)
+    slots = SM_COUNT * resident_ctas(d, c, dtype)
     best, best_cost = 1, math.inf
     for split in range(1, min(tiles, MAX_SPLIT) + 1):
         cost = math.ceil(ctas * split / slots) * (math.ceil(tiles / split) + SETUP_TILES)
@@ -221,19 +279,18 @@ def query_split(b: int, nq: int, nk: int, d: int, c: int) -> int:
 def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if not getattr(lib, "_sap3d_typed", False):
-        lib.sap3d_flash_bwd.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 \
+        lib.sap3d_flash_bwd.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         lib.sap3d_flash_bwd.restype = ctypes.c_int
-        names = ("max_d", "bf16_max_d", "max_c", "c_multiple", "wide_c_multiple",
-                 "narrow_max_c", "block")
+        names = ("max_d", "max_c", "c_multiple", "wide_c_multiple", "narrow_max_c", "block")
         for name in names:
             getattr(lib, f"sap3d_flash_bwd_{name}").restype = ctypes.c_int
-        lib.sap3d_flash_bwd_resident_ctas.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.sap3d_flash_bwd_resident_ctas.argtypes = [ctypes.c_int] * 3
         lib.sap3d_flash_bwd_resident_ctas.restype = ctypes.c_int
         lib.sap3d_cuda_error_string.argtypes = [ctypes.c_int]
         lib.sap3d_cuda_error_string.restype = ctypes.c_char_p
         limits = tuple(getattr(lib, f"sap3d_flash_bwd_{name}")() for name in names)
-        ours = (MAX_D, BF16_MAX_D, MAX_C, C_MULTIPLE, WIDE_C_MULTIPLE, NARROW_MAX_C, BLOCK)
+        ours = (BACKWARD_MAX_D, MAX_C, C_MULTIPLE, WIDE_C_MULTIPLE, NARROW_MAX_C, BLOCK)
         if limits != ours:
             raise RuntimeError(f"csrc/{SOURCE}.cu takes ({', '.join(names)}) = {limits}; "
                                f"the gate's constants say {ours}")
@@ -241,10 +298,11 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def card_resident_ctas(d: int, c: int) -> int:
+def card_resident_ctas(d: int, c: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """``resident_ctas`` as the card's occupancy calculator reads it for the
-    kernel the library launches at (d, C) in bf16 (d padded to 8)."""
-    return _library().sap3d_flash_bwd_resident_ctas(-(-d // 8) * 8, c)
+    dkdq kernel the library launches at (d, C) in ``dtype`` (d padded to
+    8)."""
+    return _library().sap3d_flash_bwd_resident_ctas(-(-d // 8) * 8, c, _DTYPE_CODES[dtype])
 
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
@@ -285,23 +343,29 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
         raise ValueError(f"flash backward takes d <= {max_d} in {q.dtype} and C a multiple "
                          f"of {C_MULTIPLE} up to {NARROW_MAX_C} or of {WIDE_C_MULTIPLE} up to "
                          f"{MAX_C}; got d={d}, C={c}")
-    # rows of q and k in whole 16-byte chunks; the padded columns of dq and
-    # dk are dropped below
-    q, k = pad_rows(q), pad_rows(k)
+    # rows of q and k in whole 16-byte chunks (bf16: padded here; float32:
+    # as the kernel writes their planes); the padded columns of dq and dk
+    # are dropped below
+    dp = -(-d // 8) * 8
+    if q.dtype == torch.bfloat16:
+        q, k = pad_rows(q), pad_rows(k)
     q, k, v, o, lse, do = (contiguous_aligned(t) for t in (q, k, v, o, lse, do))
     dlse = None if dlse is None else contiguous_aligned(dlse)
-    dp = q.shape[2]
     f32 = dict(dtype=torch.float32, device=q.device)
     dq_acc = torch.zeros((b, nq, dp), **f32)
-    dk_acc = dv_acc = None
+    dk_acc = dv_acc = planes = None
+    # (lse, delta) of each row, padded to whole query tiles
+    stats = torch.empty((b, math.ceil(nq / BLOCK) * BLOCK, 2), **f32)
+    splits = query_split(b, nq, nk, d, c, q.dtype)
     if q.dtype == torch.float32:
-        stats, splits = torch.empty((b, nq), **f32), 1  # delta
-        dq, dk, dv = dq_acc, torch.empty_like(k), torch.empty_like(v)
+        # the outputs themselves, added to; the three bf16 planes of q, k,
+        # v and do
+        dk_acc, dv_acc = torch.zeros((b, nk, dp), **f32), torch.zeros(v.shape, **f32)
+        dq, dk, dv = dq_acc, dk_acc, dv_acc
+        planes = torch.empty(PLANES[q.dtype] * b * (nq * dp + nk * dp + nk * c + nq * c),
+                             dtype=torch.bfloat16, device=q.device)
     else:
-        # (lse, delta) of each row, padded to whole query tiles; over query
-        # splits, dk and dv summed in float32, then rounded
-        stats = torch.empty((b, math.ceil(nq / BLOCK) * BLOCK, 2), **f32)
-        splits = query_split(b, nq, nk, d, c)
+        # over query splits, dk and dv summed in float32, then rounded
         if splits > 1:
             dk_acc, dv_acc = torch.zeros(k.shape, **f32), torch.zeros(v.shape, **f32)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -312,7 +376,8 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
             lse.data_ptr(), None if dlse is None else dlse.data_ptr(), stats.data_ptr(),
             dq_acc.data_ptr(), None if dk_acc is None else dk_acc.data_ptr(),
             None if dv_acc is None else dv_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, nq, nk, dp, c, splits, _DTYPE_CODES[q.dtype],
+            dv.data_ptr(), None if planes is None else planes.data_ptr(), b, nq, nk, q.shape[2],
+            c, splits, _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError("flash_attention_bwd launch failed: "

@@ -1,9 +1,9 @@
-"""Time kernels B3 and B4 (the bf16 flash backward) of a checkout of the port
-at the sites ``PERF.md`` reports, so that two versions can be read on one
-card in one session.
+"""Time kernels B3 and B4 (the flash backward) of a checkout of the port at
+the sites ``PERF.md`` reports, so that two versions can be read on one card
+in one run.
 
     python sap3d_tpu_torch/scripts/time_flash_backward.py --root <checkout> [--label L]
-        [--profile] [--splits 1,2,4,8]
+        [--dtype bfloat16|float32] [--profile] [--splits 1,2,4,8]
 
 ``--root`` names the checkout whose ``sap3d_tpu_torch`` is imported (its
 kernels are built into its own ``build/kernels``); run the file by its path,
@@ -11,7 +11,9 @@ not with ``-m``, so that no other copy of the package is imported first.
 Comparing two commits: unpack each (``git archive``) and run parent,
 change, change, parent in one command.
 
-Per site (B, Nq, Nk, d, C), bf16: q, k with std d^-1/4, v and do unit
+Per site (B, Nq, Nk, d, C), in ``--dtype`` (default bf16; this script times
+any checkout's kernels, so that a checkout older than the option can be
+timed by this file with ``--root``): q, k with std d^-1/4, v and do unit
 normal and dlse normal, from one seed; o and lse from the checkout's own
 kernel B2; each time the mean of CUDA events over ``iters`` calls, the L2
 evicted (a 256 MB write) before each, after one warm-up call.  Prints one
@@ -84,6 +86,7 @@ def main(argv=None) -> dict:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile", action="store_true")
     p.add_argument("--splits", default=None, help="comma-separated query splits to sweep")
+    p.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     args = p.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -101,11 +104,12 @@ def main(argv=None) -> dict:
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     res = {}
+    dtype = getattr(torch, args.dtype)
     for name, b, nq, nk, d, c in SITES:
-        q = (torch.randn(b, nq, d, device="cuda", generator=gen) * d ** -0.25).bfloat16()
-        k = (torch.randn(b, nk, d, device="cuda", generator=gen) * d ** -0.25).bfloat16()
-        v = torch.randn(b, nk, c, device="cuda", generator=gen).bfloat16()
-        do = torch.randn(b, nq, c, device="cuda", generator=gen).bfloat16()
+        q = (torch.randn(b, nq, d, device="cuda", generator=gen) * d ** -0.25).to(dtype)
+        k = (torch.randn(b, nk, d, device="cuda", generator=gen) * d ** -0.25).to(dtype)
+        v = torch.randn(b, nk, c, device="cuda", generator=gen).to(dtype)
+        do = torch.randn(b, nq, c, device="cuda", generator=gen).to(dtype)
         dlse = torch.randn(b, nq, device="cuda", generator=gen)
         o, lse = fa.flash_forward_lse(q, k, v)
         iters = 5 if nq * nk * (d + c) > 5e9 else 20
@@ -113,7 +117,7 @@ def main(argv=None) -> dict:
         b4 = time_ms(torch, lambda: fb.flash_backward(q, k, v, o, lse, do, dlse=dlse), iters,
                      flush)
         res[name] = {"B3_ms": b3, "B4_ms": b4}
-        print(f"[{label}] {name} B={b} Nq={nq} Nk={nk} d={d} C={c}: B3 {b3:.4f} ms, "
+        print(f"[{label}] {name} {args.dtype} B={b} Nq={nq} Nk={nk} d={d} C={c}: B3 {b3:.4f} ms, "
               f"B4 {b4:.4f} ms ({card})", flush=True)
         if args.profile:
             res[name]["B3_kernels_ms"] = kernel_times(
@@ -133,7 +137,7 @@ def main(argv=None) -> dict:
                 fb.query_split = rule
         del q, k, v, do, dlse, o, lse
         torch.cuda.empty_cache()
-    out = {"label": label, "card": card, "sites": res}
+    out = {"label": label, "card": card, "dtype": args.dtype, "sites": res}
     print(json.dumps(out), flush=True)
     return out
 

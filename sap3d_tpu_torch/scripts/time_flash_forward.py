@@ -1,9 +1,9 @@
-"""Time kernels B1 and B2 (the bf16 flash forward) of a checkout of the port
-at the sites ``PERF.md`` reports, so that two versions can be read on one
-card in one session.
+"""Time kernels B1 and B2 (the flash forward) of a checkout of the port at
+the sites ``PERF.md`` reports, so that two versions can be read on one card
+in one run.
 
     python sap3d_tpu_torch/scripts/time_flash_forward.py --root <checkout> [--label L]
-        [--profile] [--no-sdpa]
+        [--dtype bfloat16|float32] [--profile] [--no-sdpa]
 
 ``--root`` names the checkout whose ``sap3d_tpu_torch`` is imported (its
 kernels are built into its own ``build/kernels``); run the file by its path,
@@ -11,14 +11,17 @@ not with ``-m``, so that no other copy of the package is imported first.
 Comparing two commits: unpack each (``git archive``) and run parent,
 change, change, parent in one command.
 
-Per site (B, Nq, Nk, d, C), bf16: q, k with std d^-1/4 and v unit normal,
-from one seed; each time the mean of CUDA events over ``iters`` calls, the
-L2 evicted (a 256 MB write) before each, after one warm-up call.  Beside
-them: one ``scaled_dot_product_attention`` call on the same inputs
-(``scale=1.0``, the first backend that takes d != C; the port never calls
-it), the bound (each input read once and o written once at 3.35 TB/s
-against 2 B Nq Nk (d + C) FLOPs at 989 TFLOP/s, ``chip_smoke.py:flash_bound``)
-and the exp floor (B Nq Nk exponentials at the SFU's 16 per clock per SM,
+Per site (B, Nq, Nk, d, C), in ``--dtype`` (default bf16; this script
+times any checkout's kernels, so that a checkout older than the option
+can be timed by this file with ``--root``): q, k with std d^-1/4 and v unit
+normal, from one seed; each time the mean of CUDA events over ``iters``
+calls, the L2 evicted (a 256 MB write) before each, after one warm-up
+call.  Beside them: one ``scaled_dot_product_attention`` call on the same
+inputs (``scale=1.0``, the first backend that takes d != C; the port never
+calls it), the bound (each input read once and o written once at 3.35 TB/s
+against 2 B Nq Nk (d + C) FLOPs at 989 TFLOP/s, in float32 six times as
+many, the split-bf16 products; ``chip_smoke.py:flash_bound``), in float32
+also that bound at the CUDA cores' 67 TFLOP/s, and the exp floor (B Nq Nk exponentials at the SFU's 16 per clock per SM,
 132 SMs at 1.98 GHz, which the bound leaves out).  Prints one line per site
 and a last JSON line, with the card's name and power limit.  ``--profile``
 adds B1's device time per kernel (torch.profiler, the mean of 3 calls).
@@ -40,6 +43,8 @@ SITES = (("x_3_1", 16, 392, 392, 64, 512), ("x_2_2", 16, 3136, 3136, 32, 256),
          ("deconv_pool4", 16, 3136, 3136, 128, 1024), ("x_0_1_sa", 2, 200704, 3136, 2, 16))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+FP32_CUDA_CORE_FLOPS = 67e12
+SPLIT_PRODUCTS = 6  # bf16 products per float32 product (csrc/split_bf16.cuh)
 EXP_PER_S = 16 * 132 * 1.98e9
 
 
@@ -106,9 +111,9 @@ def sdpa_ms(torch, q, k, v, flush, iters: int):
     return None, "none"
 
 
-def bound_ms(b, nq, nk, d, c) -> float:
-    nbytes = 2 * b * (nq * d + nk * d + nk * c + nq * c)
-    return max(nbytes / HBM_BYTES_PER_S, 2 * b * nq * nk * (d + c) / BF16_FLOPS) * 1e3
+def bound_ms(b, nq, nk, d, c, itemsize: int = 2, rate: float = BF16_FLOPS) -> float:
+    nbytes = itemsize * b * (nq * d + nk * d + nk * c + nq * c)
+    return max(nbytes / HBM_BYTES_PER_S, 2 * b * nq * nk * (d + c) / rate) * 1e3
 
 
 def main(argv=None) -> dict:
@@ -118,6 +123,7 @@ def main(argv=None) -> dict:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile", action="store_true")
     p.add_argument("--no-sdpa", action="store_true", help="leave out the SDPA yardstick")
+    p.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     args = p.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -134,22 +140,30 @@ def main(argv=None) -> dict:
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     res = {}
+    dtype = getattr(torch, args.dtype)
+    f32 = dtype == torch.float32
     for name, b, nq, nk, d, c in SITES:
-        q = (torch.randn(b, nq, d, device="cuda", generator=gen) * d ** -0.25).bfloat16()
-        k = (torch.randn(b, nk, d, device="cuda", generator=gen) * d ** -0.25).bfloat16()
-        v = torch.randn(b, nk, c, device="cuda", generator=gen).bfloat16()
-        iters = 20
+        q = (torch.randn(b, nq, d, device="cuda", generator=gen) * d ** -0.25).to(dtype)
+        k = (torch.randn(b, nk, d, device="cuda", generator=gen) * d ** -0.25).to(dtype)
+        v = torch.randn(b, nk, c, device="cuda", generator=gen).to(dtype)
+        iters = 5 if f32 else 20
         b1 = time_ms(torch, lambda: fa.flash_attend_tokens(q, k, v), iters, flush)
         b2 = time_ms(torch, lambda: fa.flash_forward_lse(q, k, v), iters, flush)
-        row = {"B1_ms": b1, "B2_ms": b2, "bound_ms": bound_ms(b, nq, nk, d, c),
+        item = q.element_size()
+        row = {"B1_ms": b1, "B2_ms": b2,
+               "bound_ms": bound_ms(b, nq, nk, d, c, item,
+                                    BF16_FLOPS / SPLIT_PRODUCTS if f32 else BF16_FLOPS),
                "exp_floor_ms": b * nq * nk / EXP_PER_S * 1e3}
+        if f32:
+            row["cuda_core_bound_ms"] = bound_ms(b, nq, nk, d, c, item, FP32_CUDA_CORE_FLOPS)
         if not args.no_sdpa:
             row["sdpa_ms"], row["sdpa_backend"] = sdpa_ms(torch, q, k, v, flush, 5)
         sdpa = "" if args.no_sdpa else (
             f", sdpa {row['sdpa_ms']:.4f} ms ({row['sdpa_backend']})"
             if row["sdpa_ms"] is not None else ", sdpa none")
-        print(f"[{label}] {name} B={b} Nq={nq} Nk={nk} d={d} C={c}: B1 {b1:.4f} ms, "
-              f"B2 {b2:.4f} ms{sdpa}, bound {row['bound_ms']:.4f} ms, exp floor "
+        cores = f", CUDA-core bound {row['cuda_core_bound_ms']:.4f} ms" if f32 else ""
+        print(f"[{label}] {name} {args.dtype} B={b} Nq={nq} Nk={nk} d={d} C={c}: B1 {b1:.4f} ms, "
+              f"B2 {b2:.4f} ms{sdpa}, bound {row['bound_ms']:.4f} ms{cores}, exp floor "
               f"{row['exp_floor_ms']:.4f} ms ({card})", flush=True)
         if args.profile:
             row["B1_kernels_ms"] = kernel_times(torch, lambda: fa.flash_attend_tokens(q, k, v))
@@ -158,7 +172,7 @@ def main(argv=None) -> dict:
         res[name] = row
         del q, k, v
         torch.cuda.empty_cache()
-    out = {"label": label, "card": card, "sites": res}
+    out = {"label": label, "card": card, "dtype": args.dtype, "sites": res}
     print(json.dumps(out), flush=True)
     return out
 

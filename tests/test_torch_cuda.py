@@ -296,10 +296,10 @@ def test_b3_rejects_what_it_does_not_take(cuda):
     o, lse = flash_forward_lse_reference(q, k, v)
     with pytest.raises(ValueError, match="d <= 64"):
         fb.flash_backward(q, k, v, o, lse, o)
-    q, k, v = _inputs(1, 8, 8, 72, 512, torch.float32)  # float32 takes it
+    q, k, v = _inputs(1, 8, 8, 72, 512, torch.float32)  # float32 d above 64 too
     o, lse = flash_forward_lse_reference(q, k, v)
-    fb.flash_backward(q, k, v, o, lse, o)
-    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="d <= 64"):
+        fb.flash_backward(q, k, v, o, lse, o)
 
 
 @pytest.mark.parametrize("d,c", sorted({(d, c) for _, _, _, d, c in _SHAPES}
@@ -308,6 +308,86 @@ def test_split_rule_knows_the_kernels_residency(cuda, d, c):
     """``fb.resident_ctas``, the split rule's model, against the card's
     occupancy calculator for the kernel the library launches at (d, C)."""
     assert fb.card_resident_ctas(d, c) == fb.resident_ctas(d, c)
+
+
+# float32 (split bf16, three planes per tile) at the plans' edges: 32-key
+# forward tiles (C = 1024, d = 128), two-stage rings, long key ranges (Nk =
+# 3136, the flagship's), the dkdq kernel's chunks of C unrolled (C = 16,
+# 32, 128, 256, 512) or counted at run time (48, 192, 320), query splits
+_F32_EDGES = [
+    (2, 700, 500, 128, 1024),   # forward only: 32-key tiles, four slabs, one warpgroup
+    (1, 300, 3136, 64, 512),    # long keys; C = 512: eight chunks, two stages
+    (2, 1000, 3136, 16, 128),   # x_1_3 proportions, long keys
+    (1, 4000, 3136, 2, 16),     # x_0_1_sa's d and C, long keys, query splits
+    (2, 700, 300, 32, 256),     # four chunks
+    (1, 300, 200, 40, 320),     # chunks counted at run time, d to 64
+    (2, 130, 70, 24, 192),      # three chunks counted at run time
+    (1, 300, 100, 6, 48),       # three 16-column chunks at run time
+    (1, 200, 100, 8, 32),       # two 16-column chunks
+]
+
+
+@pytest.mark.parametrize("b,nq,nk,d,c", _F32_EDGES)
+def test_float32_kernels_at_the_plans_edges(cuda, b, nq, nk, d, c):
+    """B1, B2, B3 and B4 in float32 against their plain versions under the
+    float32 limits; the forward's plan is the library's."""
+    from sap3d_tpu_torch.ops.cuda import flash_attention as fa
+
+    dtype = torch.float32
+    plan = fa.card_launch_plan(b, nq, nk, d, c, dtype)
+    assert plan == fa.launch_plan(b, nq, nk, d, c, dtype)
+    assert fa.card_resident_ctas(b, nq, nk, d, c, dtype) >= plan["resident"]
+    q, k, v = _inputs(b, nq, nk, d, c, dtype)
+    got = flash_attend_tokens(q, k, v)
+    o, lse = flash_forward_lse(q, k, v)
+    torch.cuda.synchronize()
+    want_o, want_lse = flash_forward_lse_reference(q, k, v)
+    for out in (got, o):
+        check = agreement(out, want_o)
+        assert check["finite"] and check["excess"] <= 1, check
+    check = agreement(lse, want_lse, LSE_TOLERANCE)
+    assert check["finite"] and check["excess"] <= 1, check
+    if not fb.backward_viable(max(nq, 256), nk, d, c, dtype):
+        return
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    do = torch.randn(b, nq, c, device="cuda", generator=gen)
+    dlse = torch.randn(b, nq, device="cuda", generator=gen)
+    for extra in ((), (dlse,)):
+        got = fb.flash_backward(q, k, v, want_o, want_lse, do, *extra)
+        want = fb.flash_backward_reference(q, k, v, want_o, want_lse, do, *extra)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            rows = fb.DV_ROW_TOLERANCE if name == "dv" else None
+            check = agreement(g, w, fb.TOLERANCE, rows)
+            assert check["finite"] and check["excess"] <= 1, (name, len(extra), check)
+
+
+@pytest.mark.parametrize("b,nq,nk,d,c", [(2, 1000, 3136, 16, 128), (1, 392, 392, 64, 512)])
+def test_bf16_kernels_on_rounded_inputs_fail_the_float32_limits(cuda, b, nq, nk, d, c):
+    """The float32 limits tell the split kernels from bf16 ones: the bf16
+    kernels on the float32 inputs rounded to bf16 exceed them, in o and in
+    each gradient, where the float32 kernels pass."""
+    q, k, v = _inputs(b, nq, nk, d, c, torch.float32)
+    do = torch.randn(b, nq, c, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(1))
+    want_o, want_lse = flash_forward_lse_reference(q, k, v)
+    rounded = [t.bfloat16() for t in (q, k, v)]
+    assert agreement(flash_attend_tokens(*rounded).float(), want_o)["excess"] > 1
+    assert agreement(flash_attend_tokens(q, k, v), want_o)["excess"] <= 1
+    want = fb.flash_backward_reference(q, k, v, want_o, want_lse, do)
+    got16 = fb.flash_backward(*rounded, want_o.bfloat16(), want_lse, do.bfloat16())
+    got32 = fb.flash_backward(q, k, v, want_o, want_lse, do)
+    for name, g16, g32, w in zip(("dq", "dk", "dv"), got16, got32, want):
+        rows = fb.DV_ROW_TOLERANCE if name == "dv" else None
+        assert agreement(g16.float(), w, fb.TOLERANCE, rows)["excess"] > 1, name
+        assert agreement(g32, w, fb.TOLERANCE, rows)["excess"] <= 1, name
+
+
+@pytest.mark.parametrize("d,c", sorted({(d, c) for _, _, _, d, c in _SHAPES}
+                                       | {(64, 512), (32, 256), (16, 128), (2, 16)}))
+def test_split_rule_knows_the_float32_kernels_residency(cuda, d, c):
+    """``fb.resident_ctas`` in float32 against the card's occupancy
+    calculator for the split dkdq kernel the library launches at (d, C)."""
+    assert fb.card_resident_ctas(d, c, torch.float32) == fb.resident_ctas(d, c, torch.float32)
 
 
 # The kernel path against B2 with the plain B3 (the same forward; the

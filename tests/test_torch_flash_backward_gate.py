@@ -1,13 +1,15 @@
-"""The bf16 backward kernel's gate, query split and build, on the CPU.
+"""The backward kernels' gate, query split and build, on the CPU.
 
 * Every registry name at full width ([1, 16, 112, 112, 3], built on the
   meta device, so nothing is computed): the route of every self-attention
   site in train mode, in bf16 and float32, held to the routes the port
   gives today (``attention_route``; ``SAP3D_FLASH_HYBRID`` unset).  Each
   site the backward gate takes reaches kernel B3 (B4 in a ring hop); the
-  gate's bf16 limit on d (64) refuses none of them.
+  gate's limit on d (64, in both dtypes) refuses none of them.
 * ``query_split`` and ``resident_ctas`` at the sites the kernel is timed
-  at, and the rule's own bounds.
+  at, in bf16 and in float32, and the rule's own bounds; in float32 (three
+  bf16 planes per tile), the dkdq and dv kernels' shared memory fits one
+  CTA at every (d, C) the gate takes.
 * ``build._library_path`` hashes the shared headers (``csrc/*.cuh``) and the
   flags beside the source: editing a header names a new library.
 """
@@ -18,6 +20,7 @@ import torch
 from sap3d_tpu_torch.models.registry import MODEL_REGISTRY, build_model
 from sap3d_tpu_torch.ops import attention
 from sap3d_tpu_torch.ops.cuda import build
+from sap3d_tpu_torch.ops.cuda import flash_attention as fa
 from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
 
 X_4_0, X_3_1, X_2_2, X_1_3 = ((49, 49, 128, 1024), (392, 392, 64, 512),
@@ -76,12 +79,15 @@ def test_backward_gated_sites_keep_their_routes(name, monkeypatch):
 
 
 def test_gate_states_the_bf16_limit_on_d():
-    assert (fb.BF16_MAX_D, fb.MAX_D) == (64, 128)
-    assert fb.backward_max_d(torch.bfloat16) == 64 and fb.backward_max_d(torch.float32) == 128
+    # the limit is the same in float32: three planes of a 128-wide q and k
+    # tile do not fit the float32 kernel's shared memory
+    assert fb.BACKWARD_MAX_D == 64
+    assert fb.backward_max_d(torch.bfloat16) == 64 and fb.backward_max_d(torch.float32) == 64
     assert fb.backward_viable(3136, 3136, 64, 512, torch.bfloat16)
     assert not fb.backward_viable(3136, 3136, 72, 512, torch.bfloat16)  # d above 64
-    assert fb.backward_viable(3136, 3136, 72, 512, torch.float32)
-    assert fb.backward_viable(3136, 3136, 128, 128, torch.float32)
+    assert fb.backward_viable(3136, 3136, 64, 512, torch.float32)
+    assert not fb.backward_viable(3136, 3136, 72, 512, torch.float32)
+    assert not fb.backward_viable(3136, 3136, 128, 128, torch.float32)
     assert not fb.backward_viable(3136, 3136, 128, 128, torch.bfloat16)
 
 
@@ -107,6 +113,45 @@ def test_query_split_at_the_sites(shape):
     assert fb.resident_ctas(d, c) == resident
     assert fb.query_split(b, nq, nk, d, c) == split
     assert 1 <= split <= min(-(-nq // fb.BLOCK), fb.MAX_SPLIT)
+
+
+# float32: (B, Nq, Nk, d, C) -> (resident dkdq CTAs per SM, query split S,
+# chunk stages of V and do); one 128-thread CTA per SM at 64-column chunks
+# (two where the chunks are 16 columns)
+SPLITS_F32 = {
+    (16,) + X_3_1: (1, 1, 2),       # 112 CTAs, one wave
+    (16,) + X_2_2: (1, 1, 3),       # 784 CTAs, 5.94 waves of 132
+    (16,) + X_1_3: (1, 1, 3),
+    (16,) + GN_DECONV3: (1, 1, 2),
+    (2,) + X_0_1_SA: (2, 8, 4),     # 98 CTAs: 8 ranges make 3 waves of 264
+    (1, 5000, 150, 2, 16): (2, 16, 4),
+    (2, 2000, 100, 8, 64): (1, 16, 3),
+    (2, 300, 130, 64, 512): (1, 5, 2),
+    (1, 200, 100, 8, 32): (2, 4, 4),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(SPLITS_F32))
+def test_query_split_at_the_sites_in_float32(shape):
+    b, nq, nk, d, c = shape
+    resident, split, stages = SPLITS_F32[shape]
+    assert fb.resident_ctas(d, c, torch.float32) == resident
+    assert fb.query_split(b, nq, nk, d, c, torch.float32) == split
+    assert fb.split_chunk_stages(d, c) == stages
+    grid = fb.launch_grid(b, nq, nk, d, c, torch.float32)
+    assert grid["split"] == split and grid["dv_ctas"] > 0  # dv is never the dkdq kernel's
+
+
+def test_float32_kernels_fit_every_gated_shape():
+    """The float32 dkdq and dv kernels' shared memory, with its 1 KB of
+    alignment, fits one CTA at every (d, C) the backward gate takes."""
+    cs = [c for c in range(16, fb.MAX_C + 1, 16) if fb.backward_c_ok(c)]
+    for d in range(1, fb.BACKWARD_MAX_D + 1):
+        for c in cs:
+            assert fb.backward_viable(3136, 3136, d, c, torch.float32)
+            assert fb.dkdq_smem_bytes(d, c, torch.float32) <= fa.MAX_CTA_SMEM, (d, c)
+            assert fb.dv_smem_bytes(d, c, torch.float32) <= fa.MAX_CTA_SMEM, (d, c)
+            assert c % fb.dv_slab(c, torch.float32, d) == 0
 
 
 def test_query_split_never_exceeds_the_query_tiles():

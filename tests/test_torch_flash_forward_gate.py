@@ -1,4 +1,4 @@
-"""The bf16 forward kernel's gate and launch plan (B1, B2), on the CPU.
+"""The forward kernel's gate and launch plan (B1, B2), on the CPU.
 
 * Every registry name at full width ([1, 16, 112, 112, 3], built on the
   meta device, so nothing is computed): the route of every self-attention
@@ -13,6 +13,10 @@
   whole CTA past either), shared memory and threads a CTA may take, and
   the CTAs per SM it counts on fitting in shared memory.  The card tests
   hold the library's own plan equal to it (``tests/test_torch_cuda.py``).
+* The same in float32, whose kernel holds three bf16 planes of every tile
+  (``csrc/split_bf16.cuh``): at every float32 site, at the edge shapes, and
+  at every (d, C) the float32 gate takes, the plan fits one CTA's shared
+  memory with its alignment slack.
 """
 
 import pytest
@@ -65,9 +69,10 @@ def test_attention_sites_keep_their_routes(name, monkeypatch):
             assert (route == "flash") == fa.forward_viable(nq, nk, d, c, dtype)
 
 
-def _plan_holds(b, nq, nk, d, c):
-    plan = fa.launch_plan(b, nq, nk, d, c)
-    assert (plan["d_tile"], plan["cw"]) in fa.INSTANTIATIONS
+def _plan_holds(b, nq, nk, d, c, dtype=torch.bfloat16):
+    plan = fa.launch_plan(b, nq, nk, d, c, dtype)
+    assert plan["planes"] == fa.PLANES[dtype]
+    assert (plan["d_tile"], plan["cw"], plan["planes"]) in fa.INSTANTIATIONS
     assert -(-d // 8) * 8 <= plan["d_tile"]  # d padded to 8 fits the q and k boxes
     rows = fa.WG_ROWS * plan["wgs"]
     gx, gy, gz = plan["grid"]
@@ -75,14 +80,15 @@ def _plan_holds(b, nq, nk, d, c):
     assert gy * plan["cw"] >= c > (gy - 1) * plan["cw"]  # every column of C
     assert gy == plan["slabs"] and gz == b
     assert plan["threads"] == 128 * plan["wgs"] <= 1024
-    assert plan["bk"] == fa.key_tile(plan["cw"]) and plan["stages"] >= 2
+    assert plan["bk"] == fa.key_tile(plan["d_tile"], plan["cw"], dtype) and plan["stages"] >= 2
     assert plan["smem"] <= fa.MAX_CTA_SMEM
     assert plan["resident"] >= 1
     assert plan["resident"] * (plan["smem"] + fa.CTA_SMEM_RESERVE) <= fa.SMEM_PER_SM
-    # the tiles the layout holds: Q, and a K and a V tile per stage
+    # the tiles the layout holds: Q, and a K and a V tile per stage, each
+    # of `planes` bf16 planes, and the alignment slack
     tiles = (plan["wgs"] * fa.WG_ROWS * plan["d_tile"]
-             + plan["stages"] * plan["bk"] * (plan["d_tile"] + plan["cw"])) * 2
-    assert tiles < plan["smem"]
+             + plan["stages"] * plan["bk"] * (plan["d_tile"] + plan["cw"])) * 2 * plan["planes"]
+    assert tiles + fa.SMEM_SLACK < plan["smem"]
     return plan
 
 
@@ -159,3 +165,51 @@ def test_launch_plan_takes_the_wider_cut_on_ties_and_fewer_waves_otherwise():
     # x_0_1_sa: CW = 16 holds two 256-thread CTAs per SM
     plan = fa.launch_plan(2, 200704, 3136, 2, 16)
     assert plan["resident"] == 2 and plan["wgs"] == 2
+
+
+# (B, Nq, Nk, d, C) -> (d_tile, cw, slabs, bk, warpgroups per CTA, stages)
+# in float32: three planes per tile and a second accumulator (each key
+# tile's) beside O, so slabs of at most 128 columns, 32-key tiles at
+# d = 128, two stages where three do not fit
+SITE_PLANS_F32 = {
+    (16,) + X_3_1: (64, 128, 4, 64, 2, 2),     # 256 CTAs: 2 waves
+    (16,) + X_2_2: (32, 128, 2, 64, 2, 3),     # 800 CTAs: 7 waves (one CTA of 64 rows: 12)
+    (16,) + X_1_3: (16, 128, 1, 64, 2, 3),
+    (16,) + GN_DECONV3: (64, 128, 4, 64, 2, 2),
+    (16,) + GN_DECONV4: (128, 128, 8, 32, 2, 2),
+    (2,) + X_0_1_SA: (16, 16, 1, 64, 2, 3),
+    (2,) + X_3_1: (64, 128, 4, 64, 2, 2),
+    (2,) + X_2_2: (32, 128, 2, 64, 2, 3),
+    (2,) + X_1_3: (16, 128, 1, 64, 2, 3),
+    (2,) + GN_DECONV3: (64, 128, 4, 64, 2, 2),
+    (2,) + GN_DECONV4: (128, 128, 8, 32, 2, 2),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(SITE_PLANS_F32), ids=_shape_id)
+def test_launch_plan_at_the_float32_sites(shape):
+    b, nq, nk, d, c = shape
+    assert fa.forward_viable(nq, nk, d, c, torch.float32)
+    plan = _plan_holds(b, nq, nk, d, c, torch.float32)
+    # one 256-thread CTA per SM (registers), or two of one warpgroup
+    assert plan["resident"] == (1 if plan["wgs"] == 2 else 2)
+    assert (plan["d_tile"], plan["cw"], plan["slabs"], plan["bk"], plan["wgs"], plan["stages"]) \
+        == SITE_PLANS_F32[shape]
+
+
+@pytest.mark.parametrize("shape", EDGES, ids=_shape_id)
+def test_launch_plan_covers_the_edge_shapes_in_float32(shape):
+    b, nq, nk, d, c = shape
+    assert fa.forward_viable(max(nq, fa.BLOCK_Q), nk, d, c, torch.float32)
+    _plan_holds(b, nq, nk, d, c, torch.float32)
+
+
+def test_float32_plan_fits_every_gated_shape():
+    """Every d and every C (up to 2048) the float32 gate takes has a cut
+    whose shared memory, alignment slack included, one CTA may take."""
+    for d in range(1, fa.MAX_D + 1):
+        for c in range(fa.C_MULTIPLE, 2049, fa.C_MULTIPLE):
+            assert fa.forward_viable(fa.BLOCK_Q, 3136, d, c, torch.float32)
+            plan = fa.launch_plan(16, 3136, 3136, d, c, torch.float32)
+            assert plan["smem"] <= fa.MAX_CTA_SMEM and plan["stages"] >= 2, (d, c)
+            assert plan["bk"] == fa.key_tile(plan["d_tile"], plan["cw"], torch.float32)
