@@ -65,25 +65,33 @@ result line):
      mass dropped; the last keys of the pool4 deconv hold the bias alone);
      kernel path against plain path in bf16 and fp32; the linear output
      neither constant nor blown up; clips/s of both paths;
-     (b) kernels at the GN sites on random inputs, bf16 and fp32: B1 at all
-     three, B2 and B3 where the backward gate takes the shape, and B5
-     (flash forward + chunked recompute backward) at all three: o against
-     the plain version, dq, dk, dv against autograd through attend_tokens,
-     a planted fault (the last 64 keys zeroed) failing, times beside bounds;
-     at a shape of more than one chunk, the backward's peak memory under one
-     full [B, Nq, Nk] float32 block;
+     (b) kernels at the GN sites on random inputs, bf16 and fp32: B1, B2
+     and B3 at all three (B3 takes d = 128, C = 1024: the streaming dkdq
+     kernel), B4 at the widest (deconv_pool4), as in phases 3 and 9(c); and
+     B5 (the B1 forward; a backward of the row-stats kernel's lse and B3) at
+     all three: o against the plain version, dq, dk, dv against autograd
+     through attend_tokens, a planted fault (the last 64 keys zeroed)
+     failing, the launches of one backward (one row-stats kernel, one B3)
+     and, from the profiler, no device operation but those kernels and
+     memsets; times beside bounds; at the flagship's x_1_3 shape, the
+     backward's peak memory under one full [B, Nq, Nk] float32 block and
+     no higher than the parent's chunked recompute (PARENT_B5_PEAK_BYTES);
      (c) predictor on a 40-frame video: 3 B1 launches per batch of windows;
-     (d) training with SAP3D_FLASH_HYBRID=1 (set by the phase for itself,
-     restored after): launches per step as the gate predicts from the
-     printed shapes (B5 where the backward gate refuses, B2 + B3 elsewhere);
-     the B5 call of one step held on the step's own tensors (o against the
-     plain version, dq, dk, dv against autograd through attend_tokens; the
-     heaviest key tile's keys zeroed must fail); one step from one state (dropout 0) in bf16 and fp32 against the same
-     attention Functions on the plain kernels (cuDNN's deterministic
-     algorithms for this comparison), with a B3 without delta as the
-     control; Trainer.fit, 3 steps with a validation pass and
-     checkpoints; train clips/s and peak memory, plain, hybrid, hybrid,
-     plain, and the same with the flag off;
+     (d) training: launches per step as the gate predicts from the printed
+     shapes (B2 + B3 at all three sites);
+     B5, which no site reaches, run through its own entry point on the
+     q, k, v and cotangent the step gave the widest site (o against the
+     plain version; dq, dk, dv against the plain versions of the kernels
+     its backward launches on its own o, and, independently of its output,
+     against the float32 gradient: in bf16 the relative L2 distance within
+     B5_DISTANCE_FACTOR of B3's plain version given the float32 o rounded,
+     in fp32 under B3's limits; the heaviest key tile's keys zeroed must
+     fail each; its launches); one step from
+     one state (dropout 0) in bf16 and fp32 against the same attention
+     Functions on the plain kernels (cuDNN's deterministic algorithms for
+     this comparison), with a B3 without delta as the control;
+     Trainer.fit, 3 steps with a validation pass and checkpoints; train
+     clips/s and peak memory, plain, kernel, kernel, plain;
   8. every registry name built on the card, one bf16 eval forward at batch
      2: shape, finite values, B1 launches as the gate gives them, no site of
      256 queries or more on plain PyTorch; then B1, B2 and B3 at batch 2 at
@@ -109,15 +117,19 @@ result line):
  10. the inference bisect (``sap3d_tpu_torch.scripts.bisect_infer``) and
      kernel B6 (the lse-free forward that rounds the normalised p, as the
      TPU kernel does):
-     (a) B6 at the flagship's sites on random inputs, bf16 and fp32,
-     against its plain version under ``flash_attention_nolse.TOLERANCE``,
-     the last key tile dropped failing; B1 on the same inputs read against
-     the same plain version, whose mean error B6's must not exceed in bf16;
-     times of B6, B1, the plain version and SDPA beside B6's bound;
+     (a) B6 (the row-stats kernel, then B1's wgmma body on the normalised
+     p) at the flagship's sites on random inputs, bf16 and fp32, against its
+     plain version under ``flash_attention_nolse.TOLERANCE``, the last key
+     tile dropped failing; B1 on the same inputs read against the same plain
+     version, whose mean error B6's must not exceed in bf16; the row-stats
+     kernel alone against its plain version (lse under LSE_TOLERANCE, the
+     dropped tile failing); times of B6, its first pass, B1, the plain
+     version and SDPA beside B6's bound;
      (b) the bisect's ``main()`` at full width, batch 16: the current
      forward (B1), B6 swapped in, the plain path, the x_1_3 projection
-     products fused against separate; launches per forward 3 B1 / 3 B6 /
-     3 B1 after the swap / none on the plain path; every B6 call of one
+     products fused against separate; launches per forward 3 B1 / 3 B6
+     (3 row-stats and 3 second passes) / 3 B1 after the swap / none on the
+     plain path; every B6 call of one
      swapped forward held on the model's own tensors;
  11. the evaluator without files or cv2: (a) evaluate_prediction_batches
      with the calibrated flagship in fp32 on in-memory batches (densities
@@ -186,20 +198,22 @@ GN_E2E_MEAN_TOL = 5e-2
 # whole bf16 gradient against the plain B2 and B3 is 0.43 away: moving the
 # forward's rounding point moves it that far; PERF.md.)
 TRAIN_TOL = {"bf16": (1e-4, 1e-1), "float32": (1e-6, 1e-2)}
-# The same limits for the GN SA decoder (B2 + B3 at two sites, B5 at the
-# third), from runs on an H100: the whole gradient against the same path
-# with the plain B3 read 1.9e-2 in bf16 and 3.0e-3 in fp32 (the plain path
-# run twice: 1.9e-3 and 1.7e-3 to 2.7e-3).  Its linear output makes a loss
-# (2e6) whose gradient the attention sites move little: a B3 without delta
-# moves the whole gradient 2.6e-2 to 8.3e-2 (1.6e-2 to 8.1e-2 in fp32), too
-# near the sound reading to be a control: the whole-gradient limit has no
-# control of its own and guards against gross faults only.  What holds the
-# kernels in this step: B5's o, dq, dk and dv on the step's own tensors
-# against ``attend_tokens`` and autograd through it (``b5_in_step``, with a
-# planted fault that must fail; in the comparison below the kernel path and
-# the plain-B3 run share B5's code, so it says nothing of B5), and for B3 the
+# The same limits for the GN SA decoder (B2 + B3 at its three sites, the
+# C = 1024 one too since B3 takes d = 128 and C = 1024), from runs on an
+# H100 while B5 took the third site: the whole gradient against the same
+# path with the plain B3 read 1.9e-2 in bf16 and 3.0e-3 in fp32 (the plain
+# path run twice: 1.9e-3 and 1.7e-3 to 2.7e-3).  Its linear output makes a
+# loss (2e6) whose gradient the attention sites move little: a B3 without
+# delta moves the whole gradient 2.6e-2 to 8.3e-2 (1.6e-2 to 8.1e-2 in
+# fp32), too near the sound reading to be a control: the whole-gradient
+# limit has no control of its own and guards against gross faults only.
+# What holds the kernels in this step: for B3 at all three sites the
 # gradient of the sites' f, g and h projections, which only dq, dk and dv
-# feed, held to GN_PROJ_TOL; B3's control is read there.  The projections
+# feed, held to GN_PROJ_TOL; B3's control is read there; and B5, which no
+# registry site reaches any more, run on the step's own q, k, v and
+# cotangent at the widest site, its o, dq, dk and dv against
+# ``attend_tokens`` and autograd through it (``b5_in_step``, with a
+# planted fault that must fail).  The projections
 # read 1.4e-4 to 2.4e-4 in bf16
 # (each B3 output is about 2e-4 from its plain version), the control 0.94 to
 # 3.9 in both types.  In fp32 the reading is 2.9e-7 to 2.4e-6 when cuDNN's
@@ -209,6 +223,14 @@ TRAIN_TOL = {"bf16": (1e-4, 1e-1), "float32": (1e-6, 1e-2)}
 # path run twice then reads 0 there.
 GN_TRAIN_TOL = {"bf16": (1e-4, 5e-2), "float32": (1e-6, 1e-2)}
 GN_PROJ_TOL = {"bf16": 2e-3, "float32": 1e-4}
+# B5 in bf16 on the GN step's tensors, held independently of its own output:
+# its dq, dk and dv no further from the float32 gradient (relative L2) than
+# this many times B3's plain version given the float32 o rounded to bf16
+# (which rounded o a flash backward is given moves its dq and dk on these
+# tensors, where dp - delta cancels; PERF.md); read on an
+# H100: 1.09x / 1.10x / 1.00x for dq / dk / dv.  In fp32 B5 is held to the
+# float32 gradient under B3's own limits (excess 0.52 at most, read).
+B5_DISTANCE_FACTOR = 1.5
 TRAIN_STEPS = 3
 THROUGHPUT_CALLS = 10              # timed calls per path and round of clips/s
 GN_MODEL = "P3D_SA_DECODER"        # inference_p3d_sa_decoder_block
@@ -716,6 +738,7 @@ def phase_throughput(torch, model, x, card):
 _KERNEL_GROUPS = (
     ("B3/B4 flash_attention_bwd", ("flash_bwd", "bwd_delta", "bwd_row_stats", "round_to_bf16")),
     ("B1/B2 flash_attention_fwd", ("flash_fwd",)),
+    ("row statistics (B6's pass 1, B5's lse)", ("flash_row_stats",)),
     ("group norm", ("groupnorm", "group_norm", "rowwisemoments", "computeinternalgradients",
                     "computefusedparams", "gammabeta")),
     ("convolution (cuDNN, with its layout transforms)",
@@ -1167,25 +1190,6 @@ def attention_sites(model):
             h.remove()
 
 
-@contextlib.contextmanager
-def hybrid_flag(value: str | None):
-    """SAP3D_FLASH_HYBRID set to ``value`` (None: unset) for the duration."""
-    import os
-
-    old = os.environ.get("SAP3D_FLASH_HYBRID")
-    if value is None:
-        os.environ.pop("SAP3D_FLASH_HYBRID", None)
-    else:
-        os.environ["SAP3D_FLASH_HYBRID"] = value
-    try:
-        yield
-    finally:
-        if old is None:
-            os.environ.pop("SAP3D_FLASH_HYBRID", None)
-        else:
-            os.environ["SAP3D_FLASH_HYBRID"] = old
-
-
 def build_gn_model(torch, dtype: str, gen=None, like=None, dropout_rate: float = 0.5):
     """The GN SA decoder at full width; gamma drawn from [0.5, 1.5] (at its
     init, 0, a dead attention kernel passes every end-to-end check), or the
@@ -1314,11 +1318,67 @@ def b5_bound(b, nq, nk, d, c, dtype_name: str, itemsize: int):
     return fwd_ms + bwd_ms, bwd_by, fwd_ms, bwd_ms
 
 
+# The hand-written kernels B5's backward launches on the card (the row
+# statistics, then B3: its row-stats pass, the dk and dq and the dv
+# kernels, the bf16 rounding, the fp32 split pass); memsets are not kernels.
+B5_BACKWARD_KERNELS = ("flash_row_stats", "bwd_row_stats", "flash_bwd_dkdq", "flash_bwd_dv",
+                       "round_to_bf16", "split_planes")
+# B5's backward peak above what its forward holds, at x_1_3's shape (batch
+# 16, bf16), read on an H100 80GB HBM3 at 700 W when its backward was the
+# chunked PyTorch recompute: 3365928960 bytes.  The kernels' may not exceed
+# it.
+PARENT_B5_PEAK_BYTES = 3365928960
+
+
+def device_kernels(torch, fn) -> list[str]:
+    """The names of the device operations (kernels, memsets) one call of
+    ``fn`` runs, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def b5_backward_launches(torch, fa, fb, ta, q, k, v, do, label):
+    """One B5 backward on the card (after a forward outside the count): the
+    launches its wrappers count (one row-stats kernel, one B3, no forward
+    kernel) and, from the profiler, that every device operation it runs is
+    one of the hand-written kernels (``B5_BACKWARD_KERNELS``) or a memset."""
+    def counts():
+        return dict(RS=fa.flash_row_stats.launches, B3=fb.flash_backward.launches,
+                    B4=fb.flash_backward.launches_lse, B1=fa.flash_attend_tokens.launches,
+                    B2=fa.flash_forward_lse.launches, B5=ta.flash_fwd_chunked_bwd.launches)
+
+    out = ta.flash_fwd_chunked_bwd(q, k, v)
+    torch.cuda.synchronize()
+    before = counts()
+    names = device_kernels(torch, lambda: torch.autograd.grad(out, (q, k, v), do))
+    launches = {key: n - before[key] for key, n in counts().items()}
+    foreign = [n for n in names if not n.startswith("Memset")
+               and not any(key in n for key in B5_BACKWARD_KERNELS)]
+    short = sorted({next((key for key in B5_BACKWARD_KERNELS if key in n), n.split(" (")[0])
+                    for n in names})
+    print(f"[kernel] B5 backward {label}: launches {launches}; device operations {short}",
+          flush=True)
+    if launches != dict(RS=1, B3=1, B4=0, B1=0, B2=0, B5=0):
+        raise AssertionError(f"B5's backward launched {launches}, not one row-stats kernel "
+                             "and one B3")
+    if foreign or not names:
+        raise AssertionError(f"B5's backward ran device operations that are not its "
+                             f"kernels: {foreign or 'none seen'}")
+    return dict(launches=launches, device_operations=short)
+
+
 def phase_b5(torch, fa, fb, ta, flush, sites):
     """Phase 7(b), kernel B5 at the GN sites on random inputs: o against the
     plain version under B1's limits; dq, dk, dv against autograd through
     ``attend_tokens`` on the same inputs under B3's limits; the planted
-    fault is the same computation on a k whose last 64 keys are zeroed."""
+    fault is the same computation on a k whose last 64 keys are zeroed; the
+    launches and device operations of one backward (the row statistics and
+    B3 only)."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -1349,9 +1409,11 @@ def phase_b5(torch, fa, fb, ta, flush, sites):
                              fault_out.detach(), zeroed, fa.TOLERANCE)}
             for name, g, w, f in zip(("dq", "dk", "dv"), got, want, fault):
                 res[name] = hold(f"B5 {name} {label}", g, w, f, zeroed, fb.TOLERANCE)
-            del out, plain_out, fault_out, got, want, fault, kz
             row = dict(res, site=site, dtype=dname, nq=nq, nk=nk, d=d, c=c,
                        max_abs_err=max(r["max_abs_err"] for r in res.values()))
+            row["backward"] = b5_backward_launches(torch, fa, fb, ta, q, k, v, do,
+                                                   f"{site} {dname}")
+            del out, plain_out, fault_out, got, want, fault, kz
 
             iters = 3 if dtype == torch.float32 else 5
             out = ta.flash_fwd_chunked_bwd(q, k, v)
@@ -1385,8 +1447,10 @@ def phase_b5(torch, fa, fb, ta, flush, sites):
             del q, k, v, do, qd, kd, vd
             torch.cuda.empty_cache()
 
-    # Chunking: at the flagship's x_1_3 shape the backward runs 7 chunks of
-    # 4096 queries; its peak stays under one full [B, Nq, Nk] float32 block.
+    # Memory at the flagship's x_1_3 shape: the backward's peak stays under
+    # one full [B, Nq, Nk] float32 block and under the parent's (the chunked
+    # recompute, 7 chunks of 4096 queries); saving o keeps nothing alive
+    # that the caller does not hold.
     nq, nk, d, c = SITES["x_1_3"]
     dtype = torch.bfloat16
     q = (torch.randn(BATCH, nq, d, device=DEVICE, generator=gen) * d ** -0.25).to(dtype)
@@ -1408,19 +1472,25 @@ def phase_b5(torch, fa, fb, ta, flush, sites):
     want, held_plain, peak_plain = backward_peak(ta.attend_tokens)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         check = fa.agreement(g, w, fb.TOLERANCE)
-        print(f"[check] B5 {name} x_1_3 bf16 (7 chunks): max_abs_err "
+        print(f"[check] B5 {name} x_1_3 bf16: max_abs_err "
               f"{check['max_abs_err']:.3e}, excess {check['excess']:.3f}", flush=True)
         if not check["finite"] or not check["excess"] <= 1:
-            raise AssertionError(f"B5 {name} over 7 chunks disagrees with attend_tokens")
+            raise AssertionError(f"B5 {name} at x_1_3 disagrees with attend_tokens")
     full_block = BATCH * nq * nk * 4
     gib = 2.0 ** 30
-    print(f"[kernel] B5 backward at x_1_3 (B={BATCH}, Nq={nq}, Nk={nk}; 7 chunks): peak "
-          f"{peak_b5 / gib:.3f} GiB above the {held_b5 / gib:.3f} GiB held after its forward; "
-          f"one full [B, Nq, Nk] fp32 block is {full_block / gib:.3f} GiB; autograd through "
-          f"attend_tokens holds {held_plain / gib:.3f} GiB after its forward and peaks "
-          f"{peak_plain / gib:.3f} GiB above that", flush=True)
+    inputs = sum(t.numel() * t.element_size() for t in (q, k, v))
+    print(f"[kernel] B5 backward at x_1_3 (B={BATCH}, Nq={nq}, Nk={nk}): peak "
+          f"{peak_b5 / gib:.3f} GiB above the {held_b5 / gib:.3f} GiB held after its forward "
+          f"(q, k, v {inputs / gib:.3f} GiB and the output the caller holds; the parent, "
+          f"which saved q, k, v and recomputed in 7 chunks: peak "
+          f"{PARENT_B5_PEAK_BYTES / gib:.3f} GiB above 1.935 GiB held); one full [B, Nq, Nk] "
+          f"fp32 block is {full_block / gib:.3f} GiB; autograd through attend_tokens holds "
+          f"{held_plain / gib:.3f} GiB after its forward and peaks {peak_plain / gib:.3f} GiB "
+          f"above that", flush=True)
     if not peak_b5 < full_block:
-        raise AssertionError("B5's backward peaks above one full score block: not chunked")
+        raise AssertionError("B5's backward peaks above one full score block")
+    if not peak_b5 <= PARENT_B5_PEAK_BYTES:
+        raise AssertionError("B5's backward peaks above the parent's")
     del got, want, q, k, v, do
     torch.cuda.empty_cache()
     return rows, dict(peak_b5_bytes=peak_b5, held_b5_bytes=held_b5, full_block_bytes=full_block,
@@ -1457,7 +1527,8 @@ def phase_gn_predictor(torch, fa, model):
 
 
 def phase_gn_train(torch, fa, fb, ta, model, sites, card, profile: bool = False):
-    """Phase 7(d), the GN train path with SAP3D_FLASH_HYBRID=1."""
+    """Phase 7(d), the GN train path: B2 + B3 at its three sites; B5 held on
+    the step's own tensors."""
     import os
     import shutil
 
@@ -1480,19 +1551,16 @@ def phase_gn_train(torch, fa, fb, ta, model, sites, card, profile: bool = False)
     x, y = (torch.from_numpy(a).to(DEVICE) for a in batch())
 
     # what the gate predicts from the shapes the model printed
-    def predicted(hybrid: bool) -> dict[str, int]:
-        with hybrid_flag("1" if hybrid else None):
-            routes = [ta.attention_route(*shape, torch.bfloat16, train=True)
-                      for shape, _ in sites.values()]
-        return {"B1": 0, "B2": routes.count("flash"), "B3": routes.count("flash"), "B4": 0,
-                "B5": routes.count("hybrid")}
-
-    want_on, want_off = predicted(True), predicted(False)
-    print(f"[gn] launches per train step as the gate predicts: hybrid on {want_on}, off "
-          f"{want_off}", flush=True)
-    if want_on["B5"] != 1 or want_off["B5"] != 0 or want_on["B2"] != 2:
+    routes = [ta.attention_route(*shape, torch.bfloat16, train=True)
+              for shape, _ in sites.values()]
+    want_step = {"B1": 0, "B2": routes.count("flash"), "B3": routes.count("flash"), "B4": 0,
+                 "B5": 0}
+    print(f"[gn] launches per train step as the gate predicts: {want_step}", flush=True)
+    # B3 takes d <= 128 and C <= 1024: every GN site, deconv_pool4 too, trains
+    # on B2 + B3
+    if want_step["B2"] != 3:
         raise AssertionError("the gate does not route the GN sites as B3's limits say")
-    res = {"predicted_launches": {"hybrid_on": want_on, "hybrid_off": want_off}}
+    res = {"predicted_launches": want_step}
 
     def set_kernel(m, use_kernel):
         for sa in m.attention_modules():
@@ -1529,52 +1597,121 @@ def phase_gn_train(torch, fa, fb, ta, model, sites, card, profile: bool = False)
         return loss.item(), flat, proj
 
     def b5_in_step(m, dname: str) -> dict:
-        """Kernel B5 on the train step's own tensors: the o it returned and
-        the dq, dk and dv it handed back to autograd, against
-        ``attend_tokens`` and autograd through it on the same q, k, v and
-        do.  Planted fault: the plain computation on a k whose heaviest tile
-        of keys is zeroed (the last keys of this site hold the bias alone)."""
-        import types
+        """Kernel B5 on the train step's own tensors: the q, k, v and the
+        cotangent do of the widest site (deconv_pool4, which the step now
+        trains on B2 + B3) captured in one step, then B5
+        (``flash_fwd_chunked_bwd``, its own entry point) run on them, and
+        its launches (one B5 forward; one row-stats kernel and one B3 in
+        the backward).  Its o is held against ``attend_tokens``; the dq, dk
+        and dv its backward gives against the plain versions of the kernels
+        that backward launches (the row statistics' lse, then B3's plain
+        version on B5's own o), under B3's limits.  The same o matters: on
+        this site's tensors delta = rowsum(do o) cancels against dp, and a
+        backward given the plain forward's o (both o within bf16 rounding of
+        each other, 1.5e-3 apart) lands 1.6e-2 away in dq, 2.3x B3's limits
+        (read on an H100); autograd through ``attend_tokens`` (bf16, which
+        rounds dp where B3 rounds p and ds) as far.  Held independently of
+        B5's output: dq, dk, dv against autograd through ``attend_tokens``
+        in float32 on the same tensors, in fp32 under B3's limits, in bf16
+        by the relative L2 distance, within ``B5_DISTANCE_FACTOR`` of the
+        distance of B3's plain version given the float32 o rounded to bf16
+        (bf16 autograd's distance read beside it).  Planted fault, failing
+        every check: the plain computation on a k whose heaviest tile of
+        keys is zeroed (the last keys of this site hold the bias alone)."""
+        widest = max(shape for shape, _ in sites.values())
+        orig, calls = attention.flash_attend, []
 
-        function, calls = attention._FlashForwardChunkedBackward, []
-
-        def apply(q, k, v):
-            o = function.apply(q, k, v)
-            rec = dict(q=q.detach(), k=k.detach(), v=v.detach(), o=o.detach())
-            o.register_hook(lambda g: rec.__setitem__("do", g.to(v.dtype)))
-            for name, t in (("dq", q), ("dk", k), ("dv", v)):
-                t.register_hook(lambda g, name=name: rec.__setitem__(name, g))
-            calls.append(rec)
+        def spy(q, k, v):
+            o = orig(q, k, v)
+            if (q.shape[1], k.shape[1], q.shape[2], v.shape[2]) == widest:
+                rec = dict(q=q.detach(), k=k.detach(), v=v.detach())
+                o.register_hook(lambda g: rec.__setitem__("do", g.to(v.dtype)))
+                calls.append(rec)
             return o
 
-        attention._FlashForwardChunkedBackward = types.SimpleNamespace(apply=apply)
+        attention.flash_attend = spy
         try:
             grads(m, True)
         finally:
-            attention._FlashForwardChunkedBackward = function
-        names = {shape: name for name, (shape, _) in sites.items()}
-        held = {}
-        for rec in calls:
-            q, k, v = (rec[n].clone().requires_grad_() for n in "qkv")
-            name = names[(q.shape[1], k.shape[1], q.shape[2], v.shape[2])]
-            label = f"{name} {dname} (in the GN train step)"
-            want_o = ta.attend_tokens(q, k, v)
-            want = torch.autograd.grad(want_o, (q, k, v), rec["do"])
-            kz = rec["k"].clone()
-            kz[:, heaviest_key_tile(rec["q"], rec["k"])] = 0
-            kz.requires_grad_()
-            fault_o = ta.attend_tokens(q, kz, v)
-            fault = torch.autograd.grad(fault_o, (q, kz, v), rec["do"])
-            zeroed = f"the heaviest {KEY_TILE}-key tile's keys zeroed"
-            res_ = {"o": hold(f"B5 o {label}", rec["o"], want_o.detach(), fault_o.detach(),
-                              zeroed, fa.TOLERANCE)}
-            for out, w, f in zip(("dq", "dk", "dv"), want, fault):
-                res_[out] = hold(f"B5 {out} {label}", rec[out], w, f, zeroed, fb.TOLERANCE)
-            held[name] = dict(res_, max_abs_err=max(r["max_abs_err"] for r in res_.values()))
-        if len(calls) != want_on["B5"] or len(held) != want_on["B5"]:
-            raise AssertionError(f"B5 ran {len(calls)} times in the step, at {sorted(held)}; "
-                                 f"the gate gives it {want_on['B5']} site(s)")
-        return held
+            attention.flash_attend = orig
+        if len(calls) != 1 or "do" not in calls[0]:
+            raise AssertionError(f"the step reached the widest site {len(calls)} times")
+        rec = calls[0]
+        name = next(n for n, (shape, _) in sites.items() if shape == widest)
+        label = f"{name} {dname} (on the GN train step's tensors)"
+        q, k, v = (rec[n].clone().requires_grad_() for n in "qkv")
+        before = launch_counts(fa, fb, ta), fa.flash_row_stats.launches
+        out = ta.flash_fwd_chunked_bwd(q, k, v)
+        got = torch.autograd.grad(out, (q, k, v), rec["do"])
+        torch.cuda.synchronize()
+        after = launch_counts(fa, fb, ta), fa.flash_row_stats.launches
+        launches = {key: n - before[0][key] for key, n in after[0].items()}
+        launches["RS"] = after[1] - before[1]
+        if launches != {"B1": 0, "B2": 0, "B3": 1, "B4": 0, "B5": 1, "RS": 1}:
+            raise AssertionError(f"B5 on the step's tensors launched {launches}")
+        qd, kd, vd, do = rec["q"], rec["k"], rec["v"], rec["do"]
+
+        def plain_backward(k_, o_):
+            """B5's backward from the plain versions of its kernels, on o_."""
+            lse = fa.row_stats_reference(qd, k_, lse=True)
+            return fb.flash_backward_reference(qd, k_, vd, o_, lse, do)
+
+        want = plain_backward(kd, out.detach())
+        kz = kd.clone()
+        kz[:, heaviest_key_tile(qd, kd)] = 0
+        fault_o = fa.flash_attend_tokens_reference(qd, kz, vd)
+        fault = plain_backward(kz, fault_o)
+        zeroed = f"the heaviest {KEY_TILE}-key tile's keys zeroed"
+        res_ = {"o": hold(f"B5 o {label}", out.detach(), ta.attend_tokens(qd, kd, vd), fault_o,
+                          zeroed, fa.TOLERANCE)}
+        for out_name, g, w, f_ in zip(("dq", "dk", "dv"), got, want, fault):
+            res_[out_name] = hold(f"B5 {out_name} {label}", g, w, f_, zeroed, fb.TOLERANCE)
+
+        def rel(a, b):
+            return ((a.float() - b).norm() / b.norm()).item()
+
+        # held independently of B5's output: against the float32 gradient
+        q32, k32, v32 = (t.float().requires_grad_() for t in (qd, kd, vd))
+        o32 = ta.attend_tokens(q32, k32, v32)
+        exact = torch.autograd.grad(o32, (q32, k32, v32), do.float())
+        lse = fa.row_stats_reference(qd, kd, lse=True)
+        names = ("dq", "dk", "dv")
+        if dname == "float32":
+            # under B3's own limits: the plain float32 backward is 1e-6 from it
+            for n, g, e, f_ in zip(names, got, exact, fault):
+                res_[f"{n}_vs_float32"] = hold(f"B5 {n} {label} against float32 autograd", g, e,
+                                               f_, zeroed, fb.TOLERANCE)
+            return {name: dict(res_, launches=launches,
+                               max_abs_err=max(r["max_abs_err"] for r in res_.values()))}
+        # bf16: a flash backward forms delta = rowsum(do o) from a rounded o,
+        # and on these tensors dp - delta cancels, so any such backward is
+        # about 1e-2 from the float32 gradient in dq and dk (bf16 autograd,
+        # which never forms delta, about 2e-3).  The yardstick: B3's plain
+        # version given the float32 o rounded to bf16, the best o a bf16
+        # flash backward can be given; B5 within B5_DISTANCE_FACTOR of it
+        yard = fb.flash_backward_reference(qd, kd, vd, o32.detach().to(qd.dtype), lse, do)
+        q16, k16, v16 = (t.clone().requires_grad_() for t in (qd, kd, vd))
+        autograd16 = torch.autograd.grad(ta.attend_tokens(q16, k16, v16), (q16, k16, v16), do)
+        dist = {n: {"b5": rel(g, e), "yardstick": rel(y_, e),
+                    "limit": B5_DISTANCE_FACTOR * rel(y_, e), "fault": rel(f_, e),
+                    "autograd": rel(a, e)}
+                for n, g, y_, f_, a, e in zip(names, got, yard, fault, autograd16, exact)}
+        print(f"[gn] B5 {label}: relative L2 from autograd through attend_tokens in float32 "
+              f"on the same tensors, B5 (limit {B5_DISTANCE_FACTOR:g} x the yardstick, B3's "
+              f"plain version given the float32 o rounded) / yardstick / planted fault "
+              f"({zeroed}) / bf16 autograd (read): "
+              + ", ".join(f"{n} {v['b5']:.3e} / {v['yardstick']:.3e} / {v['fault']:.3e} / "
+                          f"{v['autograd']:.3e}" for n, v in dist.items()),
+              flush=True)
+        for n, v in dist.items():
+            if not v["b5"] <= v["limit"]:
+                raise AssertionError(f"B5 {n} {label}: {v['b5']:.3e} from the float32 gradient, "
+                                     f"above {v['limit']:.3e}")
+            if not v["fault"] > v["limit"]:
+                raise AssertionError(f"B5 {n} {label}: the distance limit passes the planted "
+                                     f"fault; the check is void")
+        return {name: dict(res_, launches=launches, distance_from_float32=dist,
+                           max_abs_err=max(r["max_abs_err"] for r in res_.values()))}
 
     def no_delta(q, k, v, o, lse, do):
         return fb.flash_backward_reference(q, k, v, torch.zeros_like(o), lse, do)
@@ -1583,7 +1720,7 @@ def phase_gn_train(torch, fa, fb, ta, model, sites, card, profile: bool = False)
         return (a - b).norm().item() / b.norm().item()
 
     def one_step(m) -> dict:
-        """The kernel path (B2 + B3 at two sites, B5 at the third) against:
+        """The kernel path (B2 + B3 at the three sites) against:
         the same with the plain B3 (held: the same forward, the backward's
         own difference), on the whole gradient and on the gradient of the
         sites' f, g and h projections, which dq, dk and dv alone feed;
@@ -1608,128 +1745,118 @@ def phase_gn_train(torch, fa, fb, ta, model, sites, card, profile: bool = False)
                     proj_kernel_vs_plain=rel(a_k, a_p), proj_plain_again=rel(a_p2, a_p),
                     same_forward_loss_rel=abs(loss_k - loss_s) / abs(loss_s))
 
-    with hybrid_flag("1"):
-        model.decoder.dropout_rate = 0.0
-        # deterministic cuDNN algorithms for the comparison alone: what is
-        # left between two runs is the kernels' own (B3's atomic dq sums)
-        was_deterministic = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = True
-        try:
-            res["b5_in_step"] = {"bf16": b5_in_step(model, "bf16")}
-            e2e = {"bf16": one_step(model)}
-            model32 = build_gn_model(torch, "float32", like=model, dropout_rate=0.0)
-            res["b5_in_step"]["float32"] = b5_in_step(model32, "float32")
-            e2e["float32"] = one_step(model32)
-            del model32
-        finally:
-            torch.backends.cudnn.deterministic = was_deterministic
-        torch.cuda.empty_cache()
-        for dname, r in e2e.items():
-            loss_tol, grad_tol = GN_TRAIN_TOL[dname]
-            proj_tol = GN_PROJ_TOL[dname]
-            r.update(tol_loss_rel=loss_tol, tol_grad_rel_l2=grad_tol, tol_proj_rel_l2=proj_tol)
-            print(f"[gn] one step, {dname}, dropout 0, hybrid on: loss kernel path "
-                  f"{r['loss_kernel']:.6f}, the same Functions on the plain kernels "
-                  f"{r['loss_reference']:.6f} (relative {r['loss_rel']:.3e}, limit "
-                  f"{loss_tol:g}), plain path {r['loss_plain']:.6f}; whole-gradient relative "
-                  f"L2 of the kernel path against the same with the plain B3 "
-                  f"{r['grad_rel_l2']:.3e} (limit {grad_tol:g}), of the sites' f/g/h projections "
-                  f"{r['proj_grad_rel_l2']:.3e} (limit {proj_tol:g}), control (B3 without "
-                  f"delta) {r['fault_grad_rel_l2']:.3e} and {r['fault_proj_grad_rel_l2']:.3e}; "
-                  f"whole gradient against the plain kernels {r['kernel_vs_reference']:.3e}, "
-                  f"against the plain path {r['kernel_vs_plain']:.3e} (the plain path again "
-                  f"{r['plain_again']:.3e}); projections against the plain path "
-                  f"{r['proj_kernel_vs_plain']:.3e} (again {r['proj_plain_again']:.3e})",
-                  flush=True)
-        res["end_to_end"] = e2e
+    model.decoder.dropout_rate = 0.0
+    # deterministic cuDNN algorithms for the comparison alone: what is
+    # left between two runs is the kernels' own (B3's atomic dq sums)
+    was_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        res["b5_in_step"] = {"bf16": b5_in_step(model, "bf16")}
+        e2e = {"bf16": one_step(model)}
+        model32 = build_gn_model(torch, "float32", like=model, dropout_rate=0.0)
+        res["b5_in_step"]["float32"] = b5_in_step(model32, "float32")
+        e2e["float32"] = one_step(model32)
+        del model32
+    finally:
+        torch.backends.cudnn.deterministic = was_deterministic
+    torch.cuda.empty_cache()
+    for dname, r in e2e.items():
+        loss_tol, grad_tol = GN_TRAIN_TOL[dname]
+        proj_tol = GN_PROJ_TOL[dname]
+        r.update(tol_loss_rel=loss_tol, tol_grad_rel_l2=grad_tol, tol_proj_rel_l2=proj_tol)
+        print(f"[gn] one step, {dname}, dropout 0: loss kernel path "
+              f"{r['loss_kernel']:.6f}, the same Functions on the plain kernels "
+              f"{r['loss_reference']:.6f} (relative {r['loss_rel']:.3e}, limit "
+              f"{loss_tol:g}), plain path {r['loss_plain']:.6f}; whole-gradient relative "
+              f"L2 of the kernel path against the same with the plain B3 "
+              f"{r['grad_rel_l2']:.3e} (limit {grad_tol:g}), of the sites' f/g/h projections "
+              f"{r['proj_grad_rel_l2']:.3e} (limit {proj_tol:g}), control (B3 without "
+              f"delta) {r['fault_grad_rel_l2']:.3e} and {r['fault_proj_grad_rel_l2']:.3e}; "
+              f"whole gradient against the plain kernels {r['kernel_vs_reference']:.3e}, "
+              f"against the plain path {r['kernel_vs_plain']:.3e} (the plain path again "
+              f"{r['plain_again']:.3e}); projections against the plain path "
+              f"{r['proj_kernel_vs_plain']:.3e} (again {r['proj_plain_again']:.3e})",
+              flush=True)
+    res["end_to_end"] = e2e
 
-        # launches per make_train_step call, flag on and off
-        state = create_train_state(model, lr=1e-4)
-        step = make_train_step(state)
-        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
-        set_kernel(model, True)
-        for flag, want in (("1", want_on), (None, want_off)):
-            with hybrid_flag(flag):
-                zero_launch_counts(fa, fb, ta)
-                with attention_sites(model) as seen:
-                    loss = step(x, y, gen)
-                torch.cuda.synchronize()
-                got = launch_counts(fa, fb, ta)
-                routes = {n: r for n, (_, r) in seen.items()}
-            print(f"[gn] launches in one make_train_step call (hybrid "
-                  f"{'on' if flag else 'off'}): {got}, routes {routes}, loss "
-                  f"{loss.item():.4f}", flush=True)
-            if got != want or not np.isfinite(loss.item()):
-                raise AssertionError(f"expected {want} launches and a finite loss, got {got}")
+    # launches per make_train_step call
+    state = create_train_state(model, lr=1e-4)
+    step = make_train_step(state)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    set_kernel(model, True)
+    zero_launch_counts(fa, fb, ta)
+    with attention_sites(model) as seen:
+        loss = step(x, y, gen)
+    torch.cuda.synchronize()
+    got = launch_counts(fa, fb, ta)
+    routes = {n: r for n, (_, r) in seen.items()}
+    print(f"[gn] launches in one make_train_step call: {got}, routes {routes}, loss "
+          f"{loss.item():.4f}", flush=True)
+    if got != want_step or not np.isfinite(loss.item()):
+        raise AssertionError(f"expected {want_step} launches and a finite loss, got {got}")
 
-        # train clips/s and peak memory: plain, kernel, kernel, plain, with
-        # the flag on (B5 at the C = 1024 site) and off (attend_tokens there)
-        model.decoder.dropout_rate = 0.5
-        thr = {}
-        for name, flag in (("hybrid_on", "1"), ("hybrid_off", None)):
-            with hybrid_flag(flag):
-                thr[name] = {}
-                for label, use_kernel in (("plain", False), ("kernel", True),
-                                          ("kernel2", True), ("plain2", False)):
-                    set_kernel(model, use_kernel)
-                    torch.cuda.synchronize()
-                    torch.cuda.reset_peak_memory_stats()
-                    thr[name][label] = dict(
-                        rate_summary(step_times(torch, lambda: step(x, y, gen),
-                                                THROUGHPUT_CALLS)),
-                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-            print(f"[gn] train clips/s, {name.replace('_', ' ')} (batch {BATCH}, bf16, dropout "
-                  f"0.5; median [slowest, fastest] of {THROUGHPUT_CALLS} steps each, order "
-                  f"plain, kernel, kernel, plain): {describe_rates(thr[name])}; peak memory "
-                  f"kernel {thr[name]['kernel']['peak_gib']:.2f} GiB, plain "
-                  f"{thr[name]['plain']['peak_gib']:.2f} GiB  [{card}]", flush=True)
-        set_kernel(model, True)
-        res["train_clips_per_s"] = thr
-        if profile:
-            res["profile"] = profile_device_time(
-                torch, lambda: step(x, y, gen), "one GN train step, hybrid on")
-        del state, step
+    # train clips/s and peak memory: plain, kernel, kernel, plain
+    model.decoder.dropout_rate = 0.5
+    thr = {}
+    for label, use_kernel in (("plain", False), ("kernel", True), ("kernel2", True),
+                              ("plain2", False)):
+        set_kernel(model, use_kernel)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        thr[label] = dict(
+            rate_summary(step_times(torch, lambda: step(x, y, gen), THROUGHPUT_CALLS)),
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(f"[gn] train clips/s (batch {BATCH}, bf16, dropout 0.5; median [slowest, "
+          f"fastest] of {THROUGHPUT_CALLS} steps each, order plain, kernel, kernel, plain): "
+          f"{describe_rates(thr)}; peak memory kernel {thr['kernel']['peak_gib']:.2f} GiB, "
+          f"plain {thr['plain']['peak_gib']:.2f} GiB  [{card}]", flush=True)
+    set_kernel(model, True)
+    res["train_clips_per_s"] = thr
+    if profile:
+        res["profile"] = profile_device_time(
+            torch, lambda: step(x, y, gen), "one GN train step")
+    del state, step
 
-        # Trainer.fit: 3 steps, side dumps, one validation pass, checkpoints
-        root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                            "smoke_train_gn")
+    # Trainer.fit: 3 steps, side dumps, one validation pass, checkpoints
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "smoke_train_gn")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = Config(model=ModelConfig(name=GN_MODEL, dtype="bfloat16", dropout=0.5),
+                 train=TrainConfig(batch_size=BATCH, lr=1e-4, valid_iter=2, save_iter=2,
+                                   max_steps=TRAIN_STEPS, seed=SEED, info="smoke",
+                                   model_dir=os.path.join(root, "model"),
+                                   logs_dir=os.path.join(root, "logs")))
+    try:
+        trainer = Trainer(cfg, run="smoke", device=DEVICE)
+        trainer.model.load_state_dict(model.state_dict())  # gamma nonzero
+        train_batches = [batch() for _ in range(TRAIN_STEPS)]
+        valid = [batch()]
+        zero_launch_counts(fa, fb, ta)
+        t0 = time.perf_counter()
+        trainer.fit(iter(train_batches), lambda: iter(valid))
+        trainer.ckpt.wait_until_finished()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = launch_counts(fa, fb, ta)
+        trainer.close()
+        with open(os.path.join(trainer.logs_dir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in records if "loss" in r]
+        valid_rec = [r for r in records if "cc" in r]
+        steps = checkpoint_steps(trainer.model_dir)
+        no_stats = not any(key.endswith((".mean", ".var"))
+                           for key in trainer.model.state_dict())
+        del trainer
+    finally:
         shutil.rmtree(root, ignore_errors=True)
-        cfg = Config(model=ModelConfig(name=GN_MODEL, dtype="bfloat16", dropout=0.5),
-                     train=TrainConfig(batch_size=BATCH, lr=1e-4, valid_iter=2, save_iter=2,
-                                       max_steps=TRAIN_STEPS, seed=SEED, info="smoke",
-                                       model_dir=os.path.join(root, "model"),
-                                       logs_dir=os.path.join(root, "logs")))
-        try:
-            trainer = Trainer(cfg, run="smoke", device=DEVICE)
-            trainer.model.load_state_dict(model.state_dict())  # gamma nonzero
-            train_batches = [batch() for _ in range(TRAIN_STEPS)]
-            valid = [batch()]
-            zero_launch_counts(fa, fb, ta)
-            t0 = time.perf_counter()
-            trainer.fit(iter(train_batches), lambda: iter(valid))
-            trainer.ckpt.wait_until_finished()
-            torch.cuda.synchronize()
-            fit_s = time.perf_counter() - t0
-            fit_launches = launch_counts(fa, fb, ta)
-            trainer.close()
-            with open(os.path.join(trainer.logs_dir, "metrics.jsonl")) as f:
-                records = [json.loads(line) for line in f]
-            losses = [r["loss"] for r in records if "loss" in r]
-            valid_rec = [r for r in records if "cc" in r]
-            steps = checkpoint_steps(trainer.model_dir)
-            no_stats = not any(key.endswith((".mean", ".var"))
-                               for key in trainer.model.state_dict())
-            del trainer
-        finally:
-            shutil.rmtree(root, ignore_errors=True)
-            torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     # side dumps at every logged step (steps < 10) and one validation batch
     # run the eval forward: B1 at the three sites
-    want = {"B1": 3 * (TRAIN_STEPS + 1), "B2": want_on["B2"] * TRAIN_STEPS,
-            "B3": want_on["B3"] * TRAIN_STEPS, "B4": 0, "B5": want_on["B5"] * TRAIN_STEPS}
+    want = {"B1": 3 * (TRAIN_STEPS + 1), "B2": want_step["B2"] * TRAIN_STEPS,
+            "B3": want_step["B3"] * TRAIN_STEPS, "B4": 0, "B5": 0}
     falling = losses[-1] < losses[0]
     trend = "falling" if falling else "not falling: each step sees another random batch"
-    print(f"[gn] Trainer.fit, hybrid on: {TRAIN_STEPS} steps in {fit_s:.2f} s, losses "
+    print(f"[gn] Trainer.fit: {TRAIN_STEPS} steps in {fit_s:.2f} s, losses "
           f"{[round(v, 3) for v in losses]} ({trend}), launches {fit_launches}, "
           f"validation {valid_rec}, checkpoints at steps {steps}", flush=True)
     if fit_launches != want:
@@ -1830,16 +1957,17 @@ def b4_bound(b, nq, nk, d, c, dtype_name: str, itemsize: int):
     return _bound(nbytes, 2 * b * nq * nk * (3 * d + 2 * c), dtype_name)
 
 
-def phase_b4(torch, fa, fb, flush):
+def phase_b4(torch, fa, fb, flush, sites=None):
     """Phase 9(c): B4 at the ring's per-shard shapes (the flagship's SITES:
-    the 4 shards of a batch of 4 stack into one batch-16 launch per hop) on
-    random inputs, bf16 and fp32, against its plain version, with B3's time
-    on the same inputs beside it."""
+    the 4 shards of a batch of 4 stack into one batch-16 launch per hop), or
+    at ``sites`` (phase 7(b): GN deconv_pool4, the widest shape B3 and B4
+    take), on random inputs, bf16 and fp32, against its plain version, with
+    B3's time on the same inputs beside it."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        for site, (nq, nk, d, c) in SITES.items():
+        for site, (nq, nk, d, c) in (SITES if sites is None else sites).items():
             q = (torch.randn(BATCH, nq, d, device=DEVICE, generator=gen) * d ** -0.25).to(dtype)
             k = (torch.randn(BATCH, nk, d, device=DEVICE, generator=gen) * d ** -0.25).to(dtype)
             v = torch.randn(BATCH, nk, c, device=DEVICE, generator=gen).to(dtype)
@@ -2267,6 +2395,21 @@ def ring_op_check(torch, fb, mesh):
 # ---- phase 10: the inference bisect and kernel B6 ----------------------------
 
 
+def check_row_stats(fa, label, q, k):
+    """The row-stats kernel (B6's first pass) on (q, k) against its plain
+    version: lse = m + log l under ``LSE_TOLERANCE`` (B2's lse limits), the
+    last key tile dropped failing; m and 1/l through it."""
+    import torch
+
+    m, inv = fa.flash_row_stats(q, k)
+    want = fa.row_stats_reference(q, k, lse=True)
+    keep = KEY_TILE * ((k.shape[1] - 1) // KEY_TILE)
+    fault = fa.row_stats_reference(q, k[:, :keep], lse=True)
+    res = hold(f"row stats lse {label}", m - torch.log(inv), want, fault, _DROPPED,
+               fa.LSE_TOLERANCE)
+    return res
+
+
 def check_b6(fa, nolse, label, q, k, v, got):
     """B6's output against its plain version under ``nolse.TOLERANCE``, the
     last key tile dropped failing; B1 on the same inputs read against the
@@ -2289,12 +2432,20 @@ def check_b6(fa, nolse, label, q, k, v, got):
     return res
 
 
+def row_stats_bound(b, nq, nk, d, dtype_name: str, itemsize: int):
+    """(bound_ms, bound_by) of the row statistics: q and k read, m and 1/l
+    written (float32), against the 2*b*nq*nk*d FLOPs of q k^T."""
+    nbytes = b * (nq * d + nk * d) * itemsize + 8 * b * nq
+    return _bound(nbytes, 2 * b * nq * nk * d, dtype_name)
+
+
 def phase_b6(torch, fa, nolse, flush):
     """Phase 10(a): B6 at the flagship's sites on random inputs, bf16 and
     fp32, against its plain version, with B1's errors and time on the same
-    inputs beside it."""
+    inputs beside it; its first pass, the row-stats kernel, held against
+    its plain version and timed alone."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
-    rows = []
+    rows, stats_rows = [], []
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
         for site, (nq, nk, d, c) in SITES.items():
@@ -2302,12 +2453,22 @@ def phase_b6(torch, fa, nolse, flush):
             k = (torch.randn(BATCH, nk, d, device=DEVICE, generator=gen) * d ** -0.25).to(dtype)
             v = torch.randn(BATCH, nk, c, device=DEVICE, generator=gen).to(dtype)
             got = nolse.flash_nolse(q, k, v)
-            row = dict(check_b6(fa, nolse, f"{site} {dname} (random inputs)", q, k, v, got),
+            label = f"{site} {dname} (random inputs)"
+            row = dict(check_b6(fa, nolse, label, q, k, v, got),
                        site=site, dtype=dname, nq=nq, nk=nk, d=d, c=c)
+            stats = check_row_stats(fa, label, q, k)
             del got
             heavy = nq * nk * (d + c) > 5e9
             iters = (3 if dtype == torch.float32 else 5) if heavy else 20
             row["ms"] = time_ms(lambda: nolse.flash_nolse(q, k, v), iters, flush)
+            stats_row = dict(stats, site=site, dtype=dname, nq=nq, nk=nk, d=d, c=c)
+            stats_row["ms"] = time_ms(lambda: fa.flash_row_stats(q, k), iters, flush)
+            stats_row["plain_ms"] = time_ms(lambda: fa.row_stats_reference(q, k),
+                                            max(iters // 4, 3), flush)
+            stats_row["library_ms"], stats_row["library_backend"] = None, "none"
+            stats_row["bound_ms"], stats_row["bound_by"] = row_stats_bound(
+                BATCH, nq, nk, d, dname, q.element_size())
+            stats_rows.append(stats_row)
             row["b1_ms"] = time_ms(lambda: fa.flash_attend_tokens(q, k, v), iters, flush)
             row["plain_ms"] = time_ms(lambda: nolse.flash_nolse_reference(q, k, v),
                                       max(iters // 4, 3), flush)
@@ -2317,14 +2478,16 @@ def phase_b6(torch, fa, nolse, flush):
             row["bound_ms"], row["bound_by"] = flash_bound(BATCH, nq, nk, d, c, dname,
                                                            q.element_size())
             print(f"[kernel] B6 {site} {dname} B={BATCH} Nq={nq} Nk={nk} d={d} C={c}: kernel "
-                  f"{row['ms']:.4f} ms, B1 on the same inputs {row['b1_ms']:.4f} ms, plain "
+                  f"{row['ms']:.4f} ms (of which the row statistics {stats_row['ms']:.4f} ms, "
+                  f"bound {stats_row['bound_ms']:.4f} ms, plain {stats_row['plain_ms']:.4f} "
+                  f"ms), B1 on the same inputs {row['b1_ms']:.4f} ms, plain "
                   f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']} ms "
                   f"({row['library_backend']}), bound {row['bound_ms']:.4f} ms "
                   f"({row['bound_by']})", flush=True)
             rows.append(row)
             del q, k, v
             torch.cuda.empty_cache()
-    return rows
+    return rows, stats_rows
 
 
 def phase_bisect(torch, fa, nolse, ta, card):
@@ -2338,8 +2501,8 @@ def phase_bisect(torch, fa, nolse, ta, card):
 
     res = bisect_infer.main(DEVICE, BATCH)
     n = len(SITES)
-    want = {"current": {"B1": n, "B6": 0}, "nolse": {"B1": 0, "B6": n},
-            "after": {"B1": n, "B6": 0}, "plain": {"B1": 0, "B6": 0}}
+    want = {"current": {"B1": n, "RS": 0, "B6": 0}, "nolse": {"B1": 0, "RS": n, "B6": n},
+            "after": {"B1": n, "RS": 0, "B6": 0}, "plain": {"B1": 0, "RS": 0, "B6": 0}}
     print(f"[bisect] {card}: launches per forward {res['launches']} (want {want})", flush=True)
     if res["launches"] != want:
         raise AssertionError("the bisect's forwards did not launch the kernels of their route")
@@ -2527,15 +2690,21 @@ def phase_eval(torch, fa, calibrated, card):
 # bf16 and split fp32, which the gates reach at every instantiation, and
 # the split prep).
 BUILD_KERNELS = {
-    "flash_attention_fwd": (("flash_fwd_bf16", "split_planes"), ("flash_fwd_bf16", "split_planes")),
+    "flash_attention_fwd": (("flash_fwd_bf16", "flash_row_stats", "split_planes"),
+                            ("flash_fwd_bf16", "flash_row_stats", "split_planes")),
+    "flash_attention_nolse": (("flash_fwd_bf16", "split_planes"),
+                              ("flash_fwd_bf16", "split_planes")),
     "flash_attention_bwd": (("flash_bwd_dkdq_split", "flash_bwd_dkdq", "flash_bwd_dv",
                              "bwd_row_stats", "round_to_bf16", "split_planes"),
                             ("flash_bwd_dkdq", "flash_bwd_dv", "split_planes")),
 }
 # The wgmma kernels of each source whose SASS must hold HGMMA and UTMALDG
-# (phase 2); the forward's instantiations are ``INSTANTIATIONS``'s, the
+# (phase 2); the forward's instantiations (B1 and B2 in the forward's
+# library, B6's second pass in flash_attention_nolse.cu's) are
+# ``INSTANTIATIONS``'s, the row-stats kernel's one per (d tile, planes), the
 # backward's follow its dispatch on C.
-SASS_KERNELS = {"flash_attention_fwd": "flash_fwd_bf16",
+SASS_KERNELS = {"flash_attention_fwd": "flash_row_stats|flash_fwd_bf16",
+                "flash_attention_nolse": "flash_fwd_bf16",
                 "flash_attention_bwd": "flash_bwd_dkdq_split|flash_bwd_dkdq|flash_bwd_dv"}
 
 
@@ -2551,8 +2720,8 @@ def report_build(source: str, log: str) -> None:
     kernel, spill = None, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(rf"({'|'.join(names)})(I((?:Li\d+E)+))?", line)
-            args = re.findall(r"Li(\d+)E", m.group(2) or "") if m else []
+            m = re.search(rf"({'|'.join(names)})(I((?:L[ib]\d+E)+))?", line)
+            args = re.findall(r"L[ib](\d+)E", m.group(2) or "") if m else []
             kernel = (m.group(1) + (f"<{','.join(args)}>" if args else "")) if m else "?"
         elif kernel and "spill stores" in line:
             spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
@@ -2565,7 +2734,14 @@ def report_build(source: str, log: str) -> None:
                 raise AssertionError(f"{kernel} spills {spill} bytes")
             kernel, spill = None, None
         elif "C7515" in line or "C7514" in line or "C7508" in line:
-            print(f"[build]   {line.strip()[:200]}", flush=True)
+            m = re.search(rf"({'|'.join(names)})I((?:L[ib]\d+E)+)", line)
+            code = re.search(r"C75\d\d", line).group(0)
+            if m:
+                args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
+                where = f"{m.group(1)}<{args}>"
+            else:
+                where = line.strip()[-120:]
+            print(f"[build]   {code}: wgmma serialized in {where}", flush=True)
 
 
 def check_sass(build, source: str) -> dict:
@@ -2583,8 +2759,8 @@ def check_sass(build, source: str) -> dict:
     counts, kernel = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(rf"({names})I((?:Li\d+E)+)", line)
-            args = ",".join(re.findall(r"Li(\d+)E", m.group(2))) if m else ""
+            m = re.search(rf"({names})I((?:L[ib]\d+E)+)", line)
+            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2))) if m else ""
             kernel = f"{m.group(1)}<{args}>" if m else None
             if kernel:
                 counts[kernel] = {"HGMMA": 0, "UTMALDG": 0}
@@ -2662,16 +2838,17 @@ def main(argv=None) -> int:
             builds = dict(zip(sources, pool.map(timed_build, sources)))
         for source, (log, secs) in builds.items():
             print(f"[build] {source}.cu built in {secs:.2f} s", flush=True)
-            if source in BUILD_KERNELS:
-                report_build(source, log)
-                continue
-            for line in log.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"[build]   {line.strip()}", flush=True)
+            report_build(source, log)
         sass = {source: check_sass(build, source) for source in SASS_KERNELS}
-        if len(sass[fa.SOURCE]) != len(fa.INSTANTIATIONS):
-            raise AssertionError(f"{len(sass[fa.SOURCE])} forward instantiations compiled, "
-                                 f"launch_plan names {len(fa.INSTANTIATIONS)}")
+        for source in (fa.SOURCE, nolse.SOURCE):
+            n = sum(name.startswith("flash_fwd_bf16") for name in sass[source])
+            if n != len(fa.INSTANTIATIONS):
+                raise AssertionError(f"{n} forward instantiations compiled in {source}.cu, "
+                                     f"launch_plan names {len(fa.INSTANTIATIONS)}")
+        n_stats = sum(name.startswith("flash_row_stats") for name in sass[fa.SOURCE])
+        if n_stats != 4 * len(set(fa.PLANES.values())):
+            raise AssertionError(f"{n_stats} row-stats instantiations compiled, not one per "
+                                 "(d tile, planes)")
 
         flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
         rows = phase_kernels(torch, fa, fb, flush)
@@ -2702,6 +2879,11 @@ def main(argv=None) -> int:
         del x
         gn_sites = {name: tuple(site["shape"]) for name, site in gn_fwd["sites"].items()}
         gn_rows = phase_kernels(torch, fa, fb, flush, gn_sites)
+        # B4 at the widest site B3 and B4 take (deconv_pool4: d = 128, C = 1024)
+        wide = {n: s_ for n, s_ in gn_sites.items() if s_[2] > fb.RESIDENT_MAX_D}
+        if not wide:
+            raise AssertionError(f"no GN site of d above {fb.RESIDENT_MAX_D}: {gn_sites}")
+        gn_b4_rows = phase_b4(torch, fa, fb, flush, wide)
         b5_rows, b5_memory = phase_b5(torch, fa, fb, ta, flush, gn_sites)
         gn_launches = phase_gn_predictor(torch, fa, gn_model)
         gn_train = phase_gn_train(torch, fa, fb, ta, gn_model,
@@ -2724,7 +2906,7 @@ def main(argv=None) -> int:
         ring, b4_rows = phase_ring(torch, fa, fb, calibrated, flush, card,
                                    profile=bool(args.json_out))
         torch.cuda.empty_cache()
-        b6_rows = phase_b6(torch, fa, nolse, flush)
+        b6_rows, stats_rows = phase_b6(torch, fa, nolse, flush)
         bisect = phase_bisect(torch, fa, nolse, ta, card)
         evaluation = phase_eval(torch, fa, calibrated, card)
         del calibrated
@@ -2733,18 +2915,23 @@ def main(argv=None) -> int:
         fit, gn_fit = train["fit"]["launches"], gn_train["fit"]["launches"]
         ring_fwd, ring_step = ring["launches"]["forward"], ring["launches"]["step"]
         b6_launches = bisect["launches"]["nolse"]["B6"]
+        rs_launches = bisect["launches"]["nolse"]["RS"]
+        # B5: no registry route reaches it (B3 takes every GN site); its
+        # launches are its own entry point's, on the GN train step's tensors
+        b5_launches = sum(r["launches"]["B5"] for r in gn_train["b5_in_step"]["bf16"].values())
         fit32 = train["end_to_end"]["float32"]["launches"]
         ring32 = ring["launches"]["fp32_step"]
         # every main path launched every kernel the gate gives it
         if not (launches > 0 and fit["B2"] > 0 and fit["B3"] > 0 and gn_launches > 0
-                and gn_fit["B2"] > 0 and gn_fit["B3"] > 0 and gn_fit["B5"] > 0
+                and gn_fit["B2"] > 0 and gn_fit["B3"] > 0 and b5_launches > 0
                 and ring_fwd["B2"] > 0 and ring_step["B2"] > 0 and ring_step["B4"] > 0
-                and b6_launches > 0 and evaluation["b1_launches"] > 0
+                and b6_launches > 0 and rs_launches > 0 and evaluation["b1_launches"] > 0
                 and fit32["B2"] > 0 and fit32["B3"] > 0 and ring32["B2"] > 0
                 and ring32["B4"] > 0):
             raise AssertionError("a kernel of a main path was never launched")
         print(f"[launches] flagship predictor B1 {launches}; flagship Trainer.fit {fit}; GN "
-              f"predictor B1 {gn_launches}; GN Trainer.fit (hybrid on) {gn_fit}; ring eval "
+              f"predictor B1 {gn_launches}; GN Trainer.fit {gn_fit}; B5 on the GN step's "
+              f"tensors {b5_launches}; ring eval "
               f"forward {ring_fwd}; ring train step {ring_step}; the bisect's swapped forward "
               f"{bisect['launches']['nolse']}; evaluate_prediction_batches B1 "
               f"{evaluation['b1_launches']} (float32); the float32 train step {fit32}; the "
@@ -2770,16 +2957,20 @@ def main(argv=None) -> int:
             kernel_entry("flash_attention_bwd_lse", fb.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:274", ring_step["B4"],
                          b4_rows, [r["max_abs_err"] for by_site in ring["b4_in_step"].values()
-                                   for r in by_site]),
-            # B5: forward + backward at the three GN sites
+                                   for r in by_site], gn_b4_rows),
+            # B5: forward + backward (the row statistics and B3) at the three
+            # GN sites
             kernel_entry("flash_fwd_chunked_bwd", fa.SOURCE,
-                         "sap3d_tpu/ops/pallas/flash_attention.py:373", gn_fit["B5"], b5_rows,
+                         "sap3d_tpu/ops/pallas/flash_attention.py:373", b5_launches, b5_rows,
                          [r["max_abs_err"] for by_site in gn_train["b5_in_step"].values()
                           for r in by_site.values()]),
             # B6: the bisect's swapped forward, times at the flagship's sites
+            # (both passes); its first pass, the row-stats kernel, alone
             kernel_entry("flash_attention_nolse", nolse.SOURCE, "scripts/bisect_infer.py:96",
                          b6_launches, b6_rows,
                          [r["max_abs_err"] for r in bisect["held"].values()]),
+            kernel_entry("flash_row_stats", fa.SOURCE, "scripts/bisect_infer.py:96",
+                         rs_launches, stats_rows),
             # B1 to B4 in float32, the split-bf16 instantiations: times at
             # the flagship's sites (B4 at the ring's per-shard shapes);
             # launches of the float32 main paths: cli eval's forward (phase
@@ -2809,7 +3000,8 @@ def main(argv=None) -> int:
                                gn_profile=gn_prof, gn_kernel_rows=gn_rows, b5_rows=b5_rows,
                                b5_memory=b5_memory, gn_train=gn_train, zoo=zoo,
                                zoo_kernel_rows=zoo_rows, ring=ring, b4_rows=b4_rows,
-                               b6_rows=b6_rows, bisect=bisect, evaluation=evaluation,
+                               gn_b4_rows=gn_b4_rows, b6_rows=b6_rows,
+                               row_stats_rows=stats_rows, bisect=bisect, evaluation=evaluation,
                                kernels=kernels), f, indent=1)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {

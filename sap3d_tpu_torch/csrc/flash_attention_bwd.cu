@@ -11,14 +11,17 @@
 //     the lse cotangent folds into the row term: delta_i -= dlse_i.  The TPU
 //     kernel sums dlse over the 8 sublanes its lse is replicated on; here
 //     dlse is [B, Nq] float32, as lse is.  B3 and B4 run one kernel body.
+// B5's backward (`flash_fwd_chunked_bwd`, ops/attention.py) runs B3 too, on
+// the lse of the row-stats kernel (flash_attention_fwd.cu) and B5's saved
+// output.
 //
 // Shapes: q [B, Nq, d], k [B, Nk, d], v [B, Nk, C], o and do [B, Nq, C], all
 // contiguous and of one dtype (float32 or bfloat16); lse and dlse [B, Nq]
 // float32.  Outputs dq [B, Nq, d], dk [B, Nk, d], dv [B, Nk, C] in that
 // dtype.  Rows of q and k come in whole 16-byte chunks (bf16: the wrapper
 // pads q and k with zero columns; float32: the split pass writes the
-// planes so; the wrapper drops those columns of dq and dk).  d <= 64; C a
-// multiple of 16 up to 128 or of 64 up to 512.  Per query row i and key j:
+// planes so; the wrapper drops those columns of dq and dk).  d <= 128; C a
+// multiple of 16 up to 128 or of 64 up to 1024.  Per query row i and key j:
 //   delta_i = sum_c do_ic o_ic - dlse_i        (= sum_j dp_ij p_ij - dlse_i)
 //   p_ij    = exp(q_i . k_j - lse_i)
 //   dp_ij   = do_i . v_j
@@ -41,10 +44,12 @@
 //   flagship x_1_3    25088    3136   16  128   765     260  0.7740  compute
 //   GN pool2           3136    3136   32  256   191     116  0.1935  compute
 //   GN deconv_pool3    3136    3136   64  512   383     231  0.3870  compute
+//   GN deconv_pool4    3136    3136  128 1024   766     462  0.7740  compute
 //   x_0_1_sa (B = 2) 200704    3136    2   16    95.7    31  0.0967  compute
 // At x_0_1_sa the 1.26e9 exponentials alone, at the SFU's ~16 per clock per
 // SM (~4e12/s on 132 SMs), take ~0.3 ms, three times the bound.  float32:
-// six times the FLOPs (x_2_2 1.161 ms, x_1_3 4.64, deconv_pool3 2.32).
+// six times the FLOPs (x_2_2 1.161 ms, x_1_3 4.64, deconv_pool3 2.32,
+// deconv_pool4 4.64).
 //
 // Design of the bf16 kernels (B3 and B4; float32 below).  Hopper's blocks run in parallel and in no
 // order, so the TPU kernel's sequential sweep over query blocks with dk and
@@ -52,7 +57,8 @@
 // range) that keeps its keys' sums in registers and walks its query tiles:
 //   1. `bwd_row_stats` writes (lse, delta) of every query row, padded to
 //      whole 64-row tiles with (+inf, 0) so that padded rows get p = 0.
-//   2. `flash_bwd_dkdq`, one warpgroup per CTA.  Its thread 0 loads K and V
+//   2. `flash_bwd_dkdq` (d <= 64, C <= 512; wider, the streaming kernel
+//      below), one warpgroup per CTA.  Its thread 0 loads K and V
 //      of the CTA's 64 keys once with TMA and keeps a ring of 2 stages of
 //      (q tile, do tile, the rows' lse and delta) in flight, each stage
 //      signalled by an mbarrier (TMA and bulk copies); a stage goes back to
@@ -99,26 +105,40 @@
 // and the columns from d to 16/32/64 are TMA's zero fill of 3-D tensor
 // maps [B, N, width] (a 2-D map over [B N, width] would read the next
 // batch element's rows); keys past Nk are also masked to p = 0.
-// wgmma's k-steps over C are unrolled where C is 16 ... 512 by powers of
-// two: a loop over them makes ptxas serialise every wgmma of the kernel
-// (C7515); other C count them at run time.
+// wgmma's k-steps over C are unrolled where C is 16 ... 512 (streaming:
+// ... 1024) by powers of two: a loop over them makes ptxas serialise every
+// wgmma of the kernel (C7515); other C count them at run time.
+// The streaming dkdq kernel, `flash_bwd_dkdq_split<D, CB, NCH, NP>` (dk,
+// dq): V of 64 keys and two do stages do not stay resident at C = 1024 in
+// bf16 (128 KB + 256 KB) nor at three planes in float32 (192 KB of V at
+// C = 512), so per query tile it streams dp^T = v do^T over chunks of 64
+// (or 16) columns of C, each chunk's v and do planes through a ring of 2-4
+// stages; the q tiles and their (lse, delta) have a ring of their own; ds^T
+// is rounded (bf16) or split (`accum_to_a3`, float32) in registers for
+// dk += ds^T q and written to shared memory for dq = ds k.  q and k tiles
+// of d above 64 are two 64-column boxes.  It takes every float32 call
+// (NP = 3), and bf16 calls (NP = 1) at d above 64 or C above 512.  Its
+// layout (`split_config`): the planes of K, two q stages, ds^T and the
+// dq staging rows apart, 4 to 2 chunk stages; where that does not fit (three
+// planes at d_tile 128: 48 KB of K, 49 KB a q stage, 48 KB a chunk stage),
+// one q stage and the dq staging rows laid over the ds^T region, each tile
+// waiting for the previous tile's dq bulk add to have read them: 226 KB at
+// GN deconv_pool4, one CTA per SM.  dv is `flash_bwd_dv<D, CW, NP>`'s, by
+// slabs (bf16: 256; float32: 64, or 128 at d_tile 64, or 16).
 // float32 (B3 and B4 on split bf16 planes, `launch_split`): `split_planes`
 // writes the hi, mid and lo planes of q, k, v and do into one scratch
 // tensor (3-D tensor maps over [3 B, N, width]); `bwd_row_stats<float>`
-// as above.  Three planes of V (192 KB at C = 512) do not stay resident
-// beside the rest, so `flash_bwd_dkdq_split` (dk, dq) streams, per query
-// tile, dp^T = v do^T over chunks of 64 (or 16) columns of C, each chunk's
-// v and do planes through a ring of 2-4 stages; the q tiles and their
-// (lse, delta) have a ring of two; ds^T is split in registers
-// (`accum_to_a3`) for dk += ds^T q and written as three planes for
-// dq = ds k.  dv is `flash_bwd_dv<D, CW, 3>`'s, by slabs of 64 (or 16;
-// 128 at d_tile 64) columns.  dk and dv take each query tile's products in a fresh
+// as above.  dk and dv take each query tile's products in a fresh
 // accumulator and add it to their sums in float32: the tensor core's own
 // sum over a CTA's 392 query tiles (x_1_3) drops low bits, 1.3e-4 of dk's
-// L2 norm, 1.4x the float32 limit.  Every product is the six of split_bf16.cuh; dq, dk and dv
-// are bulk-added to float32 outputs the wrapper zeroes, and nothing is
-// rounded.  One 128-thread CTA per SM at 64-column chunks (shared memory);
-// the query split rule is the bf16 one with that residency.
+// L2 norm, 1.4x the float32 limit.  At d_tile 128 and C = 1024 dp^T takes
+// each chunk's products in a fresh accumulator too (two taking turns),
+// added in float32: summed by the tensor core over 16 chunks, dp lost 2e-4
+// of dk on the GN decoder's deconv_pool4 tensors, where dp - delta cancels.  Every product is the six of
+// split_bf16.cuh; dq, dk and dv are bulk-added to float32 outputs zeroed
+// here (memsets), and nothing is rounded.  One 128-thread CTA per SM at
+// 64-column chunks (shared memory); the query split rule is the bf16 one
+// with that residency.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -130,13 +150,17 @@
 
 namespace {
 
-// d up to this in both dtypes (the widest q and k tile: three planes of a
-// 128-wide tile do not fit beside the rest of the split kernel).
-constexpr int MAX_D = 64;
-constexpr int MAX_C = 512;
+// d up to this in both dtypes (q and k tiles of up to two 64-column
+// boxes), C up to MAX_C.
+constexpr int MAX_D = 128;
+constexpr int MAX_C = 1024;
 constexpr int C_MULTIPLE = 16;
 constexpr int WIDE_C_MULTIPLE = 64;  // C above NARROW_MAX_C is a multiple of this
 constexpr int NARROW_MAX_C = 128;
+// The widest C whose V (and two do stages) the bf16 dkdq kernel keeps
+// resident; wider C, and d above 64, take the streaming kernel.
+constexpr int RESIDENT_MAX_C = 512;
+constexpr int RESIDENT_MAX_D = 64;
 
 // ---- the bf16 rounding of dq (and of dk, dv over query splits) ----------------
 
@@ -230,6 +254,14 @@ struct Loader {
     const float2* stats;
     int nqp, b, k0, d_tile, v_boxes, do_col0, do_boxes, box_cols, np, batch;
 
+    // a q or k tile: d_tile / kw boxes of kw columns (kw = min(d_tile, 64))
+    __device__ __forceinline__ void qk_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int row, int z) const {
+        const int kw = d_tile < 64 ? d_tile : 64;
+        for (int j = 0; j < d_tile / kw; ++j)
+            hopper::tma_load_3d(dst + j * BLK * kw * 2, map, bar, j * kw, row, z);
+    }
+
     __device__ __forceinline__ uint64_t* bars() const {
         return reinterpret_cast<uint64_t*>(sm + L.bars);
     }
@@ -239,7 +271,7 @@ struct Loader {
         const uint32_t box_bytes = BLK * box_cols * 2;
         mbar_arrive_expect_tx(bars(), np * (BLK * d_tile * 2 + v_boxes * box_bytes));
         for (int pl = 0; pl < np; ++pl) {
-            tma_load_3d(sm + pl * L.k_plane, tk, bars(), 0, k0, pl * batch + b);
+            qk_tile(sm + pl * L.k_plane, tk, bars(), k0, pl * batch + b);
             for (int j = 0; j < v_boxes; ++j)
                 tma_load_3d(sm + L.v + pl * L.v_plane + j * box_bytes, tv, bars(), j * box_cols,
                             k0, pl * batch + b);
@@ -254,7 +286,7 @@ struct Loader {
         mbar_arrive_expect_tx(full,
                               np * (BLK * d_tile * 2 + do_boxes * box_bytes) + STATS_BYTES);
         for (int pl = 0; pl < np; ++pl) {
-            tma_load_3d(stage + pl * L.q_plane, tq, full, 0, t * BLK, pl * batch + b);
+            qk_tile(stage + pl * L.q_plane, tq, full, t * BLK, pl * batch + b);
             for (int j = 0; j < do_boxes; ++j)
                 tma_load_3d(stage + L.tile + pl * L.t_plane + j * box_bytes, tdo, full,
                             do_col0 + j * box_cols, t * BLK, pl * batch + b);
@@ -553,9 +585,9 @@ flash_bwd_dkdq(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
 }
 
 // dv for a slab of CW columns of C (bf16: 16, 64 or 256; split: 16, 64 or,
-// at D = 64, 128; CW divides C).  NP: planes per operand, 1 (bf16) or 3 (fp32 as split
-// bf16: each product the six of split_bf16.cuh, dv added to the float32
-// output, which the caller zeroes).
+// at D = 64, 128; CW divides C).  NP: planes per operand, 1 (bf16) or 3
+// (fp32 as split bf16: each product the six of split_bf16.cuh, dv added to
+// the float32 output, zeroed by the launcher).
 template <int D, int CW, int NP>
 __global__ void __launch_bounds__(THREADS, NP == 1 && CW <= 64 ? 4 : 2)
 flash_bwd_dv(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -564,6 +596,7 @@ flash_bwd_dv(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
     using split::plane_a;
     using split::plane_b;
     constexpr int BW = CW < 64 ? CW : 64;  // columns of a do box
+    constexpr int KW = D < 64 ? D : 64;    // columns of a q or k box
     constexpr int FIRST = split::first_product(NP);
     const Smem L = smem_layout(D, 0, BLK * CW * 2, NP);
     uint8_t* sm = smem_base();
@@ -600,8 +633,8 @@ flash_bwd_dv(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
         for (int pr = FIRST; pr < split::PRODUCTS; ++pr)
 #pragma unroll
             for (int kk = 0; kk < D / 16; ++kk)
-                wgmma_ss<64, 0, 0>(s, kmajor<D>(ks + plane_a(pr) * L.k_plane, kk),
-                                   kmajor<D>(stage + plane_b(pr) * L.q_plane, kk),
+                wgmma_ss<64, 0, 0>(s, kmajor<KW>(ks + plane_a(pr) * L.k_plane, kk),
+                                   kmajor<KW>(stage + plane_b(pr) * L.q_plane, kk),
                                    pr > FIRST || kk > 0);
         wgmma_commit();
         wgmma_wait<0>();
@@ -675,59 +708,72 @@ flash_bwd_dv(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
     bulk_wait();
 }
 
-// ---- fp32 as split bf16: dk and dq -----------------------------------------------
+// ---- the streaming dkdq kernel: fp32 as split bf16, and bf16 at wide C or d -------
 
-// The split dkdq kernel's shared memory from a 1024-byte aligned base: the
-// three planes of K; two stages of (the three planes of a q tile, its rows'
-// lse and delta); `cstages` stages of (the three planes of a chunk of CB
-// columns of V, then of do); the three planes of ds^T; the staging rows of
-// dq (and at the end dk); the mbarriers (K, q full[2], q empty[2], chunk
-// full[cstages], chunk empty[cstages]).
+// The streaming dkdq kernel's shared memory from a 1024-byte aligned base:
+// the np planes of K; `qstages` stages of (the np planes of a q tile, its
+// rows' lse and delta); `cstages` stages of (the np planes of a chunk of CB
+// columns of V, then of do); the np planes of ds^T; the staging rows of dq
+// (and at the end dk), which share the ds^T region where the two do not
+// fit apart (`unioned`); the mbarriers (K, q full[qstages], q
+// empty[qstages], chunk full[cstages], chunk empty[cstages]).
 struct SplitSmem {
     uint32_t plane, qstage, qstats, qstage_bytes, cplane, chunk, chunk_bytes, ds, stg, bars, total;
+    int qstages, cstages, unioned;
 };
 
-__host__ __device__ inline SplitSmem split_layout(int d_tile, int cb, int cstages) {
-    SplitSmem s;
+__host__ __device__ constexpr SplitSmem split_layout(int d_tile, int cb, int np, int qstages,
+                                                     int cstages, int unioned) {
+    SplitSmem s{};
+    s.qstages = qstages;
+    s.cstages = cstages;
+    s.unioned = unioned;
     s.plane = align1k(BLK * d_tile * 2);  // one plane of K or of a q tile
-    s.qstage = split::PLANES * s.plane;
-    s.qstats = split::PLANES * s.plane;
+    s.qstage = np * s.plane;
+    s.qstats = np * s.plane;
     s.qstage_bytes = s.qstats + align1k(STATS_BYTES);
     s.cplane = align1k(BLK * cb * 2);
-    s.chunk = s.qstage + 2 * s.qstage_bytes;
-    s.chunk_bytes = 2 * split::PLANES * s.cplane;
+    s.chunk = s.qstage + qstages * s.qstage_bytes;
+    s.chunk_bytes = 2 * np * s.cplane;
     s.ds = s.chunk + cstages * s.chunk_bytes;
-    s.stg = s.ds + split::PLANES * DS_BYTES;
-    s.bars = s.stg + align1k(BLK * d_tile * 4);
-    s.total = s.bars + 8 * (5 + 2 * cstages);
+    const uint32_t ds_bytes = np * DS_BYTES, stg_bytes = align1k(BLK * d_tile * 4);
+    s.stg = unioned ? s.ds : s.ds + ds_bytes;
+    s.bars = unioned ? s.ds + (ds_bytes > stg_bytes ? ds_bytes : stg_bytes) : s.stg + stg_bytes;
+    s.total = s.bars + 8 * (1 + 2 * qstages + 2 * cstages);
     return s;
 }
 
-// Chunk stages of the split dkdq kernel: the most, 2 to 4, that fit one CTA
-// (with 1 KB of alignment).
-__host__ __device__ inline int split_chunk_stages(int d_tile, int cb) {
-    for (int st = 4; st > 2; --st)
-        if (split_layout(d_tile, cb, st).total + 1024 <= MAX_CTA_SMEM) return st;
-    return 2;
+// The streaming kernel's layout at (d_tile, cb, np): two q stages, the
+// ds^T and staging regions apart and the most chunk stages, 4 down to 2,
+// that fit one CTA (with 1 KB of alignment); where none fits (three planes
+// at d_tile 128), one q stage and the staging rows over the ds^T region.
+__host__ __device__ constexpr SplitSmem split_config(int d_tile, int cb, int np) {
+    for (int q = 2; q >= 1; --q)
+        for (int st = 4; st >= 2; --st) {
+            const SplitSmem s = split_layout(d_tile, cb, np, q, st, q == 1);
+            if (s.total + 1024 <= MAX_CTA_SMEM) return s;
+        }
+    return split_layout(d_tile, cb, np, 1, 2, 1);
 }
 
-int dkdq_split_smem_bytes(int d_tile, int cb) {
-    return (int)split_layout(d_tile, cb, split_chunk_stages(d_tile, cb)).total + 1024;
+int dkdq_split_smem_bytes(int d_tile, int cb, int np) {
+    return (int)split_config(d_tile, cb, np).total + 1024;
 }
 
-// dk and dq in fp32 from split planes (dv is `flash_bwd_dv<D, CW, 3>`'s).
-// Three planes of V do not fit beside the rest at C = 512 (192 KB), so V
-// is not resident as in the bf16 kernel: per query tile, dp^T = v do^T runs
-// over C in chunks of CB columns (64, or 16 where C is not a multiple of
-// 64), each chunk's planes of v and do streamed through their own ring;
-// the q tiles (with lse and delta) have a ring of two.  The exponentials of
-// s^T run under the first chunk's products.  dq and dk are added to the
-// float32 outputs (zeroed by the caller) by bulk reduce-adds.  NCH: the
-// chunks, C / CB, where the registry's widths make it known at compile time
-// (the chunk loop then unrolls: a loop that carries the dp^T accumulator
-// makes ptxas serialise every wgmma of the kernel, C7515), else 0 (C / CB
-// chunks at run time).
-template <int D, int CB, int NCH>
+// dk and dq streaming V and do (dv is `flash_bwd_dv<D, CW, NP>`'s): per
+// query tile, dp^T = v do^T runs over C in chunks of CB columns (64, or 16
+// where C is not a multiple of 64), each chunk's planes of v and do
+// streamed through their own ring; the q tiles (with lse and delta) have a
+// ring of their own.  NP = 3: fp32 as split bf16 (three planes of V do not
+// stay resident beside the rest: 192 KB at C = 512); NP = 1: bf16 where V
+// and two do stages do not fit (C above 512) or d is above 64.  The
+// exponentials of s^T run under the first chunk's products.  dq and dk are
+// added to float32 scratch (bf16: rounded after) or outputs (fp32) by bulk
+// reduce-adds.  NCH: the chunks, C / CB, where the registry's widths make
+// it known at compile time (the chunk loop then unrolls: a loop that
+// carries the dp^T accumulator makes ptxas serialise every wgmma of the
+// kernel, C7515), else 0 (C / CB chunks at run time).
+template <int D, int CB, int NCH, int NP>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_bwd_dkdq_split(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
@@ -736,9 +782,19 @@ flash_bwd_dkdq_split(const __grid_constant__ CUtensorMap tq,
     using namespace hopper;
     using split::plane_a;
     using split::plane_b;
-    constexpr int NP = split::PLANES;
-    const int cstages = split_chunk_stages(D, CB);
-    const SplitSmem L = split_layout(D, CB, cstages);
+    constexpr int KW = D < 64 ? D : 64;  // columns of a q or k box
+    constexpr int FIRST = split::first_product(NP);
+    // three planes at d_tile 128 (or 16 chunks unrolled): the dk product is
+    // waited for before ds^T is written, so that its accumulator and the
+    // split ds^T are not live beside dq's (else 255 registers do not hold
+    // the tile: 240 to 616 bytes spilled)
+    constexpr bool DK_FIRST = NP != 1 && (D > 64 || NCH >= 16);
+    // those of 64-column chunks fold dp chunk by chunk (see below); the
+    // others keep a single dp accumulator (16-column chunks: C <= 128,
+    // at most 48 products summed)
+    constexpr bool DP_FOLD = DK_FIRST && CB == 64;
+    constexpr SplitSmem L = split_config(D, CB, NP);
+    constexpr int qstages = L.qstages, cstages = L.cstages;
     uint8_t* sm = smem_base();
     const int b = blockIdx.y, k0 = blockIdx.x * BLK;
     int t0, t1;
@@ -746,12 +802,12 @@ flash_bwd_dkdq_split(const __grid_constant__ CUtensorMap tq,
     const int nch = NCH > 0 ? NCH : p.c / CB, nt = t1 - t0, chunks = nt * nch;
     uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L.bars);
     uint64_t* qfull = bars + 1;
-    uint64_t* qempty = bars + 3;
-    uint64_t* cfull = bars + 5;
-    uint64_t* cempty = bars + 5 + cstages;
+    uint64_t* qempty = bars + 1 + qstages;
+    uint64_t* cfull = bars + 1 + 2 * qstages;
+    uint64_t* cempty = bars + 1 + 2 * qstages + cstages;
     if (threadIdx.x == 0) {
         mbar_init(&bars[0], 1);
-        for (int st = 0; st < 2; ++st) {
+        for (int st = 0; st < qstages; ++st) {
             mbar_init(&qfull[st], 1);   // thread 0's arrival + the bytes
             mbar_init(&qempty[st], 4);  // one arrival per warp
         }
@@ -762,13 +818,17 @@ flash_bwd_dkdq_split(const __grid_constant__ CUtensorMap tq,
         fence_barrier_init();
     }
     __syncthreads();
-    // q tile t0 + i (its planes, its rows' lse and delta) into q stage i % 2
+    // a q or k tile's plane: D / KW boxes of KW columns
+    auto load_qk = [&](uint8_t* dst, const CUtensorMap* map, uint64_t* bar, int row, int z) {
+        for (int j = 0; j < D / KW; ++j) tma_load_3d(dst + j * BLK * KW * 2, map, bar, j * KW, row, z);
+    };
+    // q tile t0 + i (its planes, its rows' lse and delta) into q stage i % qstages
     auto load_q = [&](int i) {
-        uint8_t* st = sm + L.qstage + (i % 2) * L.qstage_bytes;
-        uint64_t* f = &qfull[i % 2];
+        uint8_t* st = sm + L.qstage + (i % qstages) * L.qstage_bytes;
+        uint64_t* f = &qfull[i % qstages];
         mbar_arrive_expect_tx(f, NP * BLK * D * 2 + STATS_BYTES);
         for (int pl = 0; pl < NP; ++pl)
-            tma_load_3d(st + pl * L.plane, &tq, f, 0, (t0 + i) * BLK, pl * p.batch + b);
+            load_qk(st + pl * L.plane, &tq, f, (t0 + i) * BLK, pl * p.batch + b);
         bulk_load(st + L.qstats, p.stats + (size_t)b * p.nqp + (t0 + i) * BLK, STATS_BYTES, f);
     };
     // chunk j: columns (j % nch) CB .. of v and of do (query tile t0 + j / nch)
@@ -783,6 +843,15 @@ flash_bwd_dkdq_split(const __grid_constant__ CUtensorMap tq,
         }
     };
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    // once every warp is done with q tile i, its stage takes tile i + qstages
+    auto release_q = [&](int i) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&qempty[i % qstages]);
+        if (threadIdx.x == 0 && i + qstages < nt) {
+            mbar_wait(&qempty[i % qstages], (i / qstages) & 1);
+            load_q(i + qstages);
+        }
+    };
     // once every warp is done with chunk j, its stage takes chunk j + cstages
     auto release = [&](int j) {
         __syncwarp();
@@ -794,9 +863,8 @@ flash_bwd_dkdq_split(const __grid_constant__ CUtensorMap tq,
     };
     if (threadIdx.x == 0) {
         mbar_arrive_expect_tx(&bars[0], NP * BLK * D * 2);
-        for (int pl = 0; pl < NP; ++pl)
-            tma_load_3d(sm + pl * L.plane, &tk, &bars[0], 0, k0, pl * p.batch + b);
-        for (int i = 0; i < 2 && i < nt; ++i) load_q(i);
+        for (int pl = 0; pl < NP; ++pl) load_qk(sm + pl * L.plane, &tk, &bars[0], k0, pl * p.batch + b);
+        for (int i = 0; i < qstages && i < nt; ++i) load_q(i);
         for (int j = 0; j < cstages && j < chunks; ++j) load_chunk(j);
     }
     const int g = lane >> 2, qd = lane & 3;
@@ -809,66 +877,120 @@ flash_bwd_dkdq_split(const __grid_constant__ CUtensorMap tq,
     float dk[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dk[i] = 0.f;
+    auto add_dk = [&](const float(&t)[D / 2]) {
+#pragma unroll
+        for (int e = 0; e < D / 2; ++e) dk[e] += t[e];
+    };
     mbar_wait(bars, 0);  // K
 
     for (int i = 0; i < nt; ++i) {
         const int t = t0 + i;
-        const uint8_t* qs = sm + L.qstage + (i % 2) * L.qstage_bytes;
+        const uint8_t* qs = sm + L.qstage + (i % qstages) * L.qstage_bytes;
         const float2* stats = reinterpret_cast<const float2*>(qs + L.qstats);
-        mbar_wait(&qfull[i % 2], (i / 2) & 1);
-        // the q stage of tile i - 1 takes tile i + 1 once every warp is done
-        // with it
-        if (i > 0) {
-            if (lane == 0) mbar_arrive(&qempty[(i - 1) % 2]);
-            if (threadIdx.x == 0 && i + 1 < nt) {
-                mbar_wait(&qempty[(i - 1) % 2], ((i - 1) / 2) & 1);
-                load_q(i + 1);
-            }
-        }
+        mbar_wait(&qfull[i % qstages], (i / qstages) & 1);
+        // two q stages: the stage of tile i - 1 takes tile i + 1 once every
+        // warp is done with it (one stage: see the end of the tile)
+        if (qstages > 1 && i > 0) release_q(i - 1);
         float s[32], dp[32], pt[32];
 #pragma unroll
         for (int e = 0; e < 32; ++e) dp[e] = 0.f;
         wgmma_fence();
 #pragma unroll
-        for (int pr = 0; pr < split::PRODUCTS; ++pr)
+        for (int pr = FIRST; pr < split::PRODUCTS; ++pr)
 #pragma unroll
             for (int kk = 0; kk < D / 16; ++kk)
-                wgmma_ss<64, 0, 0>(s, kmajor<D>(ks + plane_a(pr) * L.plane, kk),
-                                   kmajor<D>(qs + plane_b(pr) * L.plane, kk), pr > 0 || kk > 0);
+                wgmma_ss<64, 0, 0>(s, kmajor<KW>(ks + plane_a(pr) * L.plane, kk),
+                                   kmajor<KW>(qs + plane_b(pr) * L.plane, kk),
+                                   pr > FIRST || kk > 0);
         wgmma_commit();
         // dp^T = v do^T over the chunks of C; each chunk's stage goes back
-        // to the ring once the next chunk's products are issued and its own
-        // are done
-        auto chunk = [&](int ch) {
+        // to the ring once the next chunk's products have started and its own
+        // are done.  One accumulator over all chunks, but in split fp32 at
+        // d above 64 or C = 1024 (DP_FOLD): there each chunk's products go to
+        // a fresh accumulator added to dp in float32 (two taking turns, so
+        // that one chunk's products run while the other's are added; one at
+        // d_tile 128, below).  The tensor core's own sum over 16 chunks of 24
+        // products drops low bits (rounded toward zero), and dp - delta
+        // cancels: on the GN decoder's deconv_pool4 tensors that cost 2e-4 of
+        // dk (emulated: 3.6e-4 with one accumulator, 8e-6 folded per chunk).
+        // The fold's loop stays rolled: unrolled, its accumulators spilled
+        // (up to 4.5 KB).
+        auto start = [&](int ch, float(&acc)[32]) {
             const int j = i * nch + ch;
             const uint8_t* cs = sm + L.chunk + (j % cstages) * L.chunk_bytes;
             mbar_wait(&cfull[j % cstages], (j / cstages) & 1);
             wgmma_fence();
 #pragma unroll
-            for (int pr = 0; pr < split::PRODUCTS; ++pr)
+            for (int pr = FIRST; pr < split::PRODUCTS; ++pr)
 #pragma unroll
                 for (int kk = 0; kk < CB / 16; ++kk)
-                    wgmma_ss<64, 0, 0>(dp, kmajor<CB>(cs + plane_a(pr) * L.cplane, kk),
-                                       kmajor<CB>(cs + (NP + plane_b(pr)) * L.cplane, kk), 1);
+                    wgmma_ss<64, 0, 0>(acc, kmajor<CB>(cs + plane_a(pr) * L.cplane, kk),
+                                       kmajor<CB>(cs + (NP + plane_b(pr)) * L.cplane, kk),
+                                       !DP_FOLD || pr > FIRST || kk > 0);
             wgmma_commit();
             wgmma_wait<1>();
+        };
+        auto after = [&](int ch) {  // the previous group of products is done
             if (ch == 0) {  // s^T is done: its exponentials run under this chunk
                 fence_regs(s);
                 exp_scores(pt, s, stats, qd, key_ok0, key_ok1, ragged);
             } else {
-                release(j - 1);
+                release(i * nch + ch - 1);
             }
         };
-        if constexpr (NCH > 0) {
+        auto fold = [&](float(&acc)[32]) {
+            fence_regs(acc);
 #pragma unroll
-            for (int ch = 0; ch < NCH; ++ch) chunk(ch);
+            for (int e = 0; e < 32; ++e) dp[e] += acc[e];
+        };
+        if constexpr (!DP_FOLD) {
+            auto chunk = [&](int ch) {
+                start(ch, dp);
+                after(ch);
+            };
+            if constexpr (NCH > 0) {
+#pragma unroll
+                for (int ch = 0; ch < NCH; ++ch) chunk(ch);
+            } else {
+                for (int ch = 0; ch < nch; ++ch) chunk(ch);
+            }
+            wgmma_wait<0>();
+            fence_regs(dp);
+        } else if constexpr (D > RESIDENT_MAX_D) {
+            // d_tile 128: one chunk accumulator, each chunk waited for and
+            // added before the next starts (a second one, to overlap
+            // them, spilled 0.5-1 KB beside dk's 64 registers)
+            float da[32];
+#pragma unroll 1
+            for (int ch = 0; ch < nch; ++ch) {
+                start(ch, da);
+                wgmma_wait<0>();
+                after(ch);
+                fold(da);
+            }
         } else {
-            for (int ch = 0; ch < nch; ++ch) chunk(ch);
+            float da[32], db[32];
+            // chunk ch into da (even) or db (odd); once it has started, the
+            // other, which the previous chunk filled, is added to dp
+            auto pair = [&](int ch) {
+                start(ch, da);
+                if (ch > 0) fold(db);
+                after(ch);
+                if (ch + 1 < nch) {
+                    start(ch + 1, db);
+                    fold(da);
+                    after(ch + 1);
+                }
+            };
+#pragma unroll 1
+            for (int ch = 0; ch < nch; ch += 2) pair(ch);
+            wgmma_wait<0>();
+            if (nch & 1) fold(da);
+            else fold(db);
         }
-        wgmma_wait<0>();
-        fence_regs(dp);
         release(i * nch + nch - 1);
-        // ds^T = p^T (dp^T - delta), split as the A operand of dk += ds^T q
+        // ds^T = p^T (dp^T - delta): rounded to bf16 (one plane), or split,
+        // as the A operand of dk += ds^T q
         uint32_t ds[NP][4][4];
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -879,22 +1001,41 @@ flash_bwd_dkdq_split(const __grid_constant__ CUtensorMap tq,
             dp[4 * j + 3] = pt[4 * j + 3] * (dp[4 * j + 3] - d1);
         }
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) accum_to_a3(dp, kk, ds[0][kk], ds[1][kk], ds[2][kk]);
-        // this tile's dk += ds^T q in a fresh accumulator, added to dk in
-        // float32 below: the tensor core's sum over hundreds of tiles drops
-        // low bits a float32 add keeps (see the header)
-        float dkt[D / 2];
+        for (int kk = 0; kk < 4; ++kk) {
+            if constexpr (NP == 1) accum_to_a(dp, kk, ds[0][kk]);
+            else accum_to_a3(dp, kk, ds[0][kk], ds[1][kk], ds[2][kk]);
+        }
+        // dk += ds^T q: bf16 on the tensor core; split, this tile's in a
+        // fresh accumulator added to dk in float32 below (the tensor core's
+        // sum over hundreds of tiles drops low bits a float32 add keeps)
+        float dkt[NP == 1 ? 1 : D / 2];
+        if constexpr (NP == 1) fence_regs(dk);
         wgmma_fence();
 #pragma unroll
-        for (int pr = 0; pr < split::PRODUCTS; ++pr)
+        for (int pr = FIRST; pr < split::PRODUCTS; ++pr)
 #pragma unroll
-            for (int kk = 0; kk < 4; ++kk)
-                wgmma_rs<D, 1>(dkt, ds[plane_a(pr)][kk],
-                               mnmajor<D>(qs + plane_b(pr) * L.plane, kk), pr > 0 || kk > 0);
+            for (int kk = 0; kk < 4; ++kk) {
+                if constexpr (NP == 1)
+                    wgmma_rs<D, 1>(dk, ds[0][kk], mnmajor<KW>(qs, kk), 1);
+                else
+                    wgmma_rs<D, 1>(dkt, ds[plane_a(pr)][kk],
+                                   mnmajor<KW>(qs + plane_b(pr) * L.plane, kk), pr > 0 || kk > 0);
+            }
         wgmma_commit();
-        // every warp's dq product of the previous tile has read ds^T: it
-        // takes this tile's planes as [key][query], 128-byte rows, swizzled
-        // as TMA would
+        if constexpr (DK_FIRST) {
+            wgmma_wait<0>();
+            fence_regs(dkt);
+            fence_regs(ds);
+            add_dk(dkt);
+        }
+        // every warp's dq product of the previous tile has read ds^T (and,
+        // where the staging rows share its region, the previous tile's dq
+        // bulk add has read them): it takes this tile's planes as
+        // [key][query], 128-byte rows, swizzled as TMA would
+        if constexpr (L.unioned) {
+            if (lane == 0) bulk_wait_read();
+            __syncwarp();
+        }
         named_barrier(WG_BARRIER, 128);
 #pragma unroll
         for (int pl = 0; pl < NP; ++pl)
@@ -911,20 +1052,28 @@ flash_bwd_dkdq_split(const __grid_constant__ CUtensorMap tq,
         for (int e = 0; e < D / 2; ++e) dq[e] = 0.f;
         wgmma_fence();
 #pragma unroll
-        for (int pr = 0; pr < split::PRODUCTS; ++pr)
+        for (int pr = FIRST; pr < split::PRODUCTS; ++pr)
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk)
                 wgmma_ss<D, 1, 1>(dq, mnmajor<64>(dss + plane_a(pr) * DS_BYTES, kk),
-                                  mnmajor<D>(ks + plane_b(pr) * L.plane, kk), pr > 0 || kk > 0);
+                                  mnmajor<KW>(ks + plane_b(pr) * L.plane, kk),
+                                  pr > FIRST || kk > 0);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dq);
-        fence_regs(dkt);
-        fence_regs(ds);
-#pragma unroll
-        for (int e = 0; e < D / 2; ++e) dk[e] += dkt[e];
+        fence_regs(dk);
+        if constexpr (!DK_FIRST) fence_regs(ds);  // the dk product read it until now
+        if constexpr (NP != 1 && !DK_FIRST) {
+            fence_regs(dkt);
+            add_dk(dkt);
+        }
+        // one q stage: it takes the next tile as soon as this tile's dk
+        // product is done with it
+        if (qstages == 1) release_q(i);
         // this warp's 16 query rows of dq, added to dq in one bulk op once
-        // the previous tile's has read the staging rows
+        // the previous tile's has read the staging rows (and, where they
+        // share the ds^T region, once every warp's dq product has read it)
+        if constexpr (L.unioned) named_barrier(WG_BARRIER, 128);
         if (lane == 0) bulk_wait_read();
         __syncwarp();
         stage_rows<D>(dq, stg, p.dp, p.dp, row0, qd);
@@ -949,8 +1098,8 @@ flash_bwd_dkdq_split(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) {
         const int first = k0 + 16 * warp, rows = min(16, p.nk - first);
         if (rows > 0) {
-            bulk_reduce_add_f32(p.dk + ((size_t)b * p.nk + first) * p.dp, stg + 16 * warp * p.dp,
-                                rows * p.dp * 4);
+            bulk_reduce_add_f32(p.dk + ((size_t)b * p.nk + first) * p.dp,
+                                stg + 16 * warp * p.dp, rows * p.dp * 4);
             bulk_commit();
         }
         bulk_wait();
@@ -1067,44 +1216,67 @@ int launch_bf16_d(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMa
 
 using DkdqSplit = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, BwdParams);
 
-// The split dkdq instantiation for C: chunks of 64 columns where 64 divides
-// C, else 16; their count unrolled at C = 64, 128, 256, 512 and 16, 32.
-template <int D>
+// Columns of C per chunk of the streaming kernel: 64 where 64 divides C,
+// else 16.
+inline int chunk_cols(int c) { return c % 64 == 0 ? 64 : 16; }
+
+// The streaming dkdq instantiation for C: chunks of 64 columns where 64
+// divides C, else 16; their count unrolled at C = 64, 128, 256, 512, 1024
+// and 16, 32 (bf16 at d_tile 16 ... 64 takes it only above C = 512: C =
+// 1024 unrolled).
+template <int D, int NP>
 DkdqSplit dkdq_split_kernel(int c) {
-    if (c % 64 == 0) {
-        switch (c / 64) {
-            case 1: return flash_bwd_dkdq_split<D, 64, 1>;
-            case 2: return flash_bwd_dkdq_split<D, 64, 2>;
-            case 4: return flash_bwd_dkdq_split<D, 64, 4>;
-            case 8: return flash_bwd_dkdq_split<D, 64, 8>;
-            default: return flash_bwd_dkdq_split<D, 64, 0>;
+    if constexpr (NP == 1 && D <= RESIDENT_MAX_D) {
+        return c == 1024 ? flash_bwd_dkdq_split<D, 64, 16, NP> : flash_bwd_dkdq_split<D, 64, 0, NP>;
+    } else {
+        if (c % 64 == 0) {
+            switch (c / 64) {
+                case 1: return flash_bwd_dkdq_split<D, 64, 1, NP>;
+                case 2: return flash_bwd_dkdq_split<D, 64, 2, NP>;
+                case 4: return flash_bwd_dkdq_split<D, 64, 4, NP>;
+                case 8: return flash_bwd_dkdq_split<D, 64, 8, NP>;
+                case 16: return flash_bwd_dkdq_split<D, 64, 16, NP>;
+                default: return flash_bwd_dkdq_split<D, 64, 0, NP>;
+            }
         }
-    }
-    switch (c / 16) {
-        case 1: return flash_bwd_dkdq_split<D, 16, 1>;
-        case 2: return flash_bwd_dkdq_split<D, 16, 2>;
-        default: return flash_bwd_dkdq_split<D, 16, 0>;
+        switch (c / 16) {
+            case 1: return flash_bwd_dkdq_split<D, 16, 1, NP>;
+            case 2: return flash_bwd_dkdq_split<D, 16, 2, NP>;
+            default: return flash_bwd_dkdq_split<D, 16, 0, NP>;
+        }
     }
 }
 
-// The split kernels at d_tile D: dk and dq by `flash_bwd_dkdq_split` over
-// chunks of cb columns of C, dv by `flash_bwd_dv<D, cw, 3>`.
-template <int D>
+// Whether the bf16 dkdq kernel at (d_tile, C) is the streaming one: V and
+// two do stages do not stay resident above C = 512, and d above 64 takes
+// q and k tiles of two boxes, which only the streaming kernel reads.
+inline bool bf16_streams(int d_tile, int c) { return d_tile > RESIDENT_MAX_D || c > RESIDENT_MAX_C; }
+
+// The streaming kernels at d_tile D: dk and dq by `flash_bwd_dkdq_split`
+// over chunks of C, dv by `flash_bwd_dv<D, cw, NP>`.
+template <int D, int NP>
 int launch_split_d(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-                   const CUtensorMap& tdo, BwdParams p, int b, int cb, int cw,
-                   cudaStream_t stream) {
-    const DkdqSplit kernel = dkdq_split_kernel<D>(p.c);
-    const int bytes = dkdq_split_smem_bytes(D, cb);
+                   const CUtensorMap& tdo, BwdParams p, int b, int cw, cudaStream_t stream) {
+    const DkdqSplit kernel = dkdq_split_kernel<D, NP>(p.c);
+    const int bytes = dkdq_split_smem_bytes(D, chunk_cols(p.c), NP);
     int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err) return err;
     kernel<<<dim3((p.nk + BLK - 1) / BLK, b, p.splits), THREADS, bytes, stream>>>(tq, tk, tv, tdo,
                                                                                  p);
     if ((err = (int)cudaGetLastError())) return err;
     p.slabs = p.c / cw;
-    if constexpr (D == 64)
-        if (cw == 128) return launch_dv<D, 128, split::PLANES>(tq, tk, tdo, p, b, stream);
-    return cw == 64 ? launch_dv<D, 64, split::PLANES>(tq, tk, tdo, p, b, stream)
-                    : launch_dv<D, 16, split::PLANES>(tq, tk, tdo, p, b, stream);
+    if constexpr (NP == 1) {
+        switch (cw) {
+            case 256: return launch_dv<D, 256, 1>(tq, tk, tdo, p, b, stream);
+            case 64: return launch_dv<D, 64, 1>(tq, tk, tdo, p, b, stream);
+            default: return launch_dv<D, 16, 1>(tq, tk, tdo, p, b, stream);
+        }
+    } else {
+        if constexpr (D == 64)
+            if (cw == 128) return launch_dv<D, 128, NP>(tq, tk, tdo, p, b, stream);
+        return cw == 64 ? launch_dv<D, 64, NP>(tq, tk, tdo, p, b, stream)
+                        : launch_dv<D, 16, NP>(tq, tk, tdo, p, b, stream);
+    }
 }
 
 // CTAs of a kernel resident on one SM with `bytes` of dynamic shared
@@ -1128,18 +1300,24 @@ int dkdq_resident(int c) {
 template <int D>
 int dkdq_resident_d(int c, int dtype) {
     if (dtype == 0)
-        return resident(dkdq_split_kernel<D>(c), dkdq_split_smem_bytes(D, c % 64 == 0 ? 64 : 16));
-    switch (c) {
-        case 16: return dkdq_resident<D, 16, 16, 1>(c);
-        case 32: return dkdq_resident<D, 16, 32, 2>(c);
-        case 64: return dkdq_resident<D, 64, 64, 4>(c);
-        case 128:
-            if constexpr (D == 16) return dkdq_resident<D, 64, 128, 8>(c);
-            return dkdq_resident<D, 64, 0, 8>(c);
-        case 256: return dkdq_resident<D, 64, 0, 16>(c);
-        case 512: return dkdq_resident<D, 64, 0, 32>(c);
+        return resident(dkdq_split_kernel<D, split::PLANES>(c),
+                        dkdq_split_smem_bytes(D, chunk_cols(c), split::PLANES));
+    if (bf16_streams(D, c))
+        return resident(dkdq_split_kernel<D, 1>(c), dkdq_split_smem_bytes(D, chunk_cols(c), 1));
+    if constexpr (D <= RESIDENT_MAX_D) {
+        switch (c) {
+            case 16: return dkdq_resident<D, 16, 16, 1>(c);
+            case 32: return dkdq_resident<D, 16, 32, 2>(c);
+            case 64: return dkdq_resident<D, 64, 64, 4>(c);
+            case 128:
+                if constexpr (D == 16) return dkdq_resident<D, 64, 128, 8>(c);
+                return dkdq_resident<D, 64, 0, 8>(c);
+            case 256: return dkdq_resident<D, 64, 0, 16>(c);
+            case 512: return dkdq_resident<D, 64, 0, 32>(c);
+        }
+        return c % 64 == 0 ? dkdq_resident<D, 64, 0, 0>(c) : dkdq_resident<D, 16, 0, 0>(c);
     }
-    return c % 64 == 0 ? dkdq_resident<D, 64, 0, 0>(c) : dkdq_resident<D, 16, 0, 0>(c);
+    return -1;
 }
 
 int round_all(const float* src, __nv_bfloat16* dst, size_t n, cudaStream_t stream) {
@@ -1148,7 +1326,12 @@ int round_all(const float* src, __nv_bfloat16* dst, size_t n, cudaStream_t strea
     return (int)cudaGetLastError();
 }
 
-int d_tile_of(int dp) { return dp <= 16 ? 16 : dp <= 32 ? 32 : 64; }
+int d_tile_of(int dp) { return dp <= 16 ? 16 : dp <= 32 ? 32 : dp <= 64 ? 64 : 128; }
+
+// n floats of `dst` set to 0 on `stream` (a memset, no kernel).
+int zero(float* dst, size_t n, cudaStream_t stream) {
+    return (int)cudaMemsetAsync(dst, 0, n * sizeof(float), stream);
+}
 
 int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                 const __nv_bfloat16* o, const __nv_bfloat16* dout, const float* lse,
@@ -1157,50 +1340,74 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloa
                 int dp, int c, int splits, cudaStream_t stream) {
     const int nqt = (nq + BLK - 1) / BLK;
     if (dp % 8 || splits < 1 || splits > nqt) return (int)cudaErrorInvalidValue;
-    const int d_tile = d_tile_of(dp);
-    const int cb = c % 64 == 0 ? 64 : 16;
+    const int d_tile = d_tile_of(dp), kw = d_tile < 64 ? d_tile : 64;
+    const int cb = chunk_cols(c);
+    const bool streams = bf16_streams(d_tile, c);
     // dv's column slab where the dkdq kernel does not take dv: 256 or 64
     // columns where they divide C, else 16 (C = 48, 80, 96, 112)
     const int cw = c % 256 == 0 ? 256 : c % 64 == 0 ? 64 : 16;
-    if (splits > 1 && (dk_acc == nullptr || dv_acc == nullptr)) return (int)cudaErrorInvalidValue;
+    // dk goes through float32 scratch where the query range is split or the
+    // streaming kernel takes it (bulk adds), dv where the range is split
+    if ((splits > 1 || streams) && dk_acc == nullptr) return (int)cudaErrorInvalidValue;
+    if (splits > 1 && dv_acc == nullptr) return (int)cudaErrorInvalidValue;
     const BwdParams p{reinterpret_cast<const float2*>(stats), dq_acc, dk_acc, dv_acc, dk, dv, nq,
                       nk, dp, c, nqt * BLK, nqt, splits, 1, b};
-    int err = row_stats(o, dout, lse, dlse, stats, b * p.nqp, nq, p.nqp, c, stream);
-    if (err) return err;
+    int err;
+    if ((err = zero(dq_acc, (size_t)b * nq * dp, stream))) return err;
+    if ((splits > 1 || streams) && (err = zero(dk_acc, (size_t)b * nk * dp, stream))) return err;
+    if (splits > 1 && (err = zero(dv_acc, (size_t)b * nk * c, stream))) return err;
+    if ((err = row_stats(o, dout, lse, dlse, stats, b * p.nqp, nq, p.nqp, c, stream))) return err;
     CUtensorMap tq, tk, tv, tdo;
-    if ((err = hopper::make_map_bf16_3d(&tq, q, dp, nq, b, d_tile, BLK))) return err;
-    if ((err = hopper::make_map_bf16_3d(&tk, k, dp, nk, b, d_tile, BLK))) return err;
+    if ((err = hopper::make_map_bf16_3d(&tq, q, dp, nq, b, kw, BLK))) return err;
+    if ((err = hopper::make_map_bf16_3d(&tk, k, dp, nk, b, kw, BLK))) return err;
     if ((err = hopper::make_map_bf16_3d(&tv, v, c, nk, b, cb, BLK))) return err;
     if ((err = hopper::make_map_bf16_3d(&tdo, dout, c, nq, b, cb, BLK))) return err;
-    if (d_tile == 16) err = launch_bf16_d<16>(tq, tk, tv, tdo, p, b, cw, stream);
-    else if (d_tile == 32) err = launch_bf16_d<32>(tq, tk, tv, tdo, p, b, cw, stream);
-    else err = launch_bf16_d<64>(tq, tk, tv, tdo, p, b, cw, stream);
+    switch (d_tile) {
+        case 16:
+            err = streams ? launch_split_d<16, 1>(tq, tk, tv, tdo, p, b, cw, stream)
+                          : launch_bf16_d<16>(tq, tk, tv, tdo, p, b, cw, stream);
+            break;
+        case 32:
+            err = streams ? launch_split_d<32, 1>(tq, tk, tv, tdo, p, b, cw, stream)
+                          : launch_bf16_d<32>(tq, tk, tv, tdo, p, b, cw, stream);
+            break;
+        case 64:
+            err = streams ? launch_split_d<64, 1>(tq, tk, tv, tdo, p, b, cw, stream)
+                          : launch_bf16_d<64>(tq, tk, tv, tdo, p, b, cw, stream);
+            break;
+        default: err = launch_split_d<128, 1>(tq, tk, tv, tdo, p, b, cw, stream);
+    }
     if (err) return err;
-    if ((err = round_all(dq_acc, dq, (size_t)b * nq * dp, stream)) || splits == 1) return err;
-    if ((err = round_all(dk_acc, dk, (size_t)b * nk * dp, stream))) return err;
-    return round_all(dv_acc, dv, (size_t)b * nk * c, stream);
+    if ((err = round_all(dq_acc, dq, (size_t)b * nq * dp, stream))) return err;
+    if ((splits > 1 || streams) && (err = round_all(dk_acc, dk, (size_t)b * nk * dp, stream)))
+        return err;
+    return splits > 1 ? round_all(dv_acc, dv, (size_t)b * nk * c, stream) : 0;
 }
 
 // fp32: q, k, v, do split into their planes in `planes` (3 B (Nq dp +
 // Nk dp + Nk C + Nq C) bf16, dp = d rounded up to 8), then the split
 // kernels, which add dq [B, Nq, dp], dk [B, Nk, dp] and dv [B, Nk, C] to
-// float32 outputs the caller zeroes.
+// float32 outputs zeroed here.
 int launch_split(const float* q, const float* k, const float* v, const float* o,
                  const float* dout, const float* lse, const float* dlse, float* stats, float* dq,
                  float* dk, float* dv, __nv_bfloat16* planes, int b, int nq, int nk, int d, int c,
                  int splits, cudaStream_t stream) {
     const int nqt = (nq + BLK - 1) / BLK, dp = (d + 7) / 8 * 8;
     if (splits < 1 || splits > nqt) return (int)cudaErrorInvalidValue;
-    const int d_tile = d_tile_of(dp);
-    const int cb = c % 64 == 0 ? 64 : 16;
+    const int d_tile = d_tile_of(dp), kw = d_tile < 64 ? d_tile : 64;
+    const int cb = chunk_cols(c);
     // dv's column slab: 128 columns at d_tile 64 where they divide C (one
     // CTA per SM either way; half the slabs recomputing s^T), else 64 where
-    // they divide C, else 16
+    // they divide C, else 16 (at d_tile 128 three planes of a 128-column
+    // slab do not fit beside K and the q tiles)
     const int cw = d_tile == 64 && c % 128 == 0 ? 128 : c % 64 == 0 ? 64 : 16;
     const BwdParams p{reinterpret_cast<const float2*>(stats), dq, dk, dv, nullptr, nullptr, nq,
                       nk, dp, c, nqt * BLK, nqt, splits, 1, b};
-    int err = row_stats(o, dout, lse, dlse, stats, b * p.nqp, nq, p.nqp, c, stream);
-    if (err) return err;
+    int err;
+    if ((err = zero(dq, (size_t)b * nq * dp, stream))) return err;
+    if ((err = zero(dk, (size_t)b * nk * dp, stream))) return err;
+    if ((err = zero(dv, (size_t)b * nk * c, stream))) return err;
+    if ((err = row_stats(o, dout, lse, dlse, stats, b * p.nqp, nq, p.nqp, c, stream))) return err;
     constexpr size_t NP = split::PLANES;
     __nv_bfloat16* qp = planes;
     __nv_bfloat16* kp = qp + NP * b * nq * dp;
@@ -1211,16 +1418,32 @@ int launch_split(const float* q, const float* k, const float* v, const float* o,
     if ((err = split::split(v, vp, (long long)b * nk, c, c, stream))) return err;
     if ((err = split::split(dout, dop, (long long)b * nq, c, c, stream))) return err;
     CUtensorMap tq, tk, tv, tdo;
-    if ((err = hopper::make_map_bf16_3d(&tq, qp, dp, nq, NP * b, d_tile, BLK))) return err;
-    if ((err = hopper::make_map_bf16_3d(&tk, kp, dp, nk, NP * b, d_tile, BLK))) return err;
+    if ((err = hopper::make_map_bf16_3d(&tq, qp, dp, nq, NP * b, kw, BLK))) return err;
+    if ((err = hopper::make_map_bf16_3d(&tk, kp, dp, nk, NP * b, kw, BLK))) return err;
     if ((err = hopper::make_map_bf16_3d(&tv, vp, c, nk, NP * b, cb, BLK))) return err;
     if ((err = hopper::make_map_bf16_3d(&tdo, dop, c, nq, NP * b, cb, BLK))) return err;
-    if (d_tile == 16) return launch_split_d<16>(tq, tk, tv, tdo, p, b, cb, cw, stream);
-    if (d_tile == 32) return launch_split_d<32>(tq, tk, tv, tdo, p, b, cb, cw, stream);
-    return launch_split_d<64>(tq, tk, tv, tdo, p, b, cb, cw, stream);
+    switch (d_tile) {
+        case 16: return launch_split_d<16, NP>(tq, tk, tv, tdo, p, b, cw, stream);
+        case 32: return launch_split_d<32, NP>(tq, tk, tv, tdo, p, b, cw, stream);
+        case 64: return launch_split_d<64, NP>(tq, tk, tv, tdo, p, b, cw, stream);
+        default: return launch_split_d<128, NP>(tq, tk, tv, tdo, p, b, cw, stream);
+    }
 }
 
 }  // namespace
+
+// Called first by each launching entry point.  In a host thread that has
+// made no runtime call yet (autograd's device thread runs a backward there)
+// the current device's primary context is not yet current, and a
+// cudaFuncSetAttribute before any launch fails with an invalid argument:
+// cudaSetDevice makes it current.  A last error left by an earlier call of
+// another library in this thread is dropped, so that the cudaGetLastError
+// after each launch reports that launch.
+inline void prepare_thread() {
+    int dev = 0;
+    if (cudaGetDevice(&dev) == cudaSuccess) (void)cudaSetDevice(dev);
+    (void)cudaGetLastError();
+}
 
 extern "C" {
 
@@ -1231,12 +1454,15 @@ int sap3d_flash_bwd_wide_c_multiple() { return WIDE_C_MULTIPLE; }
 int sap3d_flash_bwd_narrow_max_c() { return NARROW_MAX_C; }
 int sap3d_flash_bwd_block() { return BLK; }
 
-// CTAs of the dkdq kernel (bf16; float32: the split one) resident per SM
-// at d (a multiple of 8) and C; -1 if the card cannot say.
+// CTAs of the dkdq kernel (the resident bf16 one, or the streaming one in
+// float32 and in bf16 at d above 64 or C above 512) resident per SM at d (a
+// multiple of 8) and C; -1 if the card cannot say.
 int sap3d_flash_bwd_resident_ctas(int d, int c, int dtype) {
+    prepare_thread();
     if (d <= 16) return dkdq_resident_d<16>(c, dtype);
     if (d <= 32) return dkdq_resident_d<32>(c, dtype);
-    return dkdq_resident_d<64>(c, dtype);
+    if (d <= 64) return dkdq_resident_d<64>(c, dtype);
+    return dkdq_resident_d<128>(c, dtype);
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  Inputs q, k, v, o, dout (= do) in that
@@ -1244,19 +1470,22 @@ int sap3d_flash_bwd_resident_ctas(int d, int c, int dtype) {
 // `stats` [B, 64 ceil(Nq/64), 2] float32 scratch; `splits` query ranges per
 // key tile (1 to ceil(Nq/64)).
 // float32: d as it is; dq_acc, dk_acc, dv_acc are the outputs dq
-// [B, Nq, dp], dk [B, Nk, dp], dv [B, Nk, C], zeroed by the caller (dp = d
-// rounded up to 8); `planes` bf16 scratch of 3 B (Nq dp + Nk dp + Nk C +
-// Nq C) elements; dq, dk, dv are not read.  bfloat16: d a multiple of 8;
-// dq_acc [B, Nq, d] float32 scratch zeroed by the caller, and where
-// `splits` > 1 also dk_acc [B, Nk, d] and dv_acc [B, Nk, C] (null where
-// `splits` is 1: dk and dv are then written directly); outputs dq, dk, dv;
-// `planes` is not read.  Returns a cudaError_t (0 = launched); invalid
-// arguments return cudaErrorInvalidValue without launching.
+// [B, Nq, dp], dk [B, Nk, dp], dv [B, Nk, C] (dp = d rounded up to 8);
+// `planes` bf16 scratch of 3 B (Nq dp + Nk dp + Nk C + Nq C) elements; dq,
+// dk, dv are not read.  bfloat16: d a multiple of 8; dq_acc [B, Nq, d]
+// float32 scratch, dk_acc [B, Nk, d] float32 scratch where `splits` > 1 or
+// the streaming kernel runs (d above 64 or C above 512), dv_acc [B, Nk, C]
+// float32 scratch where `splits` > 1 (each null where not needed: dk and
+// dv are then written directly); outputs dq, dk, dv; `planes` is not read.
+// The float32 sums are zeroed here (memsets).  Returns a cudaError_t (0 =
+// launched); invalid arguments return cudaErrorInvalidValue without
+// launching.
 int sap3d_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                     const void* dout, const void* lse, const void* dlse, void* stats,
                     void* dq_acc, void* dk_acc, void* dv_acc, void* dq, void* dk, void* dv,
                     void* planes, int b, int nq, int nk, int d, int c, int splits, int dtype,
                     void* stream) {
+    prepare_thread();
     if (b <= 0 || nq <= 0 || nk <= 0 || d <= 0 || d > MAX_D || c <= 0 || c > MAX_C ||
         c % C_MULTIPLE || (c > NARROW_MAX_C && c % WIDE_C_MULTIPLE))
         return (int)cudaErrorInvalidValue;

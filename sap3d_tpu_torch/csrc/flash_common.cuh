@@ -1,5 +1,5 @@
 // Device helpers shared by the flash attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu, flash_attention_nolse.cu):
+// (flash_fwd.cuh, flash_attention_fwd.cu, flash_attention_bwd.cu):
 // row reductions over the lanes that hold one row, and the base-2
 // exponential.  One copy here; the build hashes every csrc/*.cuh into each
 // library's name, so an edit rebuilds every source that includes it.
@@ -12,19 +12,6 @@ namespace flash {
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-// Max / sum over the 16 lanes that share a row group (lanes differ in the
-// low 4 bits of the lane id): the 16 x 16 thread tiles of B6's fp32 kernel.
-__device__ __forceinline__ float group16_max(float x) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-    return x;
-}
-__device__ __forceinline__ float group16_sum(float x) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-    return x;
-}
 
 // Max / sum over the quad of lanes (lane % 4) that holds one row of an
 // mma.sync or wgmma accumulator.

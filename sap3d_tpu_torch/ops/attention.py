@@ -18,11 +18,14 @@ and on nothing of the TPU's VMEM budget:
 * train mode, or eval mode while autograd records the tokens (an input-
   gradient pass, fine-tuning under ``eval()``): the site will be
   differentiated, so a site the backward gate takes goes to ``flash_attend``
-  (forward kernel B2 saving lse, backward kernel B3); else, with
-  ``SAP3D_FLASH_HYBRID=1`` in the environment and a site the forward gate
-  takes, to ``flash_fwd_chunked_bwd`` (kernel B5); else to
-  ``attend_tokens``.  With the registry's widths only the GN decoders'
-  C = 1024 site is refused by the backward gate (B3 takes C <= 512).
+  (forward kernel B2 saving lse, backward kernel B3), any other to
+  ``attend_tokens``.  The backward gate takes every attention site of the
+  registry (d <= 128, C <= 1024), the GN decoders' C = 1024 site too, so
+  no registry site reaches ``attend_tokens`` in train mode but the ones
+  below one query block (x_4_0).  The JAX rule's hybrid route
+  (``SAP3D_FLASH_HYBRID=1``: B5 where only the forward gate holds) has no
+  counterpart: B5's backward on the card is B3, so it takes no site that
+  ``flash_attend`` does not, and the JAX package tries flash first.
 * with a time mesh (``ring_mesh``, long-clip mode), every site goes to
   ``ops/ring_attention.ring_attend_sharded``, whatever its shape, as in the
   JAX package: its kernel hop is ``flash_attend_tokens_lse`` (B2 forward,
@@ -30,9 +33,13 @@ and on nothing of the TPU's VMEM budget:
 
 ``flash_attend`` is the counterpart of the JAX ``flash_attend_tokens``
 custom_vjp and ``flash_fwd_chunked_bwd`` of the JAX function of that name:
-its forward is kernel B1 (no lse; only q, k, v are saved) and its backward
-recomputes ``attend_tokens`` chunk by chunk and differentiates each chunk,
-so at most one ``[B, 4096, Nk]`` score block is alive.
+its forward is kernel B1 (no lse), and its backward recomputes from q, k
+and v.  On the card that backward is kernels: the row-stats kernel gives
+lse (``flash_attention.flash_row_stats``), and B3 (``flash_backward``:
+delta = rowsum(do o) from B5's own saved output, then dq, dk, dv).  Its
+plain version, for CPU tensors, recomputes ``attend_tokens`` chunk by chunk
+and differentiates each chunk, so at most one ``[B, 4096, Nk]`` score block
+is alive, as the JAX rule differentiates the chunked XLA path.
 ``flash_attend_tokens_lse`` is the counterpart of the JAX function of that
 name: (o, lse) from kernel B2, and a backward that is kernel B4 (B3 when
 autograd gives lse no cotangent).  Each kernel wrapper runs its plain
@@ -42,7 +49,6 @@ version on CPU tensors.  The function is the same on every route.
 from __future__ import annotations
 
 import contextlib
-import os
 
 import torch
 import torch.nn.functional as F
@@ -52,6 +58,7 @@ from sap3d_tpu_torch.ops.cuda.flash_attention import (
     flash_attend_tokens,
     flash_attend_tokens_reference as _dot_softmax_attend,
     flash_forward_lse,
+    flash_row_stats,
     forward_viable,
     launch_forward,
 )
@@ -112,25 +119,37 @@ def forward_kernel(replacement):
 
 
 class _FlashForwardChunkedBackward(torch.autograd.Function):
-    """Forward kernel B1 (no lse) saving only (q, k, v); the backward
-    recomputes ``attend_tokens`` one chunk of ``_QUERY_CHUNK`` queries at a
-    time under ``torch.enable_grad()`` and differentiates that chunk (the
-    JAX ``_hybrid_fwd_rule`` / ``_hybrid_bwd_rule``: ``jax.vjp`` of the
-    checkpointed ``lax.map``), the cotangent in v's dtype."""
+    """Forward kernel B1 (no lse) saving (q, k, v) and its own output o (the
+    out projection holds o's storage: saving it costs no memory); the
+    backward recomputes from them (the JAX ``_hybrid_fwd_rule`` /
+    ``_hybrid_bwd_rule``), the cotangent in v's dtype.  On CUDA tensors:
+    the row-stats kernel's lse of (q, k), then B3 on (q, k, v, o, lse, do).
+    On CPU tensors, its plain version: ``attend_tokens`` one chunk of
+    ``_QUERY_CHUNK`` queries at a time under ``torch.enable_grad()``, each
+    chunk differentiated (``jax.vjp`` of the checkpointed ``lax.map``)."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
         if all(t.device.type == "cpu" for t in (q, k, v)):
-            return _dot_softmax_attend(q, k, v)
-        o, _ = launch_forward(q, k, v, want_lse=False)
-        flash_fwd_chunked_bwd.launches += 1
+            o = _dot_softmax_attend(q, k, v)
+        else:
+            # the card's backward is B3: refuse here what it would refuse
+            if not backward_viable(q.shape[1], k.shape[1], q.shape[2], v.shape[2], q.dtype):
+                raise ValueError(
+                    f"kernel B5 takes on the card what B3 takes; got Nq={q.shape[1]}, "
+                    f"Nk={k.shape[1]}, d={q.shape[2]}, C={v.shape[2]} in {q.dtype}")
+            o, _ = launch_forward(q, k, v, want_lse=False)
+            flash_fwd_chunked_bwd.launches += 1
+        ctx.save_for_backward(q, k, v, o)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
+        q, k, v, o = ctx.saved_tensors
         do = do.to(v.dtype)
+        if not all(t.device.type == "cpu" for t in (q, k, v)):
+            lse = flash_row_stats(q, k, lse=True)
+            return flash_backward(q, k, v, o, lse, do)
         kd, vd = k.detach().requires_grad_(), v.detach().requires_grad_()
         dq, dk, dv = [], None, None
         for qc, doc in zip(q.detach().split(_QUERY_CHUNK, dim=1),
@@ -147,9 +166,13 @@ class _FlashForwardChunkedBackward(torch.autograd.Function):
 
 def flash_fwd_chunked_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T) v (kernel B5): the B1 forward kernel on CUDA tensors
-    (the plain version on CPU tensors) with a backward that recomputes the
-    chunked plain attention.  ``flash_fwd_chunked_bwd.launches`` counts the
-    forward kernel's launches made here."""
+    (the plain version on CPU tensors) with a backward that recomputes from
+    q, k and v: the row-stats kernel and B3 on CUDA tensors, the chunked
+    plain attention on CPU tensors.  On CUDA tensors it takes the shapes B3
+    takes (``backward_viable``) and raises on any other.
+    ``flash_fwd_chunked_bwd.launches`` counts the forward kernel's launches
+    made here; the backward's are counted by the wrappers of the kernels it
+    launches (``flash_row_stats.launches``, ``flash_backward.launches``)."""
     return _FlashForwardChunkedBackward.apply(q, k, v)
 
 
@@ -187,18 +210,11 @@ def flash_attend_tokens_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 def attention_route(nq: int, nk: int, d: int, c: int, dtype: torch.dtype,
                     train: bool) -> str:
-    """Where a site's tokens go: "flash" (``flash_attend``), "hybrid"
-    (``flash_fwd_chunked_bwd``) or "plain" (``attend_tokens``); ``train``
-    says that the site will be differentiated, and the module docstring
-    states the rule.  ``SAP3D_FLASH_HYBRID`` (default "0") is read
-    at each call, as the JAX package reads it."""
-    if not train:
-        return "flash" if forward_viable(nq, nk, d, c, dtype) else "plain"
-    if backward_viable(nq, nk, d, c, dtype):
-        return "flash"
-    if os.environ.get("SAP3D_FLASH_HYBRID", "0") == "1" and forward_viable(nq, nk, d, c, dtype):
-        return "hybrid"
-    return "plain"
+    """Where a site's tokens go: "flash" (``flash_attend``) or "plain"
+    (``attend_tokens``); ``train`` says that the site will be
+    differentiated, and the module docstring states the rule."""
+    viable = backward_viable if train else forward_viable
+    return "flash" if viable(nq, nk, d, c, dtype) else "plain"
 
 
 def _tokens(x: torch.Tensor) -> torch.Tensor:
@@ -256,8 +272,6 @@ class SelfAttention3D(nn.Module):
                                     hop_impl=None if self.use_kernel else "xla")
         elif route == "flash":
             o = flash_attend(q, k, v)
-        elif route == "hybrid":
-            o = flash_fwd_chunked_bwd(q, k, v)
         else:
             o = attend_tokens(q, k, v)
         o = o.transpose(1, 2).reshape(g.shape[0], -1, *x.shape[2:])

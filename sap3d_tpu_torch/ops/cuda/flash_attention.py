@@ -11,11 +11,16 @@ k ``[B, Nk, d]``, v ``[B, Nk, C]``.  Two entry points run
 * ``flash_forward_lse`` (kernel B2): o and ``lse`` ``[B, Nq]`` float32, the
   log-sum-exp of each query row's scores, as the custom_vjp forward rule
   (``want_lse=True``) that training runs.  The TPU kernel's ``[B, 8, Nq]``
-  sublane replication is a TPU layout and is not kept.
+  sublane replication is a TPU layout and is not kept;
+* ``flash_row_stats``: each query row's max m and 1/l (l = sum_j
+  exp(s_ij - m)) from q and k alone, or lse = m + log l: the first pass of
+  kernel B6 (``flash_attention_nolse``) and the lse of kernel B5's backward
+  (``ops/attention.py``).  Its kernel ``flash_row_stats`` shares the
+  forward's wgmma body (``csrc/flash_fwd.cuh``).
 
 Each launches the kernel for CUDA tensors and runs its plain version
-(``flash_attend_tokens_reference``, ``flash_forward_lse_reference``) only
-for CPU tensors.  On a CUDA tensor it launches the kernel or raises; it
+(``flash_attend_tokens_reference``, ``flash_forward_lse_reference``,
+``row_stats_reference``) only for CPU tensors.  On a CUDA tensor it launches the kernel or raises; it
 never falls back.  ``<function>.launches`` counts kernel launches.
 
 ``forward_viable`` is the dispatch gate of the forward: the shapes and types
@@ -154,6 +159,29 @@ def flash_forward_lse_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     scores = torch.bmm(q.float(), k.float().transpose(1, 2))
     beta = torch.softmax(scores, dim=-1)
     return torch.bmm(beta.to(v.dtype), v), torch.logsumexp(scores, dim=-1)
+
+
+# Query rows per step of ``row_stats_reference``: bounds its [B, rows, Nk]
+# float32 temporaries (about 0.8 GB each at the flagship's x_1_3 site,
+# batch 16).
+_STATS_CHUNK = 4096
+
+
+def row_stats_reference(q: torch.Tensor, k: torch.Tensor, lse: bool = False):
+    """Plain PyTorch: each query row's max m of the float32 scores
+    s = q k^T and 1/l, l = sum_j exp(s_ij - m), both float32 ``[B, Nq]``;
+    with ``lse``, m + log l instead (``torch.logsumexp`` of the row).  Works
+    through the queries in chunks of ``_STATS_CHUNK`` rows."""
+    kf = k.float().transpose(1, 2)
+    ms, invs = [], []
+    for qc in q.split(_STATS_CHUNK, dim=1):
+        s = torch.bmm(qc.float(), kf)
+        m = s.amax(-1)
+        lsum = torch.exp(s - m[..., None]).sum(-1)
+        ms.append(m)
+        invs.append(lsum.log() if lse else 1.0 / lsum)
+    m, rest = torch.cat(ms, dim=1), torch.cat(invs, dim=1)
+    return m + rest if lse else (m, rest)
 
 
 def split_bf16x3(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -295,6 +323,9 @@ def _library() -> ctypes.CDLL:
         lib.sap3d_flash_fwd_plan.restype = ctypes.c_int
         lib.sap3d_flash_fwd_resident_ctas.argtypes = [ctypes.c_int] * 6
         lib.sap3d_flash_fwd_resident_ctas.restype = ctypes.c_int
+        lib.sap3d_flash_row_stats.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        lib.sap3d_flash_row_stats.restype = ctypes.c_int
         lib.sap3d_flash_fwd_block_c.restype = ctypes.c_int
         lib.sap3d_flash_fwd_max_d.restype = ctypes.c_int
         lib.sap3d_cuda_error_string.argtypes = [ctypes.c_int]
@@ -307,34 +338,52 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor | None,
+                 name: str = "flash kernel") -> None:
+    """Raise unless q [B, Nq, d], k [B, Nk, d] and v [B, Nk, C] (where
+    given) share one CUDA device and one dtype of float32/bfloat16 and the
+    forward kernel takes (d, C) (``MAX_D``, ``C_MULTIPLE``)."""
+    tensors = (q, k) if v is None else (q, k, v)
+    if not all(t.device.type == "cuda" and t.device == q.device for t in tensors):
+        raise ValueError(f"{name}: inputs must share one CUDA device, got "
+                         + ", ".join(str(t.device) for t in tensors))
+    if len({t.dtype for t in tensors}) != 1 or q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name} takes one dtype of float32/bfloat16, got "
+                        + ", ".join(str(t.dtype) for t in tensors))
+    if any(t.dim() != 3 for t in tensors):
+        raise ValueError("q, k, v must be [B, N, width]")
+    b, _, d = q.shape
+    nk = k.shape[1]
+    c = C_MULTIPLE if v is None else v.shape[2]
+    if k.shape != (b, nk, d) or (v is not None and v.shape[:2] != (b, nk)):
+        raise ValueError(f"shape mismatch: " + ", ".join(
+            f"{n} {tuple(t.shape)}" for n, t in zip("qkv", tensors)))
+    if d > MAX_D or c % C_MULTIPLE:
+        raise ValueError(f"{name} takes d <= {MAX_D} and C a multiple of "
+                         f"{C_MULTIPLE}; got d={d}, C={c}")
+
+
+def split_scratch(q: torch.Tensor, k: torch.Tensor, c: int = 0) -> torch.Tensor:
+    """The bf16 scratch that a float32 launch splits q, k (and, with ``c``,
+    v [B, Nk, c]) into: three planes each, rows of q and k padded to 16
+    bytes as the kernel writes them."""
+    b, nq, d = q.shape
+    nk, dp = k.shape[1], -(-d // 8) * 8
+    return torch.empty(PLANES[torch.float32] * b * (nq * dp + nk * dp + nk * c),
+                       dtype=torch.bfloat16, device=q.device)
+
+
 def launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    want_lse: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Check the inputs and launch the forward kernel, with or without lse.
     Counts nothing: each wrapper that calls it counts its own launches."""
     lib = _library()
-    if not all(t.device.type == "cuda" and t.device == q.device for t in (q, k, v)):
-        raise ValueError(f"q/k/v must share one CUDA device, got "
-                         f"{q.device}, {k.device}, {v.device}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash kernel takes one dtype of float32/bfloat16, "
-                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
-        raise ValueError("q, k, v must be [B, N, width]")
-    b, nq, d = q.shape
+    check_inputs(q, k, v)
+    b, nq, _ = q.shape
     _, nk, c = v.shape
-    if k.shape != (b, nk, d) or v.shape[0] != b:
-        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}")
-    if d > MAX_D or c % C_MULTIPLE:
-        raise ValueError(f"flash kernel takes d <= {MAX_D} and C a multiple of "
-                         f"{C_MULTIPLE}; got d={d}, C={c}")
     planes = None
     if q.dtype == torch.float32:
-        # the three bf16 planes of q, k and v, rows padded to 16 bytes as
-        # the kernel writes them
-        dp = -(-d // 8) * 8
-        planes = torch.empty(PLANES[q.dtype] * b * (nq * dp + nk * dp + nk * c),
-                             dtype=torch.bfloat16, device=q.device)
+        planes = split_scratch(q, k, c)
     else:
         q, k = pad_rows(q), pad_rows(k)
     q, k, v = (contiguous_aligned(t) for t in (q, k, v))
@@ -383,5 +432,38 @@ def flash_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return o, lse
 
 
+def flash_row_stats(q: torch.Tensor, k: torch.Tensor, lse: bool = False):
+    """Each query row's max m and 1/l of s = q k^T, float32 ``[B, Nq]``
+    each, or with ``lse`` m + log l: the row-stats kernel on CUDA tensors,
+    the plain version (``row_stats_reference``) on CPU tensors.
+    ``flash_row_stats.launches`` counts kernel launches."""
+    if q.device.type == "cpu" and k.device.type == "cpu":
+        return row_stats_reference(q, k, lse)
+    lib = _library()
+    check_inputs(q, k, None, "flash_row_stats")
+    b, nq, _ = q.shape
+    nk = k.shape[1]
+    planes = None
+    if q.dtype == torch.float32:
+        planes = split_scratch(q, k)
+    else:
+        q, k = pad_rows(q), pad_rows(k)
+    q, k = contiguous_aligned(q), contiguous_aligned(k)
+    out = torch.empty((1 if lse else 2, b, nq), dtype=torch.float32, device=q.device)
+    ptr = out.data_ptr()
+    m, inv, lse_ptr = (None, None, ptr) if lse else (ptr, ptr + 4 * b * nq, None)
+    with torch.cuda.device(q.device):
+        err = lib.sap3d_flash_row_stats(q.data_ptr(), k.data_ptr(), m, inv, lse_ptr,
+                                        None if planes is None else planes.data_ptr(), b, nq,
+                                        nk, q.shape[2], _DTYPE_CODES[q.dtype],
+                                        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError("flash_row_stats launch failed: "
+                           + lib.sap3d_cuda_error_string(err).decode())
+    flash_row_stats.launches += 1
+    return out[0] if lse else (out[0], out[1])
+
+
 flash_attend_tokens.launches = 0
 flash_forward_lse.launches = 0
+flash_row_stats.launches = 0

@@ -31,9 +31,11 @@ Both dtypes run wgmma kernels on bf16 operands.  A float32 call splits q,
 k, v and do into three bf16 planes each (``flash_attention.split_bf16x3``
 is the plain version) in a scratch tensor the launcher allocates; each
 product is then six bf16 products, an fp32 product to within fp32
-rounding.  V does not stay resident at three planes: its dk and dq kernel
-streams V and do in chunks of C per query tile (``dkdq_split_smem_bytes``),
-and dv is a second kernel's, by column slab (``dv_slab``).
+rounding.  The bf16 dk and dq kernel keeps V of its 64 keys resident where
+V and two do stages fit (d <= 64, C <= 512); elsewhere, and at three planes
+always, the streaming kernel streams V and do in chunks of C per query tile
+(``dkdq_streams``, ``stream_config``), and dv is a second kernel's, by
+column slab (``dv_slab``).
 """
 
 from __future__ import annotations
@@ -60,13 +62,18 @@ from sap3d_tpu_torch.ops.cuda.flash_attention import (
 SOURCE = "flash_attention_bwd"
 # The kernel's own limits beyond the forward's (csrc/flash_attention_bwd.cu):
 # C up to MAX_C; above NARROW_MAX_C a multiple of WIDE_C_MULTIPLE; d up to
-# BACKWARD_MAX_D in both dtypes (the kernels' widest q and k tile: three
-# planes of a wider one do not fit the float32 kernel's shared memory;
-# every backward-gated site of the registry has d = C/8 <= 64).
-MAX_C = 512
+# BACKWARD_MAX_D in both dtypes (q and k tiles of up to two 64-column
+# boxes; at d above 64 in float32 the streaming kernel keeps one q stage and
+# stages dq over the ds^T region to fit).  Every attention site of the
+# registry (d = C/8 <= 128, C <= 1024) passes them.
+MAX_C = 1024
 WIDE_C_MULTIPLE = 64
 NARROW_MAX_C = 128
-BACKWARD_MAX_D = 64
+BACKWARD_MAX_D = 128
+# The bf16 dk and dq kernel keeps V resident up to this C and d; beyond
+# either, the streaming kernel takes the call (``dkdq_streams``).
+RESIDENT_MAX_C = 512
+RESIDENT_MAX_D = 64
 # Keys per CTA and queries per tile of the kernels.
 BLOCK = 64
 # What ``query_split`` knows beyond the card (``flash_attention``'s
@@ -168,56 +175,85 @@ def _align1k(n: int) -> int:
 
 
 def _d_tile(d: int) -> int:
-    return 16 if d <= 16 else 32 if d <= 32 else 64
+    return 16 if d <= 16 else 32 if d <= 32 else 64 if d <= 64 else 128
+
+
+def dkdq_streams(d: int, c: int, dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether the dk and dq kernel at (d, C) is the streaming one
+    (``flash_bwd_dkdq_split``): always in float32, and in bf16 where V and
+    two do stages do not stay resident (C above ``RESIDENT_MAX_C``) or the
+    q and k tiles are two boxes wide (d above ``RESIDENT_MAX_D``)."""
+    return PLANES[dtype] != 1 or _d_tile(d) > RESIDENT_MAX_D or c > RESIDENT_MAX_C
 
 
 def dv_in_dkdq(d: int, c: int, dtype: torch.dtype = torch.bfloat16) -> bool:
     """Whether the dkdq kernel also computes dv at (d, C) (never in
-    float32)."""
-    return PLANES[dtype] == 1 and c in FUSED_DV_C and (c < 128 or _d_tile(d) == 16)
+    float32, nor in the streaming kernel)."""
+    return (not dkdq_streams(d, c, dtype) and c in FUSED_DV_C
+            and (c < 128 or _d_tile(d) == 16))
 
 
 def dv_slab(c: int, dtype: torch.dtype = torch.bfloat16, d: int = 64) -> int:
     """Columns of C per CTA of the dv kernel (where dv is its): in bf16 256
     where they divide C; in float32 (each slab beside a per-tile
-    accumulator) 128 at d above 32 where they divide C (one CTA per SM
-    either way, half the slabs recomputing the scores); else 64 where they
-    divide C, else 16."""
+    accumulator) 128 at d from 33 to 64 where they divide C (one CTA per SM
+    either way, half the slabs recomputing the scores; at d above 64 three
+    planes of a 128-column slab do not fit beside K and the q tiles); else
+    64 where they divide C, else 16."""
     widest = 256 if PLANES[dtype] == 1 else 128 if _d_tile(d) == 64 else 64
     return widest if c % widest == 0 else 64 if c % 64 == 0 else 16
 
 
 def _chunk_cols(c: int) -> int:
-    """Columns of C per chunk of V and do in the float32 dkdq kernel."""
+    """Columns of C per chunk of V and do in the streaming dkdq kernel."""
     return 64 if c % 64 == 0 else 16
 
 
-def _split_smem(d_tile: int, cb: int, stages: int) -> int:
-    """``split_layout`` in the source, with 1 KB of alignment: three planes
-    of K, two stages of (three planes of a q tile, lse and delta), the
-    chunk stages of (three planes of v and of do), three planes of ds^T,
-    the dq and dk staging rows, the mbarriers."""
+def _stream_layout(d_tile: int, cb: int, planes: int, qstages: int, cstages: int,
+                   unioned: bool) -> int:
+    """``split_layout`` in the source, with 1 KB of alignment: the planes of
+    K, the q stages of (the planes of a q tile, lse and delta), the chunk
+    stages of (the planes of v and of do), the planes of ds^T and the dq and
+    dk staging rows (apart, or over the ds^T region where ``unioned``), the
+    mbarriers."""
     plane = _align1k(BLOCK * d_tile * 2)
-    qstage = 3 * plane + _align1k(BLOCK * 8)
-    chunk = 6 * _align1k(BLOCK * cb * 2)
-    return (3 * plane + 2 * qstage + stages * chunk + 3 * BLOCK * BLOCK * 2
-            + _align1k(BLOCK * d_tile * 4) + 8 * (5 + 2 * stages) + 1024)
+    qstage = planes * plane + _align1k(BLOCK * 8)
+    chunk = 2 * planes * _align1k(BLOCK * cb * 2)
+    ds, stg = planes * BLOCK * BLOCK * 2, _align1k(BLOCK * d_tile * 4)
+    return (planes * plane + qstages * qstage + cstages * chunk
+            + (max(ds, stg) if unioned else ds + stg)
+            + 8 * (1 + 2 * qstages + 2 * cstages) + 1024)
 
 
-def split_chunk_stages(d: int, c: int) -> int:
-    """Chunk stages of the float32 dkdq kernel: the most, 2 to 4, that fit
-    one CTA."""
-    d_tile, cb = _d_tile(d), _chunk_cols(c)
-    return next((s for s in (4, 3) if _split_smem(d_tile, cb, s) <= MAX_CTA_SMEM), 2)
+def stream_config(d: int, c: int, dtype: torch.dtype = torch.float32) -> dict:
+    """The streaming dkdq kernel's layout at (d, C), as ``split_config`` in
+    the source picks it: two q stages, ds^T and the staging rows apart, and
+    the most chunk stages, 4 down to 2, that fit one CTA; where none fits
+    (three planes at d above 64), one q stage and the staging rows over the
+    ds^T region.  Keys ``qstages``, ``cstages``, ``unioned``, ``smem``."""
+    d_tile, cb, planes = _d_tile(d), _chunk_cols(c), PLANES[dtype]
+    for qstages in (2, 1):
+        for cstages in (4, 3, 2):
+            smem = _stream_layout(d_tile, cb, planes, qstages, cstages, qstages == 1)
+            if smem <= MAX_CTA_SMEM:
+                return dict(qstages=qstages, cstages=cstages, unioned=qstages == 1, smem=smem)
+    return dict(qstages=1, cstages=2, unioned=True,
+                smem=_stream_layout(d_tile, cb, planes, 1, 2, True))
+
+
+def split_chunk_stages(d: int, c: int, dtype: torch.dtype = torch.float32) -> int:
+    """Chunk stages of the streaming dkdq kernel (``stream_config``)."""
+    return stream_config(d, c, dtype)["cstages"]
 
 
 def dkdq_smem_bytes(d: int, c: int, dtype: torch.dtype = torch.bfloat16) -> int:
-    """Dynamic shared memory of one dkdq CTA.  bf16 (``smem_layout`` in the
-    source): K, V and two stages of q tile, do tile or ds and dq, lse and
-    delta, the mbarriers, 1 KB of alignment; float32: ``_split_smem``."""
+    """Dynamic shared memory of one dkdq CTA.  The resident bf16 kernel
+    (``smem_layout`` in the source): K, V and two stages of q tile, do tile
+    or ds and dq, lse and delta, the mbarriers, 1 KB of alignment; the
+    streaming kernel: ``stream_config``'s."""
+    if dkdq_streams(d, c, dtype):
+        return stream_config(d, c, dtype)["smem"]
     d_tile = _d_tile(d)
-    if PLANES[dtype] != 1:
-        return _split_smem(d_tile, _chunk_cols(c), split_chunk_stages(d, c))
     tile = max(BLOCK * c * 2, BLOCK * BLOCK * 2 + BLOCK * d_tile * 4)
     stage = _align1k(BLOCK * d_tile * 2) + _align1k(tile) + _align1k(BLOCK * 8)
     return _align1k(BLOCK * d_tile * 2) + _align1k(BLOCK * c * 2) + 2 * stage + 8 * 5 + 1024
@@ -235,11 +271,11 @@ def dv_smem_bytes(d: int, c: int, dtype: torch.dtype = torch.bfloat16) -> int:
 
 def resident_ctas(d: int, c: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """CTAs of the dkdq kernel resident on one SM at (d, C): the fewer of
-    what its launch bounds leave room for in registers (bf16: 4 at d <= 16
-    without dv or with C <= 32, else 3; float32: 2) and what fits in shared
-    memory.  ``chip_smoke.py`` and the card tests hold it to the card's
-    occupancy calculator."""
-    if PLANES[dtype] != 1:
+    what its launch bounds leave room for in registers (the resident bf16
+    kernel: 4 at d <= 16 without dv or with C <= 32, else 3; the streaming
+    kernel: 2) and what fits in shared memory.  ``chip_smoke.py`` and the
+    card tests hold it to the card's occupancy calculator."""
+    if dkdq_streams(d, c, dtype):
         by_regs = 2
     else:
         by_regs = 4 if _d_tile(d) == 16 and (c <= 32 or not dv_in_dkdq(d, c)) else 3
@@ -351,8 +387,9 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
         q, k = pad_rows(q), pad_rows(k)
     q, k, v, o, lse, do = (contiguous_aligned(t) for t in (q, k, v, o, lse, do))
     dlse = None if dlse is None else contiguous_aligned(dlse)
+    # float32 sums and scratch, zeroed by the library (memsets, no kernel)
     f32 = dict(dtype=torch.float32, device=q.device)
-    dq_acc = torch.zeros((b, nq, dp), **f32)
+    dq_acc = torch.empty((b, nq, dp), **f32)
     dk_acc = dv_acc = planes = None
     # (lse, delta) of each row, padded to whole query tiles
     stats = torch.empty((b, math.ceil(nq / BLOCK) * BLOCK, 2), **f32)
@@ -360,14 +397,17 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
     if q.dtype == torch.float32:
         # the outputs themselves, added to; the three bf16 planes of q, k,
         # v and do
-        dk_acc, dv_acc = torch.zeros((b, nk, dp), **f32), torch.zeros(v.shape, **f32)
+        dk_acc, dv_acc = torch.empty((b, nk, dp), **f32), torch.empty(v.shape, **f32)
         dq, dk, dv = dq_acc, dk_acc, dv_acc
         planes = torch.empty(PLANES[q.dtype] * b * (nq * dp + nk * dp + nk * c + nq * c),
                              dtype=torch.bfloat16, device=q.device)
     else:
-        # over query splits, dk and dv summed in float32, then rounded
+        # dk summed in float32 over query splits or by the streaming
+        # kernel, dv over query splits; then rounded
+        if splits > 1 or dkdq_streams(d, c, q.dtype):
+            dk_acc = torch.empty(k.shape, **f32)
         if splits > 1:
-            dk_acc, dv_acc = torch.zeros(k.shape, **f32), torch.zeros(v.shape, **f32)
+            dv_acc = torch.empty(v.shape, **f32)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # the launches go to the current device: make it q's, and take its stream
     with torch.cuda.device(q.device):

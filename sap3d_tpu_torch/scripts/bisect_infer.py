@@ -22,7 +22,8 @@ Each time is chained N-differencing: 2 warm-up runs, then runs of 4 and
 (a data dependency the runtime cannot drop), the difference over 10 calls.
 Before each forward is timed, one forward is run with the launch counters
 at 0 and read after: the current route launches B1 only, the swapped one B6
-only, the plain path neither.
+only (its two passes: the row statistics, RS, and pass 2, B6), the plain
+path neither.
 
     python -m sap3d_tpu_torch.scripts.bisect_infer [--device cuda] [--batch 16]
 
@@ -89,12 +90,15 @@ def flagship(batch: int, device, structure: str = FLAGSHIP, size: int = 112):
 
 
 def launch_counts() -> dict[str, int]:
-    return {"B1": fa.flash_attend_tokens.launches, "B6": nolse.flash_nolse.launches}
+    return {"B1": fa.flash_attend_tokens.launches, "RS": fa.flash_row_stats.launches,
+            "B6": nolse.flash_nolse.launches}
 
 
 def forward_launches(fwd, frames: torch.Tensor) -> dict[str, int]:
-    """B1 and B6 launches of one call of ``fwd``, counted from 0."""
-    fa.flash_attend_tokens.launches = nolse.flash_nolse.launches = 0
+    """B1 and B6 (row statistics and pass 2) launches of one call of
+    ``fwd``, counted from 0."""
+    fa.flash_attend_tokens.launches = fa.flash_row_stats.launches = 0
+    nolse.flash_nolse.launches = 0
     fwd(frames)
     synchronize(frames.device)
     return launch_counts()

@@ -1,6 +1,7 @@
-"""Time kernels B3 and B4 (the flash backward) of a checkout of the port at
-the sites ``PERF.md`` reports, so that two versions can be read on one card
-in one run.
+"""Time kernels B3 and B4 (the flash backward), and B5 (forward and
+backward) at the GN decoders' sites, of a checkout of the port at the sites
+``PERF.md`` reports, so that two versions can be read on one card in one
+run.
 
     python sap3d_tpu_torch/scripts/time_flash_backward.py --root <checkout> [--label L]
         [--dtype bfloat16|float32] [--profile] [--splits 1,2,4,8]
@@ -16,8 +17,12 @@ any checkout's kernels, so that a checkout older than the option can be
 timed by this file with ``--root``): q, k with std d^-1/4, v and do unit
 normal and dlse normal, from one seed; o and lse from the checkout's own
 kernel B2; each time the mean of CUDA events over ``iters`` calls, the L2
-evicted (a 256 MB write) before each, after one warm-up call.  Prints one
-line per site and a last JSON line, with the card's name and power limit.
+evicted (a 256 MB write) before each, after one warm-up call.  A site the
+checkout's backward gate refuses (GN deconv_pool4, d = 128 and C = 1024,
+before B3 took it) reads B3 and B4 as null.  B5 (``flash_fwd_chunked_bwd``)
+is timed as its forward plus one autograd backward at the GN sites (pool2
+is x_2_2's shape).  Prints one line per site and a last JSON line, with the
+card's name and power limit.
 ``--profile`` adds B3's device time per kernel (torch.profiler, the mean
 of 3 calls); ``--splits`` times B3 with the query split forced to each
 value (a checkout whose ``flash_attention_bwd`` has ``query_split``) at the
@@ -33,11 +38,13 @@ import subprocess
 import sys
 
 # (name, B, Nq, Nk, d, C): the flagship's three sites at batch 16 (also the
-# ring hops' stacked shapes), the GN decoders' deconv_pool3 (their pool2 is
-# x_2_2's shape), the 'full' head's x_0_1_sa at batch 2
+# ring hops' stacked shapes), the GN decoders' deconv_pool3 and deconv_pool4
+# (their pool2 is x_2_2's shape), the 'full' head's x_0_1_sa at batch 2
 SITES = (("x_3_1", 16, 392, 392, 64, 512), ("x_2_2", 16, 3136, 3136, 32, 256),
          ("x_1_3", 16, 25088, 3136, 16, 128), ("deconv_pool3", 16, 3136, 3136, 64, 512),
-         ("x_0_1_sa", 2, 200704, 3136, 2, 16))
+         ("deconv_pool4", 16, 3136, 3136, 128, 1024), ("x_0_1_sa", 2, 200704, 3136, 2, 16))
+# The GN sites, where B5 is timed
+B5_SITES = ("x_2_2", "deconv_pool3", "deconv_pool4")
 
 
 def card_line() -> str:
@@ -92,6 +99,7 @@ def main(argv=None) -> dict:
 
     import torch
 
+    from sap3d_tpu_torch.ops import attention as ta
     from sap3d_tpu_torch.ops.cuda import flash_attention as fa
     from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
 
@@ -113,13 +121,25 @@ def main(argv=None) -> dict:
         dlse = torch.randn(b, nq, device="cuda", generator=gen)
         o, lse = fa.flash_forward_lse(q, k, v)
         iters = 5 if nq * nk * (d + c) > 5e9 else 20
-        b3 = time_ms(torch, lambda: fb.flash_backward(q, k, v, o, lse, do), iters, flush)
-        b4 = time_ms(torch, lambda: fb.flash_backward(q, k, v, o, lse, do, dlse=dlse), iters,
-                     flush)
-        res[name] = {"B3_ms": b3, "B4_ms": b4}
-        print(f"[{label}] {name} {args.dtype} B={b} Nq={nq} Nk={nk} d={d} C={c}: B3 {b3:.4f} ms, "
-              f"B4 {b4:.4f} ms ({card})", flush=True)
-        if args.profile:
+        res[name] = {"B3_ms": None, "B4_ms": None}
+        if fb.backward_viable(nq, nk, d, c, dtype):
+            res[name]["B3_ms"] = time_ms(torch, lambda: fb.flash_backward(q, k, v, o, lse, do),
+                                         iters, flush)
+            res[name]["B4_ms"] = time_ms(
+                torch, lambda: fb.flash_backward(q, k, v, o, lse, do, dlse=dlse), iters, flush)
+        if name in B5_SITES:
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+            def b5():
+                out = ta.flash_fwd_chunked_bwd(qg, kg, vg)
+                return torch.autograd.grad(out, (qg, kg, vg), do)
+
+            res[name]["B5_ms"] = time_ms(torch, b5, max(iters // 2, 3), flush)
+        line = ", ".join(f"{key[:-3]} {ms:.4f} ms" if ms is not None else f"{key[:-3]} refused"
+                         for key, ms in res[name].items())
+        print(f"[{label}] {name} {args.dtype} B={b} Nq={nq} Nk={nk} d={d} C={c}: {line} "
+              f"({card})", flush=True)
+        if args.profile and res[name]["B3_ms"] is not None:
             res[name]["B3_kernels_ms"] = kernel_times(
                 torch, lambda: fb.flash_backward(q, k, v, o, lse, do))
             for kernel, ms in res[name]["B3_kernels_ms"].items():

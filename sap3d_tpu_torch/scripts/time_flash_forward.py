@@ -1,6 +1,7 @@
-"""Time kernels B1 and B2 (the flash forward) of a checkout of the port at
-the sites ``PERF.md`` reports, so that two versions can be read on one card
-in one run.
+"""Time kernels B1 and B2 (the flash forward), and B6 (the lse-free forward
+of the bisect, both passes) with its first pass, the row statistics, at the
+flagship's sites, of a checkout of the port at the sites ``PERF.md``
+reports, so that two versions can be read on one card in one run.
 
     python sap3d_tpu_torch/scripts/time_flash_forward.py --root <checkout> [--label L]
         [--dtype bfloat16|float32] [--profile] [--no-sdpa]
@@ -41,6 +42,8 @@ import sys
 SITES = (("x_3_1", 16, 392, 392, 64, 512), ("x_2_2", 16, 3136, 3136, 32, 256),
          ("x_1_3", 16, 25088, 3136, 16, 128), ("deconv_pool3", 16, 3136, 3136, 64, 512),
          ("deconv_pool4", 16, 3136, 3136, 128, 1024), ("x_0_1_sa", 2, 200704, 3136, 2, 16))
+# The sites where B6 (the bisect's swap) runs
+FLAGSHIP_SITES = ("x_3_1", "x_2_2", "x_1_3")
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 FP32_CUDA_CORE_FLOPS = 67e12
@@ -111,6 +114,19 @@ def sdpa_ms(torch, q, k, v, flush, iters: int):
     return None, "none"
 
 
+def b6_times(torch, fa, q, k, v, iters, flush, name) -> dict:
+    """B6 and, where the checkout has it, its first pass (the row-stats
+    kernel) at the flagship's sites; nothing elsewhere."""
+    if name not in FLAGSHIP_SITES:
+        return {}
+    from sap3d_tpu_torch.ops.cuda import flash_attention_nolse as nolse
+
+    out = {"B6_ms": time_ms(torch, lambda: nolse.flash_nolse(q, k, v), iters, flush)}
+    if hasattr(fa, "flash_row_stats"):
+        out["RS_ms"] = time_ms(torch, lambda: fa.flash_row_stats(q, k), iters, flush)
+    return out
+
+
 def bound_ms(b, nq, nk, d, c, itemsize: int = 2, rate: float = BF16_FLOPS) -> float:
     nbytes = itemsize * b * (nq * d + nk * d + nk * c + nq * c)
     return max(nbytes / HBM_BYTES_PER_S, 2 * b * nq * nk * (d + c) / rate) * 1e3
@@ -151,6 +167,7 @@ def main(argv=None) -> dict:
         b2 = time_ms(torch, lambda: fa.flash_forward_lse(q, k, v), iters, flush)
         item = q.element_size()
         row = {"B1_ms": b1, "B2_ms": b2,
+               **b6_times(torch, fa, q, k, v, iters, flush, name),
                "bound_ms": bound_ms(b, nq, nk, d, c, item,
                                     BF16_FLOPS / SPLIT_PRODUCTS if f32 else BF16_FLOPS),
                "exp_floor_ms": b * nq * nk / EXP_PER_S * 1e3}
@@ -162,8 +179,9 @@ def main(argv=None) -> dict:
             f", sdpa {row['sdpa_ms']:.4f} ms ({row['sdpa_backend']})"
             if row["sdpa_ms"] is not None else ", sdpa none")
         cores = f", CUDA-core bound {row['cuda_core_bound_ms']:.4f} ms" if f32 else ""
+        b6 = "".join(f", {key[:-3]} {row[key]:.4f} ms" for key in ("B6_ms", "RS_ms") if key in row)
         print(f"[{label}] {name} {args.dtype} B={b} Nq={nq} Nk={nk} d={d} C={c}: B1 {b1:.4f} ms, "
-              f"B2 {b2:.4f} ms{sdpa}, bound {row['bound_ms']:.4f} ms{cores}, exp floor "
+              f"B2 {b2:.4f} ms{b6}{sdpa}, bound {row['bound_ms']:.4f} ms{cores}, exp floor "
               f"{row['exp_floor_ms']:.4f} ms ({card})", flush=True)
         if args.profile:
             row["B1_kernels_ms"] = kernel_times(torch, lambda: fa.flash_attend_tokens(q, k, v))

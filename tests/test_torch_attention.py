@@ -11,7 +11,8 @@ exponentiated.
 The dispatch gate (``attention_route``) is held to the routes the port
 names for the flagship's four sites, the GN SA decoder's three and the
 'full' head's ``x_0_1_sa``, in eval and train mode, with
-``SAP3D_FLASH_HYBRID`` unset and "1".
+``SAP3D_FLASH_HYBRID`` unset and "1" (the JAX package's hybrid flag, which
+moves no route of the port).
 """
 
 import jax
@@ -107,7 +108,8 @@ def test_non_local_matches_flax(dhw, c, sub_sample):
 
 
 # (Nq, Nk, d, C) of every self-attention site at full width (16-frame
-# 112x112 clips) -> its route in (eval, train, train with the hybrid on)
+# 112x112 clips) -> its route in (eval, train, train with the JAX package's
+# hybrid flag on: the port has no hybrid route)
 _ROUTES = {
     "x_4_0": ((49, 49, 128, 1024), ("plain", "plain", "plain")),
     "x_3_1": ((392, 392, 64, 512), ("flash", "flash", "flash")),
@@ -115,7 +117,7 @@ _ROUTES = {
     "x_1_3": ((25088, 3136, 16, 128), ("flash", "flash", "flash")),
     "gn_pool2": ((3136, 3136, 32, 256), ("flash", "flash", "flash")),
     "gn_deconv_pool3": ((3136, 3136, 64, 512), ("flash", "flash", "flash")),
-    "gn_deconv_pool4": ((3136, 3136, 128, 1024), ("flash", "plain", "hybrid")),
+    "gn_deconv_pool4": ((3136, 3136, 128, 1024), ("flash", "flash", "flash")),
     "x_0_1": ((200704, 3136, 2, 16), ("flash", "flash", "flash")),
 }
 
@@ -137,7 +139,7 @@ def test_gate_gives_each_site_its_route(site, dtype, monkeypatch):
 def test_gate_follows_the_kernels_own_limits():
     """A site the gate gives to a kernel is one its launcher takes: the
     limits are the kernels' (d <= 128; C a multiple of 16, for the backward
-    up to 128 or a multiple of 64 up to 512; float32 or bfloat16 only; a
+    up to 128 or a multiple of 64 up to 1024; float32 or bfloat16 only; a
     row of q or k shorter than whole 16-byte chunks is padded)."""
     from sap3d_tpu_torch.ops.cuda import flash_attention as fa
     from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
@@ -151,13 +153,15 @@ def test_gate_follows_the_kernels_own_limits():
     assert fa.forward_viable(3136, 3136, 12, 64, torch.bfloat16)       # padded to 16 columns
     assert not fa.forward_viable(*ok[:4], torch.float16)
     assert fa.forward_viable(3136, 3136, 72, 576, torch.bfloat16)
-    assert not fb.backward_viable(3136, 3136, 72, 576, torch.bfloat16)  # C above 512
+    assert fb.backward_viable(3136, 3136, 72, 576, torch.bfloat16)      # C up to 1024
+    assert fa.forward_viable(3136, 3136, 72, 1088, torch.bfloat16)
+    assert not fb.backward_viable(3136, 3136, 72, 1088, torch.bfloat16)  # C above 1024
     assert fb.backward_viable(3136, 3136, 16, 128, torch.bfloat16)
     assert fa.forward_viable(3136, 3136, 18, 144, torch.bfloat16)
     assert not fb.backward_viable(3136, 3136, 18, 144, torch.bfloat16)  # C > 128, C % 64
     assert (fa.MAX_D, fa.C_MULTIPLE) == (128, 16)
     assert (fb.MAX_D, fb.MAX_C, fb.C_MULTIPLE, fb.WIDE_C_MULTIPLE, fb.NARROW_MAX_C) == \
-        (128, 512, 16, 64, 128)
+        (128, 1024, 16, 64, 128)
 
 
 @pytest.mark.parametrize("dtype,d,padded", [(torch.bfloat16, 2, 8), (torch.float32, 2, 4),
@@ -177,11 +181,15 @@ def test_launchers_pad_rows_to_whole_chunks(dtype, d, padded):
 
 
 def test_model_routes_follow_the_gate(monkeypatch):
-    """In a module the route follows ``training`` and the environment at
-    each call, and ``use_kernel=False`` asks the gate nothing."""
+    """In a module the route follows ``training`` at each call, whatever
+    ``SAP3D_FLASH_HYBRID`` says, and ``use_kernel=False`` asks the gate
+    nothing.  C = 144 (d = 18): the forward takes it, the backward does not
+    (above 128, not a multiple of 64), so training goes to the plain path
+    with the JAX package's hybrid flag on too; no registry site is such a
+    site any more."""
     seen = record_routes(monkeypatch)
-    sa = ta.SelfAttention3D(1024)
-    x = torch.randn(1, 1024, 1, 16, 16)  # Nq = 256, d = 128, C = 1024
+    sa = ta.SelfAttention3D(144)
+    x = torch.randn(1, 144, 1, 16, 16)  # Nq = 256, d = 18, C = 144
     monkeypatch.delenv("SAP3D_FLASH_HYBRID", raising=False)
     with torch.no_grad():
         sa.eval()(x)
@@ -190,24 +198,24 @@ def test_model_routes_follow_the_gate(monkeypatch):
         sa(x)
         sa.use_kernel = False
         sa(x)
-    assert seen == [((256, 256, 128, 1024), route) for route in ("flash", "plain", "hybrid")]
+    assert seen == [((256, 256, 18, 144), route) for route in ("flash", "plain", "plain")]
 
 
 @pytest.mark.parametrize("hybrid", ["0", "1"], ids=["hybrid_off", "hybrid_on"])
 def test_eval_mode_site_that_autograd_records_takes_the_backward_gate(monkeypatch, hybrid):
     """An eval-mode module whose tokens autograd records (an input-gradient
-    pass, fine-tuning under ``eval()``) is differentiated: the C = 1024 site,
-    which B3 does not take, must not go to B2 + B3."""
+    pass, fine-tuning under ``eval()``) is differentiated: a C = 144 site,
+    which B3 does not take (the forward does), must not go to B2 + B3; with
+    the JAX package's hybrid flag on or off it goes to the plain path."""
     seen = record_routes(monkeypatch)
     monkeypatch.setenv("SAP3D_FLASH_HYBRID", hybrid)
     torch.manual_seed(0)
-    sa = ta.SelfAttention3D(1024).eval()
+    sa = ta.SelfAttention3D(144).eval()
     with torch.no_grad():
         sa.gamma.fill_(1.0)
-    x = torch.randn(1, 1024, 1, 16, 16, requires_grad=True)
+    x = torch.randn(1, 144, 1, 16, 16, requires_grad=True)
     sa(x).square().sum().backward()
-    want = "hybrid" if hybrid == "1" else "plain"
-    assert seen == [((256, 256, 128, 1024), want)]
+    assert seen == [((256, 256, 18, 144), "plain")]
     got = x.grad.clone()
     # the same gradient as the plain path gives
     sa.use_kernel, x.grad = False, None

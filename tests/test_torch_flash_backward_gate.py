@@ -5,11 +5,12 @@
   site in train mode, in bf16 and float32, held to the routes the port
   gives today (``attention_route``; ``SAP3D_FLASH_HYBRID`` unset).  Each
   site the backward gate takes reaches kernel B3 (B4 in a ring hop); the
-  gate's limit on d (64, in both dtypes) refuses none of them.
+  gate's limits (d <= 128 and C <= 1024, in both dtypes) refuse none of
+  them, the GN decoders' C = 1024 site (d = 128) included.
 * ``query_split`` and ``resident_ctas`` at the sites the kernel is timed
-  at, in bf16 and in float32, and the rule's own bounds; in float32 (three
-  bf16 planes per tile), the dkdq and dv kernels' shared memory fits one
-  CTA at every (d, C) the gate takes.
+  at, in bf16 and in float32, and the rule's own bounds; in both dtypes the
+  dkdq and dv kernels' shared memory, and the forward plan's, fits one CTA
+  at every (d, C) the gate takes.
 * ``build._library_path`` hashes the shared headers (``csrc/*.cuh``) and the
   flags beside the source: editing a header names a new library.
 """
@@ -43,7 +44,7 @@ ROUTES = {
     "inference_p3d_sa_concat": {X_4_0: "plain", X_3_1: "flash", X_2_2: "flash"},
     "inference_p3d_sa_concat_2": {GN_POOL2: "flash", GN_DECONV3: "flash"},
     "inference_p3d_sa_decoder_block": {GN_POOL2: "flash", GN_DECONV3: "flash",
-                                       GN_DECONV4: "plain"},
+                                       GN_DECONV4: "flash"},
     "inference_p3d_decoder_block": {},
     "p3d_micro": {},
     "p3d_micro_sa": {(49, 49, 16, 128): "plain", X_3_1: "flash", X_2_2: "flash",
@@ -79,16 +80,22 @@ def test_backward_gated_sites_keep_their_routes(name, monkeypatch):
 
 
 def test_gate_states_the_bf16_limit_on_d():
-    # the limit is the same in float32: three planes of a 128-wide q and k
-    # tile do not fit the float32 kernel's shared memory
-    assert fb.BACKWARD_MAX_D == 64
-    assert fb.backward_max_d(torch.bfloat16) == 64 and fb.backward_max_d(torch.float32) == 64
-    assert fb.backward_viable(3136, 3136, 64, 512, torch.bfloat16)
-    assert not fb.backward_viable(3136, 3136, 72, 512, torch.bfloat16)  # d above 64
-    assert fb.backward_viable(3136, 3136, 64, 512, torch.float32)
-    assert not fb.backward_viable(3136, 3136, 72, 512, torch.float32)
-    assert not fb.backward_viable(3136, 3136, 128, 128, torch.float32)
-    assert not fb.backward_viable(3136, 3136, 128, 128, torch.bfloat16)
+    # the limits are the same in float32, where the streaming kernel at d
+    # above 64 keeps one q stage and stages dq over the ds^T region
+    assert fb.BACKWARD_MAX_D == 128 and fb.MAX_C == 1024
+    assert fb.backward_max_d(torch.bfloat16) == 128 and fb.backward_max_d(torch.float32) == 128
+    for dtype in (torch.bfloat16, torch.float32):
+        assert fb.backward_viable(3136, 3136, 64, 512, dtype)
+        assert fb.backward_viable(3136, 3136, 72, 512, dtype)     # d above 64
+        assert fb.backward_viable(3136, 3136, 128, 128, dtype)
+        assert fb.backward_viable(3136, 3136, 128, 1024, dtype)   # GN deconv_pool4
+        assert not fb.backward_viable(3136, 3136, 136, 1024, dtype)  # d above 128
+        assert not fb.backward_viable(3136, 3136, 128, 1088, dtype)  # C above 1024
+        assert not fb.backward_viable(3136, 3136, 128, 592, dtype)   # not a multiple of 64
+    # the bf16 dk and dq kernel keeps V resident up to d = 64 and C = 512
+    assert not fb.dkdq_streams(64, 512, torch.bfloat16)
+    assert fb.dkdq_streams(72, 512, torch.bfloat16) and fb.dkdq_streams(64, 576, torch.bfloat16)
+    assert fb.dkdq_streams(16, 16, torch.float32)
 
 
 # (B, Nq, Nk, d, C) -> (resident dkdq CTAs per SM, query split S)
@@ -98,6 +105,7 @@ SPLITS = {
     (16,) + X_1_3: (3, 1),       # 784 CTAs, 1.98 waves of 396
     (16,) + GN_POOL2: (2, 1),
     (16,) + GN_DECONV3: (1, 1),  # 224 KB of shared memory: one CTA per SM
+    (16,) + GN_DECONV4: (1, 1),  # the streaming kernel, 155 KB: 784 CTAs, 5.94 waves
     (2,) + X_0_1_SA: (4, 16),    # 98 CTAs: 16 ranges make 3 waves of 528
     (1, 5000, 150, 2, 16): (4, 16),
     (2, 2000, 100, 8, 64): (3, 16),
@@ -123,6 +131,7 @@ SPLITS_F32 = {
     (16,) + X_2_2: (1, 1, 3),       # 784 CTAs, 5.94 waves of 132
     (16,) + X_1_3: (1, 1, 3),
     (16,) + GN_DECONV3: (1, 1, 2),
+    (16,) + GN_DECONV4: (1, 1, 2),  # one q stage, dq staged over ds^T: 226 KB
     (2,) + X_0_1_SA: (2, 8, 4),     # 98 CTAs: 8 ranges make 3 waves of 264
     (1, 5000, 150, 2, 16): (2, 16, 4),
     (2, 2000, 100, 8, 64): (1, 16, 3),
@@ -144,14 +153,35 @@ def test_query_split_at_the_sites_in_float32(shape):
 
 def test_float32_kernels_fit_every_gated_shape():
     """The float32 dkdq and dv kernels' shared memory, with its 1 KB of
-    alignment, fits one CTA at every (d, C) the backward gate takes."""
+    alignment, fits one CTA at every (d, C) the backward gate takes (d up
+    to 128, C up to 1024)."""
     cs = [c for c in range(16, fb.MAX_C + 1, 16) if fb.backward_c_ok(c)]
+    assert max(cs) == 1024
     for d in range(1, fb.BACKWARD_MAX_D + 1):
         for c in cs:
             assert fb.backward_viable(3136, 3136, d, c, torch.float32)
             assert fb.dkdq_smem_bytes(d, c, torch.float32) <= fa.MAX_CTA_SMEM, (d, c)
             assert fb.dv_smem_bytes(d, c, torch.float32) <= fa.MAX_CTA_SMEM, (d, c)
             assert c % fb.dv_slab(c, torch.float32, d) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "float32"])
+def test_backward_and_forward_plans_fit_every_gated_shape(dtype):
+    """At every (d, C) the backward gate takes (d <= 128, C <= 1024): the
+    dkdq kernel (resident or streaming) and the dv kernel fit one CTA, the
+    streaming layout keeps at least two chunk stages, and the forward's
+    plan (B2, and B1 in B5 and B6) fits and covers C."""
+    cs = [c for c in range(16, fb.MAX_C + 1, 16) if fb.backward_c_ok(c)]
+    for d in (8, 16, 24, 32, 40, 64, 72, 96, 128):
+        for c in cs:
+            assert fb.backward_viable(3136, 3136, d, c, dtype)
+            assert fb.dkdq_smem_bytes(d, c, dtype) <= fa.MAX_CTA_SMEM, (d, c)
+            assert fb.dv_smem_bytes(d, c, dtype) <= fa.MAX_CTA_SMEM, (d, c)
+            if fb.dkdq_streams(d, c, dtype):
+                assert fb.split_chunk_stages(d, c, dtype) >= 2
+            assert fb.resident_ctas(d, c, dtype) >= 1
+            plan = fa.launch_plan(16, 3136, 3136, d, c, dtype)
+            assert plan["smem"] <= fa.MAX_CTA_SMEM and plan["slabs"] * plan["cw"] >= c
 
 
 def test_query_split_never_exceeds_the_query_tiles():

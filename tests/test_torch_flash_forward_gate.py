@@ -30,9 +30,8 @@ from test_torch_flash_backward_gate import (GN_DECONV3, GN_DECONV4, GN_POOL2, X_
                                             X_2_2, X_3_1)
 
 # (Nq, Nk, d, C) -> route of each name's sites in eval mode (the same in
-# bf16 and float32): train mode's, but where the backward gate refuses a
-# site the forward takes (GN deconv_pool4: d = 128 above the backward's
-# bf16 limit, C = 1024 above its C limit)
+# bf16 and float32): train mode's, now that the backward gate takes every
+# site the forward takes (GN deconv_pool4, d = 128 and C = 1024, included)
 EVAL_ROUTES = dict(TRAIN_ROUTES, inference_p3d_sa_decoder_block={
     GN_POOL2: "flash", GN_DECONV3: "flash", GN_DECONV4: "flash"})
 
@@ -40,9 +39,9 @@ EVAL_ROUTES = dict(TRAIN_ROUTES, inference_p3d_sa_decoder_block={
 def test_the_tables_name_every_registry_name():
     assert set(EVAL_ROUTES) == set(TRAIN_ROUTES) == set(MODEL_REGISTRY)
     assert len(EVAL_ROUTES) == 14
-    # eval and train differ at the one site the backward gate refuses
-    assert {n for n in EVAL_ROUTES if EVAL_ROUTES[n] != TRAIN_ROUTES[n]} \
-        == {"inference_p3d_sa_decoder_block"}
+    # eval and train agree: the backward gate refuses no registry site the
+    # forward gate takes
+    assert {n for n in EVAL_ROUTES if EVAL_ROUTES[n] != TRAIN_ROUTES[n]} == set()
 
 
 @pytest.mark.parametrize("name", sorted(EVAL_ROUTES))

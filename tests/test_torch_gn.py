@@ -11,7 +11,11 @@ The same numpy-made inputs and weights go through both packages.  Tolerances:
   gradients against ``jax.grad`` through the JAX ``flash_fwd_chunked_bwd``,
   as tests/test_pallas_attention.py holds that function (o: rtol 1e-4, atol
   1e-5; gradients: rtol 2e-3, atol 1e-5), on that test's inputs and on one
-  with more than 4096 queries, where two chunks run;
+  with more than 4096 queries, where two chunks run; the backward the card
+  runs, composed of the plain versions of the kernels it launches (the
+  row statistics' lse, then B3 on B5's own output), against the same
+  ``jax.grad`` in float32 (the same limits) and bf16 (B3's ``TOLERANCE``:
+  both round p and the products' operands to bf16, at other points);
 * the micro train step (dropout 0): the loss to 1e-6 relative; the
   gradient by relative L2 distance, whole and per tensor, under ``GRAD_TOL``
   (see there).
@@ -111,7 +115,8 @@ def test_b5_matches_pallas_hybrid(b, nq, nk, d, c, seed):
 
 
 def test_b5_backward_recomputes_chunk_by_chunk(monkeypatch):
-    """The forward saves q, k and v only, and the backward attends to at most
+    """The forward saves q, k, v and its own output (which the card's
+    backward takes for delta), and the plain backward attends to at most
     ``_QUERY_CHUNK`` queries at a time; a backward run on keys whose last 64
     are zeroed (a planted fault) fails the limits the sound one passes."""
     q, k, v = (torch.from_numpy(a) for a in _hybrid_inputs(1, 4500, 200, 8, 16, 9))
@@ -126,7 +131,9 @@ def test_b5_backward_recomputes_chunk_by_chunk(monkeypatch):
     tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
     out = ta.flash_fwd_chunked_bwd(tq, tk, tv)
     assert seen == [4500]  # the forward (on the card: the kernel) sees every query
-    assert [t.shape for t in out.grad_fn.saved_tensors] == [q.shape, k.shape, v.shape]
+    saved = out.grad_fn.saved_tensors
+    assert [t.shape for t in saved] == [q.shape, k.shape, v.shape, out.shape]
+    assert saved[3].data_ptr() == out.data_ptr()  # o itself: no copy is kept
     do = torch.from_numpy(np.random.default_rng(10).normal(size=out.shape).astype(np.float32))
     got = torch.autograd.grad(out, (tq, tk, tv), do)
     assert seen[1:] == [4096, 404]
@@ -140,6 +147,44 @@ def test_b5_backward_recomputes_chunk_by_chunk(monkeypatch):
     for g, w, f in zip(got, want, fault):
         assert fa.agreement(g, w)["excess"] <= 1
         assert fa.agreement(f, w)["excess"] > 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,nq,nk,d,c,seed", [
+    (2, 300, 49, 8, 16, 7),      # ragged Nq and Nk
+    (1, 256, 130, 128, 1024, 12),  # the GN deconv_pool4 site's widths
+], ids=["narrow", "deconv_pool4_widths"])
+def test_b5_card_backward_composed_of_plain_kernels_matches_jax(b, nq, nk, d, c, seed, dtype):
+    """What B5's backward launches on the card, in plain versions: the row
+    statistics' lse of (q, k), then B3 on (q, k, v, o, lse, do) with B5's
+    own forward output o, against ``jax.grad`` (a vjp with cotangent do)
+    through the JAX ``flash_fwd_chunked_bwd``."""
+    from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
+
+    q, k, v = _hybrid_inputs(b, nq, nk, d, c, seed)
+    q, k = q * d ** -0.25, k * d ** -0.25
+    do = np.random.default_rng(seed + 1).normal(size=(b, nq, c)).astype(np.float32)
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in (q, k, v, do))
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(jax_hybrid, jq, jk, jv)
+        want = vjp(jdo)
+    tq, tk, tv, tdo = (torch.tensor(np.asarray(a.astype(jnp.float32))).to(getattr(torch, dtype))
+                       for a in (jq, jk, jv, jdo))
+    o = fa.flash_attend_tokens_reference(tq, tk, tv)
+    lse = fa.row_stats_reference(tq, tk, lse=True)
+    got = fb.flash_backward_reference(tq, tk, tv, o, lse, tdo)
+    for g, w, t in zip(got, want, (tq, tk, tv)):
+        assert g.shape == t.shape and g.dtype == t.dtype
+        w = torch.tensor(np.asarray(w.astype(jnp.float32)))
+        if dtype == "float32":
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=2e-3, atol=1e-5)
+        else:
+            assert fa.agreement(g, w.to(torch.bfloat16), fb.TOLERANCE)["excess"] <= 1
+    # the same with delta left out (o = 0) fails
+    bad = fb.flash_backward_reference(tq, tk, tv, torch.zeros_like(o), lse, tdo)
+    w = torch.tensor(np.asarray(want[0].astype(jnp.float32))).to(tq.dtype)
+    assert fa.agreement(bad[0], w, fb.TOLERANCE)["excess"] > 1
 
 
 def test_b5_cotangent_is_used_in_the_values_dtype():
@@ -215,15 +260,16 @@ def _port_step(gn_pair):
 
 @pytest.mark.parametrize("hybrid", ["0", "1"], ids=["hybrid_off", "hybrid_on"])
 def test_gn_micro_train_step_matches_jax(gn_pair, monkeypatch, hybrid):
-    """With SAP3D_FLASH_HYBRID unset the C = 1024 site trains through
-    ``attend_tokens`` and the C = 32 and C = 512 sites through B2 + B3; with
-    "1" the C = 1024 site goes through B5.  The function is the same."""
+    """With SAP3D_FLASH_HYBRID (the JAX package's hybrid flag) unset or "1"
+    every site, the C = 1024 one (d = 128) too, trains through B2 + B3: the
+    backward gate takes d <= 128 and C <= 1024, and the port has no hybrid
+    route.  The function is the same."""
     monkeypatch.setenv("SAP3D_FLASH_HYBRID", hybrid)
     seen = record_routes(monkeypatch)
     tm, loss = _port_step(gn_pair)
     assert not list(tm.buffers())
     routes = {shape[3]: route for shape, route in seen}
-    assert routes == {32: "flash", 512: "flash", 1024: "hybrid" if hybrid == "1" else "plain"}
+    assert routes == {32: "flash", 512: "flash", 1024: "flash"}
     np.testing.assert_allclose(loss.item(), gn_pair["loss"], rtol=1e-6)
     total, per = _grad_distance({n: p.grad for n, p in tm.named_parameters()},
                                 gn_pair["grads"])
@@ -235,9 +281,32 @@ def test_gn_micro_train_step_matches_jax(gn_pair, monkeypatch, hybrid):
     assert all(sa.gamma.grad.abs().item() > 0 for sa in tm.attention_modules())
 
 
+def test_gn_micro_train_step_through_b5_matches_jax(gn_pair, monkeypatch):
+    """The C = 1024 site sent to B5 (``flash_fwd_chunked_bwd``) in the
+    same step: no route of the dispatch reaches B5, so the site's call of
+    ``flash_attend`` is given to it here; the gradient is held as above."""
+    orig, calls = ta.flash_attend, []
+    function = ta._FlashForwardChunkedBackward
+
+    def to_b5(q, k, v):
+        if v.shape[2] != 1024:
+            return orig(q, k, v)
+        calls.append(q.shape)
+        return function.apply(q, k, v)
+
+    monkeypatch.setattr(ta, "flash_attend", to_b5)
+    tm, loss = _port_step(gn_pair)
+    assert len(calls) == 1 and calls[0][2] == 128
+    np.testing.assert_allclose(loss.item(), gn_pair["loss"], rtol=1e-6)
+    total, per = _grad_distance({n: p.grad for n, p in tm.named_parameters()},
+                                gn_pair["grads"])
+    assert total <= GRAD_TOL, total
+    assert max(per.values()) <= 1, sorted(per.items(), key=lambda kv: -kv[1])[:3]
+
+
 def test_gn_micro_train_step_limits_fail_a_backward_without_delta(gn_pair, monkeypatch):
-    """The control: the plain B3 with delta left out, at the C = 32 and
-    C = 512 sites."""
+    """The control: the plain B3 with delta left out, at the C = 32, 512
+    and 1024 sites."""
     from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
 
     def without_delta(q, k, v, o, lse, do):

@@ -79,6 +79,32 @@ def test_plain_matches_the_pallas_lse_free_forward(b, nq, nk, d, c, dtype):
     assert check["excess"] <= 1
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,nq,nk,d,c", CASES)
+def test_pass2_arithmetic_matches_the_pallas_lse_free_forward(b, nq, nk, d, c, dtype):
+    """B6's second pass, given each row's m and 1/l from the plain row
+    statistics: p = 2^(s log2(e) - m log2(e)) / l in float32, rounded to bf16
+    (in float32, s and p v as six products of three bf16 planes), against
+    the JAX lse-free forward under the kernel's limits."""
+    from sap3d_tpu_torch.ops.cuda import flash_attention as fa
+
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in _inputs(b, nq, nk, d, c, 5))
+    with pltpu.force_tpu_interpret_mode():
+        want, _ = _flash_forward(jq, jk, jv, want_lse=False)
+    tq, tk, tv = (torch.tensor(np.asarray(a.astype(jnp.float32))).to(getattr(torch, dtype))
+                  for a in (jq, jk, jv))
+    m, inv = fa.row_stats_reference(tq, tk)
+    got = nolse.pass2_reference(tq, tk, tv, m, inv)
+    assert got.shape == (b, nq, c) and got.dtype == tq.dtype
+    want = torch.tensor(np.asarray(want.astype(jnp.float32))).to(tq.dtype)
+    check = agreement(got, want, nolse.TOLERANCE)
+    assert check["finite"] and check["excess"] <= 1, check
+    # the same arithmetic on a 1/l 2^-5 too large fails the limits
+    bad = nolse.pass2_reference(tq, tk, tv, m, inv * (1 + 2.0 ** -5))
+    assert agreement(bad, want, nolse.TOLERANCE)["excess"] > 1
+
+
 def _kernel_rounding_bf16(q, k, v):
     """B6's arithmetic in plain torch: p = exp(s - m) times 1/l in float32
     (the plain version divides), rounded to bf16, the product summed in
@@ -156,6 +182,6 @@ def test_bisect_main_returns_its_four_readings():
     readings = ("current_ms", "nolse_ms", "plain_ms", "fused_proj_ms", "separate_proj_ms")
     assert all(np.isfinite(res[r]) for r in readings)
     # CPU tensors launch no kernel: every variant counts 0
-    assert res["launches"] == {v: {"B1": 0, "B6": 0}
+    assert res["launches"] == {v: {"B1": 0, "RS": 0, "B6": 0}
                                for v in ("current", "nolse", "after", "plain")}
     assert res["device"] == "cpu" and res["batch"] == 1
