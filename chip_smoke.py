@@ -138,7 +138,19 @@ result line):
      without attention failing the limit, clips scored per second; (b) the
      batched device metrics on a [32, 1080, 960] stack against the NumPy
      oracle, frames per second of both;
- 12. a JSON line of per-kernel numbers (B1-B4 also in fp32, the split-bf16
+ 12. reference TF checkpoints (``interop/tf_bundle.py``, ``interop/tf_import.py``)
+     and ``bn_reference_quirk``: (a) the committed TF1 Saver fixture
+     (``tests/data/tf1_saver_fixture``) read without TensorFlow, bit for bit
+     against its .npz, an index with a flipped magic byte raising; (b) the
+     calibrated flagship's weights in TF's names and layouts, with Adam slots
+     and bookkeeping, through ``cli.model_from_tf_variables`` (the quirk model
+     on the card): bit for bit the original, a dropped layout transform and
+     a dropped variable failing; (c) that quirk model through
+     ``SlidingWindowPredictor.export_dataset`` on a 40-frame video in bf16 (B1
+     launches, the plain route, every buffer unchanged, the maps without the
+     quirk different, seconds per video with and without it) and one fp32
+     eval step (the split-bf16 B1, ``cli eval``'s dtype);
+ 13. a JSON line of per-kernel numbers (B1-B4 also in fp32, the split-bf16
      instantiations), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -151,6 +163,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2685,6 +2698,296 @@ def phase_eval(torch, fa, calibrated, card):
                 host_frames_per_s=n / host_s)
 
 
+# ---- phase 12: reference TF checkpoints (interop/), bn_reference_quirk ------
+
+# a TF1 Saver checkpoint and its .npz, in the checkout beside this script
+TF_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                          "tf1_saver_fixture")
+FLAGSHIP = "p3d_unetplusplus_ds"              # unet++
+QUIRK_FRAMES = 40                             # 25 windows: the last batch of 16 is padded
+
+
+def tf_named(state_dict, name: str) -> dict:
+    """The TF-named dict of the port's ``state_dict`` for ``name``: the
+    inverse of ``interop/tf_import``'s mapping and the flax bridge.  A torch
+    conv or transposed-conv kernel ``[a, b, kd, kh, kw]`` is TF's
+    ``[kd, kh, kw, b, a]``, a dense kernel transposed, the rest as is."""
+    from sap3d_tpu_torch.interop.tf_import import variable_mapping
+
+    out = {}
+    for e in variable_mapping(name):
+        t = state_dict[".".join(e.path)].detach().float().cpu().numpy()
+        out[e.tf_name] = t.transpose(2, 3, 4, 1, 0) if t.ndim == 5 else t.T
+    return out
+
+
+def with_training_variables(tf_vars: dict) -> dict:
+    """What a reference training checkpoint holds beside the weights: two
+    Adam slots per variable, ``beta1_power``, ``beta2_power``,
+    ``global_step``."""
+    import numpy as np
+
+    out = dict(tf_vars)
+    for n, a in tf_vars.items():
+        out[f"{n}/Adam"], out[f"{n}/Adam_1"] = np.zeros_like(a), np.ones_like(a)
+    out.update(beta1_power=np.float32(0.9), beta2_power=np.float32(0.999),
+               global_step=np.int64(1000))
+    return out
+
+
+def phase_tf_reader():
+    """Phase 12(a): the committed TF1 Saver fixture read without TensorFlow,
+    every tensor bit for bit against its .npz; a copy of the index with one
+    magic byte flipped must raise."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from sap3d_tpu_torch.interop import tf_bundle
+
+    want = dict(np.load(os.path.join(TF_FIXTURE, "values.npz")))
+    got = tf_bundle.read_checkpoint(TF_FIXTURE)
+    bad = sorted(n for n in want if n not in got or got[n].dtype != want[n].dtype
+                 or got[n].shape != want[n].shape or got[n].tobytes() != want[n].tobytes())
+    with tempfile.TemporaryDirectory() as tmp:
+        for f in os.listdir(TF_FIXTURE):
+            if f.startswith("model.ckpt."):
+                shutil.copy(os.path.join(TF_FIXTURE, f), tmp)
+        with open(os.path.join(tmp, "model.ckpt.index"), "r+b") as f:
+            f.seek(-1, os.SEEK_END)
+            last = f.read(1)[0]
+            f.seek(-1, os.SEEK_END)
+            f.write(bytes([last ^ 0x01]))
+        try:
+            tf_bundle.read_checkpoint(os.path.join(tmp, "model.ckpt"))
+            corrupt = "read without error"
+        except tf_bundle.CheckpointFormatError as e:
+            corrupt = f"raised: {e}"
+    print(f"[tf_import] (a) {TF_FIXTURE}: {len(got)} tensors read without TensorFlow "
+          f"({sorted({str(a.dtype) for a in got.values()})}), {len(want) - len(bad)} of "
+          f"{len(want)} bit for bit against values.npz; the index with a magic byte "
+          f"flipped {corrupt}", flush=True)
+    if bad or sorted(got) != sorted(want):
+        raise AssertionError(f"the TF reader disagrees with the fixture at {bad}")
+    if not corrupt.startswith("raised"):
+        raise AssertionError("the TF reader read an index with a bad magic")
+    return dict(tensors=len(got), corrupt=corrupt)
+
+
+def phase_tf_mapping(torch, calibrated):
+    """Phase 12(b): the calibrated flagship's weights as a reference training
+    checkpoint holds them (TF names and layouts, Adam slots, bookkeeping),
+    through ``cli.model_from_tf_variables`` (the map half of
+    ``--tf-checkpoint``: the quirk model on the card, mapped, validated,
+    loaded strictly): every key bit for bit the original.  Planted faults,
+    each of which must fail: a transposed conv's layout transform left out,
+    a variable dropped."""
+    from sap3d_tpu_torch import cli
+    from sap3d_tpu_torch.interop import tf_import
+
+    tf_vars = with_training_variables(tf_named(calibrated, FLAGSHIP))
+    t0 = time.perf_counter()
+    model = cli.model_from_tf_variables("unet++", tf_vars, "bfloat16", DEVICE)
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - t0
+    got = model.state_dict()
+    bad = sorted(k for k in calibrated if not torch.equal(got[k], calibrated[k]))
+    if sorted(got) != sorted(calibrated):
+        bad.append("keys")
+
+    def fault(label, entries=None, drop=None):
+        """``label``'s fault loaded: (what happened, whether it failed)."""
+        mapping = tf_import.variable_mapping
+        if entries is not None:
+            tf_import.variable_mapping = lambda name: entries
+        try:
+            m = cli.model_from_tf_variables(
+                "unet++", {n: a for n, a in tf_vars.items() if n != drop}, "bfloat16",
+                DEVICE)
+            differ = [k for k in calibrated if not torch.equal(m.state_dict()[k], calibrated[k])]
+            return f"{label}: loaded, {len(differ)} keys differ", bool(differ)
+        except (KeyError, ValueError) as e:
+            return f"{label}: {type(e).__name__}: {str(e)[:100]}", True
+        finally:
+            tf_import.variable_mapping = mapping
+
+    entries = tf_import.variable_mapping(FLAGSHIP)
+    i = next(i for i, e in enumerate(entries) if e.transform == "tconv")
+    no_flip = list(entries)
+    no_flip[i] = dataclasses.replace(entries[i], transform="id")
+    faults = [fault(f"{entries[i].tf_name} without its transform", entries=no_flip),
+              fault(f"{entries[-1].tf_name} dropped", drop=entries[-1].tf_name)]
+    print(f"[tf_import] (b) {FLAGSHIP} at full width: {len(entries)} TF variables (+"
+          f"{len(tf_vars) - len(entries)} Adam slots and bookkeeping) -> {len(got)} tensors "
+          f"in {map_s:.2f} s (map, validate, load on the card), "
+          f"{len(calibrated) - len(bad)} of {len(calibrated)} bit for bit the original; "
+          f"planted faults: {[f for f, _ in faults]}", flush=True)
+    if bad:
+        raise AssertionError(f"TF mapping round trip differs at {bad[:5]}")
+    if not all(failed for _, failed in faults):
+        raise AssertionError(f"a planted mapping fault passed: {faults}")
+    return model, dict(variables=len(tf_vars), tensors=len(got), seconds=map_s,
+                       faults=[f for f, _ in faults])
+
+
+def phase_tf_quirk(torch, fa, model, calibrated, card):
+    """Phase 12(c): the quirk model of (b) on the card.  (1) bf16:
+    ``SlidingWindowPredictor.export_dataset`` on a 40-frame synthetic video
+    (25 windows in batches of 16, the last one padded; JPEGs in and out):
+    B1 launches counted (zeroed just before, read just after), each B1 call
+    held on the tensors the model gave it (the last key tile dropped
+    failing), the maps against the same model on the plain attention route
+    (mean |difference| under ``E2E_MEAN_TOL``, phase 4's bf16 limit, which
+    the maps without attention must exceed), every buffer and weight bit for
+    bit the original after the runs, the maps without the quirk (the same
+    weights) further than 1e-3 max|out| from them; seconds per video with
+    and without the quirk, in the order quirk, without, without, quirk, and
+    the eval step's ms at batch 16 (medians of 10) beside them.  (2) fp32,
+    ``cli eval``'s dtype (the split-bf16 B1): one eval step of 2 clips
+    (``cli eval``'s batch), 3 B1 launches, against the plain attention route
+    under phase 4's fp32 limit."""
+    import tempfile
+
+    import numpy as np
+
+    from sap3d_tpu_torch import cli
+    from sap3d_tpu_torch.data.synthetic import make_synthetic_dataset
+    from sap3d_tpu_torch.infer.predictor import SlidingWindowPredictor
+    from sap3d_tpu_torch.models.registry import build_model
+    from sap3d_tpu_torch.ops import attention as ta
+    from sap3d_tpu_torch.train.steps import make_eval_step
+
+    plain_bn = build_model("unet++", dtype="bfloat16", device=DEVICE, seed=SEED)
+    plain_bn.load_state_dict(calibrated)
+
+    def export(m, use_kernel, root, out, calls=None):
+        """(maps, seconds, B1 launches) of ``export_dataset`` with ``m``;
+        each B1 call's (q, k, v, o) appended to ``calls``."""
+        for sa in m.attention_modules():
+            sa.use_kernel = use_kernel
+
+        def record(q, k, v):
+            o = fa.flash_attend_tokens(q, k, v)
+            calls.append((q, k, v, o))
+            return o
+
+        maps = []
+        with SlidingWindowPredictor(make_eval_step(m), batch_windows=BATCH, image_size=SIZE,
+                                    device=DEVICE) as pred, \
+                (contextlib.nullcontext() if calls is None else ta.forward_kernel(record)):
+            predict = pred.predict_video
+            pred.predict_video = lambda *a, **kw: maps.append(predict(*a, **kw)) or maps[-1]
+            fa.flash_attend_tokens.launches = 0
+            t0 = time.perf_counter()
+            n = pred.export_dataset(root, out)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = fa.flash_attend_tokens.launches
+        if n != 1 or len(os.listdir(os.path.join(out, "video000"))) != QUIRK_FRAMES:
+            raise AssertionError(f"export_dataset wrote {n} videos")
+        return maps[0], dt, launches
+
+    calls = []
+    with tempfile.TemporaryDirectory() as tmp:
+        roots = make_synthetic_dataset(os.path.join(tmp, "data"), num_videos=1,
+                                       frames_per_video=QUIRK_FRAMES, size=(320, 240))
+        runs = {}
+        for i, (label, m) in enumerate([("quirk", model), ("without", plain_bn),
+                                        ("without2", plain_bn), ("quirk2", model)]):
+            runs[label] = export(m, True, roots["frame_dirs"], os.path.join(tmp, f"out{i}"),
+                                 calls if i == 0 else None)
+        quirk_plain, _, plain_launches = export(model, False, roots["frame_dirs"],
+                                                os.path.join(tmp, "plain_route"))
+        gammas = [sa.gamma.detach().clone() for sa in model.attention_modules()]
+        with torch.no_grad():
+            for sa in model.attention_modules():
+                sa.gamma.zero_()
+        no_attn = export(model, False, roots["frame_dirs"], os.path.join(tmp, "no_attn"))[0]
+        with torch.no_grad():
+            for sa, g in zip(model.attention_modules(), gammas):
+                sa.gamma.copy_(g)
+    for sa in model.attention_modules():
+        sa.use_kernel = True
+    names = {(nq, nk, d, c): name for name, (nq, nk, d, c) in SITES.items()}
+    held = [check_b1(fa, f"{names[(q.shape[1], k.shape[1], q.shape[2], v.shape[2])]} bf16 "
+                         f"(quirk predictor, call {i})", q, k, v, o)
+            for i, (q, k, v, o) in enumerate(calls)]
+    del calls
+    x = torch.randn(BATCH, 16, SIZE, SIZE, 3, device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(SEED + 19)) * 0.3
+    step_ms = {label: 1e3 * float(np.median(step_times(torch, lambda: make_eval_step(m)(x),
+                                                       THROUGHPUT_CALLS)))
+               for label, m in (("quirk", model), ("without", plain_bn),
+                                ("without2", plain_bn), ("quirk2", model))}
+    del x
+    quirk, _, launches = runs["quirk"]
+    want_launches = -(-(QUIRK_FRAMES - 15) // BATCH) * len(SITES)
+    mean16 = float(np.abs(quirk - quirk_plain).mean())
+    no_attn16 = float(np.abs(no_attn - quirk_plain).mean())
+    live = float(np.abs(quirk - runs["without"][0]).max())
+    scale = float(np.abs(quirk).max())
+    state = model.state_dict()
+    same = [k for k in calibrated if torch.equal(state[k], calibrated[k])]
+    secs = {label: r[1] for label, r in runs.items()}
+    print(f"[tf_import] (c) quirk predictor, {QUIRK_FRAMES} frames -> {quirk.shape}, range "
+          f"[{quirk.min():.4f}, {quirk.max():.4f}], B1 launches {launches} (plain route "
+          f"{plain_launches}), each held on the model's tensors (excess "
+          f"{max(h['excess'] for h in held):.3f} at most); kernel vs plain route mean "
+          f"|diff| {mean16:.3e} (tol {E2E_MEAN_TOL:g}; no attention {no_attn16:.3e}); vs "
+          f"no quirk max |diff| {live:.3e} (must exceed {1e-3 * scale:.3e}); {len(same)} of "
+          f"{len(calibrated)} tensors unchanged after the runs; seconds per video, quirk "
+          f"{secs['quirk']:.3f} / {secs['quirk2']:.3f}, without {secs['without']:.3f} / "
+          f"{secs['without2']:.3f}; eval step ms at batch {BATCH} (median of "
+          f"{THROUGHPUT_CALLS}), quirk {step_ms['quirk']:.2f} / {step_ms['quirk2']:.2f}, "
+          f"without {step_ms['without']:.2f} / {step_ms['without2']:.2f}  [{card}]",
+          flush=True)
+    if not (quirk.shape == (QUIRK_FRAMES, SIZE, SIZE) and np.isfinite(quirk).all()):
+        raise AssertionError("quirk predictor: wrong shape or non-finite maps")
+    if launches != want_launches or runs["quirk2"][2] != want_launches or plain_launches \
+            or len(held) != want_launches:
+        raise AssertionError(f"expected {want_launches} B1 launches in the quirk predictor "
+                             f"run, got {launches}")
+    if not mean16 <= E2E_MEAN_TOL:
+        raise AssertionError("quirk predictor: kernel route disagrees with the plain route")
+    if not no_attn16 > E2E_MEAN_TOL:
+        raise AssertionError("quirk predictor: the limit passes the maps without attention; "
+                             "the check is void")
+    if len(same) != len(calibrated):
+        raise AssertionError("the quirk forward moved a buffer or a weight")
+    if not live > 1e-3 * scale:
+        raise AssertionError("the quirk's maps equal the maps without it: the quirk is dead")
+    del plain_bn
+    torch.cuda.empty_cache()
+
+    # (2) fp32, cli eval's dtype and batch
+    model32 = cli.model_from_tf_variables("unet++", tf_named(calibrated, FLAGSHIP),
+                                          "float32", DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    x = torch.randn(2, 16, SIZE, SIZE, 3, device=DEVICE, generator=gen) * 0.3
+    ev = make_eval_step(model32)
+    outs, counts = {}, {}
+    for use_kernel in (False, True):
+        for sa in model32.attention_modules():
+            sa.use_kernel = use_kernel
+        fa.flash_attend_tokens.launches = 0
+        outs[use_kernel] = ev(x)
+        torch.cuda.synchronize()
+        counts[use_kernel] = fa.flash_attend_tokens.launches
+    err32 = (outs[True] - outs[False]).abs().max().item()
+    print(f"[tf_import] (c) quirk eval step fp32, 2 clips: B1 launches {counts[True]} (plain "
+          f"route {counts[False]}); kernel vs plain route max |diff| {err32:.3e} "
+          f"(tol 1e-3)", flush=True)
+    if counts[True] != len(SITES) or counts[False] or not err32 <= 1e-3:
+        raise AssertionError("fp32 quirk eval step: launches or kernel route off")
+    del model32, ev, outs
+    torch.cuda.empty_cache()
+    return dict(b1_launches=launches, b1_launches_fp32=counts[True], held=held,
+                mean_abs_err=mean16, no_attention_mean_abs_err=no_attn16,
+                no_quirk_max_abs_diff=live, fp32_max_abs_err=err32, seconds_per_video=secs,
+                eval_step_ms=step_ms)
+
+
 # Per source of phase 2: the kernels ptxas reports on (a longer name before
 # its prefix), and those of them that must not spill (the wgmma kernels,
 # bf16 and split fp32, which the gates reach at every instantiation, and
@@ -2909,7 +3212,10 @@ def main(argv=None) -> int:
         b6_rows, stats_rows = phase_b6(torch, fa, nolse, flush)
         bisect = phase_bisect(torch, fa, nolse, ta, card)
         evaluation = phase_eval(torch, fa, calibrated, card)
-        del calibrated
+        tf_reader = phase_tf_reader()
+        quirk_model, tf_mapping = phase_tf_mapping(torch, calibrated)
+        tf_quirk = phase_tf_quirk(torch, fa, quirk_model, calibrated, card)
+        del calibrated, quirk_model
         torch.cuda.empty_cache()
 
         fit, gn_fit = train["fit"]["launches"], gn_train["fit"]["launches"]
@@ -2927,7 +3233,8 @@ def main(argv=None) -> int:
                 and ring_fwd["B2"] > 0 and ring_step["B2"] > 0 and ring_step["B4"] > 0
                 and b6_launches > 0 and rs_launches > 0 and evaluation["b1_launches"] > 0
                 and fit32["B2"] > 0 and fit32["B3"] > 0 and ring32["B2"] > 0
-                and ring32["B4"] > 0):
+                and ring32["B4"] > 0 and tf_quirk["b1_launches"] > 0
+                and tf_quirk["b1_launches_fp32"] > 0):
             raise AssertionError("a kernel of a main path was never launched")
         print(f"[launches] flagship predictor B1 {launches}; flagship Trainer.fit {fit}; GN "
               f"predictor B1 {gn_launches}; GN Trainer.fit {gn_fit}; B5 on the GN step's "
@@ -2935,7 +3242,9 @@ def main(argv=None) -> int:
               f"forward {ring_fwd}; ring train step {ring_step}; the bisect's swapped forward "
               f"{bisect['launches']['nolse']}; evaluate_prediction_batches B1 "
               f"{evaluation['b1_launches']} (float32); the float32 train step {fit32}; the "
-              f"float32 ring step {ring32}", flush=True)
+              f"float32 ring step {ring32}; the TF checkpoint's quirk predictor B1 "
+              f"{tf_quirk['b1_launches']}, its float32 eval step B1 "
+              f"{tf_quirk['b1_launches_fp32']}", flush=True)
         in_step = {k: [r["max_abs_err"] for r in train[f"{k}_in_step"].values()]
                    for k in ("b2", "b3")}
         kernels = [
@@ -2943,7 +3252,8 @@ def main(argv=None) -> int:
             # launches summed over the flagship's and the GN model's main paths
             kernel_entry("flash_attention_fwd", fa.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:141",
-                         launches + gn_launches + evaluation["b1_launches"],
+                         launches + gn_launches + evaluation["b1_launches"]
+                         + tf_quirk["b1_launches"],
                          rows["B1"], [r["max_abs_err"] for r in gn_fwd["held"].values()],
                          gn_rows["B1"] + zoo_rows["B1"]),
             kernel_entry("flash_attention_fwd_lse", fa.SOURCE,
@@ -2977,7 +3287,7 @@ def main(argv=None) -> int:
             # 11), the float32 train step (phase 6(c)) and ring step (9(b))
             kernel_entry("flash_attention_fwd_split_f32", fa.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:141",
-                         evaluation["b1_launches"], rows["B1"], (),
+                         evaluation["b1_launches"] + tf_quirk["b1_launches_fp32"], rows["B1"], (),
                          gn_rows["B1"] + zoo_rows["B1"], dtype="float32"),
             kernel_entry("flash_attention_fwd_lse_split_f32", fa.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:141",
@@ -3002,6 +3312,8 @@ def main(argv=None) -> int:
                                zoo_kernel_rows=zoo_rows, ring=ring, b4_rows=b4_rows,
                                gn_b4_rows=gn_b4_rows, b6_rows=b6_rows,
                                row_stats_rows=stats_rows, bisect=bisect, evaluation=evaluation,
+                               tf_import=dict(reader=tf_reader, mapping=tf_mapping,
+                                              quirk=tf_quirk),
                                kernels=kernels), f, indent=1)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {

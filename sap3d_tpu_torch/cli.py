@@ -9,12 +9,16 @@ subcommand runs on a device.
         --frames <frames root> --densities <density root> [--device cuda]
     python -m sap3d_tpu_torch.cli predict --checkpoint <run or weights.pt> \\
         --data <frames root> --out <output root> [--device cuda]
+    python -m sap3d_tpu_torch.cli predict --tf-checkpoint <dir or prefix> \\
+        --structure unet++ --data <frames root> --out <output root>
     python -m sap3d_tpu_torch.cli eval --checkpoint <run or glob> \\
         --frames <root> --densities <root> --fixations <root> [--device cuda]
+    python -m sap3d_tpu_torch.cli eval --tf-checkpoint <dir or prefix> \\
+        --structure unet++ --frames <root> --densities <root> --fixations <root>
     python -m sap3d_tpu_torch.cli eval-dirs --pred <maps root> \\
         --density <root> [--fixation <root>] [--device cuda|cpu|host|true|false]
     python -m sap3d_tpu_torch.cli make-video --results <maps root> --out <dir>
-    python -m sap3d_tpu_torch.cli inspect <run dir or weights.pt> [filter]
+    python -m sap3d_tpu_torch.cli inspect [--tf] <checkpoint> [filter]
     python -m sap3d_tpu_torch.cli plot <logs dir>
 
 ``train`` writes ``./model/<run>/ckpt_<step>.pt`` checkpoints and
@@ -24,7 +28,12 @@ weights file (``torch.save`` of the model's ``state_dict``;
 ``interop/flax_bridge.py`` makes one from flax weights), under
 ``--model-dir`` or as a path; ``eval`` also takes globs under
 ``--model-dir`` and scores every match, each with the structure its run
-name starts with.  ``eval-dirs --device`` is a torch device on which the
+name starts with.  ``--tf-checkpoint`` takes a reference TF1 ``Saver``
+checkpoint (its directory or prefix; read without TensorFlow,
+``interop/tf_bundle.py``) of the ``--structure`` variant and runs it with
+the reference's inference, the bottleneck BNs on batch statistics
+(``bn_reference_quirk``); ``eval --bn-quirk`` runs the port's own
+checkpoints that way.  ``eval-dirs --device`` is a torch device on which the
 batched metrics run (``cuda``, the default, ``cuda:N`` or ``cpu``), or
 ``host`` for the per-frame NumPy metrics on a thread pool; it also takes the
 JAX package's bool spellings (``parse_bool``): true means ``cuda``, false
@@ -32,8 +41,8 @@ JAX package's bool spellings (``parse_bool``): true means ``cuda``, false
 ``--videolength`` a multiple of 16 N) runs the UNet++ SA decoder's
 attention as rings over N devices: the visible cards (N more than them
 raises, as in the JAX package), or the CPU N times with ``--device cpu``.
-Multi-device and multi-host runs (``--devices`` > 1, ``--distributed``)
-port with ROADMAP A.11, ``--tf-checkpoint`` and ``--bn-quirk`` with A.12.
+Multi-device and multi-host runs (``--devices`` > 1, ``--distributed``) are
+not ported yet (ROADMAP A.2 data parallel, A.5 multi-host).
 """
 
 from __future__ import annotations
@@ -111,7 +120,7 @@ def cmd_train(argv) -> int:
     p.add_argument("--info", type=str, default="")
     p.add_argument("--devices", type=int, default=-1,
                    help="data-parallel devices; more than one is not ported yet "
-                        "(ROADMAP A.11)")
+                        "(ROADMAP A.2)")
     p.add_argument("--sync-bn", type=parse_bool, default=False,
                    help="no effect: one device sees the whole batch")
     p.add_argument("--steps-per-call", type=int, default=1,
@@ -121,7 +130,7 @@ def cmd_train(argv) -> int:
                    help="coupled L2 on conv kernels")
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--distributed", type=parse_bool, default=False,
-                   help="multi-host training: not ported yet (ROADMAP A.11)")
+                   help="multi-host training: not ported yet (ROADMAP A.5)")
     p.add_argument("--coordinator", type=str, default=None)
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
@@ -139,7 +148,7 @@ def cmd_train(argv) -> int:
     args = p.parse_args(argv)
     if args.distributed:
         raise NotImplementedError("--distributed is not ported yet "
-                                  "(ROADMAP A.11, multi-device training)")
+                                  "(ROADMAP A.5, multi-host training)")
 
     from sap3d_tpu_torch.core.device import resolve_device
     from sap3d_tpu_torch.data.indexer import ClipIndex
@@ -201,6 +210,37 @@ def _model_weights(checkpoint: str, model_dir: str, device: str) -> dict:
     return torch.load(path, map_location=device, weights_only=True)
 
 
+def model_from_tf_variables(structure: str, tf_vars: dict, dtype: str,
+                            device: str):
+    """The ``structure`` model on ``device`` in ``dtype``, built with the
+    reference's inference (``bn_reference_quirk``) and carrying the weights
+    of an in-memory ``{TF name: array}`` dict (a reference TF1 checkpoint's
+    variables, optimizer slots and bookkeeping included): mapped by
+    ``interop/tf_import.py``, validated against the model, loaded strictly."""
+    from sap3d_tpu_torch.interop.tf_import import (
+        state_dict_from_tf_variables,
+        validate_against_model,
+    )
+    from sap3d_tpu_torch.models.registry import build_model, resolve_name
+
+    name = resolve_name(structure)
+    model = build_model(name, dtype=dtype, device=device, bn_reference_quirk=True)
+    state_dict = state_dict_from_tf_variables(name, tf_vars)
+    validate_against_model(state_dict, model)
+    model.load_state_dict(state_dict, strict=True)
+    return model
+
+
+def model_from_tf_checkpoint(structure: str, path: str, dtype: str, device: str):
+    """``model_from_tf_variables`` of the TF checkpoint at ``path`` (a
+    directory or a prefix), read without TensorFlow."""
+    from sap3d_tpu_torch.core.device import resolve_device
+    from sap3d_tpu_torch.interop.tf_import import load_tf_checkpoint
+
+    resolve_device(device)  # no card: raise before reading the checkpoint
+    return model_from_tf_variables(structure, load_tf_checkpoint(path), dtype, device)
+
+
 def cmd_predict(argv) -> int:
     p = argparse.ArgumentParser(prog="sap3d_tpu_torch predict")
     _add_common_model_flags(p)
@@ -210,7 +250,9 @@ def cmd_predict(argv) -> int:
                         "or a path")
     p.add_argument("--model-dir", type=str, default="./model")
     p.add_argument("--tf-checkpoint", type=str, default=None,
-                   help="not ported yet (ROADMAP A.12, TF interop)")
+                   help="a reference TF1 checkpoint (directory or prefix) of the "
+                        "--structure variant, run with the reference's inference "
+                        "(bottleneck BNs on batch statistics)")
     p.add_argument("--data", type=str, required=True, help="video frames root")
     p.add_argument("--out", type=str, required=True, help="output root")
     p.add_argument("--batch-windows", type=int, default=16,
@@ -220,22 +262,22 @@ def cmd_predict(argv) -> int:
     args = p.parse_args(argv)
     if (args.checkpoint is None) == (args.tf_checkpoint is None):
         p.error("exactly one of --checkpoint / --tf-checkpoint is required")
-    if args.tf_checkpoint is not None:
-        print("--tf-checkpoint is not ported yet (ROADMAP A.12, TF interop)",
-              file=sys.stderr)
-        return 2
 
     from sap3d_tpu_torch.infer.predictor import SlidingWindowPredictor
     from sap3d_tpu_torch.models.registry import build_model
     from sap3d_tpu_torch.train.steps import make_eval_step
 
-    model = build_model(args.structure, dtype=args.dtype, device=args.device)
     try:
-        weights = _model_weights(args.checkpoint, args.model_dir, args.device)
+        if args.tf_checkpoint is not None:
+            model = model_from_tf_checkpoint(args.structure, args.tf_checkpoint,
+                                             args.dtype, args.device)
+        else:
+            model = build_model(args.structure, dtype=args.dtype, device=args.device)
+            model.load_state_dict(_model_weights(args.checkpoint, args.model_dir,
+                                                 args.device), strict=True)
     except FileNotFoundError as e:
         print(e, file=sys.stderr)
         return 1
-    model.load_state_dict(weights, strict=True)
     with SlidingWindowPredictor(
         make_eval_step(model), batch_windows=args.batch_windows,
         image_size=args.imagesize, device=args.device,
@@ -269,21 +311,22 @@ def cmd_eval(argv) -> int:
                         "allowed: every match is evaluated in one invocation")
     p.add_argument("--model-dir", type=str, default="./model")
     p.add_argument("--tf-checkpoint", type=str, default=None,
-                   help="not ported yet (ROADMAP A.12, TF interop)")
+                   help="evaluate a reference TF1 checkpoint (directory or prefix) "
+                        "of the --structure variant first, as run 'tf:<path>'; "
+                        "implies --bn-quirk for it")
     p.add_argument("--bn-quirk", action="store_true",
-                   help="not ported yet (ROADMAP A.12, bn_reference_quirk)")
+                   help="the reference's inference: bottleneck BNs normalize with "
+                        "batch statistics (the reference never forwards its training "
+                        "flag into its bottlenecks, p3d.py:290-303)")
     p.add_argument("--devices", type=int, default=-1,
                    help="data-parallel devices; more than one is not ported yet "
-                        "(ROADMAP A.11)")
+                        "(ROADMAP A.2)")
     args = p.parse_args(argv)
-    if args.tf_checkpoint or args.bn_quirk:
-        raise NotImplementedError("--tf-checkpoint and --bn-quirk are not ported yet "
-                                  "(ROADMAP A.12, TF interop and bn_reference_quirk)")
     if args.devices > 1:
-        raise NotImplementedError("--devices > 1 is not ported yet (ROADMAP A.11, "
-                                  "multi-device evaluation)")
-    if not args.checkpoint:
-        p.error("--checkpoint is required")
+        raise NotImplementedError("--devices > 1 is not ported yet (ROADMAP A.2, "
+                                  "data-parallel evaluation)")
+    if not args.checkpoint and not args.tf_checkpoint:
+        p.error("one of --checkpoint / --tf-checkpoint is required")
 
     import glob as globlib
 
@@ -293,7 +336,7 @@ def cmd_eval(argv) -> int:
     from sap3d_tpu_torch.data.indexer import ClipIndex
     from sap3d_tpu_torch.data.pipeline import ClipLoader
     from sap3d_tpu_torch.eval.evaluator import evaluate_prediction_batches
-    from sap3d_tpu_torch.models.registry import build_model
+    from sap3d_tpu_torch.models.registry import build_model, resolve_name
     from sap3d_tpu_torch.train.steps import make_eval_step
 
     device = resolve_device(args.device)
@@ -312,20 +355,29 @@ def cmd_eval(argv) -> int:
     for pat in args.checkpoint:
         matches = sorted(globlib.glob(os.path.join(args.model_dir, pat)))
         runs += [os.path.basename(m) for m in matches] if matches else [pat]
-    runs = list(dict.fromkeys(runs))
+    # (run name, TF checkpoint or None); a TF checkpoint's run goes first
+    runs = [(run, None) for run in dict.fromkeys(runs)]
+    if args.tf_checkpoint is not None:
+        runs.insert(0, ("tf:" + args.tf_checkpoint, args.tf_checkpoint))
 
     results: dict[str, dict] = {}
     failures = 0
-    for run in runs:
-        structure = infer_structure_from_run_name(run) or args.structure
-        model = build_model(structure, dtype=args.dtype, device=device)
+    for run, tf_path in runs:
         try:
-            weights = _model_weights(run, args.model_dir, device)
+            if tf_path is not None:
+                structure = resolve_name(args.structure)
+                model = model_from_tf_checkpoint(structure, tf_path, args.dtype, device)
+            else:
+                structure = infer_structure_from_run_name(run) or args.structure
+                model = build_model(structure, dtype=args.dtype, device=device,
+                                    bn_reference_quirk=args.bn_quirk)
+                model.load_state_dict(_model_weights(run, args.model_dir, device),
+                                      strict=True)
         except FileNotFoundError as e:
-            print(f"no checkpoint found under {args.model_dir}/{run}: {e}", file=sys.stderr)
+            print(f"no checkpoint found under {args.model_dir}/{run}: {e}"
+                  if tf_path is None else e, file=sys.stderr)
             failures += 1
             continue
-        model.load_state_dict(weights, strict=True)
         ev = make_eval_step(model)
         loader = ClipLoader(idx.valid_clips(with_fixations=True), args.batch,
                             size=data.image_size, num_threads=data.num_threads,

@@ -9,7 +9,7 @@ card (or on the CPU, as the tests run it) run every hop of the ring for
 real, the rotation between two shards on the same device being a no-op.
 
 The data mesh, ``shard_batch`` and the multi-host set-up are not ported
-(ROADMAP A.11).
+(ROADMAP A.2 data parallel, A.5 multi-host).
 """
 
 from __future__ import annotations

@@ -6,7 +6,8 @@ residual in the GN family), ``P3DEncoder``, the six decoders (``UNetDecoder``,
 head 'ds' / 'full', ``GNEasyDecoder``, ``GNSAConcat2Decoder``,
 ``GNDecoderBlock``) and ``P3DSaliency``, in eval and train mode
 (``model.train()``: batch statistics in every BN, dropout where the decoder
-has it).  The bottleneck BN quirk ports with the TF importer (ROADMAP A.12).
+has it).  ``bn_reference_quirk`` gives the reference's inference: its
+bottleneck BNs normalize with batch statistics in eval mode too.
 
 The module tree mirrors the flax variable tree (``encoder/stage1_block0/
 reduce``, ``decoder/x_3_1/Conv_0``, ``decoder/x_1_3_sa/f``, ...), so weights
@@ -51,29 +52,40 @@ class Bottleneck(nn.Module):
     ST_{A|B|C} -> 1x1x1 expand x4 -> norm; residual optionally projected by
     a strided 1x1x1 conv + norm, and with ``use_cbam`` (the GN family) passed
     through CBAM, projected or not; add -> relu.  The 1x1x1 convs have no
-    bias, the spatial/temporal convs do."""
+    bias, the spatial/temporal convs do.
+
+    ``bn_reference_quirk`` (BN only; GN ignores it): every norm of the block
+    normalizes with batch statistics in eval mode too, and the running
+    statistics stay where they are.  The reference never forwards its
+    training flag into its bottlenecks (reference p3d.py:141,148,290-303),
+    so its inference does this; the maps of its TF checkpoints need it."""
 
     def __init__(self, in_features: int, planes: int, st_type: str,
                  spatial_stride: int = 1, project: bool = False,
                  norm_mode: str = "bn", use_cbam: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, bn_reference_quirk: bool = False):
         super().__init__()
         if st_type not in ("A", "B", "C"):
             raise ValueError(f"bad st_type {st_type!r}")
         p, s = planes, spatial_stride
+        quirk = bn_reference_quirk and norm_mode == "bn"
+
+        def norm(features):
+            return Norm(norm_mode, features, dtype, batch_stats_at_eval=quirk)
+
         self.st_type = st_type
         self.reduce = Conv3d(in_features, p, 1, (1, s, s), use_bias=False, dtype=dtype)
-        self.reduce_norm = Norm(norm_mode, p, dtype)
+        self.reduce_norm = norm(p)
         self.conv_s = Conv3d(p, p, (1, 3, 3), dtype=dtype)
         self.conv_t = Conv3d(p, p, (3, 1, 1), dtype=dtype)
-        self.s_norm = Norm(norm_mode, p, dtype)
-        self.t_norm = Norm(norm_mode, p, dtype)
+        self.s_norm = norm(p)
+        self.t_norm = norm(p)
         self.expand = Conv3d(p, p * BLOCK_EXPANSION, 1, use_bias=False, dtype=dtype)
-        self.expand_norm = Norm(norm_mode, p * BLOCK_EXPANSION, dtype)
+        self.expand_norm = norm(p * BLOCK_EXPANSION)
         if project:
             self.proj = Conv3d(in_features, p * BLOCK_EXPANSION, 1, (1, s, s),
                                use_bias=False, dtype=dtype)
-            self.proj_norm = Norm(norm_mode, p * BLOCK_EXPANSION, dtype)
+            self.proj_norm = norm(p * BLOCK_EXPANSION)
         else:
             self.proj = None
         self.cbam = CBAM(p * BLOCK_EXPANSION, dtype=dtype) if use_cbam else None
@@ -98,11 +110,13 @@ class Bottleneck(nn.Module):
 
 class P3DEncoder(nn.Module):
     """Shared bottleneck encoder; returns the skip features by name
-    (conv1, x_1_0, pool1, res1..3, pool2..4), NCDHW."""
+    (conv1, x_1_0, pool1, res1..3, pool2..4), NCDHW.  ``bn_reference_quirk``
+    reaches the bottlenecks; the stem's norm honours eval mode."""
 
     def __init__(self, norm_mode: str = "bn", dtype: torch.dtype = torch.float32,
                  stages: tuple = _STAGES, stem_features: int = 64,
-                 in_features: int = 3, use_cbam: bool = False):
+                 in_features: int = 3, use_cbam: bool = False,
+                 bn_reference_quirk: bool = False):
         super().__init__()
         self.stem = Conv3d(in_features, stem_features, (1, 7, 7), (1, 2, 2),
                            use_bias=False, dtype=dtype)
@@ -119,6 +133,7 @@ class P3DEncoder(nn.Module):
                     # stage entry downsamples spatially except stage 1
                     spatial_stride=2 if (first and n_s != 0) else 1,
                     project=first, norm_mode=norm_mode, use_cbam=use_cbam, dtype=dtype,
+                    bn_reference_quirk=bn_reference_quirk,
                 ))
                 names.append(name)
                 ch = planes * BLOCK_EXPANSION
@@ -457,19 +472,25 @@ class P3DSaliency(nn.Module):
     generator of the device when None).  ``ring_mesh`` (a
     ``core/mesh.make_time_mesh`` mesh) reaches the UNet++ decoder's
     self-attention sites alone; the other decoders ignore it, as in the JAX
-    package.  The parameters are the same with and without it."""
+    package.  The parameters are the same with and without it, and with and
+    without ``bn_reference_quirk`` (``Bottleneck``: the bottleneck BNs on
+    batch statistics in eval mode, the stem and decoder BNs on their running
+    statistics)."""
 
     def __init__(self, decoder: str = "unetpp", decoder_kwargs: dict | None = None,
                  norm_mode: str = "bn", backbone_cbam: bool = False,
                  dtype: torch.dtype = torch.float32,
                  stages: tuple = _STAGES, stem_features: int = 64,
-                 dropout_rate: float = 0.5, ring_mesh=None):
+                 dropout_rate: float = 0.5, ring_mesh=None,
+                 bn_reference_quirk: bool = False):
         super().__init__()
         if decoder not in _DECODERS:
             raise ValueError(f"unknown decoder {decoder!r}; known: {sorted(_DECODERS)}")
         self.dtype = dtype
+        self.bn_reference_quirk = bn_reference_quirk
         self.encoder = P3DEncoder(norm_mode, dtype, stages, stem_features,
-                                  use_cbam=backbone_cbam)
+                                  use_cbam=backbone_cbam,
+                                  bn_reference_quirk=bn_reference_quirk)
         skips = (stem_features,) + tuple(p * BLOCK_EXPANSION for p, _ in stages)
         extra = {"ring_mesh": ring_mesh} if ring_mesh is not None and decoder == "unetpp" else {}
         self.decoder = _DECODERS[decoder](skips, **(decoder_kwargs or {}),

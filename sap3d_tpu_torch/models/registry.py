@@ -136,19 +136,23 @@ def resolve_name(name: str) -> str:
 
 def build_model(name: str, dtype: str | torch.dtype | None = None,
                 device: str | torch.device = DEFAULT_DEVICE,
-                seed: int = 0, dropout_rate: float = 0.5, ring_mesh=None) -> P3DSaliency:
+                seed: int = 0, dropout_rate: float = 0.5, ring_mesh=None,
+                bn_reference_quirk: bool = False) -> P3DSaliency:
     """The named model in eval mode on ``device``, its parameters made from
     ``seed`` (Glorot-uniform conv kernels, variance-scaling CBAM kernels,
     zero biases, unit norm scales and BN statistics, ``gamma`` = 0, as the
     flax init); ``dropout_rate`` applies in train mode.  ``ring_mesh`` (a
     ``core/mesh.make_time_mesh`` mesh) turns the UNet++ SA decoders'
     attention sites into rings (``ops/ring_attention.py``); the parameters
-    are the same with and without it."""
+    are the same with and without it.  ``bn_reference_quirk=True`` gives
+    the reference's inference, which the maps of its TF checkpoints need:
+    the bottleneck BNs normalize with batch statistics in eval mode too
+    (``models/p3d.py:Bottleneck``; BN models only)."""
     name = resolve_name(name)
     dev = resolve_device(device)
     cfg = dict(MODEL_REGISTRY[name])
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = P3DSaliency(**cfg, dtype=resolve_dtype(dtype), dropout_rate=dropout_rate,
-                            ring_mesh=ring_mesh)
+                            ring_mesh=ring_mesh, bn_reference_quirk=bn_reference_quirk)
     return model.to(dev).eval()

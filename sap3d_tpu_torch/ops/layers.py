@@ -195,14 +195,22 @@ class BatchNorm(nn.Module):
 
     Both modes are one batch-norm call on the input in the compute dtype
     with float32 statistics and affine parameters: PyTorch normalizes such
-    mixed inputs in float32 and returns the compute dtype, as flax does."""
+    mixed inputs in float32 and returns the compute dtype, as flax does.
+
+    With ``batch_stats_at_eval`` eval mode normalizes as train mode does,
+    with the batch mean and biased variance, and leaves the running
+    statistics where they are: the reference's bottleneck BNs at inference
+    (``models/p3d.py:Bottleneck``, ``bn_reference_quirk``), whose statistics
+    update the JAX eval step discards."""
 
     eps = 1e-3
     momentum = 0.99  # flax convention: running = m * running + (1 - m) * batch
 
-    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32,
+                 batch_stats_at_eval: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.batch_stats_at_eval = batch_stats_at_eval
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -210,11 +218,13 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
-        if not self.training:
+        if not self.training and not self.batch_stats_at_eval:
             return F.batch_norm(x, self.mean, self.var, self.scale, self.bias,
                                 False, 0.0, self.eps)
         y, mean, invstd = torch.native_batch_norm(x, self.scale, self.bias, None, None,
                                                   True, 0.0, self.eps)
+        if not self.training:
+            return y
         with torch.no_grad():
             var = (invstd.float().square().reciprocal() - self.eps).clamp_min(0.0)
             self.mean.mul_(self.momentum).add_(mean.float(), alpha=1.0 - self.momentum)
@@ -240,13 +250,15 @@ class GroupNorm(nn.Module):
 
 
 class Norm(nn.Module):
-    """Dispatch BatchNorm / GroupNorm / identity (``sap3d_tpu`` ``Norm``)."""
+    """Dispatch BatchNorm / GroupNorm / identity (``sap3d_tpu`` ``Norm``);
+    ``batch_stats_at_eval`` reaches the BatchNorm alone."""
 
-    def __init__(self, mode: str, features: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, mode: str, features: int, dtype: torch.dtype = torch.float32,
+                 batch_stats_at_eval: bool = False):
         super().__init__()
         self.mode = mode
         if mode == "bn":
-            self.BatchNorm_0 = BatchNorm(features, dtype)
+            self.BatchNorm_0 = BatchNorm(features, dtype, batch_stats_at_eval)
         elif mode == "gn":
             self.GroupNorm_0 = GroupNorm(features, dtype)
         elif mode != "none":

@@ -4,11 +4,13 @@ Counterpart of ``sap3d_tpu/train/inspect_ckpt.py`` for the port's
 checkpoints (``train/checkpoint.py``: a run directory's latest
 ``ckpt_<step>.pt``, or a weights file, ``torch.save`` of a model's
 ``state_dict``): the name, shape and dtype of every tensor of the model whose
-name holds the filter, and the totals.  The reference prints the conv
-variables of a TF checkpoint (reference utils/test_model.py:17-27); reading
-a TF checkpoint waits for the TF importer (ROADMAP A.12).
+name holds the filter, and the totals.  With ``--tf``, the name and shape
+of every variable of a TF checkpoint (a directory or a prefix, read without
+TensorFlow by ``interop/tf_bundle.py``), sorted: the reference's own view,
+which filters for 'conv' (reference utils/test_model.py:17-27).
 
     python -m sap3d_tpu_torch.train.inspect_ckpt <run dir | weights.pt> [filter]
+    python -m sap3d_tpu_torch.train.inspect_ckpt --tf <TF checkpoint> [filter]
 """
 
 from __future__ import annotations
@@ -36,10 +38,15 @@ def inspect(path: str, name_filter: str = "") -> list[tuple[str, tuple, str]]:
             for name, t in weights.items() if name_filter in name]
 
 
-def inspect_tf(ckpt_path: str, name_filter: str = "") -> list[tuple[str, tuple, str]]:
-    """The same view of a reference TF1 Saver checkpoint: not ported."""
-    raise NotImplementedError("reading a TF checkpoint is not ported yet (ROADMAP A.12, "
-                              "interop/tf_import.py)")
+def inspect_tf(ckpt_path: str, name_filter: str = "") -> list[tuple[str, tuple]]:
+    """[(name, shape)] of every variable of the TF checkpoint at
+    ``ckpt_path`` whose name holds ``name_filter``, sorted (the JAX
+    package's rows)."""
+    from sap3d_tpu_torch.interop.tf_import import load_tf_checkpoint
+
+    return sorted((name, tuple(np.shape(arr)))
+                  for name, arr in load_tf_checkpoint(ckpt_path).items()
+                  if name_filter in name)
 
 
 def main(argv=None) -> int:
@@ -52,8 +59,8 @@ def main(argv=None) -> int:
     name_filter = argv[1] if len(argv) > 1 else ""
     rows = (inspect_tf if tf_mode else inspect)(argv[0], name_filter)
     total = 0
-    for name, shape, dtype in rows:
-        print(f"{name}  {shape}  {dtype}")
+    for name, shape, *dtype in rows:
+        print("  ".join([name, str(shape), *dtype]))
         total += int(np.prod(shape)) if shape else 1
     print(f"-- {len(rows)} tensors, {total / 1e6:.2f}M values")
     return 0

@@ -57,6 +57,9 @@ def make_train_step(state: TrainState
 
 
 def make_eval_step(model: nn.Module) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The eval-mode forward.  A model built with ``bn_reference_quirk``
+    normalizes its bottlenecks with batch statistics and leaves every buffer
+    as it was: the JAX eval step computes that update and discards it."""
 
     def step(frames: torch.Tensor) -> torch.Tensor:
         model.eval()

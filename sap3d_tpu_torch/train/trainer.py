@@ -24,11 +24,11 @@ checkpoints.  Counterpart of ``sap3d_tpu/train/trainer.py`` on one device
   as rings over it (``ops/ring_attention.py``); other decoders have no ring
   sites.  The other layers run unsharded on the trainer's device: the JAX
   package's GSPMD time-sharding of convolutions is not ported (ROADMAP
-  A.11).  On CUDA the mesh holds the visible cards; on the CPU it names the
+  A.6).  On CUDA the mesh holds the visible cards; on the CPU it names the
   CPU N times (the counterpart of the JAX tests' virtual devices).
 
-Not ported yet (ROADMAP A.11): a data mesh of more than one device,
-multi-host training and profiler traces; the constructor raises
+Not ported yet: a data mesh of more than one device (ROADMAP A.2),
+multi-host training (A.5) and profiler traces (A.8); the constructor raises
 ``NotImplementedError`` for them.
 """
 
@@ -53,8 +53,6 @@ from sap3d_tpu_torch.train.state import create_train_state
 from sap3d_tpu_torch.train.steps import make_eval_step, make_train_step
 from sap3d_tpu_torch.train.tb_events import EventWriter
 
-_A11 = "is not ported yet (ROADMAP A.11, multi-device training)"
-
 
 def run_name(cfg: Config) -> str:
     """<model>_<batch>_<lr>_<info>_<date>."""
@@ -67,9 +65,11 @@ class Trainer:
                  device: str | torch.device = DEFAULT_DEVICE):
         tc = cfg.train
         if tc.num_devices > 1:
-            raise NotImplementedError(f"a data mesh of {tc.num_devices} devices {_A11}")
+            raise NotImplementedError(f"a data mesh of {tc.num_devices} devices is not "
+                                      "ported yet (ROADMAP A.2, data parallel)")
         if tc.profile_dir:
-            raise NotImplementedError(f"profile_dir {_A11}")
+            raise NotImplementedError("profile_dir is not ported yet (ROADMAP A.8, "
+                                      "profiler traces)")
         self.device = resolve_device(device)
         self.time_mesh = self._time_mesh(cfg)
         self.cfg = cfg

@@ -1,8 +1,8 @@
 """The port stands alone and runs where it is told to.
 
 * Importing every module of ``sap3d_tpu_torch`` in a fresh interpreter puts
-  no ``jax``, ``flax`` or ``sap3d_tpu`` into ``sys.modules``: the GPU host
-  has none of them.
+  no ``jax``, ``flax``, ``sap3d_tpu``, ``tensorflow``, ``tf_keras`` or
+  ``google.protobuf`` into ``sys.modules``: the GPU host has none of them.
 * ``chip_smoke.py`` imports nothing of JAX or the JAX package, and on a host
   without a GPU it exits non-zero and prints no result line.
 * Every entry point's default device is CUDA, and on this GPU-less host it
@@ -29,7 +29,12 @@ from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
 from sap3d_tpu_torch.ops.cuda import flash_attention_nolse as nolse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sap3d_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sap3d_tpu", "tensorflow",
+             "tf_keras", "google.protobuf")
+
+
+def forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
 
 
 def _all_modules():
@@ -51,13 +56,15 @@ def test_port_imports_nothing_of_jax():
     assert "sap3d_tpu_torch.ops.ring_attention" in mods
     assert "sap3d_tpu_torch.core.mesh" in mods
     for new in ("ops.cuda.flash_attention_nolse", "scripts.bisect_infer", "eval.metrics_np",
-                "eval.evaluator", "infer.video", "train.inspect_ckpt"):
+                "eval.evaluator", "infer.video", "train.inspect_ckpt", "interop.tf_bundle",
+                "interop.tf_import"):
         assert f"sap3d_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        f"bad = sorted(m for m in sys.modules if any(m == f or m.startswith(f + '.') "
+        f"for f in {FORBIDDEN!r}))\n"
         "print(repr(bad))\n"
     )
     res = _run(code)
@@ -82,7 +89,7 @@ def test_port_sources_name_no_jax_import():
             else:
                 continue
             for name in names:
-                assert name.split(".")[0] not in FORBIDDEN, f"{path}: import {name}"
+                assert not forbidden(name), f"{path}: import {name}"
 
 
 def test_chip_smoke_fails_without_a_gpu_and_imports_no_jax():
@@ -93,7 +100,8 @@ def test_chip_smoke_fails_without_a_gpu_and_imports_no_jax():
         "    code = 0\n"
         "except SystemExit as e:\n"
         "    code = e.code\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        f"bad = sorted(m for m in sys.modules if any(m == f or m.startswith(f + '.') "
+        f"for f in {FORBIDDEN!r}))\n"
         "print('EXIT', code, repr(bad))\n"
     )
     res = _run(code)

@@ -133,7 +133,8 @@ def test_trainer_raises_on_paths_not_ported(tmp_path, field, value):
     cfg = Config(model=ModelConfig(name="p3d_micro"),
                  train=TrainConfig(model_dir=str(tmp_path), logs_dir=str(tmp_path),
                                    **{field: value}))
-    with pytest.raises(NotImplementedError, match="A.11"):
+    roadmap = {"num_devices": "A.2", "profile_dir": "A.8"}[field]
+    with pytest.raises(NotImplementedError, match=roadmap):
         Trainer(cfg, device="cpu")
 
 
