@@ -150,7 +150,30 @@ result line):
      launches, the plain route, every buffer unchanged, the maps without the
      quirk different, seconds per video with and without it) and one fp32
      eval step (the split-bf16 B1, ``cli eval``'s dtype);
- 13. a JSON line of per-kernel numbers (B1-B4 also in fp32, the split-bf16
+ 13. data parallel (``core/mesh.launch``): two ranks on cuda:0 over gloo
+     (and, with two cards or more, two ranks on two cards over NCCL), one
+     process each, the calibrated flagship:
+     (a) one float64 step (the plain path) at a global batch of 4 against
+     the one-process step (dropout 0, cuDNN's deterministic algorithms):
+     the loss, the whole summed gradient and every BN buffer under
+     ``DP_TOL``, also on halves that differ, two one-process runs read as
+     the floor, averaged gradients and per-rank BN statistics failing; one
+     fp32 step at a global batch of 16 (the kernels: 3 B2 + 3 B3 launches
+     per rank, no B1), each B2 and B3 call held on each rank's tensors
+     against its plain version, its distance from one process read;
+     (b) Trainer.fit in bf16 at a global batch of 16, 3 steps, a validation
+     pass and checkpoints: finite global losses, one metrics.jsonl and the
+     checkpoints written by rank 0, parameters and buffers bit-identical
+     across ranks (integer checksums over all_reduce), a restore into a
+     fresh data-parallel trainer;
+     (c) cli eval's data-parallel route (``cli._evaluate_runs``) with
+     --bn-quirk in fp32 on a 40-frame synthetic JPEG video: the five means
+     against the one-device route under ``DP_EVAL_TOL``, which the route
+     with per-rank statistics fails; B1 launches on each rank;
+     (d) printed, not held: all-reduces counted in one bf16 step (2 per BN
+     layer, one per gradient bucket, the loss) and ms per step; gloo on
+     one card goes through the host, so these measure the mechanism;
+ 14. a JSON line of per-kernel numbers (B1-B4 also in fp32, the split-bf16
      instantiations), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -2988,6 +3011,493 @@ def phase_tf_quirk(torch, fa, model, calibrated, card):
                 eval_step_ms=step_ms)
 
 
+# ---- phase 13: data parallel over a data mesh (core/mesh.launch) -------------
+
+# (a) one step at a global batch of 16 in fp32 (8 rows a rank) and of 4 in
+# float64 (2 rows a rank); (b) Trainer.fit in bf16 at a global batch of 16;
+# (c) cli eval's route at 4 clips a batch
+DP_STEP_BATCH = {"float32": 16, "float64": 4}
+DP_FIT_BATCH = 16
+DP_EVAL_BATCH = 4
+DP_EVAL_FRAMES = 40           # one synthetic JPEG video: 14 clips, 3 batches of 4
+DP_TIMED_STEPS = 5
+# (a)'s limits of the float64 data-parallel step (the plain path: no kernel
+# takes float64) against the one-process step at the global batch of 4
+# (dropout 0, cuDNN's deterministic algorithms): the loss (relative), the
+# whole summed gradient (relative L2), each BN buffer (largest |difference|
+# over the tensor's largest value).  The two differ in summation order only
+# (the ranks' BN statistics are flax's sums of x and x^2, one process takes
+# the batch-norm call's; each rank convolves its own rows; the gradient is
+# summed over ranks) and in the head's float32 output, whose rounding flips
+# where the sums differ: the gradient read 1.1e-6 on an H100 (PERF.md, PR
+# 11).  Averaged gradients, and per-rank BN statistics on halves that
+# differ (rank 1's frames x3 + 1), must fail.  The same comparison in fp32
+# is read, not held: the random 47-block network in train mode carries a
+# forward difference at float32 rounding to an O(1) change of the gradient
+# (the data-parallel fp32 gradient read 1.28 from one process's at a batch
+# of 16, the one-process fp32 gradient 0.82 from the float64 one at 4, two
+# one-process runs 6e-6 apart).  The fp32 step holds instead each B2 and B3
+# call on each rank's own tensors against the plain versions, as phase 6(b).
+DP_TOL = {"loss": 1e-7, "grad": 1e-4, "buffer": 1e-7}
+# (c)'s limit on the five means of cli eval's data-parallel route against the
+# one-device route (|difference| scaled as phase 11's): the quirk's statistics
+# over 4 clips are summed in another order on each route, and the forward
+# carries that into the maps: 1.09e-3 read on an H100 (AUC-Borji), where the
+# route with per-rank statistics read 7.46e-3 (CC).
+DP_EVAL_TOL = 3e-3
+
+
+def dp_site_name(names: dict, q, k, v) -> str:
+    """A site's name from its (Nq, Nk, d, C), or the shape itself."""
+    shape = (q.shape[1], k.shape[1], q.shape[2], v.shape[2])
+    return names.get(shape, "x".join(map(str, shape)))
+
+
+def dp_flat_grad(torch, model):
+    return torch.cat([p.grad.flatten() for p in model.parameters()])
+
+
+def dp_bn_buffers(model) -> dict:
+    from sap3d_tpu_torch.ops.layers import BatchNorm
+
+    return {f"{n}.{b}": getattr(m, b).detach().clone()
+            for n, m in model.named_modules() if isinstance(m, BatchNorm)
+            for b in ("mean", "var")}
+
+
+def dp_state_checksum(torch, group, model) -> tuple[bool, list[int]]:
+    """Two integer sums of the bits of every parameter and buffer (plain,
+    and weighted by position), all-reduced: equal to the world size times
+    this rank's own on every rank exactly when the ranks agree bit for bit.
+    Returns (agree, this rank's sums)."""
+    sums = []
+    for t in model.state_dict().values():
+        bits = t.detach().contiguous().flatten()
+        bits = bits.view({4: torch.int32, 2: torch.int16}[bits.element_size()]).to(torch.int64)
+        weight = torch.arange(bits.numel(), device=bits.device) % 8191 + 1
+        sums += [bits.sum(), (bits * weight).sum()]
+    own = torch.stack(sums)
+    total = group.all_reduce(own.clone())
+    return bool(torch.equal(total, own * group.world_size)), own.tolist()
+
+
+@contextlib.contextmanager
+def counted_all_reduces(counts: list):
+    """Count ``torch.distributed.all_reduce`` calls (the DataGroup's) into
+    ``counts[0]`` for the duration."""
+    import torch.distributed as dist
+
+    orig = dist.all_reduce
+
+    def counting(*args, **kwargs):
+        counts[0] += 1
+        return orig(*args, **kwargs)
+
+    dist.all_reduce = counting
+    try:
+        yield
+    finally:
+        dist.all_reduce = orig
+
+
+def dp_rank(group, spec: dict) -> dict:
+    """One rank of phase 13 (the spec names the model, the files the parent
+    wrote and the sizes).  (a) the fp32 data-parallel step, on rank 0 beside
+    the one-process step at the global batch; (b) Trainer.fit in bf16, the
+    bit-identity of the ranks and a restore; (d) collectives and ms per
+    step; (c) cli eval's data-parallel route, rank 0 beside the
+    one-device route."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    from sap3d_tpu_torch import cli
+    from sap3d_tpu_torch.core.config import Config, DataConfig, ModelConfig, TrainConfig
+    from sap3d_tpu_torch.models.registry import build_model
+    from sap3d_tpu_torch.ops.cuda import flash_attention as fa
+    from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
+    from sap3d_tpu_torch.ops.layers import BatchNorm, set_data_group
+    from sap3d_tpu_torch.train.checkpoint import checkpoint_steps
+    from sap3d_tpu_torch.train.state import create_train_state
+    from sap3d_tpu_torch.train.steps import gradient_buckets, make_train_step
+    from sap3d_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, main = group.device, group.is_main
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    out = {"rank": group.rank, "device": str(dev), "backend": group.backend}
+    weights = torch.load(spec["weights"], map_location=dev, weights_only=True)
+    data = np.load(spec["inputs"])
+    frames, targets, skewed = data["frames"], data["targets"], data["skewed"]
+
+    # (a) one step in fp32 and in float64: data parallel, and on rank 0 one
+    # process at the global batch
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+
+    def step_once(dtype, x, parallel=True, global_bn=True):
+        m = build_model(spec["model"], dtype=dtype, device=dev, dropout_rate=0.0)
+        m.load_state_dict(weights)
+        if dtype == torch.float64:
+            m.double()
+        step = make_train_step(create_train_state(m, lr=1e-4), group if parallel else None)
+        if not global_bn:
+            set_data_group(m, None)
+        b = x.shape[0] // group.world_size if parallel else x.shape[0]
+        rows = slice(group.rank * b, (group.rank + 1) * b) if parallel else slice(None)
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a[rows])).to(dev, dtype)
+
+        _zero_launch_counts(fa, fb)
+        loss = step(put(x), put(targets[:x.shape[0]]))
+        sync()
+        res = dict(loss=loss.item(), grad=dp_flat_grad(torch, m), buffers=dp_bn_buffers(m),
+                   launches=_launch_counts(fa, fb))
+        del m
+        return res
+
+    def rel(a, b_):
+        return (a.double() - b_.double()).norm().item() / b_.double().norm().item()
+
+    def buffer_excess(got, want):
+        return max(((got[k].double() - w.double()).abs().max() / w.double().abs().max()).item()
+                   for k, w in want.items())
+
+    def compare(dp, ref):
+        return dict(loss=dp["loss"], one_process_loss=ref["loss"],
+                    loss_rel=abs(dp["loss"] - ref["loss"]) / abs(ref["loss"]),
+                    grad_rel_l2=rel(dp["grad"], ref["grad"]),
+                    buffer_excess=buffer_excess(dp["buffers"], ref["buffers"]),
+                    control_averaged_grad_rel_l2=rel(dp["grad"] / group.world_size,
+                                                     ref["grad"]))
+
+    f32 = frames[:spec["step_batch"]["float32"]]
+    f64 = frames[:spec["step_batch"]["float64"]]
+    calls = {"B2": [], "B3": []}
+
+    def spy_forward(q, k, v):
+        o, lse = fa.flash_forward_lse(q, k, v)
+        calls["B2"].append((q, k, v, o, lse))
+        return o, lse
+
+    def spy_backward(q, k, v, o, lse, do):
+        out = fb.flash_backward(q, k, v, o, lse, do)
+        calls["B3"].append((q, k, v, o, lse, do, out))
+        return out
+
+    with function_calls(spy_forward, spy_backward):
+        dp32 = step_once(torch.float32, f32)
+    out["step_launches"] = dp32["launches"]
+    # each rank in turn holds its step's kernel calls on its own tensors
+    names = {shape: name for name, shape in SITES.items()}
+    held = {}
+    for r in range(group.world_size):
+        if r == group.rank:
+            for q, k, v, o, lse in calls["B2"]:
+                site = dp_site_name(names, q, k, v)
+                held[f"B2 {site}"] = check_b2(
+                    fa, f"{site} fp32 (rank {r} of the data-parallel step)",
+                    q, k, v, o, lse)["max_abs_err"]
+            for q, k, v, o, lse, do, got in calls["B3"]:
+                site = dp_site_name(names, q, k, v)
+                held[f"B3 {site}"] = check_b3(
+                    fb, f"{site} fp32 (rank {r} of the data-parallel step)",
+                    q, k, v, o, lse, do, got)["max_abs_err"]
+            calls.clear()
+            if on_card:
+                torch.cuda.empty_cache()
+        group.barrier()
+    out["held"] = held
+    dp64 = step_once(torch.float64, f64)
+    dp64_skewed = step_once(torch.float64, skewed)
+    per_rank_bn = step_once(torch.float64, skewed, global_bn=False)
+    if main:
+        ones = [step_once(torch.float32, f32, parallel=False) for _ in range(2)]
+        out["a32"] = dict(compare(dp32, ones[0]), floor_grad_rel_l2=rel(ones[1]["grad"],
+                                                                        ones[0]["grad"]),
+                          one_process_launches=ones[0]["launches"])
+        del ones
+        ones = [step_once(torch.float64, f64, parallel=False) for _ in range(2)]
+        one_skewed = step_once(torch.float64, skewed, parallel=False)
+        one32_small = step_once(torch.float32, f64, parallel=False)
+        skew = compare(dp64_skewed, one_skewed)
+        out["a64"] = dict(
+            compare(dp64, ones[0]), floor_grad_rel_l2=rel(ones[1]["grad"], ones[0]["grad"]),
+            skewed_grad_rel_l2=skew["grad_rel_l2"], skewed_loss_rel=skew["loss_rel"],
+            skewed_buffer_excess=skew["buffer_excess"],
+            control_per_rank_bn_grad_rel_l2=rel(per_rank_bn["grad"], one_skewed["grad"]),
+            fp32_one_process_vs_float64=rel(one32_small["grad"], ones[0]["grad"]))
+        del ones, one_skewed, one32_small
+    del dp32, dp64, dp64_skewed, per_rank_bn
+    torch.backends.cudnn.deterministic = False
+    group.barrier()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (b) Trainer.fit in bf16, 3 steps, a validation pass and checkpoints
+    rng = np.random.default_rng(SEED + 30)
+    shape = (spec["fit_batch"], 16, spec["size"], spec["size"], 3)
+
+    def global_batch():
+        return ((rng.normal(size=shape) * 0.3).astype(np.float32),
+                rng.uniform(size=shape[:4]).astype(np.float32))
+
+    train = [global_batch() for _ in range(TRAIN_STEPS)]
+    valid = [global_batch()]
+    fit_rows = slice(group.rank * shape[0] // group.world_size,
+                    (group.rank + 1) * shape[0] // group.world_size)
+    mine = [(f[fit_rows], t[fit_rows]) for f, t in train]
+    mine_valid = [(f[fit_rows], t[fit_rows]) for f, t in valid]
+    cfg = Config(model=ModelConfig(name=spec["model"], dtype="bfloat16", dropout=0.5),
+                 train=TrainConfig(batch_size=shape[0], lr=1e-4, valid_iter=2, save_iter=2,
+                                   max_steps=TRAIN_STEPS, seed=SEED, info="smoke_dp",
+                                   num_devices=group.world_size,
+                                   model_dir=os.path.join(spec["root"], "model"),
+                                   logs_dir=os.path.join(spec["root"], "logs")))
+    trainer = Trainer(cfg, run="smoke_dp", group=group)
+    trainer.model.load_state_dict(weights)  # calibrated BN, gamma; the same on every rank
+    _zero_launch_counts(fa, fb)
+    t0 = time.perf_counter()
+    trainer.fit(iter(mine), lambda: iter(mine_valid))
+    if main:
+        trainer.ckpt.wait_until_finished()
+    sync()
+    group.barrier()
+    fit_s = time.perf_counter() - t0
+    fit_launches = _launch_counts(fa, fb)
+    agree, sums = dp_state_checksum(torch, group, trainer.model)
+    final = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    trainer.close()
+    del trainer
+    resumed = Trainer(cfg.replace(train=dataclasses.replace(cfg.train, pretrain="smoke_dp",
+                                                            max_steps=TRAIN_STEPS + 1)),
+                      run="smoke_dp", group=group)
+    restored = resumed.state.step == TRAIN_STEPS and all(
+        torch.equal(resumed.model.state_dict()[k], v) for k, v in final.items())
+    out["b"] = dict(seconds=fit_s, launches=fit_launches, checksums_agree=agree,
+                    checksums=sums, restored=restored,
+                    checkpoints=checkpoint_steps(resumed.model_dir) if main else None)
+    del final
+
+    # (d) collectives per step and ms per step (bf16, this rank's rows)
+    f, t = (torch.from_numpy(a).to(dev) for a in mine[0])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    resumed.train_step(f, t, gen)
+    counts, ran = [0], []
+    hooks = [m.register_forward_hook(lambda mod, i, o: ran.append(mod))
+             for m in resumed.model.modules() if isinstance(m, BatchNorm)]
+    with counted_all_reduces(counts):
+        resumed.train_step(f, t, gen)
+        sync()
+    for h in hooks:
+        h.remove()
+    times = []
+    for _ in range(DP_TIMED_STEPS):
+        group.barrier()
+        t0 = time.perf_counter()
+        resumed.train_step(f, t, gen)
+        sync()
+        times.append(time.perf_counter() - t0)
+    out["d"] = dict(all_reduces=counts[0], bn_layers=len(ran),
+                    bn_modules=sum(isinstance(m, BatchNorm) for m in resumed.model.modules()),
+                    gradient_buckets=len(gradient_buckets(resumed.model.parameters())),
+                    parameters=sum(p.numel() for p in resumed.model.parameters()),
+                    step_ms=[1e3 * s for s in times])
+    resumed.close()
+    del resumed, f, t
+    if on_card:
+        torch.cuda.empty_cache()
+    group.barrier()
+
+    # (c) cli eval's data-parallel route with --bn-quirk, fp32; the control:
+    # the same route with each rank's statistics its own
+    from sap3d_tpu_torch.ops import layers
+
+    args = argparse.Namespace(structure=spec["model"], dtype="float32", bn_quirk=True,
+                              batch=spec["eval_batch"], model_dir=spec["root"])
+    data_cfg = DataConfig(image_size=spec["size"], num_threads=4)
+    runs = [(os.path.basename(spec["weights"]), None)]
+    fa.flash_attend_tokens.launches = 0
+    got = cli._evaluate_runs(group, args, data_cfg, spec["clips"], runs, None)
+    sync()
+    out["c_launches"] = fa.flash_attend_tokens.launches
+    keep, layers.set_data_group = layers.set_data_group, lambda model, group: None
+    try:
+        per_rank = cli._evaluate_runs(group, args, data_cfg, spec["clips"], runs, None)
+    finally:
+        layers.set_data_group = keep
+    if main:
+        fa.flash_attend_tokens.launches = 0
+        want = cli._evaluate_runs(None, args, data_cfg, spec["clips"], runs, dev)
+        out["c"] = dict(data_parallel=got[0][runs[0][0]], one_device=want[0][runs[0][0]],
+                        per_rank_statistics=per_rank[0][runs[0][0]],
+                        one_device_launches=fa.flash_attend_tokens.launches)
+    group.barrier()
+    return out
+
+
+def phase_data_parallel(torch, calibrated, card, mesh=None, model="unet++"):
+    """Phase 13: two ranks of a data mesh (default: cuda:0 twice, over
+    gloo) through ``core/mesh.launch``, each running ``dp_rank``; the
+    parent writes the calibrated weights, the step's inputs and a
+    synthetic JPEG video, then holds what the ranks read."""
+    import shutil
+
+    import numpy as np
+
+    from sap3d_tpu_torch.core.mesh import data_backend, launch, make_mesh
+    from sap3d_tpu_torch.data.indexer import ClipIndex
+    from sap3d_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    mesh = mesh or make_mesh(2, devices=[DEVICE] * 2)
+    backend = data_backend(mesh)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_dp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        weights = os.path.join(root, f"{model}_calibrated.pt")
+        torch.save({k: v.cpu() for k, v in calibrated.items()}, weights)
+        rng = np.random.default_rng(SEED + 29)
+        shape = (max(DP_STEP_BATCH.values()), 16, SIZE, SIZE, 3)
+        frames = (rng.normal(size=shape) * 0.3).astype(np.float32)
+        n64 = DP_STEP_BATCH["float64"]
+        skewed = frames[:n64].copy()
+        skewed[n64 // 2:] = 3.0 * skewed[n64 // 2:] + 1.0  # rank 1's rows
+        inputs = os.path.join(root, "inputs.npz")
+        np.savez(inputs, frames=frames, skewed=skewed,
+                 targets=rng.uniform(size=shape[:4]).astype(np.float32))
+        video = make_synthetic_dataset(os.path.join(root, "data"), num_videos=1,
+                                       frames_per_video=DP_EVAL_FRAMES, with_fixations=True)
+        clips = ClipIndex([video["frame_dirs"]], [video["density_dirs"]],
+                          fixation_dir=video["fixation_dir"]).setup(
+            overlap=15, training_props=0.0).valid_clips(with_fixations=True)
+        spec = dict(model=model, size=SIZE, weights=weights, inputs=inputs, clips=clips,
+                    root=root, step_batch=DP_STEP_BATCH, fit_batch=DP_FIT_BATCH,
+                    eval_batch=DP_EVAL_BATCH)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = launch(mesh, dp_rank, spec)
+        launch_s = time.perf_counter() - t0
+        with open(os.path.join(root, "logs", "smoke_dp", "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        logs = sorted(os.listdir(os.path.join(root, "logs")))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    r0 = ranks[0]
+    a32, a64, b0, c, d = r0["a32"], r0["a64"], r0["b"], r0["c"], r0["d"]
+    where = f"2 ranks on {', '.join(str(x) for x in mesh.devices)} over {backend}"
+    print(f"[dp] {where}: one launch in {launch_s:.2f} s (spawn, the phases and the "
+          f"teardown)  [{card}]", flush=True)
+    tol = DP_TOL
+    print(f"[dp] (a) one float64 step at a global batch of {DP_STEP_BATCH['float64']} against "
+          f"one process: loss {a64['loss']:.6f} vs {a64['one_process_loss']:.6f} (relative "
+          f"{a64['loss_rel']:.3e}, limit {tol['loss']:g}); summed gradient relative L2 "
+          f"{a64['grad_rel_l2']:.3e} (limit {tol['grad']:g}; two one-process runs "
+          f"{a64['floor_grad_rel_l2']:.3e}); BN buffers {a64['buffer_excess']:.3e} (limit "
+          f"{tol['buffer']:g}); halves that differ (rank 1's frames x3 + 1): loss "
+          f"{a64['skewed_loss_rel']:.3e}, gradient {a64['skewed_grad_rel_l2']:.3e}, buffers "
+          f"{a64['skewed_buffer_excess']:.3e}; controls: averaged gradients "
+          f"{a64['control_averaged_grad_rel_l2']:.3e}, per-rank BN statistics "
+          f"{a64['control_per_rank_bn_grad_rel_l2']:.3e}", flush=True)
+    print(f"[dp] (a) one fp32 step at a global batch of {DP_STEP_BATCH['float32']}: B2 and B3 "
+          f"held on each rank's tensors, max |err| "
+          f"{[{k: f'{v:.2e}' for k, v in r['held'].items()} for r in ranks]}; launches per "
+          f"rank {[r['step_launches'] for r in ranks]} (one process "
+          f"{a32['one_process_launches']}); read, not held: against one process, loss "
+          f"{a32['loss_rel']:.3e}, gradient {a32['grad_rel_l2']:.3e} (two one-process runs "
+          f"{a32['floor_grad_rel_l2']:.3e}), buffers {a32['buffer_excess']:.3e}; the "
+          f"one-process fp32 gradient at {DP_STEP_BATCH['float64']} against the float64 one "
+          f"{a64['fp32_one_process_vs_float64']:.3e}", flush=True)
+    losses = [r["loss"] for r in records if "loss" in r]
+    valid = [r for r in records if "cc" in r]
+    print(f"[dp] (b) Trainer.fit bf16 at a global batch of {DP_FIT_BATCH}: {TRAIN_STEPS} steps "
+          f"in {b0['seconds']:.2f} s, global losses {[round(v, 3) for v in losses]}, "
+          f"validation {valid}, log directories {logs}, checkpoints {b0['checkpoints']}; "
+          f"launches per rank {[r['b']['launches'] for r in ranks]}; parameters and buffers "
+          f"bit-identical across ranks (checksums over all_reduce): "
+          f"{[r['b']['checksums_agree'] for r in ranks]}; restored exactly into a fresh "
+          f"data-parallel trainer: {[r['b']['restored'] for r in ranks]}", flush=True)
+    names = ("cc", "sim", "nss", "auc_judd", "auc_borji")
+
+    def scaled(route):
+        return {m: abs(c[route][m] - c["one_device"][m]) / max(1.0, abs(c["one_device"][m]))
+                for m in names}
+
+    diff, control = scaled("data_parallel"), scaled("per_rank_statistics")
+    print(f"[dp] (c) cli eval's data-parallel route, --bn-quirk, fp32, {DP_EVAL_BATCH} clips a "
+          f"batch: {c['data_parallel']} against one device {c['one_device']}; scaled "
+          f"|difference| { {m: f'{v:.2e}' for m, v in diff.items()} } (limit "
+          f"{DP_EVAL_TOL:g}); control, per-rank statistics "
+          f"{ {m: f'{v:.2e}' for m, v in control.items()} }; B1 launches per rank "
+          f"{[r['c_launches'] for r in ranks]} (one device {c['one_device_launches']})",
+          flush=True)
+    expected = 2 * d["bn_layers"] + d["gradient_buckets"] + 1
+    print(f"[dp] (d) one bf16 step of {DP_FIT_BATCH // len(ranks)} rows a rank: "
+          f"{d['all_reduces']} all-reduces counted ({d['bn_layers']} BN layers ran, of "
+          f"{d['bn_modules']}, forward and backward, {d['gradient_buckets']} gradient buckets "
+          f"of {d['parameters']} "
+          f"parameters, the loss: {expected}); ms per step "
+          f"{[round(v, 2) for v in d['step_ms']]}, median "
+          f"{sorted(d['step_ms'])[len(d['step_ms']) // 2]:.2f}.  Over {backend}"
+          + (" on one card every reduction goes through the host: these times measure the "
+             "mechanism, not the scaling" if backend == "gloo" else "") + f"  [{card}]",
+          flush=True)
+
+    on_card = all(x.type == "cuda" for x in mesh.devices)
+    n_sites = len(SITES)
+    if not (a64["loss_rel"] <= tol["loss"] and a64["grad_rel_l2"] <= tol["grad"]
+            and a64["buffer_excess"] <= tol["buffer"] and a64["skewed_loss_rel"] <= tol["loss"]
+            and a64["skewed_grad_rel_l2"] <= tol["grad"]
+            and a64["skewed_buffer_excess"] <= tol["buffer"]):
+        raise AssertionError("the data-parallel float64 step disagrees with one process")
+    if not (a64["control_averaged_grad_rel_l2"] > tol["grad"]
+            and a64["control_per_rank_bn_grad_rel_l2"] > tol["grad"]):
+        raise AssertionError("the data-parallel limits pass a control; void")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)) or len(valid) != 1 \
+            or logs != ["smoke_dp"] or b0["checkpoints"] != [2, TRAIN_STEPS]:
+        raise AssertionError("Trainer.fit on the data mesh: losses, validation, logs or "
+                             "checkpoints off")
+    if not all(r["b"]["checksums_agree"] and r["b"]["restored"] for r in ranks) \
+            or len({tuple(r["b"]["checksums"]) for r in ranks}) != 1:
+        raise AssertionError("the ranks' states differ, or the restore is not exact")
+    if not all(v <= DP_EVAL_TOL for v in diff.values()) or c["data_parallel"]["n"] != \
+            c["one_device"]["n"]:
+        raise AssertionError("cli eval's data-parallel route disagrees with one device")
+    if not max(control.values()) > DP_EVAL_TOL:
+        raise AssertionError("cli eval's limit passes per-rank statistics; void")
+    if d["all_reduces"] != expected:
+        raise AssertionError(f"{d['all_reduces']} all-reduces in a step, not {expected}")
+    if on_card:
+        step = {"B1": 0, "B2": n_sites, "B3": n_sites, "B4": 0}
+        if not all(r["step_launches"] == step for r in ranks) \
+                or a32["one_process_launches"] != step:
+            raise AssertionError(f"launches per data-parallel step: expected {step}")
+        if not all(len(r["held"]) == 2 * n_sites for r in ranks):
+            raise AssertionError("not every B2 and B3 call of the data-parallel step was held")
+        if not all(r["b"]["launches"]["B2"] == n_sites * TRAIN_STEPS
+                   and r["b"]["launches"]["B3"] == n_sites * TRAIN_STEPS for r in ranks):
+            raise AssertionError("Trainer.fit on the data mesh: B2/B3 launches off")
+        if not (c["one_device_launches"] > 0
+                and all(r["c_launches"] == c["one_device_launches"] for r in ranks)):
+            raise AssertionError("cli eval's data-parallel route: B1 launches off")
+    return dict(backend=backend, devices=[str(x) for x in mesh.devices], a32=a32, a64=a64,
+                fit=dict(b0, losses=losses, validation=valid[0],
+                         launches=[r["b"]["launches"] for r in ranks]),
+                evaluation=dict(c, scaled_diff=diff, control_scaled_diff=control,
+                                launches=[r["c_launches"] for r in ranks]),
+                collectives=d, step_launches=[r["step_launches"] for r in ranks],
+                held=[r["held"] for r in ranks],
+                seconds=launch_s)
+
+
 # Per source of phase 2: the kernels ptxas reports on (a longer name before
 # its prefix), and those of them that must not spill (the wgmma kernels,
 # bf16 and split fp32, which the gates reach at every instantiation, and
@@ -3215,7 +3725,17 @@ def main(argv=None) -> int:
         tf_reader = phase_tf_reader()
         quirk_model, tf_mapping = phase_tf_mapping(torch, calibrated)
         tf_quirk = phase_tf_quirk(torch, fa, quirk_model, calibrated, card)
-        del calibrated, quirk_model
+        del quirk_model
+        torch.cuda.empty_cache()
+        dp = [phase_data_parallel(torch, calibrated, card)]
+        if torch.cuda.device_count() >= 2:
+            from sap3d_tpu_torch.core.mesh import make_mesh
+
+            dp.append(phase_data_parallel(torch, calibrated, card, mesh=make_mesh(2)))
+        else:
+            print(f"[dp] over NCCL on two cards: not run ({torch.cuda.device_count()} card "
+                  "visible); gloo on cuda:0 twice ran", flush=True)
+        del calibrated
         torch.cuda.empty_cache()
 
         fit, gn_fit = train["fit"]["launches"], gn_train["fit"]["launches"]
@@ -3227,6 +3747,11 @@ def main(argv=None) -> int:
         b5_launches = sum(r["launches"]["B5"] for r in gn_train["b5_in_step"]["bf16"].values())
         fit32 = train["end_to_end"]["float32"]["launches"]
         ring32 = ring["launches"]["fp32_step"]
+        # the data-parallel paths, summed over their ranks: Trainer.fit (bf16),
+        # the fp32 step and cli eval's fp32 route
+        dp_fit = {k: sum(n[k] for r in dp for n in r["fit"]["launches"]) for k in ("B2", "B3")}
+        dp_step32 = {k: sum(s_[k] for r in dp for s_ in r["step_launches"]) for k in ("B2", "B3")}
+        dp_eval32 = sum(n for r in dp for n in r["evaluation"]["launches"])
         # every main path launched every kernel the gate gives it
         if not (launches > 0 and fit["B2"] > 0 and fit["B3"] > 0 and gn_launches > 0
                 and gn_fit["B2"] > 0 and gn_fit["B3"] > 0 and b5_launches > 0
@@ -3234,7 +3759,8 @@ def main(argv=None) -> int:
                 and b6_launches > 0 and rs_launches > 0 and evaluation["b1_launches"] > 0
                 and fit32["B2"] > 0 and fit32["B3"] > 0 and ring32["B2"] > 0
                 and ring32["B4"] > 0 and tf_quirk["b1_launches"] > 0
-                and tf_quirk["b1_launches_fp32"] > 0):
+                and tf_quirk["b1_launches_fp32"] > 0 and dp_fit["B2"] > 0 and dp_fit["B3"] > 0
+                and dp_step32["B2"] > 0 and dp_step32["B3"] > 0 and dp_eval32 > 0):
             raise AssertionError("a kernel of a main path was never launched")
         print(f"[launches] flagship predictor B1 {launches}; flagship Trainer.fit {fit}; GN "
               f"predictor B1 {gn_launches}; GN Trainer.fit {gn_fit}; B5 on the GN step's "
@@ -3244,7 +3770,9 @@ def main(argv=None) -> int:
               f"{evaluation['b1_launches']} (float32); the float32 train step {fit32}; the "
               f"float32 ring step {ring32}; the TF checkpoint's quirk predictor B1 "
               f"{tf_quirk['b1_launches']}, its float32 eval step B1 "
-              f"{tf_quirk['b1_launches_fp32']}", flush=True)
+              f"{tf_quirk['b1_launches_fp32']}; data parallel, over the ranks: Trainer.fit "
+              f"{dp_fit}, the float32 step {dp_step32}, cli eval's float32 route B1 "
+              f"{dp_eval32}", flush=True)
         in_step = {k: [r["max_abs_err"] for r in train[f"{k}_in_step"].values()]
                    for k in ("b2", "b3")}
         kernels = [
@@ -3258,10 +3786,12 @@ def main(argv=None) -> int:
                          gn_rows["B1"] + zoo_rows["B1"]),
             kernel_entry("flash_attention_fwd_lse", fa.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:141",
-                         fit["B2"] + gn_fit["B2"] + ring_fwd["B2"] + ring_step["B2"],
+                         fit["B2"] + gn_fit["B2"] + ring_fwd["B2"] + ring_step["B2"]
+                         + dp_fit["B2"],
                          rows["B2"], in_step["b2"], gn_rows["B2"] + zoo_rows["B2"]),
             kernel_entry("flash_attention_bwd", fb.SOURCE,
-                         "sap3d_tpu/ops/pallas/flash_attention.py:274", fit["B3"] + gn_fit["B3"],
+                         "sap3d_tpu/ops/pallas/flash_attention.py:274",
+                         fit["B3"] + gn_fit["B3"] + dp_fit["B3"],
                          rows["B3"], in_step["b3"], gn_rows["B3"] + zoo_rows["B3"]),
             # B4: the ring train step's backward, times at the per-shard shapes
             kernel_entry("flash_attention_bwd_lse", fb.SOURCE,
@@ -3287,15 +3817,17 @@ def main(argv=None) -> int:
             # 11), the float32 train step (phase 6(c)) and ring step (9(b))
             kernel_entry("flash_attention_fwd_split_f32", fa.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:141",
-                         evaluation["b1_launches"] + tf_quirk["b1_launches_fp32"], rows["B1"], (),
+                         evaluation["b1_launches"] + tf_quirk["b1_launches_fp32"] + dp_eval32,
+                         rows["B1"], (),
                          gn_rows["B1"] + zoo_rows["B1"], dtype="float32"),
             kernel_entry("flash_attention_fwd_lse_split_f32", fa.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:141",
-                         fit32["B2"] + ring32["B2"], rows["B2"], (),
+                         fit32["B2"] + ring32["B2"] + dp_step32["B2"], rows["B2"], (),
                          gn_rows["B2"] + zoo_rows["B2"], dtype="float32"),
             kernel_entry("flash_attention_bwd_split_f32", fb.SOURCE,
-                         "sap3d_tpu/ops/pallas/flash_attention.py:274", fit32["B3"],
-                         rows["B3"], (), gn_rows["B3"] + zoo_rows["B3"], dtype="float32"),
+                         "sap3d_tpu/ops/pallas/flash_attention.py:274",
+                         fit32["B3"] + dp_step32["B3"], rows["B3"], (),
+                         gn_rows["B3"] + zoo_rows["B3"], dtype="float32"),
             kernel_entry("flash_attention_bwd_lse_split_f32", fb.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:274", ring32["B4"], b4_rows,
                          dtype="float32"),
@@ -3314,7 +3846,7 @@ def main(argv=None) -> int:
                                row_stats_rows=stats_rows, bisect=bisect, evaluation=evaluation,
                                tf_import=dict(reader=tf_reader, mapping=tf_mapping,
                                               quirk=tf_quirk),
-                               kernels=kernels), f, indent=1)
+                               data_parallel=dp, kernels=kernels), f, indent=1)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,8 +41,15 @@ JAX package's bool spellings (``parse_bool``): true means ``cuda``, false
 ``--videolength`` a multiple of 16 N) runs the UNet++ SA decoder's
 attention as rings over N devices: the visible cards (N more than them
 raises, as in the JAX package), or the CPU N times with ``--device cpu``.
-Multi-device and multi-host runs (``--devices`` > 1, ``--distributed``) are
-not ported yet (ROADMAP A.2 data parallel, A.5 multi-host).
+``train --devices N`` and ``eval --devices N`` run data parallel, one
+process per device of the data mesh (``core/mesh.py``): the first N visible
+cards over NCCL (-1, the default, means all of them), or with ``--device
+cpu`` the CPU N times over gloo (-1 means once).  ``train`` returns 2 when
+``--batch`` (the global batch) does not divide by N, and ``--time-shards``
+above 1 keeps a data mesh of 1; ``eval`` scores data parallel when
+``--batch`` divides by N and otherwise falls back to one device with a
+message, as the JAX command line does.  Multi-host runs (``--distributed``)
+are not ported yet (ROADMAP A.5).
 """
 
 from __future__ import annotations
@@ -119,10 +126,10 @@ def cmd_train(argv) -> int:
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--info", type=str, default="")
     p.add_argument("--devices", type=int, default=-1,
-                   help="data-parallel devices; more than one is not ported yet "
-                        "(ROADMAP A.2)")
+                   help="data-parallel devices, one process each (-1: every visible "
+                        "card; with --device cpu, the CPU N times)")
     p.add_argument("--sync-bn", type=parse_bool, default=False,
-                   help="no effect: one device sees the whole batch")
+                   help="no effect: BN statistics are always global-batch")
     p.add_argument("--steps-per-call", type=int, default=1,
                    help="no effect: accepted for the JAX command line; each "
                         "call is one train step (train/steps.py)")
@@ -151,9 +158,9 @@ def cmd_train(argv) -> int:
                                   "(ROADMAP A.5, multi-host training)")
 
     from sap3d_tpu_torch.core.device import resolve_device
+    from sap3d_tpu_torch.core.mesh import launch
     from sap3d_tpu_torch.data.indexer import ClipIndex
-    from sap3d_tpu_torch.data.pipeline import ClipLoader
-    from sap3d_tpu_torch.train.trainer import Trainer
+    from sap3d_tpu_torch.train.trainer import run_name
 
     device = resolve_device(args.device)
     cfg = Config(
@@ -178,20 +185,58 @@ def cmd_train(argv) -> int:
         print("no training clips found: check --dataset/--frames/--densities",
               file=sys.stderr)
         return 2
-    trainer = Trainer(cfg, device=device)
+    # time mode: the data mesh is a single device group
+    mesh = _data_mesh(1 if args.time_shards > 1 else args.devices, device)
+    if mesh is None:
+        return 2
+    n_dev = len(mesh.devices)
+    if args.batch % n_dev:
+        print(f"--batch {args.batch} must divide by the data-parallel mesh size {n_dev} "
+              "(use --devices to shrink the mesh)", file=sys.stderr)
+        return 2
+    clips = (idx.train_clips(), idx.valid_clips())
+    if n_dev == 1:
+        _train(None, cfg, None, device, *clips, args.batch, args.shuffle)
+    else:
+        launch(mesh, _train, cfg, run_name(cfg), None, *clips, args.batch // n_dev,
+               args.shuffle)
+    return 0
+
+
+def _data_mesh(devices: int, device):
+    """The data mesh of ``--devices`` on ``device``'s kind, or None after
+    printing why there is none (more cards asked for than are visible)."""
+    from sap3d_tpu_torch.core.mesh import make_mesh
+
+    try:
+        return make_mesh(devices, device=device)
+    except ValueError as e:
+        print(f"--devices {devices}: {e}", file=sys.stderr)
+        return None
+
+
+def _train(group, cfg: Config, run, device, train_clips, valid_clips, batch: int,
+           shuffle: bool) -> None:
+    """``cli train``'s loop on one device, or as one rank of a data mesh
+    (``group``; ``batch`` the rank's share and the loaders its partition)."""
+    from sap3d_tpu_torch.data.pipeline import ClipLoader
+    from sap3d_tpu_torch.train.trainer import Trainer
+
+    part = ({} if group is None
+            else dict(process_index=group.rank, process_count=group.world_size))
+    trainer = Trainer(cfg, run=run, device=device, group=group)
     train_loader = ClipLoader(
-        idx.train_clips(), args.batch, size=cfg.data.image_size,
+        train_clips, batch, size=cfg.data.image_size,
         num_threads=cfg.data.num_threads, epochs=cfg.train.epochs,
-        cache_frames=cfg.data.cache_frames, shuffle=args.shuffle)
+        cache_frames=cfg.data.cache_frames, shuffle=shuffle, **part)
     valid_fn = lambda: ClipLoader(  # noqa: E731
-        idx.valid_clips(), args.batch, size=cfg.data.image_size,
-        num_threads=cfg.data.num_threads, shuffle=False)
+        valid_clips, batch, size=cfg.data.image_size,
+        num_threads=cfg.data.num_threads, shuffle=False, **part)
     try:
         with train_loader:
             trainer.fit(iter(train_loader), valid_fn)
     finally:
         trainer.close()
-    return 0
 
 
 def _model_weights(checkpoint: str, model_dir: str, device: str) -> dict:
@@ -319,25 +364,18 @@ def cmd_eval(argv) -> int:
                         "batch statistics (the reference never forwards its training "
                         "flag into its bottlenecks, p3d.py:290-303)")
     p.add_argument("--devices", type=int, default=-1,
-                   help="data-parallel devices; more than one is not ported yet "
-                        "(ROADMAP A.2)")
+                   help="data-parallel devices, one process each (-1: every visible "
+                        "card; with --device cpu, the CPU N times); --batch must "
+                        "divide by them, else one device scores")
     args = p.parse_args(argv)
-    if args.devices > 1:
-        raise NotImplementedError("--devices > 1 is not ported yet (ROADMAP A.2, "
-                                  "data-parallel evaluation)")
     if not args.checkpoint and not args.tf_checkpoint:
         p.error("one of --checkpoint / --tf-checkpoint is required")
 
     import glob as globlib
 
-    import torch
-
     from sap3d_tpu_torch.core.device import resolve_device
+    from sap3d_tpu_torch.core.mesh import launch
     from sap3d_tpu_torch.data.indexer import ClipIndex
-    from sap3d_tpu_torch.data.pipeline import ClipLoader
-    from sap3d_tpu_torch.eval.evaluator import evaluate_prediction_batches
-    from sap3d_tpu_torch.models.registry import build_model, resolve_name
-    from sap3d_tpu_torch.train.steps import make_eval_step
 
     device = resolve_device(args.device)
     data = _data_config(args)
@@ -360,6 +398,45 @@ def cmd_eval(argv) -> int:
     if args.tf_checkpoint is not None:
         runs.insert(0, ("tf:" + args.tf_checkpoint, args.tf_checkpoint))
 
+    # data-parallel scoring when the batch divides by the mesh
+    mesh = _data_mesh(args.devices, device)
+    if mesh is None:
+        return 2
+    n_dev = len(mesh.devices)
+    clips = idx.valid_clips(with_fixations=True)
+    if n_dev > 1 and args.batch % n_dev == 0:
+        results, failures = launch(mesh, _evaluate_runs, args, data, clips, runs, None)[0]
+    else:
+        if n_dev > 1:
+            print(f"[eval] --batch {args.batch} does not divide by {n_dev} devices; "
+                  "falling back to SINGLE-device eval", file=sys.stderr)
+        results, failures = _evaluate_runs(None, args, data, clips, runs, device)
+    if len(results) > 1:
+        print("\nmodel                                    CC     SIM    NSS    "
+              "AUC_J  AUC_B")
+        for run, r in results.items():
+            print(f"{run:<40} {r['cc']:.3f}  {r['sim']:.3f}  {r['nss']:.3f}  "
+                  f"{r['auc_judd']:.3f}  {r['auc_borji']:.3f}")
+    return 0 if results and not failures else 1
+
+
+def _evaluate_runs(group, args, data, clips, runs, device) -> tuple[dict, int]:
+    """Score each ``(run, TF checkpoint or None)`` of ``runs`` on ``clips``
+    as ``cli eval`` does, printing each run's line; on one ``device``, or
+    as one rank of a data mesh (``group``: rank 0 loads the batches and
+    scores, every rank forwards its rows, ``train/steps.DataParallelForward``).
+    Returns ({run: means}, the runs whose weights were missing); the other
+    ranks return nothing."""
+    import torch
+
+    from sap3d_tpu_torch.data.pipeline import ClipLoader
+    from sap3d_tpu_torch.eval.evaluator import evaluate_prediction_batches
+    from sap3d_tpu_torch.models.registry import build_model, resolve_name
+    from sap3d_tpu_torch.ops.layers import set_data_group
+    from sap3d_tpu_torch.train.steps import DataParallelForward, make_eval_step
+
+    main = group is None or group.is_main
+    device = device if group is None else group.device
     results: dict[str, dict] = {}
     failures = 0
     for run, tf_path in runs:
@@ -374,17 +451,28 @@ def cmd_eval(argv) -> int:
                 model.load_state_dict(_model_weights(run, args.model_dir, device),
                                       strict=True)
         except FileNotFoundError as e:
-            print(f"no checkpoint found under {args.model_dir}/{run}: {e}"
-                  if tf_path is None else e, file=sys.stderr)
+            if main:
+                print(f"no checkpoint found under {args.model_dir}/{run}: {e}"
+                      if tf_path is None else e, file=sys.stderr)
             failures += 1
             continue
         ev = make_eval_step(model)
-        loader = ClipLoader(idx.valid_clips(with_fixations=True), args.batch,
-                            size=data.image_size, num_threads=data.num_threads,
-                            shuffle=False, test_mode=True)
-        with loader:
-            result = evaluate_prediction_batches(
-                iter(loader), lambda f: ev(torch.from_numpy(f).to(device)))
+        if group is None:
+            forward = lambda f: ev(torch.from_numpy(f).to(device))  # noqa: E731
+        else:
+            set_data_group(model, group)  # the quirk's statistics: global-batch
+            forward = DataParallelForward(ev, group)
+            if not main:
+                forward.serve()
+                continue
+        loader = ClipLoader(clips, args.batch, size=data.image_size,
+                            num_threads=data.num_threads, shuffle=False, test_mode=True)
+        try:
+            with loader:
+                result = evaluate_prediction_batches(iter(loader), forward)
+        finally:
+            if group is not None:
+                forward.stop()
         results[run] = result
         print(
             f"Model: {run} (structure {structure})\n"
@@ -392,15 +480,9 @@ def cmd_eval(argv) -> int:
             f"SIM: {result['sim']:.3f}   NSS: {result['nss']:.3f}  "
             f"AUC_Judd: {result['auc_judd']:.3f}   "
             f"AUC_Borji: {result['auc_borji']:.3f}"
-            f"   (compute dtype: {args.dtype})"
+            f"   (compute dtype: {args.dtype})", flush=True
         )
-    if len(results) > 1:
-        print("\nmodel                                    CC     SIM    NSS    "
-              "AUC_J  AUC_B")
-        for run, r in results.items():
-            print(f"{run:<40} {r['cc']:.3f}  {r['sim']:.3f}  {r['nss']:.3f}  "
-                  f"{r['auc_judd']:.3f}  {r['auc_borji']:.3f}")
-    return 0 if results and not failures else 1
+    return (results, failures) if main else None
 
 
 def cmd_make_video(argv) -> int:

@@ -3,9 +3,9 @@
 A copy of ``sap3d_tpu/core/config.py`` (``Config``, ``ModelConfig``,
 ``DataConfig``, ``TrainConfig``, ``DATASET_ROOTS``, ``EVAL_DATASETS``,
 ``parse_bool``); the port imports nothing of ``sap3d_tpu``.  The fields are
-the JAX package's, so a configuration reads the same in both.  Fields of
-paths that are not ported yet (``num_devices`` > 1, ``profile_dir``) are
-kept, and ``train/trainer.py`` raises on them.
+the JAX package's, so a configuration reads the same in both.  A field of
+a path that is not ported yet (``profile_dir``) is kept, and
+``train/trainer.py`` raises on it.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 
 Copied from ``sap3d_tpu/data/pipeline.py`` (``imread_checked``,
 ``preprocess_frame``, ``preprocess_density``, ``FrameCache``,
-``decode_clip``, ``ClipLoader``), without the multi-host sharding of the
-loader (one process feeds one device here).  ``cv2`` is imported inside the
+``decode_clip``, ``ClipLoader``, with its per-process partition of the
+clips for data parallel).  ``cv2`` is imported inside the
 functions that use it: the GPU host need not have OpenCV to run the model.
 
 Preprocessing order matters for parity: frames are read BGR, flipped to
@@ -235,14 +235,29 @@ class ClipLoader:
 
     Yields tuples of stacked numpy arrays (frames [B, T, H, W, 3], densities
     [B, T, H, W], and fixations in test mode).  Use as a context manager, or
-    call ``close()``, to stop the threads of an abandoned iteration."""
+    call ``close()``, to stop the threads of an abandoned iteration.
+
+    Data parallel: each of ``process_count`` ranks builds a loader with its
+    ``process_index`` and the per-rank batch.  Every rank shuffles the same
+    clip order with the same seed, truncates it to a multiple of the count
+    and takes the strided slice ``order[process_index::process_count]``:
+    the partitions are disjoint, every rank yields the same number of
+    batches per epoch, and with a per-rank batch of B / N the union of the
+    ranks' k-th batches is the one-process loader's k-th batch of B (rank r
+    takes ``order[k B + r + N j]``)."""
 
     def __init__(self, clips: Sequence[ClipPaths], batch_size: int, size: int = 112,
                  num_threads: int = 16, prefetch: int = 4, shuffle: bool = True,
                  epochs: int = 1, seed: int = 0, test_mode: bool = False,
-                 decode_fn: Callable | None = None, cache_frames: int = 0):
+                 decode_fn: Callable | None = None, cache_frames: int = 0,
+                 process_index: int = 0, process_count: int = 1):
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} is not in "
+                             f"[0, process_count {process_count})")
         self.clips = list(clips)
         self.batch_size = batch_size
+        self.process_index = process_index
+        self.process_count = process_count
         self.size = size
         self.num_threads = num_threads
         self.prefetch = max(1, prefetch)
@@ -255,8 +270,12 @@ class ClipLoader:
             lambda c: decode_clip(c, self.size, self.test_mode, self.cache))
         self._iters: list[_LoaderIter] = []
 
+    def _per_process_count(self) -> int:
+        """Clips this rank sees per epoch (equal on every rank)."""
+        return len(self.clips) // self.process_count
+
     def __len__(self) -> int:
-        return (len(self.clips) // self.batch_size) * self.epochs
+        return (self._per_process_count() // self.batch_size) * self.epochs
 
     def _clip_stream(self) -> Iterator:
         rng = random.Random(self.seed)
@@ -264,6 +283,9 @@ class ClipLoader:
             order = list(self.clips)
             if self.shuffle:
                 rng.shuffle(order)
+            if self.process_count > 1:
+                usable = self._per_process_count() * self.process_count
+                order = order[:usable][self.process_index::self.process_count]
             yield from order
             yield _EPOCH_END
 

@@ -201,7 +201,20 @@ class BatchNorm(nn.Module):
     with the batch mean and biased variance, and leaves the running
     statistics where they are: the reference's bottleneck BNs at inference
     (``models/p3d.py:Bottleneck``, ``bn_reference_quirk``), whose statistics
-    update the JAX eval step discards."""
+    update the JAX eval step discards.
+
+    With a data group of more than one rank (``group``, set by
+    ``set_data_group``), the batch statistics are the global batch's, as
+    under the JAX package's jit over a data mesh: each rank all-reduces one
+    float32 tensor [sum x, sum x^2, count] over its rows (float64 for a
+    float64 input), and mean = sum x / n, var = max(0, sum x^2 / n -
+    mean^2), flax's own formula (where a channel's mean is large against
+    its spread it loses digits of the variance that the one-device path
+    keeps).  The normalization is then
+    elementwise in that dtype (the batch-norm call takes no gradient
+    through statistics handed to it), and the gradient flows back through
+    the reduction, whose backward is the same all-reduce.  The
+    running statistics move as on one device, the same on every rank."""
 
     eps = 1e-3
     momentum = 0.99  # flax convention: running = m * running + (1 - m) * batch
@@ -211,6 +224,7 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.batch_stats_at_eval = batch_stats_at_eval
+        self.group = None  # core/mesh.DataGroup: global-batch statistics
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -221,15 +235,61 @@ class BatchNorm(nn.Module):
         if not self.training and not self.batch_stats_at_eval:
             return F.batch_norm(x, self.mean, self.var, self.scale, self.bias,
                                 False, 0.0, self.eps)
-        y, mean, invstd = torch.native_batch_norm(x, self.scale, self.bias, None, None,
-                                                  True, 0.0, self.eps)
-        if not self.training:
-            return y
-        with torch.no_grad():
-            var = (invstd.float().square().reciprocal() - self.eps).clamp_min(0.0)
-            self.mean.mul_(self.momentum).add_(mean.float(), alpha=1.0 - self.momentum)
-            self.var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        if self.group is not None and self.group.world_size > 1:
+            y, mean, var = self._global_batch_norm(x)
+        else:
+            y, mean, invstd = torch.native_batch_norm(x, self.scale, self.bias, None, None,
+                                                      True, 0.0, self.eps)
+            var = None if not self.training else \
+                (invstd.float().square().reciprocal() - self.eps).clamp_min(0.0)
+        if self.training:
+            with torch.no_grad():
+                self.mean.mul_(self.momentum).add_(mean.float(), alpha=1.0 - self.momentum)
+                self.var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
         return y
+
+    def _global_batch_norm(self, x: torch.Tensor):
+        """Normalize ``x`` with the statistics of every rank's rows; returns
+        the output and the (detached) mean and biased variance."""
+        c, xf = x.shape[1], x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = [0, *range(2, x.dim())]
+        count = torch.full((1,), x.numel() // c, dtype=xf.dtype, device=x.device)
+        sums = all_reduce_sum(torch.cat([xf.sum(dims), xf.square().sum(dims), count]),
+                              self.group)
+        mean = sums[:c] / sums[-1]
+        var = (sums[c:2 * c] / sums[-1] - mean.square()).clamp_min(0.0)
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(self.dtype), mean.detach(), var.detach()
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum of a tensor over a data group's ranks; its gradient is the
+    sum of the ranks' gradients, the same all-reduce."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return group.all_reduce(x.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return ctx.group.all_reduce(grad.clone(memory_format=torch.contiguous_format)), None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (``core/mesh.DataGroup``),
+    differentiably."""
+    return _AllReduceSum.apply(x, group)
+
+
+def set_data_group(model: nn.Module, group) -> None:
+    """Give every ``BatchNorm`` of ``model`` the data group whose global
+    batch its statistics cover (None: this process's batch alone)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 class GroupNorm(nn.Module):

@@ -13,7 +13,19 @@ batch only:
   ``torch.inference_mode()``: ``[B, T, H, W, 3]`` -> ``[B, T, H, W]``.
 
 Each step sets its module's mode when called, so a trainer can interleave
-them.  The JAX package's ``make_multi_train_step`` fuses K steps into one
+them.
+
+Data parallel (``core/mesh.launch``, one process per device): with a
+``group`` of more than one rank, ``make_train_step`` runs each rank's share
+of the global batch with global-batch BN statistics (``set_data_group``)
+and, the loss being a global sum (``sap3d_tpu/train/steps.py:122-124``),
+**sums** the ranks' gradients after the backward (in flat buckets of at
+most ``BUCKET_BYTES``) before the optimizer adds the coupled L2 and steps;
+it returns the global loss.  ``DataParallelForward`` is the eval forward
+over a group: rank 0 broadcasts each batch, every rank forwards its
+contiguous rows, and a sum of the zero-padded rows assembles the output.
+
+The JAX package's ``make_multi_train_step`` fuses K steps into one
 dispatch with ``lax.scan``; eager PyTorch has no dispatch to save that way
 (K steps in one call would be the same loop of K single steps), so it has
 no counterpart here and the trainer runs single steps.
@@ -23,11 +35,15 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 from torch import nn
 
-from sap3d_tpu_torch.ops.layers import smooth_l1_loss
+from sap3d_tpu_torch.ops.layers import set_data_group, smooth_l1_loss
 from sap3d_tpu_torch.train.state import TrainState
+
+# Gradient bytes per all-reduce of the data-parallel step
+BUCKET_BYTES = 64 << 20
 
 
 def loss_fn_saliency(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -38,10 +54,45 @@ def loss_fn_saliency(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return smooth_l1_loss(pred, target, 1.0, 1.0, sigma=1.0)
 
 
-def make_train_step(state: TrainState
+def gradient_buckets(params) -> list[list[torch.Tensor]]:
+    """The parameters' gradients in order, grouped into buckets of one
+    dtype and at most ``BUCKET_BYTES`` (a larger gradient alone).
+    Parameters without a gradient are left out (the same on every rank:
+    each runs the same graph)."""
+    buckets: list[list[torch.Tensor]] = []
+    size = 0
+    for g in (p.grad for p in params if p.grad is not None):
+        nbytes = g.numel() * g.element_size()
+        if not buckets or size + nbytes > BUCKET_BYTES or g.dtype != buckets[-1][0].dtype:
+            buckets.append([])
+            size = 0
+        buckets[-1].append(g)
+        size += nbytes
+    return buckets
+
+
+def all_reduce_gradients(params, group) -> None:
+    """Sum each parameter's ``.grad`` over the ranks of ``group`` in place,
+    one all-reduce per bucket (``gradient_buckets``)."""
+    for bucket in gradient_buckets(params):
+        flat = group.all_reduce(torch.cat([g.reshape(-1) for g in bucket]))
+        offset = 0
+        for g in bucket:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+
+
+def make_train_step(state: TrainState, group=None
                     ) -> Callable[[torch.Tensor, torch.Tensor, torch.Generator | None],
                                   torch.Tensor]:
+    """The train step; with a ``group`` (``core/mesh.DataGroup``) of more
+    than one rank, this rank's share of a data-parallel step, whose BN
+    layers take the group (global-batch statistics)."""
     model, opt = state.model, state.optimizer
+    parallel = group is not None and group.world_size > 1
+    if parallel:
+        set_data_group(model, group)
+    params = list(model.parameters())
 
     def step(frames: torch.Tensor, targets: torch.Tensor,
              generator: torch.Generator | None = None) -> torch.Tensor:
@@ -49,9 +100,13 @@ def make_train_step(state: TrainState
         loss = loss_fn_saliency(model(frames, generator), targets)
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        loss = loss.detach()
+        if parallel:
+            all_reduce_gradients(params, group)
+            loss = group.all_reduce(loss.clone())
         opt.step()
         state.step += 1
-        return loss.detach()
+        return loss
 
     return step
 
@@ -67,6 +122,57 @@ def make_eval_step(model: nn.Module) -> Callable[[torch.Tensor], torch.Tensor]:
             return model(frames).squeeze(-1)
 
     return step
+
+
+class DataParallelForward:
+    """An eval step (``make_eval_step``) over a data group.  Rank 0 calls
+    it with each batch of frames [B, T, H, W, 3] (B a multiple of the
+    ranks) and gets the whole output [B, T, H, W], the other ranks run
+    ``serve`` until rank 0 calls ``stop``.  Each batch is broadcast from
+    rank 0, every rank forwards its B / N contiguous rows, and an all-reduce
+    of the zero-padded rows assembles the output on every rank.  A quirk
+    model whose BN layers take the group normalizes with the global batch's
+    statistics."""
+
+    def __init__(self, eval_step: Callable[[torch.Tensor], torch.Tensor], group):
+        self.eval_step, self.group = eval_step, group
+
+    def _header(self, shape=()) -> torch.Tensor:
+        # [more batches?, B, T, H, W, 3]
+        head = torch.zeros(6, dtype=torch.int64, device=self.group.device)
+        if shape:
+            head[0] = 1
+            head[1:] = torch.tensor(shape)
+        return self.group.broadcast(head)
+
+    def _rows(self, frames: torch.Tensor) -> torch.Tensor:
+        g = self.group
+        b = frames.shape[0] // g.world_size
+        mine = self.eval_step(frames[g.rank * b:(g.rank + 1) * b])
+        out = torch.zeros((frames.shape[0], *mine.shape[1:]), dtype=mine.dtype,
+                          device=mine.device)
+        out[g.rank * b:(g.rank + 1) * b] = mine
+        return g.all_reduce(out)
+
+    def __call__(self, frames) -> torch.Tensor:
+        frames = torch.as_tensor(np.asarray(frames, np.float32), device=self.group.device)
+        if frames.shape[0] % self.group.world_size:
+            raise ValueError(f"a batch of {frames.shape[0]} does not divide by "
+                             f"{self.group.world_size} ranks")
+        self._header(tuple(frames.shape))
+        return self._rows(self.group.broadcast(frames))
+
+    def serve(self) -> None:
+        while True:
+            head = self._header()
+            if not head[0]:
+                return
+            frames = torch.empty(tuple(head[1:].tolist()), dtype=torch.float32,
+                                 device=self.group.device)
+            self._rows(self.group.broadcast(frames))
+
+    def stop(self) -> None:
+        self._header()
 
 
 # The JAX package's two names differ only in how the variables are passed;

@@ -1,6 +1,7 @@
 """The training loop: batches in, train steps, logging, validation,
-checkpoints.  Counterpart of ``sap3d_tpu/train/trainer.py`` on one device
-(in long-clip mode, a time mesh of devices for the attention sites).
+checkpoints.  Counterpart of ``sap3d_tpu/train/trainer.py``: on one
+device, as one rank of a data mesh, or in long-clip mode with a time mesh
+of devices for the attention sites.
 
 * ``fit`` takes host batches (numpy ``(frames, targets)``, e.g. from
   ``data.pipeline.ClipLoader``), copies each to the device and steps; every
@@ -12,7 +13,21 @@ checkpoints.  Counterpart of ``sap3d_tpu/train/trainer.py`` on one device
 * ``validate`` scores the last frame of each clip with CC, SIM, KLD and
   AUC-Judd on the device (``eval/metrics.py``) and logs NaN-filtered means.
 * Dropout masks come from a generator seeded with ``seed + 1`` (the JAX
-  trainer's ``PRNGKey(seed + 1)``); AUC jitter from one seeded with the step.
+  trainer's ``PRNGKey(seed + 1)``), on rank r of a data mesh ``seed + 1 +
+  r`` (equal local shapes would give every rank the same masks); AUC jitter
+  from one seeded with the step.
+* Data parallel (``num_devices`` N > 1): the trainer runs in each of N
+  processes that ``core/mesh.launch`` started, given the rank's ``group``
+  (``cli train --devices N`` does this).  Each rank steps on its share of
+  the global batch (``data.pipeline.ClipLoader``'s ``process_index``);
+  the step sums the gradients and BN takes global-batch statistics
+  (``train/steps.py``), so every rank holds the same state.  The model and
+  a pretrain restore are broadcast from rank 0 (parameters, buffers and
+  Adam moments).  Rank 0 alone writes ``metrics.jsonl``, TB events, JPEGs
+  and checkpoints, the others waiting at a barrier after each save;
+  clips/s counts the global batch; validation gathers every rank's
+  per-clip scores before the means.  ``sync_bn`` changes nothing: the
+  statistics are always global-batch, as in the JAX trainer.
 * ``steps_per_call`` is accepted for the JAX command line and changes
   nothing: the JAX trainer groups K batches into one ``lax.scan`` dispatch,
   which in eager PyTorch would be the same K single steps
@@ -25,11 +40,11 @@ checkpoints.  Counterpart of ``sap3d_tpu/train/trainer.py`` on one device
   sites.  The other layers run unsharded on the trainer's device: the JAX
   package's GSPMD time-sharding of convolutions is not ported (ROADMAP
   A.6).  On CUDA the mesh holds the visible cards; on the CPU it names the
-  CPU N times (the counterpart of the JAX tests' virtual devices).
+  CPU N times (the counterpart of the JAX tests' virtual devices).  Time
+  mode keeps a data mesh of 1, as in the JAX trainer.
 
-Not ported yet: a data mesh of more than one device (ROADMAP A.2),
-multi-host training (A.5) and profiler traces (A.8); the constructor raises
-``NotImplementedError`` for them.
+Not ported yet: multi-host training (ROADMAP A.5) and profiler traces
+(A.8); the constructor raises ``NotImplementedError`` for traces.
 """
 
 from __future__ import annotations
@@ -38,6 +53,7 @@ import datetime
 import json
 import os
 import time
+import warnings
 from typing import Callable, Iterable
 
 import numpy as np
@@ -61,23 +77,42 @@ def run_name(cfg: Config) -> str:
 
 
 class Trainer:
+    """``group``: this process's ``core/mesh.DataGroup`` when it is one rank
+    of a data mesh (its device is the trainer's), else None."""
+
     def __init__(self, cfg: Config, run: str | None = None,
-                 device: str | torch.device = DEFAULT_DEVICE):
+                 device: str | torch.device = DEFAULT_DEVICE, group=None):
         tc = cfg.train
-        if tc.num_devices > 1:
-            raise NotImplementedError(f"a data mesh of {tc.num_devices} devices is not "
-                                      "ported yet (ROADMAP A.2, data parallel)")
+        time_mode = int(tc.time_shards or 0) > 1
+        self.group = group if group is not None and group.world_size > 1 else None
+        if self.group is not None and time_mode:
+            raise ValueError("time mode (time_shards > 1) keeps a data mesh of 1")
+        if tc.num_devices > 1 and not time_mode and (
+                self.group is None or self.group.world_size != tc.num_devices):
+            raise ValueError(
+                f"a data mesh of {tc.num_devices} devices runs one process per device: "
+                "start them with core.mesh.launch (as cli train --devices N does) and "
+                "give each rank's Trainer its group")
         if tc.profile_dir:
             raise NotImplementedError("profile_dir is not ported yet (ROADMAP A.8, "
                                       "profiler traces)")
-        self.device = resolve_device(device)
+        if tc.sync_bn:
+            warnings.warn(
+                "--sync-bn has no effect: BN statistics are always global-batch under "
+                "this trainer (each BN layer sums its statistics over the data mesh), "
+                "which is what sync-BN asks for", stacklevel=2)
+        self.rank = self.group.rank if self.group is not None else 0
+        self.world_size = self.group.world_size if self.group is not None else 1
+        self.is_main_process = self.rank == 0
+        self.device = resolve_device(self.group.device if self.group is not None else device)
         self.time_mesh = self._time_mesh(cfg)
         self.cfg = cfg
         self.run = run or run_name(cfg)
         self.model_dir = os.path.join(tc.model_dir, self.run)
         self.logs_dir = os.path.join(tc.logs_dir, self.run)
-        os.makedirs(self.model_dir, exist_ok=True)
-        os.makedirs(self.logs_dir, exist_ok=True)
+        if self.is_main_process:
+            os.makedirs(self.model_dir, exist_ok=True)
+            os.makedirs(self.logs_dir, exist_ok=True)
         if tc.debug_nans:
             torch.autograd.set_detect_anomaly(True)
 
@@ -89,16 +124,35 @@ class Trainer:
             print(f"[time-shards] model '{cfg.model.name}' has no ring-attention sites; its "
                   "attention runs unsharded")
         self.state = create_train_state(self.model, lr=tc.lr, weight_decay=tc.weight_decay)
-        self.train_step = make_train_step(self.state)
+        self.train_step = make_train_step(self.state, self.group)
         self.eval_step = make_eval_step(self.model)
-        self.ckpt = CheckpointManager(self.model_dir, tc.max_to_keep)
-        self._metrics_log = open(os.path.join(self.logs_dir, "metrics.jsonl"), "a")
-        self._tb = EventWriter(self.logs_dir)
+        if self.is_main_process:
+            self.ckpt = CheckpointManager(self.model_dir, tc.max_to_keep)
+            self._metrics_log = open(os.path.join(self.logs_dir, "metrics.jsonl"), "a")
+            self._tb = EventWriter(self.logs_dir)
+        else:
+            self.ckpt = self._metrics_log = self._tb = None
 
         if tc.pretrain:
             pre_dir = os.path.join(tc.model_dir, tc.pretrain)
             self.state, ok = try_restore_latest(self.state, pre_dir)
-            print(f"pretrain restore from {pre_dir}: {'ok' if ok else 'MISSING'}")
+            if self.is_main_process:
+                print(f"pretrain restore from {pre_dir}: {'ok' if ok else 'MISSING'}")
+        if self.group is not None:
+            self._broadcast_state()
+
+    def _broadcast_state(self) -> None:
+        """Rank 0's parameters, buffers, Adam moments and step on every rank."""
+        g = self.group
+        for t in self.model.state_dict().values():
+            g.broadcast(t)
+        opt = self.state.optimizer
+        for p in (p for group in opt.param_groups for p in group["params"]):
+            for t in opt.state.get(p, {}).values():
+                if torch.is_tensor(t):
+                    g.broadcast(t)
+        step = torch.tensor([self.state.step], dtype=torch.int64, device=g.device)
+        self.state.step = int(g.broadcast(step).item())
 
     def _time_mesh(self, cfg: Config):
         """The long-clip time mesh, or None (``time_shards`` 0 or 1)."""
@@ -118,6 +172,8 @@ class Trainer:
     # -- logging helpers ---------------------------------------------------
 
     def _log(self, record: dict) -> None:
+        if not self.is_main_process:
+            return
         record["time"] = datetime.datetime.now().isoformat(timespec="seconds")
         self._metrics_log.write(json.dumps(record) + "\n")
         self._metrics_log.flush()
@@ -142,10 +198,19 @@ class Trainer:
     def _put(self, array) -> torch.Tensor:
         return torch.as_tensor(np.asarray(array), device=self.device)
 
+    def _save(self, step: int) -> None:
+        """Rank 0 saves; the other ranks wait for it."""
+        if self.is_main_process:
+            self.ckpt.save(self.state, step)
+        if self.group is not None:
+            self.group.barrier()
+
     def fit(self, train_batches: Iterable,
             valid_batches_fn: Callable[[], Iterable] | None = None) -> None:
+        """Train on ``train_batches`` (this rank's share of each global
+        batch under a data mesh)."""
         tc = self.cfg.train
-        gen = torch.Generator(device=self.device).manual_seed(tc.seed + 1)
+        gen = torch.Generator(device=self.device).manual_seed(tc.seed + 1 + self.rank)
         step = self.state.step
         t_last, n_last = time.time(), 0
         ran_any = False
@@ -154,9 +219,9 @@ class Trainer:
             step += 1
             ran_any = True
             loss = self.train_step(f, t, gen)
-            n_last += frames.shape[0]
+            n_last += frames.shape[0] * self.world_size
 
-            if step <= 10 or step % tc.plot_iter == 0:
+            if (step <= 10 or step % tc.plot_iter == 0) and self.is_main_process:
                 loss_v = float(loss)
                 dt = time.time() - t_last
                 cps = n_last / dt if dt > 0 else 0.0
@@ -169,13 +234,14 @@ class Trainer:
 
             if valid_batches_fn is not None and step % tc.valid_iter == 0:
                 self.validate(step, valid_batches_fn())
-                from sap3d_tpu_torch.train.plotting import plot_curves
+                if self.is_main_process:
+                    from sap3d_tpu_torch.train.plotting import plot_curves
 
-                plot_curves(self.logs_dir)
+                    plot_curves(self.logs_dir)
 
             if step % tc.save_iter == 0:
                 t_save = time.time()
-                self.ckpt.save(self.state, step)
+                self._save(step)
                 self._log({"step": step, "save_dispatch_s": time.time() - t_save})
 
             if tc.max_steps is not None and step >= tc.max_steps:
@@ -188,12 +254,14 @@ class Trainer:
                     "train/valid split?).  Nothing was saved.")
             print(f"fit(): no new batches at step {step}; nothing to do")
         else:
-            self.ckpt.save(self.state, step)
-        print("Training Finished!", flush=True)
+            self._save(step)
+        if self.is_main_process:
+            print("Training Finished!", flush=True)
 
     def validate(self, step: int, valid_batches: Iterable) -> dict:
         """CC/SIM/KLD/AUC-Judd on the last frame of each clip, NaN-filtered
-        means; logged and returned."""
+        means (under a data mesh, of every rank's clips); logged and
+        returned."""
         ccs, sims, klds, aucs = [], [], [], []
         gen = torch.Generator(device=self.device).manual_seed(step)
         for frames, targets in valid_batches:
@@ -205,6 +273,9 @@ class Trainer:
             # dense density targets: sweep the full pixel count
             aucs += metrics.auc_judd(pred_last, gt_last, gen,
                                      fix_cap=gt_last.shape[-2] * gt_last.shape[-1]).tolist()
+        if self.group is not None:
+            ranks = self.group.all_gather_object((ccs, sims, klds, aucs))
+            ccs, sims, klds, aucs = ([v for r in ranks for v in r[i]] for i in range(4))
         result = {
             "step": step,
             "cc": metrics.nan_filtered_mean(ccs),
@@ -212,12 +283,14 @@ class Trainer:
             "kld": metrics.nan_filtered_mean(klds),
             "auc_judd": metrics.nan_filtered_mean(aucs),
         }
-        print(f"[valid] step {step} CC {result['cc']:.4f} SIM {result['sim']:.4f} "
-              f"KLD {result['kld']:.4f} AUC_Judd {result['auc_judd']:.4f}", flush=True)
+        if self.is_main_process:
+            print(f"[valid] step {step} CC {result['cc']:.4f} SIM {result['sim']:.4f} "
+                  f"KLD {result['kld']:.4f} AUC_Judd {result['auc_judd']:.4f}", flush=True)
         self._log(result)
         return result
 
     def close(self):
-        self.ckpt.close()
-        self._metrics_log.close()
-        self._tb.close()
+        if self.is_main_process:
+            self.ckpt.close()
+            self._metrics_log.close()
+            self._tb.close()

@@ -767,3 +767,74 @@ def test_trainer_time_shards_across_cards(cards, tmp_path):
     assert b4 == 2 * 2 * 2 * 2  # steps x kernel-hop sites x hops x cards (a launch each)
     assert len(base) == len(sharded) == 2
     np.testing.assert_allclose(sharded, base, rtol=1e-5)
+
+
+# ---- data parallel (core/mesh.launch) ---------------------------------------
+
+# The micro model's float32 gradient at 64 px (the registry's weights,
+# gamma 1), data parallel against one process: 1.8e-2 apart on an H100
+# (relative L2; summation order and the ranks' sums of x and x^2 for BN's
+# statistics, carried through this model's ill-conditioned train-mode BN),
+# held to the micro model's float32 limit of the CPU train tests (GRAD_TOL,
+# 5e-2), which averaged gradients (0.5 away) fail.  In float64 (the plain path) the two
+# agree to summation order but for the head's float32 output, whose rounding
+# flips where the two runs' sums (batch 2 against batch 4) differ: 1.6e-8
+# read on an H100 (1.2e-14 on the CPU, whose sums per clip do not depend on
+# the batch); held to 1e-6.
+_DP_GRAD_TOL = {"torch.float32": 5e-2, "torch.float64": 1e-6}
+
+
+@pytest.mark.parametrize("placement", ["one_card_gloo", "across_cards_nccl"])
+def test_data_parallel_step_matches_one_process(request, cuda, placement, monkeypatch):
+    """Two ranks of ``core/mesh.launch``: on cuda:0 twice over gloo, or on
+    cuda:0 and cuda:1 over NCCL.  ``p3d_micro_sa`` at 64 px, a global batch
+    of 4 (2 rows a rank), dropout 0: per rank 2 B2 and 2 B3 launches in
+    float32 (x_2_2 and x_1_3); the summed gradient against one process's at
+    the global batch under ``_DP_GRAD_TOL``, the averaged gradient failing
+    the float32 limit; both ranks' gradients and states bit for bit equal."""
+    from _torch_dp_ranks import card_rank, micro_model
+
+    from sap3d_tpu_torch.core.mesh import data_backend, launch, make_mesh
+    from sap3d_tpu_torch.models.registry import build_model
+    from sap3d_tpu_torch.train.steps import loss_fn_saliency
+
+    if placement == "one_card_gloo":
+        mesh = make_mesh(2, devices=[cuda] * 2)
+    else:
+        mesh = make_mesh(2, devices=request.getfixturevalue("cards")[:2])
+    assert data_backend(mesh) == placement.rsplit("_", 1)[1]
+    model = build_model("p3d_micro_sa", device="cpu", seed=0, dropout_rate=0.0)
+    with torch.no_grad():
+        for sa in model.attention_modules():
+            sa.gamma.fill_(1.0)  # with gamma = 0 every attention gradient is 0
+    weights = model.state_dict()
+    rng = np.random.default_rng(8)
+    frames = (rng.normal(size=(4, 16, 64, 64, 3)) * 0.5).astype(np.float32)
+    targets = rng.uniform(size=(4, 16, 64, 64)).astype(np.float32)
+    ranks = launch(mesh, card_rank, weights, frames, targets)
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    for dtype in (torch.float32, torch.float64):
+        one = micro_model(weights, dtype, device=cuda).train()
+        loss = loss_fn_saliency(one(torch.from_numpy(frames).to(cuda, dtype)),
+                                torch.from_numpy(targets).to(cuda, dtype))
+        loss.backward()
+        want = {n: p.grad.cpu() for n, p in one.named_parameters()}
+        got = [r[str(dtype)] for r in ranks]
+
+        def rel(grads):
+            num = sum(((grads[n] - w) ** 2).sum() for n, w in want.items()).sqrt()
+            return (num / sum((w ** 2).sum() for w in want.values()).sqrt()).item()
+
+        tol = _DP_GRAD_TOL[str(dtype)]
+        print(f"data parallel {placement} {dtype}: loss {got[0]['loss']} against "
+              f"{loss.item()}, gradient relative L2 {rel(got[0]['grads']):.3e} (limit {tol:g}), "
+              f"averaged {rel({n: g / 2 for n, g in got[0]['grads'].items()}):.3e}")
+        assert got[0]["loss"] == pytest.approx(loss.item(), rel=1e-5)
+        assert rel(got[0]["grads"]) <= tol
+        if dtype == torch.float32:
+            assert all(r["launches"] == (2, 2) for r in got)
+            assert rel({n: g / 2 for n, g in got[0]["grads"].items()}) > tol
+        for r in got[1:]:
+            assert all(torch.equal(g, r["grads"][n]) for n, g in got[0]["grads"].items())
+            assert all(torch.equal(v, r["state"][k]) for k, v in got[0]["state"].items())

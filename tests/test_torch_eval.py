@@ -319,8 +319,15 @@ def test_cli_eval_scores_a_saved_port_checkpoint_as_the_evaluator_does(tmp_path,
             f"NSS: {got['nss']:.3f}  AUC_Judd: {got['auc_judd']:.3f}   "
             f"AUC_Borji: {got['auc_borji']:.3f}   (compute dtype: float32)") in out
     assert cli.main(["eval", "--checkpoint", "missing", *data]) == 1
-    with pytest.raises(NotImplementedError, match="A.2"):
-        cli.main(["eval", "--devices", "2", "--checkpoint", "r", *data])
+    # a batch that does not divide by the data mesh: one device scores it
+    capsys.readouterr()
+    assert cli.main(["eval", "--devices", "2", "--batch", "3", "--checkpoint",
+                     "p3d_micro_*.pt", *data]) == 0
+    fallback = capsys.readouterr()
+    assert "--batch 3 does not divide by 2 devices; falling back to SINGLE-device eval" \
+        in fallback.err
+    assert "Model: p3d_micro_run.pt (structure p3d_micro)" in fallback.out
+    assert results[-1]["n"] > 0
     assert cli.main(["eval", "--tf-checkpoint", str(tmp_path / "t"), *data]) == 1
 
 

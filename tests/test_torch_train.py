@@ -11,10 +11,10 @@ The same numpy-made inputs go through both packages.  Tolerances:
 * Adam: the same update formula, float32, 1e-6 relative;
 * the micro train step (fp32, dropout 0): the loss to 1e-5 relative; the
   gradient by relative L2 distance, whole and per tensor, under
-  ``GRAD_TOL`` (see there: the micro model's train-mode BN makes it
+  ``GRAD_TOL`` (see ``_torch_parity.py``: the micro model's train-mode BN makes it
   ill-conditioned), which a backward without delta fails; after each step
   the Adam moments (held as the gradient is), the step count and the
-  update of each parameter (``_optimizer_excess``, held tightly where the
+  update of each parameter (``optimizer_excess``, held tightly where the
   moments agree; a wrong lr or step count fails it), and the BN statistics
   under ``STAT_TOL``; the later losses to 2e-3.
 """
@@ -29,7 +29,17 @@ import pytest
 import torch
 from flax import linen as nn
 
-from _torch_parity import build_pair
+from _torch_parity import (
+    GRAD_TOL,
+    HELD_SHARE,
+    assert_optimizer_close,
+    assert_stats_close,
+    build_pair,
+    grad_distance,
+    jax_params,
+    optimizer_excess,
+    snapshot,
+)
 from sap3d_tpu.models import registry as jreg
 from sap3d_tpu.ops.fast_tconv import space_to_depth3d
 from sap3d_tpu.ops.layers import smooth_l1_loss as jax_smooth_l1
@@ -39,7 +49,6 @@ from sap3d_tpu.train.steps import loss_fn_saliency as jax_loss_fn
 from sap3d_tpu.train.steps import _one_step as jax_one_step
 from sap3d_tpu_torch.core.config import Config, ModelConfig, TrainConfig
 from sap3d_tpu_torch.interop.flax_bridge import (
-    convert_leaf,
     optimizer_state_from_optax,
     state_dict_from_flax,
 )
@@ -224,153 +233,27 @@ def _port_model(jax_run):
     return tm
 
 
-def _flat(tree, prefix=""):
-    out = {}
-    for k, v in tree.items():
-        p = f"{prefix}/{k}" if prefix else k
-        out.update(_flat(v, p) if isinstance(v, dict) else {p: v})
-    return out
-
-
-def _assert_stats_close(tm, jstate, steps: int):
-    """BN statistics within STAT_TOL[steps] of each tensor's largest value."""
-    want = state_dict_from_flax(jstate.params, jstate.batch_stats)
-    got = tm.state_dict()
-    excess = {name: (got[name] - w).abs().max().item() / (STAT_TOL[steps] * w.abs().max().item())
-              for name, w in want.items() if name.endswith((".mean", ".var"))}
-    assert excess and max(excess.values()) <= 1, \
-        sorted(excess.items(), key=lambda kv: -kv[1])[:3]
-
-
-# After one step the BN statistics are the forward's (1e-6 measured).  From
-# the second step on, the two trajectories part: Adam's first step moves
-# every parameter by exactly lr, and about 7e4 of the micro model's
-# gradients differ in sign between the packages (they are near zero), so the
-# next forward sees parameters up to 2 lr apart; measured BN statistics
-# 4e-4 of scale apart after two steps, 2.6e-3 after three.
-STAT_TOL = {1: 1e-5, 2: 2e-3, 3: 1e-2}
-
-
-def _snapshot(tm) -> dict[str, torch.Tensor]:
-    return {n: p.detach().clone() for n, p in tm.named_parameters()}
-
-
-def _jax_params(tm, params) -> dict[str, torch.Tensor]:
-    """A JAX parameter tree in the port's layout."""
-    sd = state_dict_from_flax(params, {})
-    return {n: sd[n] for n, _ in tm.named_parameters()}
-
-
-# Adam moves a parameter by lr * m_hat / (sqrt(v_hat) + eps): a function of
-# its two moments and the step count alone.  The update, (p_before -
-# p_after) / lr on each side, is held on the elements whose two moments
-# agree to MOMENT_AGREE: there the two updates differ by at most 1.5 times
-# that, plus the float32 rounding of the parameters (4 ulps of the parameter
-# over lr); UPDATE_TOL allows for both (measured 1.5e-2 at worst).  An lr
-# off by 2x moves the update by 100%, a step count off by one by 16-34% (the
-# bias corrections at steps 1-3).  Where a step starts from the same
-# parameters and moments in both packages, the moments are also held per
-# tensor as the gradient is (relative L2 under GRAD_TOL with GRAD_FLOOR;
-# v, a square, under twice that), and the update on at least HELD_SHARE of
-# the elements (25% and 51% measured: the micro model's float32 gradients
-# agree only to ~1e-2 per element, see GRAD_TOL).  From a step that starts
-# apart (the trajectories part from step 2, see STAT_TOL) the moments
-# differ by more than the gradient's limit and the update is held where
-# they still agree (0.3% to 6% of the elements).
-MOMENT_AGREE, UPDATE_TOL, HELD_SHARE = 1e-2, 2e-2, 0.2
-
-
-def _optimizer_excess(tm, opt, before, jax_before, jstate) -> dict:
-    """How far the port's optimizer step, from parameters ``before`` to the
-    model's now, is from JAX's, from ``jax_before`` to ``jstate``: each
-    measure over its limit (<= 1 agrees), the share of elements whose
-    update is held, and the step counts of both."""
-    want = optimizer_state_from_optax(jstate.opt_state, tm)
-    jax_after = _jax_params(tm, jstate.params)
-    m_scale = max(w["exp_avg"].abs().max().item() for w in want.values())
-    v_scale = max(w["exp_avg_sq"].max().item() for w in want.values())
-    moments = update = 0.0
-    held_n = total = 0
-    steps = set()
-    for name, p in tm.named_parameters():
-        got, w = opt.state[p], want[name]
-        steps.add(float(got["step"]))
-        dm, dv = got["exp_avg"] - w["exp_avg"], got["exp_avg_sq"] - w["exp_avg_sq"]
-        moments = max(moments,
-                      (dm.norm() / (GRAD_TOL * w["exp_avg"].norm() + GRAD_FLOOR * m_scale)).item(),
-                      (dv.norm() / (2 * GRAD_TOL * w["exp_avg_sq"].norm()
-                                    + GRAD_FLOOR * v_scale)).item())
-        held = (dm.abs() <= MOMENT_AGREE * w["exp_avg"].abs()) \
-            & (dv.abs() <= MOMENT_AGREE * w["exp_avg_sq"]) & (w["exp_avg_sq"] > 0)
-        after = p.detach()
-        u = (before[name] - after) / LR
-        uj = (jax_before[name] - jax_after[name]) / LR
-        mag = torch.stack([before[name], after, jax_before[name], jax_after[name]]).abs().amax(0)
-        limit = UPDATE_TOL * uj.abs() + 4 * 2.0 ** -23 * mag / LR
-        if held.any():
-            update = max(update, ((u - uj).abs() / limit)[held].max().item())
-        held_n += int(held.sum())
-        total += held.numel()
-    jax_step = {float(w["step"]) for w in want.values()}
-    return dict(moments=moments, update=update, held=held_n / total, steps=steps,
-                jax_steps=jax_step)
-
-
-def _assert_optimizer_close(tm, opt, before, jax_before, jstate, same_start: bool):
-    """``_optimizer_excess`` within its limits; ``same_start``: the step
-    began from the same parameters and moments in both packages."""
-    ex = _optimizer_excess(tm, opt, before, jax_before, jstate)
-    assert ex["steps"] == ex["jax_steps"] and len(ex["steps"]) == 1, ex
-    assert ex["update"] <= 1 and ex["held"] > 0, ex
-    if same_start:
-        assert ex["moments"] <= 1 and ex["held"] >= HELD_SHARE, ex
-
-
 def _port_grads(jax_run):
     """The port's loss and parameter gradients on the first batch, from
     the fixture's start, and its state after that step."""
     tm = _port_model(jax_run)
     state = create_train_state(tm, lr=LR)
-    before = _snapshot(tm)
+    before = snapshot(tm)
     f, t = map(torch.from_numpy, jax_run["batches"][0])
     loss = make_train_step(state)(f, t)
     assert loss.dtype == torch.float32 and loss.dim() == 0 and state.step == 1
     return loss.item(), {n: p.grad for n, p in tm.named_parameters()}, state, before
 
 
-def _grad_distance(got: dict, jax_grads) -> tuple[float, dict]:
-    """The relative L2 distance of the whole gradient, and per tensor the
-    ratio of ||g - w|| to its limit GRAD_TOL ||w|| + GRAD_FLOOR max|w_all|."""
-    want = {p.replace("/", "."): torch.from_numpy(np.array(convert_leaf(p, w)))
-            for p, w in _flat(jax_grads).items()}
-    assert set(want) == set(got)
-    scale = max(w.abs().max().item() for w in want.values())
-    total = sum(((got[n] - w) ** 2).sum() for n, w in want.items()).sqrt() \
-        / sum((w ** 2).sum() for w in want.values()).sqrt()
-    per = {n: ((got[n] - w).norm() / (GRAD_TOL * w.norm() + GRAD_FLOOR * scale)).item()
-           for n, w in want.items()}
-    return total.item(), per
-
-
-# The micro model's train-mode BN sees 8 to 64 samples per channel, which
-# makes its gradient ill-conditioned in float32: against the port's float64
-# gradient, JAX's float32 one is up to 7e-2 away on single tensors and the
-# port's float32 one 2e-2 (x_3_1's gamma, a sum that cancels, 5e-1).  Measured
-# port-vs-JAX distances: 1.2e-2 for the whole gradient, per tensor median
-# 1.2e-2, worst 2.2e-2 apart from that gamma.  GRAD_FLOOR covers gradients
-# that are zero but for rounding (the biases feeding a train-mode BN).
-GRAD_TOL, GRAD_FLOOR = 5e-2, 1e-3
-
-
 def test_micro_train_step_matches_jax(jax_run):
     loss, grads, state, before = _port_grads(jax_run)
-    _assert_stats_close(state.model, jax_run["states"][0], 1)
-    _assert_optimizer_close(state.model, state.optimizer, before,
-                            _jax_params(state.model, jax_run["variables"]["params"]),
+    assert_stats_close(state.model, jax_run["states"][0], 1)
+    assert_optimizer_close(state.model, state.optimizer, before,
+                            jax_params(state.model, jax_run["variables"]["params"]),
                             jax_run["states"][0], same_start=True)
     np.testing.assert_allclose(loss, jax_run["loss1"], rtol=1e-5)
     np.testing.assert_allclose(loss, jax_run["losses"][0], rtol=1e-5)
-    total, per = _grad_distance(grads, jax_run["grads1"])
+    total, per = grad_distance(grads, jax_run["grads1"])
     assert total <= GRAD_TOL, total
     assert max(per.values()) <= 1, sorted(per.items(), key=lambda kv: -kv[1])[:3]
 
@@ -387,7 +270,7 @@ def test_micro_train_step_limits_fail_a_backward_without_delta(jax_run, monkeypa
 
     monkeypatch.setattr(fb, "flash_backward_reference", without_delta)
     _, grads, _, _ = _port_grads(jax_run)
-    total, per = _grad_distance(grads, jax_run["grads1"])
+    total, per = grad_distance(grads, jax_run["grads1"])
     assert total > 10 * GRAD_TOL
 
 
@@ -397,10 +280,10 @@ def _steps_from(jax_run, state, first: int, same_start: bool):
     of them starts from JAX's parameters and moments."""
     tm, step = state.model, make_train_step(state)
     for i in range(first, 3):
-        before = _snapshot(tm)
+        before = snapshot(tm)
         step(*map(torch.from_numpy, jax_run["batches"][i]))
-        _assert_optimizer_close(tm, state.optimizer, before,
-                                _jax_params(tm, jax_run["states"][i - 1].params),
+        assert_optimizer_close(tm, state.optimizer, before,
+                                jax_params(tm, jax_run["states"][i - 1].params),
                                 jax_run["states"][i], same_start and i == first)
     assert state.step == 3
 
@@ -408,7 +291,7 @@ def _steps_from(jax_run, state, first: int, same_start: bool):
 def test_micro_train_steps_match_jax_after_three_steps(jax_run):
     _, _, state, _ = _port_grads(jax_run)
     _steps_from(jax_run, state, 1, same_start=False)
-    _assert_stats_close(state.model, jax_run["states"][2], 3)
+    assert_stats_close(state.model, jax_run["states"][2], 3)
 
 
 def test_multi_step_matches_single_steps_and_jax(jax_run, tmp_path):
@@ -429,7 +312,7 @@ def test_multi_step_matches_single_steps_and_jax(jax_run, tmp_path):
         records = [json.loads(line) for line in f]
     losses = [r["loss"] for r in records if "loss" in r]
     np.testing.assert_allclose(losses, jax_run["losses"], rtol=2e-3)
-    _assert_stats_close(trainer.model, jax_run["states"][2], 3)
+    assert_stats_close(trainer.model, jax_run["states"][2], 3)
 
 
 def _continue_from_jax(jax_run, lr=LR, count=None):
@@ -456,21 +339,21 @@ def test_jax_train_state_continues_in_the_port(jax_run):
     _steps_from(jax_run, state, 1, same_start=True)
     opt_step = {float(s["step"]) for s in state.optimizer.state.values()}
     assert opt_step == {3.0}
-    _assert_stats_close(state.model, jax_run["states"][2], 2)
+    assert_stats_close(state.model, jax_run["states"][2], 2)
 
 
 @pytest.mark.parametrize("fault", ["lr_doubled", "step_count_reset"])
 def test_optimizer_checks_fail_a_planted_fault(jax_run, fault):
-    """The controls of ``_optimizer_excess``: from JAX's state after step 1,
+    """The controls of ``optimizer_excess``: from JAX's state after step 1,
     one port step with twice the lr, or with the Adam step count back at 0
     (bias correction of step 1 where JAX applies step 2's), moves the
     update past its limit."""
     state = (_continue_from_jax(jax_run, lr=2 * LR) if fault == "lr_doubled"
              else _continue_from_jax(jax_run, count=0))
-    before = _snapshot(state.model)
+    before = snapshot(state.model)
     make_train_step(state)(*map(torch.from_numpy, jax_run["batches"][1]))
-    ex = _optimizer_excess(state.model, state.optimizer, before,
-                           _jax_params(state.model, jax_run["states"][0].params),
+    ex = optimizer_excess(state.model, state.optimizer, before,
+                           jax_params(state.model, jax_run["states"][0].params),
                            jax_run["states"][1])
     assert ex["held"] >= HELD_SHARE and ex["moments"] <= 1, ex
     assert ex["update"] > 10, ex
