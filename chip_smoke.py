@@ -173,7 +173,35 @@ result line):
      (d) printed, not held: all-reduces counted in one bf16 step (2 per BN
      layer, one per gradient bucket, the loss) and ms per step; gloo on
      one card goes through the host, so these measure the mechanism;
- 14. a JSON line of per-kernel numbers (B1-B4 also in fp32, the split-bf16
+ 14. multi-host training (``cli train --distributed``) on the one card, the
+     flagship at full width in bf16 on a synthetic dataset at 112 px,
+     dropout 0, shuffle off, a global batch of 4, 3 steps, plotting every
+     step and saving every step:
+     (a) two OS processes (``python chip_smoke.py --counted-cli train
+     --distributed true --coordinator 127.0.0.1:<free port> --num-processes
+     2 --process-id {0,1} --devices 2 ...``: ``cli.main`` with each rank's
+     ``cli._train`` counting its launches and tracing step 2 through its
+     ``TrainConfig``) in one working directory, one rank each on cuda:0,
+     each rank reporting gloo: both exit 0, one run directory, one
+     checkpoint a step, one "Training Finished!";
+     (b) the same clips through ``core/mesh.launch`` of ``cli._train`` on
+     [cuda:0, cuda:0] in this process, held against (a): step 1's loss (one
+     forward from one state on the same clips) and every tensor of the
+     checkpoint after step 1 bit for bit, but for the parameters upstream
+     of the encoder's pool1 (``MH_POOL1_UPSTREAM``: its windows overlap and
+     its backward, which has no deterministic version, adds in run order)
+     and their Adam moments, which are held within ``MH_STEM_TOL``; the
+     losses of steps 2 and 3 within ``MH_LATER_LOSS_TOL`` of their fall
+     since step 1.  Two planted faults fail that hold: averaged gradients
+     (step 1's Adam moments as they would make them) and (f), (b) with rank
+     1 never stepping.  ``--multihost-repeats N`` runs (b) N times and
+     prints every pair's readings (the limits' calibration);
+     (c) each rank's B1, B2 and B3 launches (rank 0: 9 each, rank 1: 9 B2
+     and 9 B3), reported back from the subprocesses and counted in the JSON
+     line; ms per step and the traced step's device-busy share;
+     (d) process 0 of 2 alone (``initialize_distributed`` with a 5 s
+     timeout) raises at the rendezvous within a bounded time;
+ 15. a JSON line of per-kernel numbers (B1-B4 also in fp32, the split-bf16
      instantiations), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -186,6 +214,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -3498,6 +3527,399 @@ def phase_data_parallel(torch, calibrated, card, mesh=None, model="unet++"):
                 seconds=launch_s)
 
 
+# ---- phase 14: multi-host training on one card (cli train --distributed) ----
+
+MH_MODEL = "unet++"          # the flagship, p3d_unetplusplus_ds
+MH_BATCH = 4                 # the global batch: 2 clips a rank
+MH_STEPS = 3
+MH_PROFILE_STEP = 2          # the step (a) traces
+MH_FAULT_TIMEOUT_S = 5.0     # (d)'s rendezvous timeout
+MH_RUN_TIMEOUT_S = 600       # each process of (a)
+# The parameters upstream of the encoder's pool1, max_pool3d over (2, 3, 3)
+# windows at stride (2, 2, 2): its windows overlap, so its backward adds
+# several gradients into one input element in the order the threads run
+# (it has no deterministic version).  Two runs of one step agree bit for bit
+# everywhere else (4 runs of (a) and (b) on an H100); these parameters'
+# gradients, and Adam's moments of them, may differ.
+MH_POOL1_UPSTREAM = ("encoder.stem.", "encoder.stem_norm.")
+# Two sound runs, held after step 1 on each tensor of MH_POOL1_UPSTREAM
+# (relative L2: the pool1 backward's order) and at each later step on the
+# loss (|difference| over the loss's fall since step 1: from step 2 every
+# parameter follows the stem's difference).  Three runs of (b) and (a) on
+# an H100 read at most 1.684e-3 and 2.490e-3 in their six pairs (PERF.md,
+# PR 12); averaged gradients fail the first (Adam's moments of the stem
+# half and quarter: 0.75), a rank that never steps the second (0.55).
+MH_STEM_TOL = 1e-2
+MH_LATER_LOSS_TOL = 2e-2
+# Where ``mh_counted_train`` writes its rank's launch counts and backend,
+# and the directory it traces step MH_PROFILE_STEP into when set
+# (environment variables, which the ranks a launcher spawns inherit).
+MH_COUNTS_ENV = "CHIP_SMOKE_LAUNCH_COUNTS"
+MH_TRACE_ENV = "CHIP_SMOKE_TRACE_DIR"
+# Device events of a torch.profiler Chrome trace.
+DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def mh_counted_train(group, cfg, *args) -> None:
+    """``cli._train`` as one rank of a data mesh, its B1-B4 launch counts
+    set to 0 just before and written just after, with the backend its group
+    took, to ``$CHIP_SMOKE_LAUNCH_COUNTS/rank<r>.json`` (a counter in a
+    child process is invisible to the process that started it); with
+    ``$CHIP_SMOKE_TRACE_DIR``, step ``MH_PROFILE_STEP`` traced there
+    (``TrainConfig.profile_dir``)."""
+    import torch
+
+    from sap3d_tpu_torch import cli
+    from sap3d_tpu_torch.ops.cuda import flash_attention as fa
+    from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
+
+    if os.environ.get(MH_TRACE_ENV):
+        cfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, profile_dir=os.environ[MH_TRACE_ENV], profile_start=MH_PROFILE_STEP,
+            profile_steps=1))
+    _zero_launch_counts(fa, fb)
+    cli._train(group, cfg, *args)
+    if group.device.type == "cuda":
+        torch.cuda.synchronize(group.device)
+    with open(os.path.join(os.environ[MH_COUNTS_ENV], f"rank{group.rank}.json"), "w") as f:
+        json.dump(dict(launches=_launch_counts(fa, fb), backend=group.backend,
+                       world_size=group.world_size), f)
+
+
+def mh_stalled_train(group, *args) -> None:
+    """``mh_counted_train`` with a planted fault: rank 1 never applies an
+    update (Adam's step does nothing in its process), so its state stays
+    the initial one while rank 0's, and rank 0's checkpoints, are right."""
+    import torch
+
+    if group.rank == 1:
+        torch.optim.Adam.step = lambda self, closure=None: None
+    mh_counted_train(group, *args)
+
+
+def counted_cli(argv) -> int:
+    """``python -m sap3d_tpu_torch.cli <argv>`` with each rank's launches
+    counted (``mh_counted_train`` in place of ``cli._train``, pickled to the
+    ranks by this script's path)."""
+    from sap3d_tpu_torch import cli
+
+    cli._train = mh_counted_train
+    return cli.main(argv)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def device_busy(trace_path: str) -> dict:
+    """The device-busy share of a rank's Chrome trace: the union of its
+    kernels, copies and sets over the whole traced window, and over the
+    ``train_step`` range (its start to the end of the last device event
+    that starts inside it)."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if "dur" in e and "ts" in e]
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in DEVICE_EVENTS)
+    (step,) = [e for e in events if e.get("cat") == "user_annotation"
+               and e.get("name", "").startswith("train_step ")]
+
+    def busy(lo, hi):
+        total, end = 0.0, lo
+        for a, b in device:
+            a, b = max(a, end), min(b, hi)
+            if b > a:
+                total, end = total + b - a, b
+        return total
+
+    window = (min(e["ts"] for e in events), max(e["ts"] + e["dur"] for e in events))
+    s0 = step["ts"]
+    s1 = max([s0 + step["dur"], *(b for a, b in device if s0 <= a <= s0 + step["dur"])])
+    return dict(kernels=len(device), window_ms=(window[1] - window[0]) / 1e3,
+                window_busy=busy(*window) / (window[1] - window[0]),
+                step_ms=(s1 - s0) / 1e3, step_busy=busy(s0, s1) / (s1 - s0))
+
+
+def checkpoint_tensors(torch, tree, prefix: str = "") -> dict:
+    """Every tensor of a checkpoint (model, Adam state) by its path."""
+    if torch.is_tensor(tree):
+        return {prefix: tree}
+    items = tree.items() if isinstance(tree, dict) else \
+        enumerate(tree) if isinstance(tree, (list, tuple)) else ()
+    return {k: v for key, sub in items
+            for k, v in checkpoint_tensors(torch, sub, f"{prefix}/{key}").items()}
+
+
+def mh_run(torch, workdir: str, counts_dir: str) -> dict:
+    """A finished run: its global losses by step and clips/s (rank 0's
+    metrics.jsonl), its run, log and checkpoint names, the tensors by path
+    of its first checkpoint (after step 1) and of its last, and each rank's
+    launch counts and backend."""
+    runs = sorted(os.listdir(os.path.join(workdir, "model")))
+    logs = sorted(os.listdir(os.path.join(workdir, "logs")))
+    with open(os.path.join(workdir, "logs", logs[0], "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f if '"loss"' in line]
+    ckpts = sorted(os.listdir(os.path.join(workdir, "model", runs[0])),
+                   key=lambda c: int(c[len("ckpt_"):-len(".pt")]))
+
+    def tensors(ckpt):
+        return checkpoint_tensors(torch, torch.load(
+            os.path.join(workdir, "model", runs[0], ckpt), map_location="cpu",
+            weights_only=False))
+
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(counts_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return dict(runs=runs, logs=logs, checkpoints=ckpts,
+                counts=[r["launches"] for r in ranks],
+                backends=[(r["backend"], r["world_size"]) for r in ranks],
+                first=tensors(ckpts[0]), tensors=tensors(ckpts[-1]),
+                losses=[(r["step"], r["loss"]) for r in records],
+                clips_per_sec={r["step"]: r["clips_per_sec"] for r in records})
+
+
+def mh_upstream(torch, tensors: dict) -> set:
+    """The paths of a checkpoint's tensors that belong to the parameters
+    upstream of pool1 (``MH_POOL1_UPSTREAM``: the parameter, its buffers,
+    Adam's state of it).  Adam's state is indexed by parameter in the
+    model's order (one parameter group: ``--weight-decay`` 0)."""
+    from sap3d_tpu_torch.models.registry import build_model
+
+    names = [n for n, _ in build_model(MH_MODEL, dtype="bfloat16",
+                                       device="meta").named_parameters()]
+    upstream = {n for n in tensors if n.startswith("/model/")
+                and n[len("/model/"):].startswith(MH_POOL1_UPSTREAM)}
+    return upstream | {n for n in tensors if n.startswith("/optimizer/state/")
+                       and names[int(n.split("/")[3])].startswith(MH_POOL1_UPSTREAM)}
+
+
+def averaged_gradients(torch, tensors: dict) -> dict:
+    """A checkpoint after step 1 as averaged gradients (the sum over the 2
+    ranks halved) would have made it: Adam's first moments are linear in the
+    gradient and halve, its second quadratic and quarter, exactly (powers of
+    2); the parameters move as before (Adam's update is scale-free)."""
+    scale = {"exp_avg": 0.5, "exp_avg_sq": 0.25}
+    return {n: t * scale[n.rsplit("/", 1)[1]]
+            if n.startswith("/optimizer/state/") and n.rsplit("/", 1)[1] in scale else t
+            for n, t in tensors.items()}
+
+
+def mh_hold(torch, x: dict, y: dict, upstream: set, first=None) -> dict:
+    """Run ``x`` against run ``y`` (``mh_run``), with ``first`` in place of
+    ``x``'s checkpoint after step 1 if given: step 1's loss bit for bit;
+    the tensors after step 1 that are not bit for bit equal, outside
+    ``upstream`` and in it; the largest relative L2 of an ``upstream``
+    tensor; each later loss's |difference| over ``y``'s fall since step 1;
+    after the last step, the parameters' relative L2 and the largest
+    |difference| of any tensor; whether it is held (``MH_STEM_TOL``,
+    ``MH_LATER_LOSS_TOL``, bit for bit elsewhere)."""
+    first = x["first"] if first is None else first
+    differ = [n for n, t in first.items() if not torch.equal(t, y["first"][n])]
+    stem = {n: ((first[n].double() - y["first"][n].double()).norm()
+                / y["first"][n].double().norm()).item() for n in upstream}
+    worst = max(stem, key=stem.get)
+    (_, y1), *y_later = y["losses"]
+    later = [abs(a - b) / abs(y1 - b) for (_, a), (_, b) in zip(x["losses"][1:], y_later)]
+    params = [n for n in x["tensors"] if n.startswith("/model/")]
+    num = sum(((x["tensors"][n].double() - y["tensors"][n].double()) ** 2).sum()
+              for n in params)
+    den = sum((y["tensors"][n].double() ** 2).sum() for n in params)
+    diffs = {n: (t.double() - y["tensors"][n].double()).abs().max().item()
+             for n, t in x["tensors"].items()}
+    last = max(diffs, key=diffs.get)
+    out = dict(step1_loss_equal=x["losses"][0] == y["losses"][0],
+               elsewhere=[n for n in differ if n not in upstream],
+               upstream=[n for n in differ if n in upstream],
+               stem=(stem[worst], worst), later=later,
+               param_rel_l2=(num / den).sqrt().item(), largest=(diffs[last], last))
+    out["held"] = (out["step1_loss_equal"] and not out["elsewhere"]
+                   and stem[worst] <= MH_STEM_TOL and len(later) == MH_STEPS - 1
+                   and max(later) <= MH_LATER_LOSS_TOL)
+    return out
+
+
+def describe_hold(h: dict) -> str:
+    return (f"step 1: loss bit for bit {h['step1_loss_equal']}, {len(h['elsewhere'])} tensors "
+            f"differ outside the stem {h['elsewhere'][:6]}, {len(h['upstream'])} in it, its "
+            f"largest relative L2 {h['stem'][0]:.3e} ({h['stem'][1]}; limit {MH_STEM_TOL:g}); "
+            f"later losses' |difference| over the fall since step 1 "
+            f"{[f'{v:.3e}' for v in h['later']]} (limit {MH_LATER_LOSS_TOL:g}); after step "
+            f"{MH_STEPS}: parameters relative L2 {h['param_rel_l2']:.3e}, largest |difference| "
+            f"{h['largest'][0]:.3e} ({h['largest'][1]}); held {h['held']}")
+
+
+def phase_multihost(torch, card, repeats: int = 1):
+    """Phase 14: (a) two processes of ``cli train --distributed`` (through
+    ``counted_cli``) on cuda:0, one rank each over gloo, the flagship at
+    full width in bf16 on a synthetic dataset, step 2 traced, a checkpoint
+    every step; (b) the same clips through ``core/mesh.launch`` of
+    ``cli._train`` on [cuda:0, cuda:0] in this process (``repeats`` times;
+    the first is held, the others' readings printed): (a) held against (b)
+    by ``mh_hold``, and averaged gradients (``averaged_gradients``) and
+    (f), (b) with rank 1 never stepping (``mh_stalled_train``), failing
+    it; (c) every rank's backend, B1-B3 launches, ms per step and the
+    traced step's device-busy share; (d) process 0 of 2 alone raising at
+    the rendezvous."""
+    import shutil
+
+    from sap3d_tpu_torch import cli
+    from sap3d_tpu_torch.core.mesh import initialize_distributed, launch, make_mesh
+    from sap3d_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_mh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    mesh = make_mesh(2, devices=[DEVICE] * 2)
+    try:
+        data = make_synthetic_dataset(os.path.join(root, "data"), num_videos=2,
+                                      frames_per_video=40, size=(SIZE, SIZE))
+        argv = ["--structure", MH_MODEL, "--dtype", "bfloat16",
+                "--frames", data["frame_dirs"], "--densities", data["density_dirs"],
+                "--imagesize", str(SIZE), "--batch", str(MH_BATCH), "--epoch", "4",
+                "--max-steps", str(MH_STEPS), "--dropout", "0", "--shuffle", "false",
+                "--plotiter", "1", "--validiter", "100000", "--saveiter", "1",
+                "--info", "mh", "--threads", "4", "--device", DEVICE, "--devices", "2"]
+
+        # (a) two OS processes in one working directory
+        workdir, counts = os.path.join(root, "a"), os.path.join(root, "counts_a")
+        os.makedirs(workdir)
+        os.makedirs(counts)
+        coordinator = f"127.0.0.1:{free_port()}"
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--counted-cli", "train", *argv,
+             "--distributed", "true", "--coordinator", coordinator, "--num-processes", "2",
+             "--process-id", str(i)],
+            cwd=workdir, env=dict(os.environ, **{MH_COUNTS_ENV: counts,
+                                                 MH_TRACE_ENV: os.path.join(workdir, "trace")}),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for i in (0, 1)]
+        outs = []
+        for proc in procs:
+            try:
+                outs.append(proc.communicate(timeout=MH_RUN_TIMEOUT_S)[0])
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                raise AssertionError("a cli train --distributed process did not end within "
+                                     f"{MH_RUN_TIMEOUT_S} s")
+        a_s = time.perf_counter() - t0
+        codes = [proc.returncode for proc in procs]
+        if codes != [0, 0]:
+            for i, out in enumerate(outs):
+                print(f"[mh] process {i} exit {codes[i]}:\n{out[-3000:]}", flush=True)
+            raise AssertionError(f"cli train --distributed exit codes {codes}")
+        trace = os.path.join(workdir, "trace")
+        traces = sorted(os.listdir(trace))
+        busy = [device_busy(os.path.join(trace, t)) for t in traces]
+        a = mh_run(torch, workdir, counts)
+
+        # (b) core/mesh.launch in this process, on the same clips; (f) the same
+        # with a planted fault
+        cfg = cli._train_config(cli._train_parser().parse_args(argv))
+        idx = cli._clip_index(cfg)
+
+        def launched(tag, fn):
+            workdir, counts = os.path.join(root, tag), os.path.join(root, f"counts_{tag}")
+            os.makedirs(counts)
+            run_cfg = cfg.replace(train=dataclasses.replace(
+                cfg.train, model_dir=os.path.join(workdir, "model"),
+                logs_dir=os.path.join(workdir, "logs")))
+            os.environ.update({MH_COUNTS_ENV: counts,
+                               MH_TRACE_ENV: os.path.join(workdir, "trace")})
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            try:
+                launch(mesh, fn, run_cfg, a["runs"][0], None, idx.train_clips(),
+                       idx.valid_clips(), MH_BATCH // 2, False)
+            finally:
+                del os.environ[MH_COUNTS_ENV], os.environ[MH_TRACE_ENV]
+            return mh_run(torch, workdir, counts), time.perf_counter() - t0
+
+        bs = [launched(f"b{i}", mh_counted_train) for i in range(repeats)]
+        (b, b_s) = bs[0]
+        f, f_s = launched("f", mh_stalled_train)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    upstream = mh_upstream(torch, a["first"])
+    held = mh_hold(torch, a, b, upstream)
+    averaged = mh_hold(torch, a, b, upstream, first=averaged_gradients(torch, a["first"]))
+    stalled = mh_hold(torch, f, b, upstream)
+    repeated = {f"b{i} against b{j}": mh_hold(torch, bs[i][0], bs[j][0], upstream)
+                for i in range(repeats) for j in range(i)}
+    repeated.update({f"a against b{i}": mh_hold(torch, a, bs[i][0], upstream)
+                     for i in range(1, repeats)})
+
+    # (d) process 0 of 2 alone: the rendezvous raises, nothing trains
+    t0 = time.perf_counter()
+    try:
+        initialize_distributed(f"127.0.0.1:{free_port()}", 2, 0, timeout=MH_FAULT_TIMEOUT_S)
+    except RuntimeError as e:
+        fault = dict(raised=str(e), seconds=time.perf_counter() - t0)
+    else:
+        raise AssertionError("process 0 of 2 alone passed the rendezvous")
+
+    n_sites = len(SITES)
+    finished = sum(out.count("Training Finished!") for out in outs)
+    print(f"[mh] (a) 2 processes of cli train --distributed, one rank each on {DEVICE}, the "
+          f"ranks' (backend, world size) {a['backends']}: exit codes {codes} in {a_s:.2f} s; "
+          f"run directories {a['runs']}, log directories {a['logs']}, checkpoints "
+          f"{a['checkpoints']}; 'Training Finished!' printed {finished} time(s); global "
+          f"losses {a['losses']}  [{card}]", flush=True)
+    print(f"[mh] (b) core/mesh.launch of cli._train on [{DEVICE}, {DEVICE}] in one process, "
+          f"the ranks' {b['backends']}, {b_s:.2f} s: losses {b['losses']}; (a) against (b): "
+          f"{describe_hold(held)}", flush=True)
+    for name, h in repeated.items():
+        print(f"[mh] (b) repeated, {name}: {describe_hold(h)}", flush=True)
+    print(f"[mh] planted faults: averaged gradients (a's checkpoint after step 1 as they "
+          f"would make it) against (b): {describe_hold(averaged)}; (f) rank 1 never "
+          f"stepping, {f_s:.2f} s, losses {f['losses']}, against (b): {describe_hold(stalled)}",
+          flush=True)
+    ms = {s: 1e3 * MH_BATCH / c for s, c in a["clips_per_sec"].items()}
+    print(f"[mh] (c) launches per rank, (a) {a['counts']}, (b) {b['counts']}; ms per step "
+          f"(rank 0's clips/s, the global batch of {MH_BATCH}) "
+          f"{ {s: round(v, 1) for s, v in ms.items()} }; step {MH_PROFILE_STEP} traced, per "
+          f"rank: {traces}, " + "; ".join(
+              f"{u['kernels']} device events, busy {100 * u['window_busy']:.1f}% of the "
+              f"{u['window_ms']:.1f} ms window, {100 * u['step_busy']:.1f}% of the "
+              f"{u['step_ms']:.1f} ms train_step range" for u in busy) + f"  [{card}]",
+          flush=True)
+    print(f"[mh] (d) process 0 of 2 alone, timeout {MH_FAULT_TIMEOUT_S:g} s: raised after "
+          f"{fault['seconds']:.2f} s: {fault['raised']}", flush=True)
+
+    if finished != 1 or len(a["runs"]) != 1 or len(a["logs"]) != 1 \
+            or a["checkpoints"] != [f"ckpt_{s}.pt" for s in range(1, MH_STEPS + 1)]:
+        raise AssertionError("cli train --distributed: not one run, one log and one "
+                             "checkpoint a step")
+    if [s for s, _ in a["losses"]] != list(range(1, MH_STEPS + 1)) \
+            or not all(math.isfinite(v) for _, v in a["losses"]):
+        raise AssertionError("cli train --distributed: losses missing or not finite")
+    if a["backends"] != [("gloo", 2)] * 2 or b["backends"] != [("gloo", 2)] * 2:
+        raise AssertionError("the ranks did not run as 2 ranks over gloo")
+    if not held["held"]:
+        raise AssertionError("the two processes and one process's launcher differ: "
+                             + describe_hold(held))
+    if averaged["held"] or stalled["held"]:
+        raise AssertionError("a planted fault passed the hold of (a) against (b)")
+    want = [{"B1": n_sites * MH_STEPS, "B2": n_sites * MH_STEPS, "B3": n_sites * MH_STEPS,
+             "B4": 0}, {"B1": 0, "B2": n_sites * MH_STEPS, "B3": n_sites * MH_STEPS, "B4": 0}]
+    if DEVICE != "cpu" and (a["counts"] != want or b["counts"] != want):
+        raise AssertionError(f"launches per rank: expected {want}")
+    if traces != [f"rank{r}_steps_{MH_PROFILE_STEP}-{MH_PROFILE_STEP}.pt.trace.json"
+                  for r in (0, 1)] or not all(u["kernels"] > 0 or DEVICE == "cpu" for u in busy):
+        raise AssertionError("a rank wrote no trace of the profiled step, or one without "
+                             "device events")
+    if not fault["seconds"] < 5 * MH_FAULT_TIMEOUT_S:
+        raise AssertionError("the lost peer's rendezvous took too long to fail")
+    return dict(a_seconds=a_s, b_seconds=b_s, f_seconds=f_s, losses=a["losses"],
+                losses_b=b["losses"], losses_f=f["losses"], launches=a["counts"],
+                launches_b=b["counts"], ms_per_step=ms, device_busy=busy, fault=fault,
+                held=held, averaged=averaged, stalled=stalled, repeated=repeated)
+
+
 # Per source of phase 2: the kernels ptxas reports on (a longer name before
 # its prefix), and those of them that must not spill (the wgmma kernels,
 # bf16 and split fp32, which the gates reach at every instantiation, and
@@ -3618,6 +4040,9 @@ def main(argv=None) -> int:
     p.add_argument("--json-out", default=None,
                    help="also profile one forward and one train step by layer and "
                         "write the details here")
+    p.add_argument("--multihost-repeats", type=int, default=1,
+                   help="run phase 14's (b) this many times and print every pair's "
+                        "readings")
     args = p.parse_args(argv)
 
     import torch
@@ -3737,6 +4162,7 @@ def main(argv=None) -> int:
                   "visible); gloo on cuda:0 twice ran", flush=True)
         del calibrated
         torch.cuda.empty_cache()
+        mh = phase_multihost(torch, card, repeats=args.multihost_repeats)
 
         fit, gn_fit = train["fit"]["launches"], gn_train["fit"]["launches"]
         ring_fwd, ring_step = ring["launches"]["forward"], ring["launches"]["step"]
@@ -3752,6 +4178,8 @@ def main(argv=None) -> int:
         dp_fit = {k: sum(n[k] for r in dp for n in r["fit"]["launches"]) for k in ("B2", "B3")}
         dp_step32 = {k: sum(s_[k] for r in dp for s_ in r["step_launches"]) for k in ("B2", "B3")}
         dp_eval32 = sum(n for r in dp for n in r["evaluation"]["launches"])
+        # multi-host: cli train --distributed's two processes, over their ranks
+        mh_fit = {k: sum(r[k] for r in mh["launches"]) for k in ("B1", "B2", "B3")}
         # every main path launched every kernel the gate gives it
         if not (launches > 0 and fit["B2"] > 0 and fit["B3"] > 0 and gn_launches > 0
                 and gn_fit["B2"] > 0 and gn_fit["B3"] > 0 and b5_launches > 0
@@ -3760,7 +4188,8 @@ def main(argv=None) -> int:
                 and fit32["B2"] > 0 and fit32["B3"] > 0 and ring32["B2"] > 0
                 and ring32["B4"] > 0 and tf_quirk["b1_launches"] > 0
                 and tf_quirk["b1_launches_fp32"] > 0 and dp_fit["B2"] > 0 and dp_fit["B3"] > 0
-                and dp_step32["B2"] > 0 and dp_step32["B3"] > 0 and dp_eval32 > 0):
+                and dp_step32["B2"] > 0 and dp_step32["B3"] > 0 and dp_eval32 > 0
+                and mh_fit["B1"] > 0 and mh_fit["B2"] > 0 and mh_fit["B3"] > 0):
             raise AssertionError("a kernel of a main path was never launched")
         print(f"[launches] flagship predictor B1 {launches}; flagship Trainer.fit {fit}; GN "
               f"predictor B1 {gn_launches}; GN Trainer.fit {gn_fit}; B5 on the GN step's "
@@ -3772,7 +4201,8 @@ def main(argv=None) -> int:
               f"{tf_quirk['b1_launches']}, its float32 eval step B1 "
               f"{tf_quirk['b1_launches_fp32']}; data parallel, over the ranks: Trainer.fit "
               f"{dp_fit}, the float32 step {dp_step32}, cli eval's float32 route B1 "
-              f"{dp_eval32}", flush=True)
+              f"{dp_eval32}; cli train --distributed, over both processes' ranks {mh_fit}",
+              flush=True)
         in_step = {k: [r["max_abs_err"] for r in train[f"{k}_in_step"].values()]
                    for k in ("b2", "b3")}
         kernels = [
@@ -3781,17 +4211,17 @@ def main(argv=None) -> int:
             kernel_entry("flash_attention_fwd", fa.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:141",
                          launches + gn_launches + evaluation["b1_launches"]
-                         + tf_quirk["b1_launches"],
+                         + tf_quirk["b1_launches"] + mh_fit["B1"],
                          rows["B1"], [r["max_abs_err"] for r in gn_fwd["held"].values()],
                          gn_rows["B1"] + zoo_rows["B1"]),
             kernel_entry("flash_attention_fwd_lse", fa.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:141",
                          fit["B2"] + gn_fit["B2"] + ring_fwd["B2"] + ring_step["B2"]
-                         + dp_fit["B2"],
+                         + dp_fit["B2"] + mh_fit["B2"],
                          rows["B2"], in_step["b2"], gn_rows["B2"] + zoo_rows["B2"]),
             kernel_entry("flash_attention_bwd", fb.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:274",
-                         fit["B3"] + gn_fit["B3"] + dp_fit["B3"],
+                         fit["B3"] + gn_fit["B3"] + dp_fit["B3"] + mh_fit["B3"],
                          rows["B3"], in_step["b3"], gn_rows["B3"] + zoo_rows["B3"]),
             # B4: the ring train step's backward, times at the per-shard shapes
             kernel_entry("flash_attention_bwd_lse", fb.SOURCE,
@@ -3846,7 +4276,8 @@ def main(argv=None) -> int:
                                row_stats_rows=stats_rows, bisect=bisect, evaluation=evaluation,
                                tf_import=dict(reader=tf_reader, mapping=tf_mapping,
                                               quirk=tf_quirk),
-                               data_parallel=dp, kernels=kernels), f, indent=1)
+                               data_parallel=dp, multihost=mh, kernels=kernels), f,
+                          indent=1)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3859,4 +4290,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--counted-cli"]:
+        sys.exit(counted_cli(sys.argv[2:]))
     sys.exit(main())

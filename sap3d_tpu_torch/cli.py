@@ -48,8 +48,17 @@ cpu`` the CPU N times over gloo (-1 means once).  ``train`` returns 2 when
 ``--batch`` (the global batch) does not divide by N, and ``--time-shards``
 above 1 keeps a data mesh of 1; ``eval`` scores data parallel when
 ``--batch`` divides by N and otherwise falls back to one device with a
-message, as the JAX command line does.  Multi-host runs (``--distributed``)
-are not ported yet (ROADMAP A.5).
+message, as the JAX command line does.
+
+Multi-host training (ROADMAP A.5): run ``train --distributed true
+--coordinator HOST:PORT --num-processes P --process-id i`` once per process,
+each on its host.  The processes meet at the coordinator (process 0 holds
+its port), and their ranks form one data mesh: ``--devices N`` counts the
+ranks of every process, each process starting N / P of them, one per local
+card (``core/mesh.py``).  ``--batch`` is the global batch and must divide by
+P, then by N.  Every process takes process 0's run name, and global rank 0
+writes the run's logs and checkpoints, on a filesystem the hosts share.
+``--time-shards`` is one process.
 """
 
 from __future__ import annotations
@@ -112,7 +121,7 @@ def _data_config(args) -> DataConfig:
         image_size=args.imagesize, num_threads=args.threads)
 
 
-def cmd_train(argv) -> int:
+def _train_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="sap3d_tpu_torch train")
     _add_common_model_flags(p)
     _add_data_flags(p)
@@ -122,12 +131,17 @@ def cmd_train(argv) -> int:
     p.add_argument("--pretrain", type=str, default=None,
                    help="run dir under ./model to resume from (its latest checkpoint)")
     p.add_argument("--epoch", type=int, default=4)
-    p.add_argument("--batch", type=int, default=2)
+    p.add_argument("--batch", type=int, default=2,
+                   help="the global batch, over every device of every process")
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--info", type=str, default="")
     p.add_argument("--devices", type=int, default=-1,
-                   help="data-parallel devices, one process each (-1: every visible "
-                        "card; with --device cpu, the CPU N times)")
+                   help="data-parallel devices, one process each, counted over every "
+                        "process of a --distributed run (-1: every visible card of every "
+                        "process; with --device cpu, the CPU N times, or once per process "
+                        "for -1); each process of P takes N / P of its own, and an N that "
+                        "does not divide by P is refused (the JAX package would build a "
+                        "mesh that leaves out part of a host)")
     p.add_argument("--sync-bn", type=parse_bool, default=False,
                    help="no effect: BN statistics are always global-batch")
     p.add_argument("--steps-per-call", type=int, default=1,
@@ -137,8 +151,13 @@ def cmd_train(argv) -> int:
                    help="coupled L2 on conv kernels")
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--distributed", type=parse_bool, default=False,
-                   help="multi-host training: not ported yet (ROADMAP A.5)")
-    p.add_argument("--coordinator", type=str, default=None)
+                   help="multi-host training: run the command once per process, each "
+                        "with the same --coordinator, --num-processes and its own "
+                        "--process-id; their ranks form one data mesh.  Without "
+                        "--coordinator, one process")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="multi-host coordinator address host:port, where process 0 "
+                        "listens")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--dropout", type=float, default=0.5,
@@ -148,22 +167,15 @@ def cmd_train(argv) -> int:
     p.add_argument("--time-shards", type=int, default=0,
                    help="long clips: run the SA sites as ring attention over N "
                         "devices (--videolength a multiple of 16*N; the other "
-                        "layers run unsharded)")
+                        "layers run unsharded; one process)")
     p.add_argument("--ring-attention", type=parse_bool, default=True,
                    help="with --time-shards on an SA variant: ring attention "
                         "across shards instead of attention over the whole clip")
-    args = p.parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError("--distributed is not ported yet "
-                                  "(ROADMAP A.5, multi-host training)")
+    return p
 
-    from sap3d_tpu_torch.core.device import resolve_device
-    from sap3d_tpu_torch.core.mesh import launch
-    from sap3d_tpu_torch.data.indexer import ClipIndex
-    from sap3d_tpu_torch.train.trainer import run_name
 
-    device = resolve_device(args.device)
-    cfg = Config(
+def _train_config(args) -> Config:
+    return Config(
         model=ModelConfig(name=args.structure, dtype=args.dtype, dropout=args.dropout),
         data=_data_config(args),
         train=TrainConfig(
@@ -175,18 +187,69 @@ def cmd_train(argv) -> int:
             max_steps=args.max_steps, time_shards=args.time_shards,
             ring_attention=args.ring_attention),
     )
-    idx = ClipIndex(cfg.data.frame_dirs, cfg.data.density_dirs,
-                    fixation_dir=cfg.data.fixation_dir,
-                    video_length=cfg.data.video_length).setup(
+
+
+def _clip_index(cfg: Config):
+    from sap3d_tpu_torch.data.indexer import ClipIndex
+
+    return ClipIndex(cfg.data.frame_dirs, cfg.data.density_dirs,
+                     fixation_dir=cfg.data.fixation_dir,
+                     video_length=cfg.data.video_length).setup(
         overlap=cfg.data.overlap, training_props=cfg.data.training_props,
         skip_head=cfg.data.skip_head, seed=cfg.data.shuffle_seed)
+
+
+def cmd_train(argv) -> int:
+    p = _train_parser()
+    args = p.parse_args(argv)
+
+    from sap3d_tpu_torch.core.mesh import initialize_distributed
+
+    cluster = None
+    if args.distributed:
+        if args.coordinator:
+            if args.num_processes is None or args.process_id is None:
+                p.error("--coordinator requires --num-processes and --process-id")
+            cluster = initialize_distributed(args.coordinator, args.num_processes,
+                                             args.process_id)
+        elif args.num_processes is not None or args.process_id is not None:
+            # without a coordinator these flags would be silently dropped
+            # and both launched processes would train independently
+            p.error("--num-processes/--process-id require --coordinator")
+        else:
+            initialize_distributed()
+    if cluster is None:
+        return _train_processes(args, None)
+    with cluster:
+        return _train_processes(args, cluster)
+
+
+def _train_processes(args, cluster) -> int:
+    """``cli train`` in this process: alone, or as process ``i`` of a
+    ``cluster``, starting the ranks of its share of the data mesh."""
+    from sap3d_tpu_torch.core.device import resolve_device
+    from sap3d_tpu_torch.core.mesh import launch
+    from sap3d_tpu_torch.train.trainer import run_name
+
+    processes = cluster.num_processes if cluster is not None else 1
+    if args.batch % processes:
+        print(f"--batch {args.batch} must divide by process_count {processes}",
+              file=sys.stderr)
+        return 2
+    device = resolve_device(args.device)
+    cfg = _train_config(args)
+    idx = _clip_index(cfg)
     print(idx.summary())
     if not idx.train_clips():
         print("no training clips found: check --dataset/--frames/--densities",
               file=sys.stderr)
         return 2
+    if args.time_shards > 1 and processes > 1:
+        # sap3d_tpu/train/trainer.py's reason, word for word
+        raise NotImplementedError("--time-shards is single-process: a multi-host time mesh "
+                                  "would put temporal halo exchanges on DCN")
     # time mode: the data mesh is a single device group
-    mesh = _data_mesh(1 if args.time_shards > 1 else args.devices, device)
+    mesh = _data_mesh(1 if args.time_shards > 1 else args.devices, device, cluster)
     if mesh is None:
         return 2
     n_dev = len(mesh.devices)
@@ -198,18 +261,21 @@ def cmd_train(argv) -> int:
     if n_dev == 1:
         _train(None, cfg, None, device, *clips, args.batch, args.shuffle)
     else:
-        launch(mesh, _train, cfg, run_name(cfg), None, *clips, args.batch // n_dev,
-               args.shuffle)
+        # one run directory: every process takes process 0's name (it holds the date)
+        run = run_name(cfg) if cluster is None else cluster.all_gather("run", run_name(cfg))[0]
+        launch(mesh, _train, cfg, run, None, *clips, args.batch // n_dev, args.shuffle)
     return 0
 
 
-def _data_mesh(devices: int, device):
-    """The data mesh of ``--devices`` on ``device``'s kind, or None after
-    printing why there is none (more cards asked for than are visible)."""
+def _data_mesh(devices: int, device, cluster=None):
+    """The data mesh of ``--devices`` on ``device``'s kind (over every
+    process of ``cluster``), or None after printing why there is none (more
+    cards asked for than are visible, or a count that does not divide over
+    the processes)."""
     from sap3d_tpu_torch.core.mesh import make_mesh
 
     try:
-        return make_mesh(devices, device=device)
+        return make_mesh(devices, device=device, cluster=cluster)
     except ValueError as e:
         print(f"--devices {devices}: {e}", file=sys.stderr)
         return None

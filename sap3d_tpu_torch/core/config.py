@@ -3,9 +3,7 @@
 A copy of ``sap3d_tpu/core/config.py`` (``Config``, ``ModelConfig``,
 ``DataConfig``, ``TrainConfig``, ``DATASET_ROOTS``, ``EVAL_DATASETS``,
 ``parse_bool``); the port imports nothing of ``sap3d_tpu``.  The fields are
-the JAX package's, so a configuration reads the same in both.  A field of
-a path that is not ported yet (``profile_dir``) is kept, and
-``train/trainer.py`` raises on it.
+the JAX package's, so a configuration reads the same in both.
 """
 
 from __future__ import annotations

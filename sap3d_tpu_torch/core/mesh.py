@@ -22,14 +22,26 @@ list of devices along one axis.
   ``broadcast``, so those are the only collectives on device tensors; host
   data (metric lists) goes by ``all_gather_object``.
 
-Multi-host runs are not ported (ROADMAP A.5).
+Multi-host (``initialize_distributed``, the counterpart of JAX's): process
+``i`` of ``P`` meets the others at a coordinator, a TCP store that process
+0 holds (``Cluster``).  Each process publishes its host name and its cards
+there, so every process knows the whole layout before a rank starts.
+``Cluster.make_mesh`` then spans the ranks of every process, process ``i``'s
+first at the sum of the earlier processes' counts, and ``launch`` starts
+this process's entries with those global ranks, meeting the others' on the
+TCP store.  The backend is chosen on (host, card) pairs, so that two
+processes on one host that name the same card talk over gloo.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import json
 import os
 import pickle
+import socket
+import sys
 import tempfile
 from typing import Any, Callable
 
@@ -38,19 +50,167 @@ import torch.distributed as dist
 
 TIME_AXIS = "time"
 DATA_AXIS = "data"
+# Seconds a process waits for the others at the coordinator, and the ranks
+# in a collective: jax.distributed.initialize's initialization_timeout.
+DEFAULT_TIMEOUT_S = 300.0
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """Devices in order along one axis, ``TIME_AXIS`` or ``DATA_AXIS``."""
+    """Devices in order along one axis, ``TIME_AXIS`` or ``DATA_AXIS``.
+
+    A data mesh across processes (``make_mesh`` with a ``cluster``) also
+    holds each entry's (host, card), the entries ``[start, stop)`` that
+    this process runs, and the cluster its ranks meet through."""
 
     devices: tuple[torch.device, ...]
     axis: str = TIME_AXIS
+    places: tuple[tuple[str, str], ...] = ()
+    local: tuple[int, int] | None = None
+    cluster: Cluster | None = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def shape(self) -> dict[str, int]:
         """{axis name: number of devices}, as a JAX mesh's ``shape``."""
         return {self.axis: len(self.devices)}
+
+
+class Cluster:
+    """This process's place among the ``num_processes`` processes of a run
+    that met at ``coordinator`` (``HOST:PORT``); ``initialize_distributed``
+    makes it.
+
+    Process 0 holds the TCP store at that address, and every process
+    publishes its host name there before the constructor returns.  Values
+    pass between processes as JSON through the store, every process calling
+    the same exchanges in the same order.  Each wait ends after ``timeout``
+    seconds with a ``RuntimeError`` naming the processes that did not
+    arrive.  ``close`` (or leaving a ``with`` block) says that this process
+    is done; process 0 lets the store go only when every process has said
+    so, after every rank has left."""
+
+    def __init__(self, coordinator: str, num_processes: int, process_id: int,
+                 timeout: float = DEFAULT_TIMEOUT_S):
+        host, sep, port = coordinator.rpartition(":")
+        if not (sep and host and port.isdigit()):
+            raise ValueError(f"coordinator {coordinator!r} is not HOST:PORT")
+        if num_processes is None or process_id is None:
+            raise ValueError("a coordinator needs the number of processes and this "
+                             "process's id")
+        if not 0 <= process_id < num_processes:
+            raise ValueError(f"process id {process_id} is not in [0, {num_processes})")
+        self.host, self.port = host, int(port)
+        self.num_processes, self.process_id = num_processes, process_id
+        self.timeout = datetime.timedelta(seconds=timeout)
+        self._exchanges = 0
+        try:
+            self.store = dist.TCPStore(host, self.port, is_master=process_id == 0,
+                                       timeout=self.timeout, wait_for_workers=False)
+        except dist.DistError as e:
+            raise RuntimeError(f"process {process_id} of {num_processes}: no store at the "
+                               f"coordinator {self.address}: {e}") from e
+        try:
+            self.hosts = self.all_gather("host", socket.gethostname())
+        except RuntimeError:
+            self.store = None
+            raise
+
+    @property
+    def address(self) -> str:
+        return f"{self.host}:{self.port}"
+
+    def _key(self, name: str) -> str:
+        """A fresh store key for the next exchange called ``name``."""
+        self._exchanges += 1
+        return f"{name}{self._exchanges}"
+
+    def _wait(self, keys: list[str], what: str) -> None:
+        """Wait for one key of each process, ``keys[i]`` process ``i``'s."""
+        try:
+            self.store.wait(keys, self.timeout)
+        except dist.DistError as e:
+            missing = [i for i, k in enumerate(keys) if not self.store.check([k])]
+            raise RuntimeError(
+                f"process {self.process_id} of {self.num_processes}: no {what} from "
+                f"process {missing} at the coordinator {self.address} within "
+                f"{self.timeout.total_seconds():g} s") from e
+
+    def all_gather(self, name: str, value) -> list:
+        """Every process's ``value``, in process order."""
+        key = self._key(name)
+        self.store.set(f"{key}/{self.process_id}", json.dumps(value))
+        keys = [f"{key}/{i}" for i in range(self.num_processes)]
+        self._wait(keys, name)
+        return [json.loads(self.store.get(k)) for k in keys]
+
+    def span(self, local: Mesh) -> Mesh:
+        """The data mesh of every process's ``local`` mesh, in process order:
+        this process's entries start at the sum of the earlier processes'
+        counts."""
+        me = self.hosts[self.process_id]
+        entries = self.all_gather("mesh", [[me, _card(d), str(d)] for d in local.devices])
+        start = sum(len(e) for e in entries[:self.process_id])
+        flat = [entry for e in entries for entry in e]
+        return Mesh(tuple(torch.device(d) for _, _, d in flat), DATA_AXIS,
+                    places=tuple((h, c) for h, c, _ in flat),
+                    local=(start, start + len(local.devices)), cluster=self)
+
+    def rendezvous(self) -> tuple:
+        """What a rank of ``launch`` needs to reach the store: the address,
+        the timeout and a key prefix of its launch's own."""
+        return self.host, self.port, self.timeout, self._key("launch") + "/"
+
+    def close(self) -> None:
+        """Say that this process is done; process 0 first waits for every
+        process to say so.  Prints, and does not raise, when a process
+        never does (it failed, and its ranks' peers with it)."""
+        if self.store is None:
+            return
+        try:
+            self.store.set(f"done/{self.process_id}", "1")
+            if self.process_id == 0:
+                self._wait([f"done/{i}" for i in range(self.num_processes)], "word of its end")
+        except (RuntimeError, dist.DistError) as e:
+            print(f"closing the cluster: {e}", file=sys.stderr)
+        finally:
+            self.store = None
+
+    def __enter__(self) -> Cluster:
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def initialize_distributed(coordinator_address: str | None = None,
+                           num_processes: int | None = None, process_id: int | None = None,
+                           timeout: float = DEFAULT_TIMEOUT_S) -> Cluster | None:
+    """Counterpart of ``sap3d_tpu/core/mesh.py:initialize_distributed``:
+    call once in each process of a multi-host run, before its mesh.
+
+    With a coordinator address, join the run there as process
+    ``process_id`` of ``num_processes`` and return the ``Cluster``.  A
+    coordinator that cannot be reached, or a process that has not arrived
+    within ``timeout`` seconds (``jax.distributed.initialize``'s
+    ``initialization_timeout``), raises: such a run must not go on alone.
+    Without one there is nothing to join (the port has no counterpart of a
+    TPU pod's auto-detection): print that it is skipped, as the JAX
+    package does off a pod, and return None; the run is one process."""
+    if coordinator_address is None:
+        print("initialize_distributed skipped: no coordinator address, so this is a "
+              "run of one process")
+        return None
+    return Cluster(coordinator_address, num_processes, process_id, timeout)
+
+
+def _card(device: torch.device) -> str:
+    """A device's identity on its host: a card's UUID, the same under any
+    ``CUDA_VISIBLE_DEVICES``, where the card reports one."""
+    if device.type == "cuda":
+        uuid = getattr(torch.cuda.get_device_properties(device), "uuid", None)
+        if uuid is not None:
+            return f"GPU-{uuid}"
+    return str(device)
 
 
 def _visible_cards() -> list[torch.device]:
@@ -79,13 +239,27 @@ def make_time_mesh(num_devices: int = -1, devices=None) -> Mesh:
     return Mesh(tuple(_first(num_devices, devs, "time")), TIME_AXIS)
 
 
-def make_mesh(num_devices: int = -1, devices=None, device: str | torch.device = "cuda"
-              ) -> Mesh:
+def make_mesh(num_devices: int = -1, devices=None, device: str | torch.device = "cuda",
+              cluster: Cluster | None = None) -> Mesh:
     """A 1-D data mesh: the first ``num_devices`` of ``devices``.  Without
     ``devices``, a CUDA ``device`` means the visible cards (-1 and 0: all of
     them) and the CPU means itself ``num_devices`` times (-1 and 0: once).
     ``devices`` may repeat a device.  Asking for more devices than there are
-    raises."""
+    raises.
+
+    With a ``cluster`` the mesh spans the ranks of every process
+    (``Cluster.span``): ``num_devices`` counts them all, each process taking
+    ``num_devices / P`` of its own, and -1 and 0 mean every visible card of
+    every process (the CPU once per process).  A count that does not divide
+    by P raises: the port refuses a mesh that leaves out part of a
+    process."""
+    if cluster is not None:
+        p = cluster.num_processes
+        if num_devices > 0 and num_devices % p:
+            raise ValueError(f"a data mesh of {num_devices} devices does not divide over "
+                             f"{p} processes, each of which takes N / {p} of its own")
+        return cluster.span(make_mesh(num_devices // p if num_devices > 0 else num_devices,
+                                      devices, device))
     if devices is None:
         cpu = torch.device(device).type == "cpu"
         devs = [torch.device("cpu")] * max(1, num_devices) if cpu else _visible_cards()
@@ -96,10 +270,10 @@ def make_mesh(num_devices: int = -1, devices=None, device: str | torch.device = 
 
 
 def data_backend(mesh: Mesh) -> str:
-    """``nccl`` for a mesh of distinct cards, ``gloo`` for the CPU or a mesh
-    that names a card more than once."""
-    devs = mesh.devices
-    if all(d.type == "cuda" for d in devs) and len(set(devs)) == len(devs):
+    """``nccl`` when every entry is a card and no (host, card) pair repeats;
+    ``gloo`` for the CPU, or when a card is named twice on one host."""
+    places = mesh.places or tuple(("", str(d)) for d in mesh.devices)
+    if all(d.type == "cuda" for d in mesh.devices) and len(set(places)) == len(places):
         return "nccl"
     return "gloo"
 
@@ -154,22 +328,32 @@ class DataGroup:
                 dist.barrier()
 
 
-def _rank_main(rank: int, fn: Callable, args: tuple, devices: tuple, backend: str,
-               workdir: str, threads: int | None) -> None:
-    """One rank: join the group on a file store, run ``fn(group, *args)``,
-    leave the group and write its return value for the launcher."""
+def _rank_main(local_rank: int, fn: Callable, args: tuple, devices: tuple, first: int,
+               backend: str, workdir: str, threads: int | None, rendezvous: tuple | None
+               ) -> None:
+    """One rank, ``first + local_rank`` of the mesh: join the group (on a
+    file store, or on the cluster's TCP store under the launch's prefix),
+    run ``fn(group, *args)``, leave the group and write its return value
+    for the launcher."""
+    rank = first + local_rank
     n, device = len(devices), devices[rank]
     if device.type == "cuda":
         torch.cuda.set_device(device)
     if threads:
         torch.set_num_threads(threads)
-    dist.init_process_group(backend, store=dist.FileStore(os.path.join(workdir, "store"), n),
-                            rank=rank, world_size=n)
+    if rendezvous is None:
+        store, kw = dist.FileStore(os.path.join(workdir, "store"), n), {}
+    else:
+        host, port, timeout, prefix = rendezvous
+        store = dist.PrefixStore(prefix, dist.TCPStore(host, port, is_master=False,
+                                                       timeout=timeout))
+        kw = {"timeout": timeout}
+    dist.init_process_group(backend, store=store, rank=rank, world_size=n, **kw)
     try:
         result = fn(DataGroup(rank, n, device, backend), *args)
     finally:
         dist.destroy_process_group()
-    with open(os.path.join(workdir, f"result_{rank}.pkl"), "wb") as f:
+    with open(os.path.join(workdir, f"result_{local_rank}.pkl"), "wb") as f:
         pickle.dump(result, f)
 
 
@@ -183,20 +367,30 @@ def launch(mesh: Mesh, fn: Callable, *args) -> list:
     inherited.  The ranks meet on a file store in a temporary directory,
     so no port is needed.  On the CPU each rank takes an equal share of
     the caller's threads.  A rank that raises or dies ends the others, and
-    the launcher raises ``RuntimeError`` with the first failure it sees."""
+    the launcher raises ``RuntimeError`` with the first failure it sees.
+
+    A mesh across processes (``make_mesh`` with a cluster) starts only this
+    process's entries, with their global ranks; they meet the other
+    processes' ranks on the cluster's TCP store, under a prefix of this
+    launch's own, and wait for them in the rendezvous and in each
+    collective at most the cluster's timeout.  The return values are this
+    process's ranks'."""
     import torch.multiprocessing as mp
 
-    devices = tuple(mesh.devices)
-    cpu = all(d.type == "cpu" for d in devices)
-    threads = max(1, torch.get_num_threads() // len(devices)) if cpu else None
+    first, stop = mesh.local or (0, len(mesh.devices))
+    local = mesh.devices[first:stop]
+    cpu = all(d.type == "cpu" for d in local)
+    threads = max(1, torch.get_num_threads() // len(local)) if cpu else None
+    rendezvous = mesh.cluster.rendezvous() if mesh.cluster is not None else None
     with tempfile.TemporaryDirectory(prefix="sap3d_data_mesh_") as workdir:
         try:
-            mp.start_processes(_rank_main, nprocs=len(devices), start_method="spawn",
-                               args=(fn, args, devices, data_backend(mesh), workdir, threads))
+            mp.start_processes(_rank_main, nprocs=len(local), start_method="spawn",
+                               args=(fn, args, tuple(mesh.devices), first, data_backend(mesh),
+                                     workdir, threads, rendezvous))
         except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
             raise RuntimeError(f"a rank of the data mesh failed: {e}") from e
         results = []
-        for rank in range(len(devices)):
+        for rank in range(len(local)):
             with open(os.path.join(workdir, f"result_{rank}.pkl"), "rb") as f:
                 results.append(pickle.load(f))
     return results

@@ -244,7 +244,15 @@ class ClipLoader:
     the partitions are disjoint, every rank yields the same number of
     batches per epoch, and with a per-rank batch of B / N the union of the
     ranks' k-th batches is the one-process loader's k-th batch of B (rank r
-    takes ``order[k B + r + N j]``)."""
+    takes ``order[k B + r + N j]``).
+
+    Over several processes the index is the global rank and the count the
+    whole mesh's W.  The JAX loader partitions by process instead
+    (``order[p::P]`` with a host batch of L b for L devices a host, split
+    into contiguous rows per device); both give step s the clips
+    ``order[W s b : W (s + 1) b]``, as a set, and the same number of steps
+    per epoch.  The loss is a global sum and BN takes global-batch
+    statistics, so the set, not the order of the rows, fixes the step."""
 
     def __init__(self, clips: Sequence[ClipPaths], batch_size: int, size: int = 112,
                  num_threads: int = 16, prefetch: int = 4, shuffle: bool = True,

@@ -13,21 +13,30 @@ of devices for the attention sites.
 * ``validate`` scores the last frame of each clip with CC, SIM, KLD and
   AUC-Judd on the device (``eval/metrics.py``) and logs NaN-filtered means.
 * Dropout masks come from a generator seeded with ``seed + 1`` (the JAX
-  trainer's ``PRNGKey(seed + 1)``), on rank r of a data mesh ``seed + 1 +
-  r`` (equal local shapes would give every rank the same masks); AUC jitter
+  trainer's ``PRNGKey(seed + 1)``), on global rank r of a data mesh ``seed
+  + 1 + r`` (equal local shapes would give every rank the same masks); AUC jitter
   from one seeded with the step.
 * Data parallel (``num_devices`` N > 1): the trainer runs in each of N
   processes that ``core/mesh.launch`` started, given the rank's ``group``
-  (``cli train --devices N`` does this).  Each rank steps on its share of
-  the global batch (``data.pipeline.ClipLoader``'s ``process_index``);
-  the step sums the gradients and BN takes global-batch statistics
+  (``cli train --devices N`` does this, and ``cli train --distributed``
+  with the ranks of several processes, perhaps on several hosts, in one
+  mesh).  Each rank steps on its share of the global batch
+  (``data.pipeline.ClipLoader``'s ``process_index``, the global rank); the
+  step sums the gradients and BN takes global-batch statistics
   (``train/steps.py``), so every rank holds the same state.  The model and
   a pretrain restore are broadcast from rank 0 (parameters, buffers and
-  Adam moments).  Rank 0 alone writes ``metrics.jsonl``, TB events, JPEGs
-  and checkpoints, the others waiting at a barrier after each save;
+  Adam moments).  Global rank 0 alone writes ``metrics.jsonl``, TB events,
+  JPEGs and checkpoints, the others waiting at a barrier after each save
+  (several hosts share the run's filesystem, as the JAX trainer assumes);
   clips/s counts the global batch; validation gathers every rank's
   per-clip scores before the means.  ``sync_bn`` changes nothing: the
   statistics are always global-batch, as in the JAX trainer.
+* Profiler traces (``profile_dir``): steps ``[profile_start,
+  profile_start + profile_steps)`` are traced with ``torch.profiler`` (CPU
+  activity, and CUDA activity on the card), each step a ``train_step
+  <n>`` range; the device is synchronized before the trace stops, as the
+  JAX trainer blocks, and each rank writes its own Chrome trace,
+  ``rank<r>_steps_<first>-<last>.pt.trace.json``, into ``profile_dir``.
 * ``steps_per_call`` is accepted for the JAX command line and changes
   nothing: the JAX trainer groups K batches into one ``lax.scan`` dispatch,
   which in eager PyTorch would be the same K single steps
@@ -43,12 +52,11 @@ of devices for the attention sites.
   CPU N times (the counterpart of the JAX tests' virtual devices).  Time
   mode keeps a data mesh of 1, as in the JAX trainer.
 
-Not ported yet: multi-host training (ROADMAP A.5) and profiler traces
-(A.8); the constructor raises ``NotImplementedError`` for traces.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import json
 import os
@@ -93,9 +101,6 @@ class Trainer:
                 f"a data mesh of {tc.num_devices} devices runs one process per device: "
                 "start them with core.mesh.launch (as cli train --devices N does) and "
                 "give each rank's Trainer its group")
-        if tc.profile_dir:
-            raise NotImplementedError("profile_dir is not ported yet (ROADMAP A.8, "
-                                      "profiler traces)")
         if tc.sync_bn:
             warnings.warn(
                 "--sync-bn has no effect: BN statistics are always global-batch under "
@@ -205,6 +210,28 @@ class Trainer:
         if self.group is not None:
             self.group.barrier()
 
+    def _start_trace(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        trace = profile(activities=activities)
+        trace.start()
+        return trace
+
+    def _stop_trace(self, trace, first: int, last: int) -> str:
+        """Wait for the device, stop ``trace`` and write this rank's Chrome
+        trace of steps ``first`` to ``last``; returns its path."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        trace.stop()
+        os.makedirs(self.cfg.train.profile_dir, exist_ok=True)
+        path = os.path.join(self.cfg.train.profile_dir,
+                            f"rank{self.rank}_steps_{first}-{last}.pt.trace.json")
+        trace.export_chrome_trace(path)
+        return path
+
     def fit(self, train_batches: Iterable,
             valid_batches_fn: Callable[[], Iterable] | None = None) -> None:
         """Train on ``train_batches`` (this rank's share of each global
@@ -214,11 +241,21 @@ class Trainer:
         step = self.state.step
         t_last, n_last = time.time(), 0
         ran_any = False
+        traced = range(tc.profile_start, tc.profile_start + tc.profile_steps) \
+            if tc.profile_dir else range(0)
+        trace = None
         for frames, targets in train_batches:
-            f, t = self._put(frames), self._put(targets)
             step += 1
             ran_any = True
-            loss = self.train_step(f, t, gen)
+            if trace is None and step in traced:
+                trace = self._start_trace()
+            elif trace is not None and step not in traced:
+                self._stop_trace(trace, traced.start, step - 1)
+                trace = None
+            f, t = self._put(frames), self._put(targets)
+            with (torch.profiler.record_function(f"train_step {step}") if trace is not None
+                  else contextlib.nullcontext()):
+                loss = self.train_step(f, t, gen)
             n_last += frames.shape[0] * self.world_size
 
             if (step <= 10 or step % tc.plot_iter == 0) and self.is_main_process:
@@ -246,6 +283,8 @@ class Trainer:
 
             if tc.max_steps is not None and step >= tc.max_steps:
                 break
+        if trace is not None:
+            self._stop_trace(trace, traced.start, step)
         if not ran_any:
             if step == 0:
                 raise RuntimeError(

@@ -1,9 +1,14 @@
-"""Rank functions of ``tests/test_torch_data_parallel.py``.
+"""Rank functions of ``tests/test_torch_data_parallel.py`` and of the card
+tests of ``tests/test_torch_cuda.py``.
 
-Each runs in one process of a 2-rank gloo group on the CPU that
-``sap3d_tpu_torch.core.mesh.launch`` starts.  Spawned ranks start from a
-fresh import of this module, so it imports nothing of JAX.
+Each runs in one process of a data mesh that
+``sap3d_tpu_torch.core.mesh.launch`` starts (2 gloo ranks on the CPU in
+the data-parallel tests).  Spawned ranks start from a fresh import of this
+module, so it imports nothing of JAX.
 """
+
+import json
+import os
 
 import numpy as np
 import torch
@@ -125,3 +130,30 @@ def failing_rank(group):
         raise ValueError("rank 1 fails on purpose")
     group.barrier()
     return np.zeros(1)
+
+
+# Where ``recorded_train`` writes each rank's group (an environment
+# variable, which the ranks a launcher spawns inherit).
+RANKS_ENV = "SAP3D_TEST_RANKS_DIR"
+
+
+def recorded_train(group, *args):
+    """``cli._train`` as one rank, after writing the rank's group (rank,
+    world size, backend, device) to ``$SAP3D_TEST_RANKS_DIR/rank<r>.json``:
+    the backend the rank itself took."""
+    from sap3d_tpu_torch import cli
+
+    with open(os.path.join(os.environ[RANKS_ENV], f"rank{group.rank}.json"), "w") as f:
+        json.dump(dict(rank=group.rank, world_size=group.world_size, backend=group.backend,
+                       device=str(group.device)), f)
+    cli._train(group, *args)
+
+
+def recorded_cli(argv) -> int:
+    """``python -m sap3d_tpu_torch.cli <argv>`` with each rank's group
+    recorded (``recorded_train`` in place of ``cli._train``, pickled to the
+    ranks by this module's path)."""
+    from sap3d_tpu_torch import cli
+
+    cli._train = recorded_train
+    return cli.main(argv)

@@ -130,16 +130,34 @@ def test_checkpoint_keeps_the_last_k_and_resumes_exactly(tmp_path):
 
 @pytest.mark.parametrize("field,value", [("num_devices", 2), ("profile_dir", "trace")])
 def test_trainer_raises_on_paths_not_ported(tmp_path, field, value):
-    """Traces are not ported (ROADMAP A.8); a data mesh of 2 runs one
-    process per device, so a trainer outside such a group refuses it and
-    names the launcher."""
-    cfg = Config(model=ModelConfig(name="p3d_micro"),
+    """A data mesh of 2 runs one process per device, so a trainer outside
+    such a group refuses it and names the launcher.  ``profile_dir``, which
+    raised until traces were ported (ROADMAP A.8), now traces: a micro
+    ``fit`` of 4 steps with steps [2, 4) traced writes one Chrome trace, of
+    those two steps."""
+    trace_dir = str(tmp_path / str(value))
+    cfg = Config(model=ModelConfig(name="p3d_micro", dropout=0.0),
                  train=TrainConfig(model_dir=str(tmp_path), logs_dir=str(tmp_path),
-                                   **{field: value}))
-    error, match = {"num_devices": (ValueError, "core.mesh.launch"),
-                    "profile_dir": (NotImplementedError, "A.8")}[field]
-    with pytest.raises(error, match=match):
-        Trainer(cfg, device="cpu")
+                                   **{field: trace_dir if field == "profile_dir" else value},
+                                   profile_start=2, profile_steps=2, max_steps=4))
+    if field == "num_devices":
+        with pytest.raises(ValueError, match="core.mesh.launch"):
+            Trainer(cfg, device="cpu")
+        return
+    rng = np.random.default_rng(0)
+    batches = [(rng.normal(size=(1, 16, 32, 32, 3)).astype(np.float32),
+                rng.uniform(size=(1, 16, 32, 32)).astype(np.float32)) for _ in range(4)]
+    trainer = Trainer(cfg, device="cpu")
+    try:
+        trainer.fit(iter(batches))
+    finally:
+        trainer.close()
+    assert os.listdir(trace_dir) == ["rank0_steps_2-3.pt.trace.json"]
+    with open(os.path.join(trace_dir, "rank0_steps_2-3.pt.trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    steps = sorted(e["name"] for e in events if e.get("name", "").startswith("train_step "))
+    assert steps == ["train_step 2", "train_step 3"]
+    assert any(e.get("name") == "aten::convolution" for e in events)
 
 
 def _train(dataset, *extra):
