@@ -114,6 +114,23 @@ result line):
      B3 on the same inputs, the plain version and the bound;
      (d) ms, 64-frame clips/s and peak memory of the ring and the gather
      train step, order gather, ring, ring, gather;
+     (e) every layer time-sharded (``ops/time_shard.py``): the same clips
+     cut from the host onto the 4 shards (``core/mesh.time_shard_batch``),
+     each layer on its own shard: (i) at batch 1 (dropout 0, cuDNN's
+     deterministic algorithms), the sharded eval forward and one train
+     step's loss and whole gradient against the unsharded gather step (each
+     sharded step's launches counted): the flagship in fp32 read beside the
+     gather step's own one-ulp witness; p3d_micro_sa, calibrated alike, on
+     the same clip in fp32 held under ``TS_FP32_TOL`` (the witness within
+     it); the flagship in float64 held under ``TS_F64_FWD_TOL`` and
+     ``TS_F64_TOL``; the two planted faults (each shard padded at its own
+     ends; BN statistics per shard) fail both limits; (ii)
+     bf16 at batch 4, the launches of one make_train_step call predicted (24
+     B2, 12 B4, as (b)) and counted, every convolution's output time-sharded;
+     (iii) ms and peak memory of that step beside the ring-only step of (d),
+     order ring, sharded, sharded, ring; (iv) every registry name, one
+     sharded bf16 step at batch 2 on 32 frames over 2 shards: the output's
+     shape, a finite loss, its B2, B3 and B4 launches;
  10. the inference bisect (``sap3d_tpu_torch.scripts.bisect_infer``) and
      kernel B6 (the lse-free forward that rounds the normalised p, as the
      TPU kernel does):
@@ -2457,6 +2474,388 @@ def ring_op_check(torch, fb, mesh):
     return res
 
 
+# ---- phase 9(e): the whole network time-sharded (ops/time_shard.py) ---------
+
+# (i) The sharded step at batch 1 (dropout 0, cuDNN's deterministic
+# algorithms) against the unsharded gather step, beside RING_FP32_TOL.
+# Every convolution of the sharded path takes a halo-padded input of
+# another shape, so cuDNN adds its products in another order, and every
+# train-mode BN adds its statistics in another order: the two steps differ
+# by float32 rounding.  The calibrated flagship carries that rounding to an
+# O(1) change: its attention logits spread far beyond unit scale (1.5e5 at
+# x_4_0, 4e2 at the others, so each softmax is nearly an argmax), and a
+# one-ulp move of the gather step's own input moves it as far.  So the
+# flagship is read in float32, with that witness beside it (an NVIDIA H100
+# 80GB HBM3, 700.00 W: eval forward max |diff| 1.0 and whole gradient 2.57
+# under the one-ulp move, the sharded step 1.0 and 0.73; PERF.md),
+# and held in float32 at a condition where rounding stays small: the micro
+# SA model (the flagship's four ring sites, at the same token counts and
+# micro widths), calibrated as phase 4 calibrates the flagship, on the
+# same full-size clip [1, 64, 112, 112, 3].  TS_FP32_TOL holds its eval
+# forward (mean and largest |diff| of the sigmoid output), loss (relative)
+# and whole gradient (relative L2); the gather step's own one-ulp witness
+# must lie within it, the eval forward with every shard padded at its own
+# ends must exceed the forward's, and both planted faults (every shard
+# padded at its own ends, BN statistics per shard) the gradient's.  Read
+# on the same H100: forward 8.3e-6 and 2.1e-4, loss 0, gradient 6.0e-3;
+# the witness 1.6e-5, 4.0e-4, 3.9e-7, 1.07e-2; the faults 1.37 and 1.31.
+TS_FP32_TOL = {"forward_mean": 1e-4, "forward_max": 1e-2, "loss": 1e-5, "grad": 5e-2}
+# The flagship is held in float64 as well (the plain path: no kernel takes
+# float64; the ring's chunked hop), where only the head's float32 output
+# rounds: the eval forward's largest |diff|, then (relative loss, relative
+# L2 of the whole gradient), the same faults exceeding them.  Read on the
+# same H100: the forward 1.19e-7 (one float32 ulp of the sigmoid output),
+# the loss 1.04e-7, the gradient 4.5e-9; the faults 1.006 and 1.160.
+TS_F64_FWD_TOL = 1e-6
+TS_F64_TOL = (1e-6, 1e-6)
+TS_TIMED_STEPS = 5             # (iii): steps per round, 4 rounds
+TS_ZOO_SHARDS, TS_ZOO_BATCH, TS_ZOO_FRAMES = 2, 2, 32
+
+
+TIME_SHARD_FAULTS = ("own_ends", "per_shard_statistics")
+
+
+@contextlib.contextmanager
+def planted_time_shard_fault(fault: str):
+    """One of the planted faults of the time-sharded path for the duration
+    (``TIME_SHARD_FAULTS``; phase 9(e) and the tests of
+    ``ops/time_shard.py`` hold their limits against both): "own_ends",
+    every shard padded at its own ends, as if it were a clip (no halo
+    frames: each is the fill value); "per_shard_statistics", each shard
+    normalized with its own batch statistics."""
+    import torch
+
+    from sap3d_tpu_torch.ops import layers
+    from sap3d_tpu_torch.ops import time_shard as ts
+
+    def own_ends(x, lo, hi, fill=0.0):
+        pad = [0, 0] * (x.parts[0].dim() - 1 - x.time_dim) + [lo, hi]
+        return [torch.nn.functional.pad(p, pad, value=fill) for p in x.parts]
+
+    def per_shard(self, x):
+        outs = [layers.BatchNorm.forward(self, x.shard(j)) for j in range(x.n)]
+        return x.with_parts([torch.cat([outs[j] for j in idx]) for _, idx in x.groups])
+
+    owner, attr, fake = {"own_ends": (ts, "halo", own_ends),
+                         "per_shard_statistics": (layers.BatchNorm, "_sharded", per_shard)}[fault]
+    orig = getattr(owner, attr)
+    setattr(owner, attr, fake)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, orig)
+
+
+@contextlib.contextmanager
+def conv_outputs(torch, model):
+    """Each convolution's output: the number of time shards it was cut into
+    (0: a whole tensor) and their devices, by module name."""
+    from sap3d_tpu_torch.ops import layers
+    from sap3d_tpu_torch.ops import time_shard as ts
+
+    seen = {}
+
+    def hook(mod, args, out, name):
+        if isinstance(out, ts.Shards):
+            seen.setdefault(name, set()).add((out.n, tuple(str(p.device) for p in out.parts)))
+        else:
+            seen.setdefault(name, set()).add((0, (str(out.device),)))
+
+    handles = [m.register_forward_hook(lambda mod, a, o, name=name: hook(mod, a, o, name))
+               for name, m in model.named_modules()
+               if isinstance(m, (layers.Conv3d, layers.ConvTranspose3d))]
+    try:
+        yield seen
+    finally:
+        for h in handles:
+            h.remove()
+
+
+@contextlib.contextmanager
+def time_shard_traffic():
+    """Counts of what crosses shards while the block runs (forward; the
+    backward sends the same frames back): halo frames (``ops/time_shard.
+    halo``: lo + hi per shard per call) and their bytes, and the reductions
+    over shards (``sum_to``, ``clip_amax``, ``shard_sums``, and the BN calls
+    with batch statistics on one device's stacked shards, which reduce them
+    in one call)."""
+    from sap3d_tpu_torch.ops import layers
+    from sap3d_tpu_torch.ops import time_shard as ts
+
+    counts = {"halo_calls": 0, "halo_frames": 0, "halo_bytes": 0, "reductions": 0}
+    orig = {name: getattr(ts, name) for name in ("halo", "sum_to", "clip_amax", "shard_sums")}
+    orig_bn = layers.BatchNorm._sharded
+
+    def halo(x, lo, hi, fill=0.0):
+        counts["halo_calls"] += bool(lo or hi)
+        counts["halo_frames"] += (lo + hi) * x.n
+        counts["halo_bytes"] += (lo + hi) * x.n * x.shard(0).select(x.time_dim, 0).numel() \
+            * x.parts[0].element_size()
+        return orig["halo"](x, lo, hi, fill)
+
+    def reducing(fn):
+        def counted(*args, **kw):
+            counts["reductions"] += 1
+            return fn(*args, **kw)
+        return counted
+
+    def bn(self, x):
+        if (self.training or self.batch_stats_at_eval) and len(x.parts) == 1:
+            counts["reductions"] += 1
+        return orig_bn(self, x)
+
+    ts.halo = halo
+    for name in ("sum_to", "clip_amax", "shard_sums"):
+        setattr(ts, name, reducing(orig[name]))
+    layers.BatchNorm._sharded = bn
+    try:
+        yield counts
+    finally:
+        for name, fn in orig.items():
+            setattr(ts, name, fn)
+        layers.BatchNorm._sharded = orig_bn
+
+
+def phase_time_shard(torch, fa, fb, calibrated, card):
+    """Phase 9(e): the flagship with every layer time-sharded over
+    ``make_time_mesh(4, devices=[cuda:0] * 4)`` (the calibrated weights of
+    phase 4), then every registry name over 2 shards."""
+    import numpy as np
+
+    from sap3d_tpu_torch.core.mesh import make_time_mesh, time_shard_batch
+    from sap3d_tpu_torch.models.registry import MODEL_REGISTRY, build_model
+    from sap3d_tpu_torch.ops import time_shard as ts
+    from sap3d_tpu_torch.train.state import create_train_state
+    from sap3d_tpu_torch.train.steps import loss_fn_saliency, make_eval_step, make_train_step
+
+    t_phase = time.perf_counter()
+    dev = torch.empty(0, device=DEVICE).device
+    mesh = make_time_mesh(RING_SHARDS, devices=[dev] * RING_SHARDS)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)  # phase 9's clips
+    x = torch.randn(RING_BATCH, RING_FRAMES, SIZE, SIZE, 3, device=DEVICE, generator=gen) * 0.3
+    y = torch.rand(RING_BATCH, RING_FRAMES, SIZE, SIZE, device=DEVICE, generator=gen)
+    x_host, y_host = x.cpu().numpy(), y.cpu().numpy()
+    del x, y
+
+    def twin(dtype, ring, dropout_rate=0.0):
+        m = build_model("unet++", dtype=dtype, device=DEVICE, seed=SEED,
+                        dropout_rate=dropout_rate, ring_mesh=mesh if ring else None)
+        m.load_state_dict(calibrated)
+        return m
+
+    def whole(out):
+        return ts.gather(out) if isinstance(out, ts.Shards) else out
+
+    def rel(a, b):
+        return (a - b).norm().item() / b.norm().item()
+
+    # (i) batch 1: sharded against the unsharded gather step (each sharded
+    # step's launches counted: a main path), in float32 with the gather
+    # step's own one-ulp witness
+    xs, ys = x_host[:RING_FP32_BATCH], y_host[:RING_FP32_BATCH]
+
+    def grads(m, weights, inp, tgt):
+        m.train()
+        m.zero_grad(set_to_none=True)
+        loss_ = loss_fn_saliency(m(inp), tgt)
+        loss_.backward()
+        torch.cuda.synchronize()
+        flat = torch.cat([p.grad.double().flatten() for p in m.parameters()])
+        m.zero_grad(set_to_none=True)
+        m.load_state_dict(weights)  # BN's running statistics as they were
+        return loss_.item(), flat
+
+    def compare(name, dtype, weights, held: bool):
+        """Distances from the gather step: the eval forward's (mean, largest
+        |diff|), the loss's (relative) and the whole gradient's (relative
+        L2), of the sharded step; in float32 of the gather step at its input
+        moved by one ulp; where ``held``, of the planted faults."""
+        sh, g = (build_model(name, dtype=dtype, device=DEVICE, seed=SEED, dropout_rate=0.0,
+                             ring_mesh=mesh if ring else None) for ring in (True, False))
+        for m in (sh, g):
+            m.load_state_dict(weights)
+            if dtype == torch.float64:
+                m.double()
+        xs_sh, ys_sh = time_shard_batch(mesh, (xs, ys))  # the model casts to its dtype
+        xs_d, ys_d = torch.from_numpy(xs).to(DEVICE, dtype), torch.from_numpy(ys).to(DEVICE)
+        moved = torch.nextafter(xs_d, torch.full_like(xs_d, math.inf))
+        fwd_g = make_eval_step(g)(xs_d)
+
+        def dist(o):
+            d = (o - fwd_g).abs()
+            return d.mean().item(), d.max().item()
+
+        fwd = {"sharded": dist(whole(make_eval_step(sh)(xs_sh)))}
+        if dtype == torch.float32:
+            fwd["one_ulp"] = dist(make_eval_step(g)(moved))
+        if held:
+            with planted_time_shard_fault("own_ends"):
+                fwd["own_ends"] = dist(whole(make_eval_step(sh)(xs_sh)))
+        loss_g, g_g = grads(g, weights, xs_d, ys_d)
+        _zero_launch_counts(fa, fb)
+        steps = {"sharded": grads(sh, weights, xs_sh, ys_sh)}
+        launches = _launch_counts(fa, fb)
+        if dtype == torch.float32:
+            steps["one_ulp"] = grads(g, weights, moved, ys_d)
+        for fault in TIME_SHARD_FAULTS if held else ():
+            with planted_time_shard_fault(fault):
+                steps[fault] = grads(sh, weights, xs_sh, ys_sh)
+        out = dict(forward=fwd, launches=launches,
+                   loss={k: abs(v - loss_g) / abs(loss_g) for k, (v, _) in steps.items()},
+                   grad={k: rel(v, g_g) for k, (_, v) in steps.items()})
+        readings = []
+        for k in dict.fromkeys([*fwd, *steps]):
+            bits = [f"eval forward |diff| mean {fwd[k][0]:.3e}, max {fwd[k][1]:.3e}"] \
+                if k in fwd else []
+            if k in steps:
+                bits.append(f"loss {out['loss'][k]:.3e}, gradient {out['grad'][k]:.3e}")
+            readings.append(f"{k}: " + ", ".join(bits))
+        print(f"[time-shard] {name}, {str(dtype)[6:]}, batch {RING_FP32_BATCH}, dropout 0, "
+              f"{RING_SHARDS} shards, against the gather step (loss {loss_g:.6f}): "
+              + "; ".join(readings) + f"; launches of the sharded step {launches}", flush=True)
+        del sh, g
+        torch.cuda.empty_cache()
+        return out
+
+    def micro_weights():
+        """p3d_micro_sa calibrated as phase 4 calibrates the flagship."""
+        m = build_model("p3d_micro_sa", dtype="float32", device=DEVICE, seed=SEED)
+        mgen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        mx = torch.randn(BATCH, 16, SIZE, SIZE, 3, device=DEVICE, generator=mgen) * 0.3
+        calibrate_and_randomize_bn(torch, m, mx, mgen)
+        return {k: v.detach().clone() for k, v in m.state_dict().items()}
+
+    was_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        fp32 = compare("unet++", torch.float32, calibrated, held=False)
+        micro = compare("p3d_micro_sa", torch.float32, micro_weights(), held=True)
+        f64 = compare("unet++", torch.float64, calibrated, held=True)
+    finally:
+        torch.backends.cudnn.deterministic = was_deterministic
+    loss_tol, grad_tol = TS_F64_TOL
+    print(f"[time-shard] limits: p3d_micro_sa float32 {TS_FP32_TOL}; the flagship float64: "
+          f"eval forward largest |diff| {TS_F64_FWD_TOL:g}, loss {loss_tol:g}, whole gradient "
+          f"{grad_tol:g}", flush=True)
+
+    # (ii) bf16 at batch 4: one make_train_step call, launches predicted and counted
+    sharded = twin("bfloat16", True)
+    kernel_sites = [shape for shape in RING_SITES.values()
+                    if fb.backward_viable(*shape, torch.bfloat16)]
+    want = {"B1": 0, "B2": 2 * len(kernel_sites) * RING_SHARDS, "B3": 0,
+            "B4": len(kernel_sites) * RING_SHARDS}
+    print(f"[time-shard] bf16 [{RING_BATCH}, {RING_FRAMES}, {SIZE}, {SIZE}, 3]: predicted "
+          f"launches per sharded make_train_step call {want} (the rings of (b), now on "
+          "shards that stay where they are)", flush=True)
+    xb, yb = time_shard_batch(mesh, (x_host, y_host))
+    step_gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    state = create_train_state(sharded, lr=1e-4)
+    step = make_train_step(state)
+    with conv_outputs(torch, sharded) as seen, time_shard_traffic() as traffic:
+        _zero_launch_counts(fa, fb)  # the main path: one sharded make_train_step call
+        loss = step(xb, yb, step_gen)
+        torch.cuda.synchronize()
+        n_step = _launch_counts(fa, fb)
+    whole_convs = sorted(name for name, kinds in seen.items()
+                         if any(n != RING_SHARDS for n, _ in kinds))
+    print(f"[time-shard] launches in one sharded make_train_step call: counted {n_step}, "
+          f"loss {loss.item():.4f}; {len(seen)} convolutions, each output in "
+          f"{sorted({n for kinds in seen.values() for n, _ in kinds})} shards; across shards in "
+          f"the forward: {traffic['halo_frames']} halo frames in {traffic['halo_calls']} halo "
+          f"calls ({traffic['halo_bytes'] / 2 ** 20:.1f} MiB), {traffic['reductions']} "
+          "reductions", flush=True)
+    if n_step != want or not np.isfinite(loss.item()):
+        raise AssertionError(f"sharded train step: launches {n_step}, predicted {want}")
+    if whole_convs or not seen:
+        raise AssertionError(f"convolutions that ran on the whole clip: {whole_convs}")
+
+    # (iii) ms and peak memory: ring-only (the whole clip, rings at the
+    # sites, as (d)) and sharded, order ring, sharded, sharded, ring
+    ring = twin("bfloat16", True, dropout_rate=0.5)
+    sharded.decoder.dropout_rate = 0.5
+    x_d, y_d = torch.from_numpy(x_host).to(DEVICE), torch.from_numpy(y_host).to(DEVICE)
+    runs = {"ring": (make_train_step(create_train_state(ring, lr=1e-4)), x_d, y_d),
+            "sharded": (step, xb, yb)}
+    thr = {}
+    for label in ("ring", "sharded", "sharded2", "ring2"):
+        fn, a, b = runs[label.rstrip("2")]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = step_times(torch, lambda: fn(a, b, step_gen), TS_TIMED_STEPS)
+        thr[label] = dict(rate_summary(times, RING_BATCH), ms=1e3 * float(np.median(times)),
+                          peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    def one(r):
+        return (f"{r['ms']:.2f} ms, {r['clips_per_s']:.2f} [{r['slowest']:.2f}, "
+                f"{r['fastest']:.2f}] clips/s, peak {r['peak_gib']:.2f} GiB")
+    print(f"[time-shard] train step, {RING_FRAMES}-frame clips, batch {RING_BATCH}, bf16, "
+          f"dropout 0.5 (median [slowest, fastest] of {TS_TIMED_STEPS} steps each, order ring, "
+          f"sharded, sharded, ring): ring {one(thr['ring'])}; sharded {one(thr['sharded'])}; "
+          f"sharded {one(thr['sharded2'])}; ring {one(thr['ring2'])}  [{card}]", flush=True)
+    del runs, step, state, sharded, ring, xb, yb, x_d, y_d
+    torch.cuda.empty_cache()
+
+    # (iv) every registry name: one sharded bf16 step at batch 2 on 32 frames
+    mesh2 = make_time_mesh(TS_ZOO_SHARDS, devices=[dev] * TS_ZOO_SHARDS)
+    zgen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    zx = torch.randn(TS_ZOO_BATCH, TS_ZOO_FRAMES, SIZE, SIZE, 3, device=DEVICE,
+                     generator=zgen) * 0.3
+    zy = torch.rand(TS_ZOO_BATCH, TS_ZOO_FRAMES, SIZE, SIZE, device=DEVICE, generator=zgen)
+    zx_sh, zy_sh = time_shard_batch(mesh2, (zx.cpu().numpy(), zy.cpu().numpy()))
+    zoo = {}
+    for name in MODEL_REGISTRY:
+        model = build_model(name, dtype="bfloat16", device=DEVICE, seed=SEED, dropout_rate=0.0,
+                            ring_mesh=mesh2)
+        calibrate_and_randomize_bn(torch, model, zx, zgen)
+        shapes = []
+        handle = model.register_forward_hook(lambda m, a, out: shapes.append(out.shape))
+        zstep = make_train_step(create_train_state(model, lr=1e-4))
+        _zero_launch_counts(fa, fb)
+        zloss = zstep(zx_sh, zy_sh).item()
+        torch.cuda.synchronize()
+        counts = _launch_counts(fa, fb)
+        handle.remove()
+        rings, sites = len(model.ring_sites()), len(model.attention_modules())
+        print(f"[time-shard] {name}: output {shapes[0]} over {TS_ZOO_SHARDS} shards, loss "
+              f"{zloss:.4f}, launches {counts}; {rings} ring sites of {sites}", flush=True)
+        if shapes[0] != (TS_ZOO_BATCH, TS_ZOO_FRAMES, SIZE, SIZE, 1) or not np.isfinite(zloss):
+            raise AssertionError(f"{name}: sharded step output {shapes[0]}, loss {zloss}")
+        if counts["B1"] or (rings and (not counts["B4"] or counts["B3"])) \
+                or (sites > rings and not counts["B3"]) or (not sites and any(counts.values())):
+            raise AssertionError(f"{name}: launches {counts} do not match its {rings} ring and "
+                                 f"{sites - rings} gathered sites")
+        zoo[name] = dict(loss=zloss, launches=counts)
+        del model, zstep
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[time-shard] phase 9(e) took {seconds:.1f} s", flush=True)
+
+    # (i)'s limits, held after the phase's other readings are taken
+    tol = TS_FP32_TOL
+
+    def forward_within(k):
+        mean, top = micro["forward"][k]
+        return mean <= tol["forward_mean"] and top <= tol["forward_max"]
+
+    if not all(forward_within(k) and micro["loss"][k] <= tol["loss"]
+               and micro["grad"][k] <= tol["grad"] for k in ("sharded", "one_ulp")):
+        raise AssertionError("p3d_micro_sa, float32: the sharded step, or the gather step's "
+                             "one-ulp witness, is outside TS_FP32_TOL")
+    if forward_within("own_ends") or not all(micro["grad"][f] > tol["grad"]
+                                             for f in TIME_SHARD_FAULTS):
+        raise AssertionError("p3d_micro_sa, float32: TS_FP32_TOL passes a planted fault")
+    if not f64["forward"]["sharded"][1] <= TS_F64_FWD_TOL < f64["forward"]["own_ends"][1]:
+        raise AssertionError("sharded forward, float64: disagrees with the gather path, or the "
+                             "limit passes the planted fault own_ends")
+    if not (f64["loss"]["sharded"] <= loss_tol and f64["grad"]["sharded"] <= grad_tol):
+        raise AssertionError("sharded train step, float64: disagrees with the gather step")
+    for fault in TIME_SHARD_FAULTS:
+        if not f64["grad"][fault] > grad_tol:
+            raise AssertionError(f"the sharded step's limit passes the planted fault {fault}")
+    return dict(fp32=fp32, fp32_micro=micro, float64=f64, want=want, launches=n_step,
+                traffic=traffic, train=thr, zoo=zoo, seconds=seconds)
+
+
 # ---- phase 10: the inference bisect and kernel B6 ----------------------------
 
 
@@ -4144,6 +4543,7 @@ def main(argv=None) -> int:
         ring, b4_rows = phase_ring(torch, fa, fb, calibrated, flush, card,
                                    profile=bool(args.json_out))
         torch.cuda.empty_cache()
+        tshard = phase_time_shard(torch, fa, fb, calibrated, card)
         b6_rows, stats_rows = phase_b6(torch, fa, nolse, flush)
         bisect = phase_bisect(torch, fa, nolse, ta, card)
         evaluation = phase_eval(torch, fa, calibrated, card)
@@ -4173,6 +4573,13 @@ def main(argv=None) -> int:
         b5_launches = sum(r["launches"]["B5"] for r in gn_train["b5_in_step"]["bf16"].values())
         fit32 = train["end_to_end"]["float32"]["launches"]
         ring32 = ring["launches"]["fp32_step"]
+        # phase 9(e): the sharded bf16 step, the sharded fp32 steps (the
+        # flagship and p3d_micro_sa) and every registry name's sharded step
+        ts_step = tshard["launches"]
+        ts32 = {k: tshard["fp32"]["launches"][k] + tshard["fp32_micro"]["launches"][k]
+                for k in ("B2", "B4")}
+        ts_zoo = {k: sum(z["launches"][k] for z in tshard["zoo"].values())
+                  for k in ("B2", "B3", "B4")}
         # the data-parallel paths, summed over their ranks: Trainer.fit (bf16),
         # the fp32 step and cli eval's fp32 route
         dp_fit = {k: sum(n[k] for r in dp for n in r["fit"]["launches"]) for k in ("B2", "B3")}
@@ -4189,7 +4596,10 @@ def main(argv=None) -> int:
                 and ring32["B4"] > 0 and tf_quirk["b1_launches"] > 0
                 and tf_quirk["b1_launches_fp32"] > 0 and dp_fit["B2"] > 0 and dp_fit["B3"] > 0
                 and dp_step32["B2"] > 0 and dp_step32["B3"] > 0 and dp_eval32 > 0
-                and mh_fit["B1"] > 0 and mh_fit["B2"] > 0 and mh_fit["B3"] > 0):
+                and mh_fit["B1"] > 0 and mh_fit["B2"] > 0 and mh_fit["B3"] > 0
+                and ts_step["B2"] > 0 and ts_step["B4"] > 0 and ts32["B2"] > 0
+                and ts32["B4"] > 0 and ts_zoo["B2"] > 0 and ts_zoo["B3"] > 0
+                and ts_zoo["B4"] > 0):
             raise AssertionError("a kernel of a main path was never launched")
         print(f"[launches] flagship predictor B1 {launches}; flagship Trainer.fit {fit}; GN "
               f"predictor B1 {gn_launches}; GN Trainer.fit {gn_fit}; B5 on the GN step's "
@@ -4201,8 +4611,9 @@ def main(argv=None) -> int:
               f"{tf_quirk['b1_launches']}, its float32 eval step B1 "
               f"{tf_quirk['b1_launches_fp32']}; data parallel, over the ranks: Trainer.fit "
               f"{dp_fit}, the float32 step {dp_step32}, cli eval's float32 route B1 "
-              f"{dp_eval32}; cli train --distributed, over both processes' ranks {mh_fit}",
-              flush=True)
+              f"{dp_eval32}; cli train --distributed, over both processes' ranks {mh_fit}; "
+              f"the time-sharded step {ts_step}, float32 {ts32}, every registry name's "
+              f"{ts_zoo}", flush=True)
         in_step = {k: [r["max_abs_err"] for r in train[f"{k}_in_step"].values()]
                    for k in ("b2", "b3")}
         kernels = [
@@ -4217,15 +4628,17 @@ def main(argv=None) -> int:
             kernel_entry("flash_attention_fwd_lse", fa.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:141",
                          fit["B2"] + gn_fit["B2"] + ring_fwd["B2"] + ring_step["B2"]
-                         + dp_fit["B2"] + mh_fit["B2"],
+                         + dp_fit["B2"] + mh_fit["B2"] + ts_step["B2"] + ts_zoo["B2"],
                          rows["B2"], in_step["b2"], gn_rows["B2"] + zoo_rows["B2"]),
             kernel_entry("flash_attention_bwd", fb.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:274",
-                         fit["B3"] + gn_fit["B3"] + dp_fit["B3"] + mh_fit["B3"],
+                         fit["B3"] + gn_fit["B3"] + dp_fit["B3"] + mh_fit["B3"] + ts_zoo["B3"],
                          rows["B3"], in_step["b3"], gn_rows["B3"] + zoo_rows["B3"]),
-            # B4: the ring train step's backward, times at the per-shard shapes
+            # B4: the ring train steps' backward (ring-only and time-sharded),
+            # times at the per-shard shapes
             kernel_entry("flash_attention_bwd_lse", fb.SOURCE,
-                         "sap3d_tpu/ops/pallas/flash_attention.py:274", ring_step["B4"],
+                         "sap3d_tpu/ops/pallas/flash_attention.py:274",
+                         ring_step["B4"] + ts_step["B4"] + ts_zoo["B4"],
                          b4_rows, [r["max_abs_err"] for by_site in ring["b4_in_step"].values()
                                    for r in by_site], gn_b4_rows),
             # B5: forward + backward (the row statistics and B3) at the three
@@ -4252,15 +4665,15 @@ def main(argv=None) -> int:
                          gn_rows["B1"] + zoo_rows["B1"], dtype="float32"),
             kernel_entry("flash_attention_fwd_lse_split_f32", fa.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:141",
-                         fit32["B2"] + ring32["B2"] + dp_step32["B2"], rows["B2"], (),
+                         fit32["B2"] + ring32["B2"] + dp_step32["B2"] + ts32["B2"], rows["B2"], (),
                          gn_rows["B2"] + zoo_rows["B2"], dtype="float32"),
             kernel_entry("flash_attention_bwd_split_f32", fb.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:274",
                          fit32["B3"] + dp_step32["B3"], rows["B3"], (),
                          gn_rows["B3"] + zoo_rows["B3"], dtype="float32"),
             kernel_entry("flash_attention_bwd_lse_split_f32", fb.SOURCE,
-                         "sap3d_tpu/ops/pallas/flash_attention.py:274", ring32["B4"], b4_rows,
-                         dtype="float32"),
+                         "sap3d_tpu/ops/pallas/flash_attention.py:274", ring32["B4"] + ts32["B4"],
+                         b4_rows, dtype="float32"),
         ]
         if args.json_out:
             import os
@@ -4271,7 +4684,8 @@ def main(argv=None) -> int:
                                profile=prof, train=train, gn_forward=gn_fwd,
                                gn_profile=gn_prof, gn_kernel_rows=gn_rows, b5_rows=b5_rows,
                                b5_memory=b5_memory, gn_train=gn_train, zoo=zoo,
-                               zoo_kernel_rows=zoo_rows, ring=ring, b4_rows=b4_rows,
+                               zoo_kernel_rows=zoo_rows, ring=ring, time_shard=tshard,
+                               b4_rows=b4_rows,
                                gn_b4_rows=gn_b4_rows, b6_rows=b6_rows,
                                row_stats_rows=stats_rows, bisect=bisect, evaluation=evaluation,
                                tf_import=dict(reader=tf_reader, mapping=tf_mapping,

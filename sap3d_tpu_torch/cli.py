@@ -38,9 +38,13 @@ batched metrics run (``cuda``, the default, ``cuda:N`` or ``cpu``), or
 ``host`` for the per-frame NumPy metrics on a thread pool; it also takes the
 JAX package's bool spellings (``parse_bool``): true means ``cuda``, false
 ``host`` (the JAX package's default).  ``train --time-shards N`` (long clips,
-``--videolength`` a multiple of 16 N) runs the UNet++ SA decoder's
-attention as rings over N devices: the visible cards (N more than them
-raises, as in the JAX package), or the CPU N times with ``--device cpu``.
+``--videolength`` a multiple of 16 N) cuts each clip along time over N
+devices and runs every layer on each device's own shard, in training and
+validation (``ops/time_shard.py``, the JAX package's GSPMD time-sharding):
+the visible cards (N more than them raises, as in the JAX package), or the
+CPU N times with ``--device cpu``.  The UNet++ SA decoder's attention runs
+as rings over the shards; with ``--ring-attention false``, and at the other
+decoders' sites, the attention gathers its tokens on the first device.
 ``train --devices N`` and ``eval --devices N`` run data parallel, one
 process per device of the data mesh (``core/mesh.py``): the first N visible
 cards over NCCL (-1, the default, means all of them), or with ``--device
@@ -165,12 +169,13 @@ def _train_parser() -> argparse.ArgumentParser:
     p.add_argument("--shuffle", type=parse_bool, default=True,
                    help="per-epoch clip shuffle")
     p.add_argument("--time-shards", type=int, default=0,
-                   help="long clips: run the SA sites as ring attention over N "
-                        "devices (--videolength a multiple of 16*N; the other "
-                        "layers run unsharded; one process)")
+                   help="long clips: cut each clip along time over N devices and "
+                        "run every layer on each device's shard (--videolength a "
+                        "multiple of 16*N; one process)")
     p.add_argument("--ring-attention", type=parse_bool, default=True,
-                   help="with --time-shards on an SA variant: ring attention "
-                        "across shards instead of attention over the whole clip")
+                   help="with --time-shards on a UNet++ SA variant: ring attention "
+                        "across the shards instead of attention over the clip's "
+                        "tokens gathered on the first device")
     return p
 
 

@@ -5,12 +5,14 @@ Counterpart of ``sap3d_tpu/core/mesh.py`` (``TIME_AXIS``,
 ``make_time_mesh``, ``DATA_AXIS``, ``make_mesh``).  A mesh is an ordered
 list of devices along one axis.
 
-* The time mesh: ``ops/ring_attention.py`` places one contiguous shard of a
-  site's tokens on each device and rotates the key/value shards around the
-  ring, all in one process.  It may name one device more than once: 4
-  shards on one card (or on the CPU, as the tests run it) run every hop of
-  the ring for real, the rotation between two shards on the same device
-  being a no-op.
+* The time mesh: a clip cut along time into one contiguous shard per
+  entry (``time_shard_batch``, ``ops/time_shard.Shards``), every layer
+  running on each shard on its device, all in one process; the ring
+  attention (``ops/ring_attention.py``) rotates the key/value shards around
+  it.  It may name one device more than once: 4 shards on one card (or on
+  the CPU, as the tests run it) run every halo exchange and every hop of
+  the ring for real, a move between two shards on the same device being a
+  no-op.
 * The data mesh: one process per entry, each holding a replica of the
   model and its share of the batch (``launch``).  Where JAX jits one step
   over the mesh and GSPMD inserts the reductions, each rank here reduces
@@ -237,6 +239,18 @@ def make_time_mesh(num_devices: int = -1, devices=None) -> Mesh:
     holds raises."""
     devs = _visible_cards() if devices is None else [torch.device(d) for d in devices]
     return Mesh(tuple(_first(num_devices, devs, "time")), TIME_AXIS)
+
+
+def time_shard_batch(mesh: Mesh, batch):
+    """Host arrays (numpy frames [B, T, H, W, C], targets [B, T, H, W], or a
+    tuple of them) cut along T into the time mesh's shards, each copied
+    from the host straight to its shard's device (``ops/time_shard.Shards``
+    with the time axis at 1): nothing is staged on one device first."""
+    from sap3d_tpu_torch.ops.time_shard import from_host
+
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(from_host(mesh, a) for a in batch)
+    return from_host(mesh, batch)
 
 
 def make_mesh(num_devices: int = -1, devices=None, device: str | torch.device = "cuda",

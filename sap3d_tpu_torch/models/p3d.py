@@ -17,6 +17,13 @@ NCDHW; ``P3DSaliency`` takes ``[B, T, H, W, 3]`` and returns
 concatenated eagerly with ``torch.cat`` (the JAX package's split-conv of the
 parts is a TPU formulation of the same math).
 
+Under a time mesh every model takes a time-sharded clip
+(``ops/time_shard.Shards``, the counterpart of GSPMD's time partitioning)
+and returns one: every layer runs on each shard on its device (halos at the
+temporal convs, statistics summed over the shards), so the whole clip never
+exists on one device but where the attention sites without a ring and the
+non-local blocks gather their tokens, as GSPMD does.
+
 Encoder (input [B, 16, 112, 112, 3]):
     stem   conv (1,7,7) s(1,2,2), no bias -> 64ch, norm, relu  -> 16 x 56x56
     x_1_0  maxpool (2,1,1)/(2,1,1)                            ->  8 x 56x56
@@ -41,6 +48,7 @@ from sap3d_tpu_torch.ops.layers import (
     TransposeConvNormRelu,
     max_pool3d,
 )
+from sap3d_tpu_torch.ops.time_shard import Shards
 
 BLOCK_EXPANSION = 4
 # (planes, num_blocks) per stage: 3 + 8 + 36 = 47 bottlenecks = P3D-199.
@@ -173,10 +181,27 @@ class _Decoder(nn.Module):
         keep = 1.0 - self.dropout_rate
         if not self.training or self.dropout_rate == 0.0:
             return x
+        if isinstance(x, Shards):
+            if keep <= 0.0:
+                return x.map(torch.zeros_like)
+            return x * self._shard_masks(x, keep, generator) / keep
         if keep <= 0.0:
             return torch.zeros_like(x)
         mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
         return x * mask / keep
+
+    @staticmethod
+    def _shard_masks(x: Shards, keep: float, generator) -> Shards:
+        """Each shard's mask, drawn from ``generator`` (on its own device)
+        in shard order and moved to the shard's device.  The masks differ
+        from the unsharded model's, as a data-parallel rank's do."""
+        masks = []
+        for j in range(x.n):
+            s = x.shard(j)
+            dev = s.device if generator is None else generator.device
+            m = torch.empty(s.shape, dtype=s.dtype, device=dev)
+            masks.append(m.bernoulli_(keep, generator=generator).to(s.device))
+        return x.with_parts([torch.cat([masks[j] for j in idx]) for _, idx in x.groups])
 
 
 class UNetDecoder(_Decoder):
@@ -242,8 +267,10 @@ class UNetPPDecoder(_Decoder):
                  channel.
     Output is sigmoid-activated.  ``ring_mesh`` (long-clip mode) sends every
     self-attention site to ring attention over the mesh
-    (``ops/ring_attention.py``), ``x_4_0`` included; the other layers run
-    unsharded on the input's device.
+    (``ops/ring_attention.py``), ``x_4_0`` included.  Fed a whole clip, the
+    other layers run on the input's device and each site cuts and gathers
+    its tokens; fed a time-sharded clip of the same mesh, every layer runs
+    shard by shard and the rings take the shards where they lie.
 
     The JAX package's phase-layout train head (``fast_tconv.py``) is a TPU
     formulation whose summed loss is the same number; the interleaved head
@@ -475,7 +502,13 @@ class P3DSaliency(nn.Module):
     package.  The parameters are the same with and without it, and with and
     without ``bn_reference_quirk`` (``Bottleneck``: the bottleneck BNs on
     batch statistics in eval mode, the stem and decoder BNs on their running
-    statistics)."""
+    statistics).
+
+    ``x`` may be a time-sharded clip (``core/mesh.time_shard_batch``): every
+    layer then runs on each shard's device and the output is a time-sharded
+    [B, T, H, W, 1].  The parameters stay on the model's device, the mesh's
+    first; each layer moves them to its shards' devices, and the state dict
+    is the same whatever the input."""
 
     def __init__(self, decoder: str = "unetpp", decoder_kwargs: dict | None = None,
                  norm_mode: str = "bn", backbone_cbam: bool = False,
@@ -497,8 +530,7 @@ class P3DSaliency(nn.Module):
                                           norm_mode=norm_mode, dtype=dtype,
                                           dropout_rate=dropout_rate, **extra)
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, x, generator: torch.Generator | None = None):
         x = x.to(self.dtype).permute(0, 4, 1, 2, 3)  # NDHWC -> NCDHW
         out = self.decoder(self.encoder(x), generator)
         return out.permute(0, 2, 3, 4, 1).float()

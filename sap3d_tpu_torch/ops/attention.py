@@ -27,9 +27,16 @@ and on nothing of the TPU's VMEM budget:
   counterpart: B5's backward on the card is B3, so it takes no site that
   ``flash_attend`` does not, and the JAX package tries flash first.
 * with a time mesh (``ring_mesh``, long-clip mode), every site goes to
-  ``ops/ring_attention.ring_attend_sharded``, whatever its shape, as in the
-  JAX package: its kernel hop is ``flash_attend_tokens_lse`` (B2 forward,
-  B4 backward), its chunked hop plain PyTorch.
+  ring attention, whatever its shape, as in the JAX package: its kernel hop
+  is ``flash_attend_tokens_lse`` (B2 forward, B4 backward), its chunked hop
+  plain PyTorch.  A whole clip is cut into shards at the site and gathered
+  after it (``ring_attend_sharded``); a time-sharded clip
+  (``ops/time_shard.Shards``) is projected, pooled and tokenised shard by
+  shard and attends where it lies (``ring_attend_shards``).
+* a time-sharded clip at a site without a ring gathers the site's tokens
+  on the mesh's first device, attends there by the rules above and scatters
+  the output back to the shards: the gather GSPMD makes for a global
+  attention site of a time-sharded clip.  ``NonLocal3D`` always gathers so.
 
 ``flash_attend`` is the counterpart of the JAX ``flash_attend_tokens``
 custom_vjp and ``flash_fwd_chunked_bwd`` of the JAX function of that name:
@@ -64,6 +71,7 @@ from sap3d_tpu_torch.ops.cuda.flash_attention import (
 )
 from sap3d_tpu_torch.ops.cuda.flash_attention_bwd import backward_viable, flash_backward
 from sap3d_tpu_torch.ops.layers import Conv3d, Norm, pool3d
+from sap3d_tpu_torch.ops.time_shard import Shards, gather, shard
 
 # Above this many query tokens, attend in query chunks so the score matrix
 # is at most [B, chunk, Nk].
@@ -222,6 +230,28 @@ def _tokens(x: torch.Tensor) -> torch.Tensor:
     return x.flatten(2).transpose(1, 2).contiguous()
 
 
+def _untokens(o: torch.Tensor, grid) -> torch.Tensor:
+    """[B, D*H*W, C] -> [B, C, D, H, W] on the (D, H, W) ``grid``."""
+    return o.transpose(1, 2).reshape(o.shape[0], -1, *grid)
+
+
+def _sharded_tokens(x: Shards) -> Shards:
+    """Each shard's tokens: time-major, so the token axis is cut as time."""
+    return x.map(_tokens, time_dim=1)
+
+
+def _gathered(x: Shards) -> torch.Tensor:
+    """A time-sharded clip's tokens, [B, D*H*W, C] on the mesh's first device."""
+    return gather(_sharded_tokens(x))
+
+
+def _scattered(o: torch.Tensor, like: Shards) -> Shards:
+    """Tokens [B, D*H*W, C] of the whole clip cut back onto ``like``'s
+    shards, on ``like``'s frame grid."""
+    grid = like.parts[0].shape[2:]
+    return shard(like.mesh, o, time_dim=1).map(lambda p: _untokens(p, grid), time_dim=2)
+
+
 class SelfAttention3D(nn.Module):
     """SAGAN-style global self-attention over D*H*W tokens (NCDHW in/out).
 
@@ -231,7 +261,13 @@ class SelfAttention3D(nn.Module):
     to compare the kernel path against; with a ``ring_mesh``, the ring's
     chunked hop); otherwise the dispatch rule above applies.  ``ring_mesh``
     (``core/mesh.make_time_mesh``) holds no parameters: the state dict is
-    the same with and without it."""
+    the same with and without it.
+
+    A time-sharded clip runs every projection, pool, norm and the residual
+    shard by shard; the attention is the ring on the shards where they lie
+    with a ``ring_mesh`` (the clip's own mesh), else the site's tokens are
+    gathered on the mesh's first device and the output scattered back (the
+    gather GSPMD makes for a global attention site)."""
 
     def __init__(self, features: int, norm_mode: str = "bn",
                  subsample: bool = False, sub_size: int = 2,
@@ -250,33 +286,46 @@ class SelfAttention3D(nn.Module):
         self.Norm_0 = Norm(norm_mode, features, dtype)
         self.gamma = nn.Parameter(torch.zeros(1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         f, g, hv = self.f(x), self.g(x), self.h(x)
         if self.subsample:
             f = pool3d(f, self.sub_size)
             hv = pool3d(hv, self.sub_size)
-        q, k, v = _tokens(g), _tokens(f), _tokens(hv)
+        if isinstance(x, Shards):
+            o = self._attend_shards(g, f, hv)
+        else:
+            o = _untokens(self._attend(_tokens(g), _tokens(f), _tokens(hv)), x.shape[2:])
+        o = F.relu(self.Norm_0(self.out(o)))
+        return x + self.gamma.to(x.dtype) * o
+
+    def _attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """The attention of whole-clip tokens by the module docstring's rule."""
         # a site autograd records is differentiated, whatever the mode
         train = self.training or (torch.is_grad_enabled() and q.requires_grad)
         if self.ring_mesh is not None:
-            route = "ring"
-        elif self.use_kernel:
-            route = attention_route(q.shape[1], k.shape[1], q.shape[2], v.shape[2], q.dtype,
-                                    train)
-        else:
-            route = "plain"
-        if route == "ring":
             from sap3d_tpu_torch.ops.ring_attention import ring_attend_sharded
 
-            o = ring_attend_sharded(self.ring_mesh, q, k, v,
-                                    hop_impl=None if self.use_kernel else "xla")
-        elif route == "flash":
-            o = flash_attend(q, k, v)
-        else:
-            o = attend_tokens(q, k, v)
-        o = o.transpose(1, 2).reshape(g.shape[0], -1, *x.shape[2:])
-        o = F.relu(self.Norm_0(self.out(o)))
-        return x + self.gamma.to(x.dtype) * o
+            return ring_attend_sharded(self.ring_mesh, q, k, v,
+                                       hop_impl=None if self.use_kernel else "xla")
+        if self.use_kernel and attention_route(q.shape[1], k.shape[1], q.shape[2],
+                                               v.shape[2], q.dtype, train) == "flash":
+            return flash_attend(q, k, v)
+        return attend_tokens(q, k, v)
+
+    def _attend_shards(self, g: Shards, f: Shards, hv: Shards) -> Shards:
+        """The attention of a time-sharded clip, as time-sharded outputs on
+        g's frame grid: the ring in place, or GSPMD's gather."""
+        if self.ring_mesh is None:
+            o = self._attend(_gathered(g), _gathered(f), _gathered(hv))
+            return _scattered(o, g)
+        from sap3d_tpu_torch.ops.ring_attention import ring_attend_shards
+
+        if self.ring_mesh != g.mesh:
+            raise ValueError("a ring site's mesh differs from its clip's time mesh")
+        q, k, v = (_sharded_tokens(t).parts for t in (g, f, hv))
+        o = ring_attend_shards(g.mesh, q, k, v, hop_impl=None if self.use_kernel else "xla")
+        grid = g.parts[0].shape[2:]
+        return g.with_parts([_untokens(p, grid) for p in o])
 
 
 class NonLocal3D(nn.Module):
@@ -284,7 +333,12 @@ class NonLocal3D(nn.Module):
     C//2 channels with biased 1x1x1 convs; the scores are divided by the
     key-token count (no softmax); the output passes a 1x1x1 conv, a batch
     norm (always BN, whatever the model's norm mode) and a relu, and is added
-    to the input.  ``sub_sample`` pools keys and values (phi, g) by 2."""
+    to the input.  ``sub_sample`` pools keys and values (phi, g) by 2.
+
+    A time-sharded clip runs the projections, pools, norm and residual
+    shard by shard; the scores are global over the keys, so the tokens are
+    gathered on the mesh's first device and the output scattered back to
+    the shards (as GSPMD gathers a global site)."""
 
     def __init__(self, features: int, sub_sample: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -299,14 +353,23 @@ class NonLocal3D(nn.Module):
         self.w_y = Conv3d(inter, features, 1, dtype=dtype)
         self.Norm_0 = Norm("bn", features, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         g_x, theta, phi = self.g(x), self.theta(x), self.phi(x)
         if self.sub_sample:
             g_x, phi = pool3d(g_x, 2), pool3d(phi, 2)
-        q, k, v = _tokens(theta), _tokens(phi), _tokens(g_x)
-        # float32 scores, cast to v's dtype before the product, which
-        # accumulates in float32 (the JAX block's preferred_element_type)
-        scores = torch.bmm(q.float(), k.float().transpose(1, 2)) / float(k.shape[1])
-        y = torch.bmm(scores.to(v.dtype), v)
-        y = y.transpose(1, 2).reshape(x.shape[0], -1, *x.shape[2:])
+        if isinstance(x, Shards):
+            y = _scattered(self._attend(_gathered(theta), _gathered(phi), _gathered(g_x)),
+                           theta)
+        else:
+            y = _untokens(self._attend(_tokens(theta), _tokens(phi), _tokens(g_x)),
+                          x.shape[2:])
         return x + F.relu(self.Norm_0(self.w_y(y)))
+
+    @staticmethod
+    def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        # float32 scores (float64 for a float64 input), cast to v's dtype
+        # before the product, which accumulates in float32 (the JAX block's
+        # preferred_element_type)
+        acc = torch.promote_types(q.dtype, torch.float32)
+        scores = torch.bmm(q.to(acc), k.to(acc).transpose(1, 2)) / float(k.shape[1])
+        return torch.bmm(scores.to(v.dtype), v)

@@ -7,6 +7,13 @@ the channel-mean and channel-max maps, runs a 7x7x7 conv without bias,
 sigmoids and scales.  These are bandwidth-bound reductions and elementwise
 passes that the JAX package leaves to XLA; here they are plain PyTorch ops.
 
+On a time-sharded clip (``ops/time_shard.Shards``) the channel attention's
+mean and max over (T, H, W) and the SE block's mean reduce across the
+shards (partial sums with the count, and a max, on the mesh's first
+device, where the MLP runs); the spatial attention's channel mean and max
+are each shard's own, and its 7x7x7 conv takes three halo frames a side
+from the neighbouring shards (``ops/layers.Conv3d``).
+
 Parameter names follow the flax modules (``ch_at/mlp_0``, ``ch_at/mlp_1``,
 ``sp_at/conv3d``, ``squeeze``, ``excite``).  A ``Dense`` kernel is stored
 ``[out, in]`` (flax: ``[in, out]``; ``interop/flax_bridge.py`` transposes).
@@ -19,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sap3d_tpu_torch.ops.layers import Conv3d
+from sap3d_tpu_torch.ops.time_shard import Shards, clip_amax, clip_mean, scale_samples
 
 # Standard deviation of a unit normal truncated at +-2, by which flax's
 # variance_scaling(..., "truncated_normal") divides its scale.
@@ -58,10 +66,20 @@ class ChannelAttention3D(nn.Module):
         self.mlp_0 = Dense(features, hidden, dtype)
         self.mlp_1 = Dense(hidden, features, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        avg = self.mlp_1(F.relu(self.mlp_0(x.mean(dim=(2, 3, 4)))))
-        mx = self.mlp_1(F.relu(self.mlp_0(x.amax(dim=(2, 3, 4)))))
+    def forward(self, x):
+        if isinstance(x, Shards):
+            avg, mx = self._mlp(clip_mean(x)), self._mlp(clip_amax(x))
+            return scale_samples(x, torch.sigmoid(avg + mx))
+        avg = self._mlp(x.mean(dim=(2, 3, 4)))
+        mx = self._mlp(x.amax(dim=(2, 3, 4)))
         return x * torch.sigmoid(avg + mx)[:, :, None, None, None]
+
+    def _mlp(self, v: torch.Tensor) -> torch.Tensor:
+        return self.mlp_1(F.relu(self.mlp_0(v)))
+
+
+def _channel_mean_max(x: torch.Tensor) -> torch.Tensor:
+    return torch.cat([x.mean(dim=1, keepdim=True), x.amax(dim=1, keepdim=True)], dim=1)
 
 
 class SpatialAttention3D(nn.Module):
@@ -72,8 +90,8 @@ class SpatialAttention3D(nn.Module):
         self.conv3d = Conv3d(2, 1, 7, use_bias=False, dtype=dtype)
         _variance_scaling_(self.conv3d.kernel, 2 * 7 ** 3)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cat = torch.cat([x.mean(dim=1, keepdim=True), x.amax(dim=1, keepdim=True)], dim=1)
+    def forward(self, x):
+        cat = x.map(_channel_mean_max) if isinstance(x, Shards) else _channel_mean_max(x)
         return x * torch.sigmoid(self.conv3d(cat))
 
 
@@ -86,7 +104,7 @@ class CBAM(nn.Module):
         self.ch_at = ChannelAttention3D(features, ratio, dtype)
         self.sp_at = SpatialAttention3D(dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         return self.sp_at(self.ch_at(x))
 
 
@@ -99,6 +117,10 @@ class SEBlock3D(nn.Module):
         self.squeeze = Dense(features, max(1, features // ratio), dtype)
         self.excite = Dense(max(1, features // ratio), features, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = torch.sigmoid(self.excite(F.relu(self.squeeze(x.mean(dim=(2, 3, 4))))))
-        return x * s[:, :, None, None, None]
+    def forward(self, x):
+        if isinstance(x, Shards):
+            return scale_samples(x, self._gate(clip_mean(x)))
+        return x * self._gate(x.mean(dim=(2, 3, 4)))[:, :, None, None, None]
+
+    def _gate(self, v: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(self.excite(F.relu(self.squeeze(v))))

@@ -146,17 +146,25 @@ def flash_attend_tokens_reference(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch: softmax(q k^T) v with fp32 scores and softmax; the
     probabilities are cast to v's dtype before the product, which
-    accumulates in fp32 (``sap3d_tpu`` ``_dot_softmax_attend``)."""
-    scores = torch.bmm(q.float(), k.float().transpose(1, 2))
+    accumulates in fp32 (``sap3d_tpu`` ``_dot_softmax_attend``).  A float64
+    input keeps float64 throughout."""
+    scores = _scores(q, k)
     beta = torch.softmax(scores, dim=-1)
     return torch.bmm(beta.to(v.dtype), v)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q k^T in float32, or in the inputs' dtype where it is wider."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    return torch.bmm(q.to(acc), k.to(acc).transpose(1, 2))
 
 
 def flash_forward_lse_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch: ``flash_attend_tokens_reference``'s output and the
-    float32 log-sum-exp of each query row's fp32 scores, ``[B, Nq]``."""
-    scores = torch.bmm(q.float(), k.float().transpose(1, 2))
+    float32 log-sum-exp of each query row's fp32 scores, ``[B, Nq]``
+    (float64 for a float64 input)."""
+    scores = _scores(q, k)
     beta = torch.softmax(scores, dim=-1)
     return torch.bmm(beta.to(v.dtype), v), torch.logsumexp(scores, dim=-1)
 

@@ -17,6 +17,16 @@ kernel is stored ``[out, in, kd, kh, kw]`` and a transposed-conv kernel
 
 Mixed precision follows flax's ``dtype=`` rule: parameters stay float32 and
 each module casts its weights and input to the compute dtype at call time.
+
+Every layer also takes a time-sharded clip (``ops/time_shard.Shards``, the
+counterpart of GSPMD's time partitioning) and returns one.  The halos come
+from the whole clip's SAME padding, never from each shard's own: a conv of
+temporal kernel k at stride 1 takes ``same_pads(T, k, 1)`` frames from its
+neighbours (k = 3: (1, 1); k = 2: (0, 1); CBAM's k = 7: (3, 3), across
+several shards where a shard holds fewer); a transposed conv takes the input
+frames whose windows reach the shard's own output frames and crops the rest;
+the norms sum their statistics over every shard.  The parameters are moved
+to each shard's device (a no-op on their own).
 """
 
 from __future__ import annotations
@@ -26,6 +36,9 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from sap3d_tpu_torch.ops import time_shard
+from sap3d_tpu_torch.ops.time_shard import Shards, to_device
 
 
 def _triple(v) -> tuple[int, int, int]:
@@ -62,8 +75,20 @@ def max_pool3d(
     """3D max pool over the D,H,W axes of an NCDHW tensor.
 
     'SAME' pads with -inf, as XLA's reduce_window does (e.g. the stem pool
-    (2,3,3)/(2,2,2) on 56x56 pads H/W by (0, 1))."""
+    (2,3,3)/(2,2,2) on 56x56 pads H/W by (0, 1)).
+
+    A time-sharded clip is pooled shard by shard: every temporal window of
+    the registry equals its stride (2, or 4 in ``pool3d``), so where each
+    shard's length is a multiple of the stride no window crosses a seam and
+    no halo is needed.  The trainer's guard (clip length a multiple of 16
+    per shard, ``train/trainer.py:Trainer._time_mesh``) makes every shard
+    length even down to pool4; any other case raises."""
     w, s = _triple(window), _triple(strides)
+    if isinstance(x, Shards):
+        if x.time_dim != 2 or w[0] != s[0] or x.frames % s[0]:
+            raise ValueError(f"a temporal window {w[0]} at stride {s[0]} needs halos on "
+                             f"shards of {x.frames} frames")
+        return x.map(lambda p: max_pool3d(p, w, s, padding))
     if padding == "SAME":
         x = pad_same(x, w, s, value=float("-inf"))
     elif padding != "VALID":
@@ -85,13 +110,21 @@ def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor,
     """Huber-style smooth-L1 summed over every element (``sap3d_tpu``
     ``smooth_l1_loss``).  The quadratic/linear switch factor is a constant
     to the gradient (detached), as the JAX package's ``stop_gradient``."""
+    return smooth_l1_terms(pred, target, inside_weights, outside_weights, sigma).sum()
+
+
+def smooth_l1_terms(pred: torch.Tensor, target: torch.Tensor,
+                    inside_weights: torch.Tensor | float = 1.0,
+                    outside_weights: torch.Tensor | float = 1.0,
+                    sigma: float = 1.0) -> torch.Tensor:
+    """``smooth_l1_loss``'s terms, element by element, before the sum."""
     sigma2 = sigma ** 2
     diff = (pred - target) * inside_weights
     abs_diff = diff.abs()
     is_small = (abs_diff < 1.0 / sigma2).to(diff.dtype).detach()
     per_elem = diff.square() * (sigma2 / 2.0) * is_small \
         + (abs_diff - 0.5 / sigma2) * (1.0 - is_small)
-    return (per_elem * outside_weights).sum()
+    return per_elem * outside_weights
 
 
 def _glorot_(w: torch.Tensor, fan_in: int, fan_out: int) -> None:
@@ -116,17 +149,27 @@ class Conv3d(nn.Module):
         _glorot_(self.kernel, in_features * vol, features * vol)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         x = x.to(self.dtype)
-        pads = [same_pads(n, k, s) for n, k, s in
-                zip(x.shape[2:], self.ksize, self.strides)]
+        if isinstance(x, Shards):
+            if self.strides[0] != 1:
+                raise ValueError("a time-sharded conv takes temporal stride 1")
+            lo, hi = same_pads(x.shape[2], self.ksize[0], 1)
+            return x.with_parts([self._conv(p, (0, 0)) for p in time_shard.halo(x, lo, hi)])
+        return self._conv(x, same_pads(x.shape[2], self.ksize[0], self.strides[0]))
+
+    def _conv(self, x: torch.Tensor, time_pads: tuple[int, int]) -> torch.Tensor:
+        pads = [time_pads] + [same_pads(n, k, s) for n, k, s in
+                              zip(x.shape[3:], self.ksize[1:], self.strides[1:])]
         if all(lo == hi for lo, hi in pads):
             padding = tuple(lo for lo, _ in pads)  # symmetric: let cuDNN pad
         else:
-            x = pad_same(x, self.ksize, self.strides)
+            (dl, dh), (hl, hh), (wl, wh) = pads
+            x = F.pad(x, (wl, wh, hl, hh, dl, dh))
             padding = 0
-        bias = None if self.bias is None else self.bias.to(self.dtype)
-        return F.conv3d(x, self.kernel.to(self.dtype), bias, self.strides, padding)
+        bias = None if self.bias is None else to_device(self.bias, x.device).to(self.dtype)
+        kernel = to_device(self.kernel, x.device).to(self.dtype)
+        return F.conv3d(x, kernel, bias, self.strides, padding)
 
 
 def tconv_same_crop(n: int, k: int, s: int) -> tuple[int, int]:
@@ -166,17 +209,34 @@ class ConvTranspose3d(nn.Module):
         _glorot_(self.kernel, in_features * vol, features * vol)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         x = x.to(self.dtype)
         crops = [tconv_same_crop(n, k, s) for n, k, s in
                  zip(x.shape[2:], self.ksize, self.strides)]
-        bias = None if self.bias is None else self.bias.to(self.dtype)
+        if not isinstance(x, Shards):
+            return self._tconv(x, *crops)
+        # shard j's output frames [j t s, (j + 1) t s) take the input frames
+        # [j t - lo, (j + 1) t + hi): the windows that overlap a seam at
+        # (k, s) = (3, 2) or (3, 1) reach the neighbours' frames
+        (k, s), t = (self.ksize[0], self.strides[0]), x.frames
+        d0 = crops[0][0]
+        lo, hi = (k - 1 - d0) // s, -(-d0 // s)
+        start = lo * s + d0
+        parts = []
+        for p in time_shard.halo(x, lo, hi):
+            short = start + t * s - ((p.shape[2] - 1) * s + k)  # < s: where k < s
+            parts.append(self._tconv(p, (start, max(short, 0)), *crops[1:], d=t * s))
+        return x.with_parts(parts)
+
+    def _tconv(self, x: torch.Tensor, *crops, d: int | None = None) -> torch.Tensor:
+        bias = None if self.bias is None else to_device(self.bias, x.device).to(self.dtype)
         y = F.conv_transpose3d(
-            x, self.kernel.to(self.dtype), bias, self.strides,
+            x, to_device(self.kernel, x.device).to(self.dtype), bias, self.strides,
             output_padding=tuple(op for _, op in crops),
         )
         (d0, _), (h0, _), (w0, _) = crops
-        d, h, w = (n * s for n, s in zip(x.shape[2:], self.strides))
+        dd, h, w = (n * s for n, s in zip(x.shape[2:], self.strides))
+        d = dd if d is None else d
         return y[:, :, d0:d0 + d, h0:h0 + h, w0:w0 + w]
 
 
@@ -214,7 +274,20 @@ class BatchNorm(nn.Module):
     elementwise in that dtype (the batch-norm call takes no gradient
     through statistics handed to it), and the gradient flows back through
     the reduction, whose backward is the same all-reduce.  The
-    running statistics move as on one device, the same on every rank."""
+    running statistics move as on one device, the same on every rank.
+
+    A time-sharded clip (``ops/time_shard.Shards``) in train mode (and with
+    ``batch_stats_at_eval``) is normalized with the whole clip's statistics:
+    each device's [sum x, sum x^2] (float32 or wider) is added on the
+    mesh's first device, with the same formula, and the gradient flows back
+    through that sum (``_ShardedBatchNorm``, whose backward adds each
+    device's two channel sums of the cotangent there as well).  Where one
+    device holds every shard (a mesh that names one card N times) its
+    stacked tensor is the whole clip's rows, and the one-device path above
+    normalizes it in one call.  The running statistics move once per call.
+    Eval mode normalizes each shard with the running statistics.  A clip
+    that is time-sharded while the layer has a data group of more than one
+    rank is refused."""
 
     eps = 1e-3
     momentum = 0.99  # flax convention: running = m * running + (1 - m) * batch
@@ -230,8 +303,10 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         x = x.to(self.dtype)
+        if isinstance(x, Shards):
+            return self._sharded(x)
         if not self.training and not self.batch_stats_at_eval:
             return F.batch_norm(x, self.mean, self.var, self.scale, self.bias,
                                 False, 0.0, self.eps)
@@ -241,12 +316,16 @@ class BatchNorm(nn.Module):
             y, mean, invstd = torch.native_batch_norm(x, self.scale, self.bias, None, None,
                                                       True, 0.0, self.eps)
             var = None if not self.training else \
-                (invstd.float().square().reciprocal() - self.eps).clamp_min(0.0)
+                (invstd.to(self.var).square().reciprocal() - self.eps).clamp_min(0.0)
         if self.training:
-            with torch.no_grad():
-                self.mean.mul_(self.momentum).add_(mean.float(), alpha=1.0 - self.momentum)
-                self.var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+            self._move_running(mean, var)
         return y
+
+    def _move_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """running = 0.99 running + 0.01 batch, in the buffers' dtype."""
+        with torch.no_grad():
+            self.mean.mul_(self.momentum).add_(mean.to(self.mean), alpha=1.0 - self.momentum)
+            self.var.mul_(self.momentum).add_(var.to(self.var), alpha=1.0 - self.momentum)
 
     def _global_batch_norm(self, x: torch.Tensor):
         """Normalize ``x`` with the statistics of every rank's rows; returns
@@ -262,6 +341,80 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.scale
         y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(self.dtype), mean.detach(), var.detach()
+
+    def _sharded(self, x: Shards) -> Shards:
+        if self.group is not None and self.group.world_size > 1:
+            raise ValueError("a time-sharded clip under a data group of more than one rank: "
+                             "time mode keeps a data mesh of 1")
+        if not self.training and not self.batch_stats_at_eval:
+            return x.map(lambda p: F.batch_norm(
+                p, *(to_device(t, p.device) for t in (self.mean, self.var, self.scale,
+                                                      self.bias)), False, 0.0, self.eps))
+        if len(x.parts) == 1:  # one device holds every shard: its statistics are the clip's
+            return x.with_parts([self.forward(x.parts[0])])
+        *parts, mean, var = _ShardedBatchNorm.apply(x.mesh.devices[0], self.eps, self.scale,
+                                                    self.bias, *x.parts)
+        if self.training:
+            self._move_running(mean, var)
+        return x.with_parts(parts)
+
+
+def _channel_dims(x: torch.Tensor) -> list[int]:
+    return [0, *range(2, x.dim())]
+
+
+class _ShardedBatchNorm(torch.autograd.Function):
+    """Batch norm of per-device tensors with the statistics of all of them:
+    returns each device's output, and the (non-differentiable) mean and
+    biased variance on ``first``.  Each device's [sum x, sum x^2] is added
+    on ``first`` (float32 for a low-precision input; mean = sum x / n, var
+    = max(0, sum x^2 / n - mean^2), flax's formula); each tensor is then
+    normalized by one batch-norm call with those statistics.  The backward
+    adds each device's [sum dy, sum dy (x - mean)] on ``first`` and gives
+    dx = (dy - sum dy / n - (x - mean) invstd^2 sum dy (x - mean) / n)
+    invstd scale, the batch norm's gradient; it saves the inputs in their
+    own dtype, as the batch-norm call does."""
+
+    @staticmethod
+    def forward(ctx, first, eps, scale, bias, *parts):
+        acc = torch.promote_types(parts[0].dtype, torch.float32)
+        c = scale.shape[0]
+        sums = time_shard.sum_to([torch.cat([p.sum(_channel_dims(p), dtype=acc),
+                                  p.to(acc).square().sum(_channel_dims(p))]) for p in parts],
+                      first)
+        n = sum(p.numel() // c for p in parts)
+        mean = sums[:c] / n
+        var = (sums[c:] / n - mean.square()).clamp_min(0.0)
+        outs = [F.batch_norm(p, mean.to(p.device), var.to(p.device), scale.to(p.device),
+                             bias.to(p.device), False, 0.0, eps) for p in parts]
+        ctx.save_for_backward(scale, mean, torch.rsqrt(var + eps), *parts)
+        ctx.n, ctx.first = n, first
+        ctx.mark_non_differentiable(mean, var)
+        return (*outs, mean, var)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        scale, mean, invstd, *parts = ctx.saved_tensors
+        acc, c = mean.dtype, scale.shape[0]
+
+        def per_channel(t, p):  # a [C] tensor on p's device, shaped to broadcast
+            return t.to(p.device).view(1, c, *([1] * (p.dim() - 2)))
+
+        red = []
+        for p, dy in zip(parts, grads):
+            dyf = dy.to(acc)
+            red.append(torch.cat([dyf.sum(_channel_dims(p)),
+                                  (dyf * (p.to(acc) - per_channel(mean, p)))
+                                  .sum(_channel_dims(p))]))
+        tot = time_shard.sum_to(red, ctx.first)
+        sum_dy, sum_dy_xmu = tot[:c], tot[c:]
+        k_dy, k_x = sum_dy / ctx.n, sum_dy_xmu / ctx.n * invstd.square()
+        mul = invstd * scale.to(acc)
+        dxs = [((dy.to(acc) - per_channel(k_dy, p)
+                 - (p.to(acc) - per_channel(mean, p)) * per_channel(k_x, p))
+                * per_channel(mul, p)).to(p.dtype) for p, dy in zip(parts, grads)]
+        return (None, None, (sum_dy_xmu * invstd).to(scale.dtype), sum_dy.to(scale.dtype),
+                *dxs)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -293,7 +446,11 @@ def set_data_group(model: nn.Module, group) -> None:
 
 
 class GroupNorm(nn.Module):
-    """``nn.GroupNorm`` (flax) twin: G = min(32, C) groups, eps 1e-5."""
+    """``nn.GroupNorm`` (flax) twin: G = min(32, C) groups, eps 1e-5, in
+    float32 (or the input's wider dtype).  A time-sharded clip takes each
+    sample's group statistics over every shard: each device's [sum x, sum
+    x^2] per sample and group is added on the mesh's first device (flax's
+    formula, var = E[x^2] - E[x]^2)."""
 
     eps = 1e-5
 
@@ -304,9 +461,36 @@ class GroupNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(x.float(), self.groups, self.scale, self.bias, self.eps)
+    def forward(self, x):
+        if isinstance(x, Shards):
+            return self._sharded(x)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        y = F.group_norm(xf, self.groups, self.scale.to(xf.dtype), self.bias.to(xf.dtype),
+                         self.eps)
         return y.to(self.dtype)
+
+    def _sharded(self, x: Shards) -> Shards:
+        acc = torch.promote_types(x.dtype, torch.float32)
+        b, g = x.batch, self.groups
+
+        def grouped(p, k):  # [k shards, B, G, C/G x frames x H x W]
+            return p.to(acc).reshape(k, b, g, -1)
+
+        sums = time_shard.sum_to([torch.stack([v.sum((0, 3)), v.square().sum((0, 3))])
+                       for v in (grouped(p, len(idx)) for (_, idx), p in
+                                 zip(x.groups, x.parts))], x.mesh.devices[0])
+        n = x.n * x.parts[0][0].numel() // g
+        mean = sums[0] / n
+        inv = torch.rsqrt((sums[1] / n - mean.square()).clamp_min(0.0) + self.eps)
+        parts = []
+        for (dev, idx), p in zip(x.groups, x.parts):
+            v = (grouped(p, len(idx)) - to_device(mean, dev)[None, :, :, None]) \
+                * to_device(inv, dev)[None, :, :, None]
+            shape = (1, p.shape[1]) + (1,) * (p.dim() - 2)
+            y = v.reshape(p.shape) * to_device(self.scale, dev).to(acc).view(shape) \
+                + to_device(self.bias, dev).to(acc).view(shape)
+            parts.append(y.to(self.dtype))
+        return x.with_parts(parts)
 
 
 class Norm(nn.Module):
@@ -324,7 +508,7 @@ class Norm(nn.Module):
         elif mode != "none":
             raise ValueError(f"unknown norm mode {mode!r}")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         if self.mode == "bn":
             return self.BatchNorm_0(x)
         if self.mode == "gn":
@@ -332,9 +516,10 @@ class Norm(nn.Module):
         return x
 
 
-def _cat(x) -> torch.Tensor:
+def _cat(x):
     """A tuple of channel-concat parts (the decoders' dense skips) becomes
-    one tensor; the fused ``[out, sum(Ci), ...]`` kernel then runs once."""
+    one tensor (or one time-sharded clip); the fused ``[out, sum(Ci),
+    ...]`` kernel then runs once."""
     if isinstance(x, (tuple, list)):
         return torch.cat(list(x), dim=1)
     return x
@@ -352,7 +537,7 @@ class ConvNormRelu(nn.Module):
         self.Conv_0 = Conv3d(in_features, features, kernel, strides, use_bias, dtype)
         self.Norm_0 = Norm(norm_mode, features, dtype)
 
-    def forward(self, x) -> torch.Tensor:
+    def forward(self, x):
         return F.relu(self.Norm_0(self.Conv_0(_cat(x))))
 
 
@@ -367,5 +552,5 @@ class TransposeConvNormRelu(nn.Module):
             in_features, features, kernel, strides, use_bias, dtype)
         self.Norm_0 = Norm(norm_mode, features, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         return F.relu(self.Norm_0(self.ConvTranspose_0(x)))

@@ -3,14 +3,16 @@
 Counterpart of ``sap3d_tpu/ops/ring_attention.py``.  A site's tokens are
 time-major (``ops/attention._tokens`` flattens [B, C, D, H, W] that way),
 so n contiguous shards of the token axis are n contiguous time chunks.
-``ring_attend_sharded`` places shard j of q, k and v on the mesh's device
-j; each shard's queries stay where they are while the key/value shards
-rotate one step around the ring per hop (``.to`` the next shard's device,
-the counterpart of ``lax.ppermute``; a no-op between shards on one device),
-and an online softmax (running max, running sum) merges each hop's partial
-attention.  After n hops every query has seen every key; the outputs are
-gathered back on q's device.  The result is ``attend_tokens`` up to float
-reordering.
+``ring_attend_shards`` takes the shards where they lie (one tensor per
+device of the mesh, ``ops/time_shard.groups``): each shard's queries stay
+on its device while the key/value shards rotate one step around the ring
+per hop (``.to`` the next shard's device, the counterpart of
+``lax.ppermute``; a no-op between shards on one device), and an online
+softmax (running max, running sum) merges each hop's partial attention.
+After n hops every query has seen every key, and each shard's output is on
+its own device.  ``ring_attend_sharded`` wraps it for whole tensors: it
+cuts q, k and v into shards, runs the ring and gathers the output back on
+q's device.  The result is ``attend_tokens`` up to float reordering.
 
 Two hop bodies, as in the JAX package:
 
@@ -41,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from sap3d_tpu_torch.core.mesh import Mesh
 from sap3d_tpu_torch.ops.attention import attend_tokens, flash_attend_tokens_lse
 from sap3d_tpu_torch.ops.cuda.flash_attention_bwd import backward_viable
+from sap3d_tpu_torch.ops.time_shard import gather, groups, shard
 
 # Query rows per checkpointed step of the chunked hop: bounds the live score
 # block to [B, RING_QUERY_CHUNK, Nk/n] float32.
@@ -59,7 +62,7 @@ def _pallas_hop(q, k, v, *state):
     """(m, den, acc) after one kernel hop; the first hop starts the state
     from (lse_h, 1, o_h), which the merge gives from (-inf, 0, 0)."""
     o, lse = flash_attend_tokens_lse(q, k, v)
-    o = o.float()
+    o = o.to(lse.dtype)
     if not state:
         return lse, torch.ones_like(lse), o
     m, den, acc = state
@@ -83,11 +86,12 @@ def _pallas_finish(state, dtype):
 def _chunk_update(qc, k, v, *state):
     """(m, l, o) of one query chunk after one hop: float32 scores, p rounded
     to v's dtype before its float32-accumulated product, as the JAX chunk
-    body."""
-    s = torch.bmm(qc.float(), k.float().transpose(1, 2))
+    body (float64 throughout for a float64 input)."""
+    acc = torch.promote_types(qc.dtype, torch.float32)
+    s = torch.bmm(qc.to(acc), k.to(acc).transpose(1, 2))
     m_new = s.amax(-1) if not state else torch.maximum(state[0], s.amax(-1))
     p = torch.exp(s - m_new[..., None])
-    pv = torch.bmm(p.to(v.dtype).float(), v.float())
+    pv = torch.bmm(p.to(v.dtype).to(acc), v.to(acc))
     if not state:
         return m_new, p.sum(-1), pv
     m, l, o = state
@@ -111,53 +115,58 @@ _HOPS = {"pallas": (_ring_pallas_local, _pallas_finish),
          "xla": (_ring_local, _local_finish)}
 
 
-def ring_attend_sharded(mesh: Mesh, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        chunk_q: int = RING_QUERY_CHUNK,
-                        hop_impl: str | None = None) -> torch.Tensor:
-    """softmax(q k^T) v over q [B, Nq, d], k [B, Nk, d], v [B, Nk, C], the
-    token axis sharded over the mesh's n devices (Nq and Nk divisible by
-    n).  With n = 1 it is ``attend_tokens``.
+def ring_attend_shards(mesh: Mesh, q, k, v, chunk_q: int = RING_QUERY_CHUNK,
+                       hop_impl: str | None = None) -> list[torch.Tensor]:
+    """softmax(q k^T) v of a time-sharded site: ``q``, ``k`` and ``v`` are
+    one tensor per device of ``groups(mesh)``, [k B, Nq/n, d], [k B, Nk/n,
+    d] and [k B, Nk/n, C], that device's k shards stacked along the batch
+    axis in ring order; returns each device's output [k B, Nq/n, C] there.
 
     ``hop_impl``: "pallas" (the kernel hop), "xla" (the chunked hop), or
     None: ``SAP3D_RING_HOP`` if set (read at each call), else "pallas" where
     the mesh's devices are CUDA devices and ``backward_viable`` takes the
     per-shard shape, else "xla"."""
-    n = len(mesh.devices)
-    if n == 1:
-        return attend_tokens(q, k, v)
-    (nq, d), (nk, c) = q.shape[1:], v.shape[1:]
-    if nq % n or nk % n:
-        raise ValueError(f"ring attention over {n} shards needs token counts divisible by "
-                         f"{n}; got Nq={nq}, Nk={nk}")
+    devices, grouped = mesh.devices, groups(mesh)
+    n = len(devices)
+    (nq, d), (nk, c) = q[0].shape[1:], v[0].shape[1:]
     hop_impl = hop_impl or os.environ.get("SAP3D_RING_HOP")
     if hop_impl is None:
-        on_cuda = all(dev.type == "cuda" for dev in mesh.devices)
-        hop_impl = "pallas" if on_cuda and backward_viable(
-            nq // n, nk // n, d, c, q.dtype) else "xla"
+        on_cuda = all(dev.type == "cuda" for dev in devices)
+        hop_impl = "pallas" if on_cuda and backward_viable(nq, nk, d, c, q[0].dtype) else "xla"
     if hop_impl not in _HOPS:
         raise ValueError(f"unknown ring hop_impl: {hop_impl!r}")
     hop, finish = _HOPS[hop_impl]
 
-    devices = mesh.devices
-    groups: dict[torch.device, list[int]] = {}  # device -> its shards, in ring order
-    for j, dev in enumerate(devices):
-        groups.setdefault(dev, []).append(j)
-
-    def shards(x):
-        return [part.to(devices[j]) for j, part in enumerate(x.chunk(n, dim=1))]
-
-    q_sh, k_sh, v_sh = shards(q), shards(k), shards(v)
-    q_by_dev = {dev: torch.cat([q_sh[j] for j in idx]) for dev, idx in groups.items()}
-    state = {dev: () for dev in groups}
+    b = q[0].shape[0] // len(grouped[0][1])
+    k_sh, v_sh = [None] * n, [None] * n  # shard j's keys and values, in ring order
+    for (_, idx), kp, vp in zip(grouped, k, v):
+        for pos, j in enumerate(idx):
+            k_sh[j], v_sh[j] = kp[pos * b:(pos + 1) * b], vp[pos * b:(pos + 1) * b]
+    state = [()] * len(grouped)
     for h in range(n):
-        for dev, idx in groups.items():
-            state[dev] = hop(q_by_dev[dev], torch.cat([k_sh[j] for j in idx]),
-                             torch.cat([v_sh[j] for j in idx]), state[dev], chunk_q)
+        for g, (_, idx) in enumerate(grouped):
+            kk = k[g] if h == 0 else torch.cat([k_sh[j] for j in idx])
+            vv = v[g] if h == 0 else torch.cat([v_sh[j] for j in idx])
+            state[g] = hop(q[g], kk, vv, state[g], chunk_q)
         if h != n - 1:  # shard j takes shard j - 1's keys and values
             k_sh = [k_sh[j - 1].to(devices[j]) for j in range(n)]
             v_sh = [v_sh[j - 1].to(devices[j]) for j in range(n)]
-    out = [None] * n
-    for dev, idx in groups.items():
-        for j, part in zip(idx, finish(state[dev], v.dtype).chunk(len(idx))):
-            out[j] = part.to(q.device)
-    return torch.cat(out, dim=1)
+    return [finish(st, v[0].dtype) for st in state]
+
+
+def ring_attend_sharded(mesh: Mesh, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        chunk_q: int = RING_QUERY_CHUNK,
+                        hop_impl: str | None = None) -> torch.Tensor:
+    """softmax(q k^T) v over whole tensors q [B, Nq, d], k [B, Nk, d], v
+    [B, Nk, C]: the token axis cut into the mesh's n shards (Nq and Nk
+    divisible by n), ``ring_attend_shards``, and the output gathered on q's
+    device.  With n = 1 it is ``attend_tokens``."""
+    n = len(mesh.devices)
+    if n == 1:
+        return attend_tokens(q, k, v)
+    if q.shape[1] % n or k.shape[1] % n:
+        raise ValueError(f"ring attention over {n} shards needs token counts divisible by "
+                         f"{n}; got Nq={q.shape[1]}, Nk={k.shape[1]}")
+    qs, ks, vs = (shard(mesh, t, time_dim=1) for t in (q, k, v))
+    o = ring_attend_shards(mesh, qs.parts, ks.parts, vs.parts, chunk_q, hop_impl)
+    return gather(qs.with_parts(o), q.device)

@@ -12,6 +12,12 @@ batch only:
 * ``make_eval_step(model)(frames)`` is the eval-mode forward under
   ``torch.inference_mode()``: ``[B, T, H, W, 3]`` -> ``[B, T, H, W]``.
 
+Both take time-sharded frames and targets (``core/mesh.time_shard_batch``,
+long-clip mode) as well: the model then runs every layer on each shard's
+device, the loss adds the shards' sums, and the eval step returns a
+time-sharded [B, T, H, W].  Adam steps the one copy of the parameters on
+the model's device, as ever.
+
 Each step sets its module's mode when called, so a trainer can interleave
 them.
 
@@ -39,18 +45,24 @@ import numpy as np
 import torch
 from torch import nn
 
-from sap3d_tpu_torch.ops.layers import set_data_group, smooth_l1_loss
+from sap3d_tpu_torch.ops.layers import set_data_group, smooth_l1_loss, smooth_l1_terms
+from sap3d_tpu_torch.ops.time_shard import Shards, shard_sums
 from sap3d_tpu_torch.train.state import TrainState
 
 # Gradient bytes per all-reduce of the data-parallel step
 BUCKET_BYTES = 64 << 20
 
 
-def loss_fn_saliency(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def loss_fn_saliency(pred, target) -> torch.Tensor:
     """smooth_l1(pred, target, 1, 1, sigma=1) summed over every element;
-    ``pred`` [B, T, H, W, 1] or [B, T, H, W], ``target`` [B, T, H, W]."""
-    if pred.shape[-1] == 1 and pred.dim() == target.dim() + 1:
+    ``pred`` [B, T, H, W, 1] or [B, T, H, W], ``target`` [B, T, H, W].
+    Time-sharded ``pred`` and ``target`` (``core/mesh.time_shard_batch``)
+    give each shard's sum on its device, and those sums are added on the
+    mesh's first device in shard order."""
+    if pred.shape[-1] == 1 and len(pred.shape) == len(target.shape) + 1:
         pred = pred.squeeze(-1)
+    if isinstance(pred, Shards):
+        return shard_sums(pred.zip(target, smooth_l1_terms)).sum()
     return smooth_l1_loss(pred, target, 1.0, 1.0, sigma=1.0)
 
 

@@ -1,7 +1,6 @@
 """The training loop: batches in, train steps, logging, validation,
 checkpoints.  Counterpart of ``sap3d_tpu/train/trainer.py``: on one
-device, as one rank of a data mesh, or in long-clip mode with a time mesh
-of devices for the attention sites.
+device, as one rank of a data mesh, or in long-clip mode over a time mesh.
 
 * ``fit`` takes host batches (numpy ``(frames, targets)``, e.g. from
   ``data.pipeline.ClipLoader``), copies each to the device and steps; every
@@ -44,13 +43,22 @@ of devices for the attention sites.
 * Long-clip mode (``time_shards`` N > 1): a time mesh of N devices
   (``core/mesh.py``), with the JAX trainer's guards (N no more than the
   devices; the clip length a multiple of 16 N, so that every shard keeps a
-  frame at pool4).  With ``ring_attention`` the UNet++ SA decoder's sites run
-  as rings over it (``ops/ring_attention.py``); other decoders have no ring
-  sites.  The other layers run unsharded on the trainer's device: the JAX
-  package's GSPMD time-sharding of convolutions is not ported (ROADMAP
-  A.6).  On CUDA the mesh holds the visible cards; on the CPU it names the
-  CPU N times (the counterpart of the JAX tests' virtual devices).  Time
-  mode keeps a data mesh of 1, as in the JAX trainer.
+  frame at pool4 and every temporal pool sees an even shard).  Each batch
+  is cut along time from the host onto the shards' devices
+  (``core/mesh.time_shard_batch``), and every layer runs on its own shard
+  of the clip on that shard's device, in training and in validation: the
+  counterpart of the JAX trainer's GSPMD time-sharding (ROADMAP A.6,
+  ``ops/time_shard.py``).  The temporal convs take halo frames from their
+  neighbours, the norms sum their statistics over the shards, and the loss
+  adds the shards' sums; the parameters and the Adam moments stay on the
+  trainer's device, the mesh's first.  With ``ring_attention`` the UNet++
+  SA decoder's sites run as rings over the shards where they lie
+  (``ops/ring_attention.py``); other sites (the other decoders', or every
+  site without ``ring_attention``) and the non-local blocks gather their
+  tokens on the first device and scatter the output back, as GSPMD does.
+  On CUDA the mesh holds the visible cards; on the CPU it names the CPU N
+  times (the counterpart of the JAX tests' virtual devices).  Time mode is
+  one process and keeps a data mesh of 1, as in the JAX trainer.
 
 """
 
@@ -69,9 +77,10 @@ import torch
 
 from sap3d_tpu_torch.core.config import Config
 from sap3d_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
-from sap3d_tpu_torch.core.mesh import make_time_mesh
+from sap3d_tpu_torch.core.mesh import make_time_mesh, time_shard_batch
 from sap3d_tpu_torch.eval import metrics
 from sap3d_tpu_torch.models.registry import build_model
+from sap3d_tpu_torch.ops.time_shard import last_frame
 from sap3d_tpu_torch.train.checkpoint import CheckpointManager, try_restore_latest
 from sap3d_tpu_torch.train.state import create_train_state
 from sap3d_tpu_torch.train.steps import make_eval_step, make_train_step
@@ -125,9 +134,10 @@ class Trainer:
         self.model = build_model(cfg.model.name, dtype=cfg.model.dtype, device=self.device,
                                  seed=tc.seed, dropout_rate=cfg.model.dropout,
                                  ring_mesh=ring_mesh)
-        if ring_mesh is not None and not self.model.ring_sites():
+        if self.time_mesh is not None and self.model.attention_modules() \
+                and not self.model.ring_sites():
             print(f"[time-shards] model '{cfg.model.name}' has no ring-attention sites; its "
-                  "attention runs unsharded")
+                  f"attention sites gather their tokens on {self.time_mesh.devices[0]}")
         self.state = create_train_state(self.model, lr=tc.lr, weight_decay=tc.weight_decay)
         self.train_step = make_train_step(self.state, self.group)
         self.eval_step = make_eval_step(self.model)
@@ -200,7 +210,11 @@ class Trainer:
 
     # -- main loop ---------------------------------------------------------
 
-    def _put(self, array) -> torch.Tensor:
+    def _put(self, array):
+        """A host array on the device, or cut along time onto the time
+        mesh's shards."""
+        if self.time_mesh is not None:
+            return time_shard_batch(self.time_mesh, array)
         return torch.as_tensor(np.asarray(array), device=self.device)
 
     def _save(self, step: int) -> None:
@@ -262,8 +276,8 @@ class Trainer:
                 loss_v = float(loss)
                 dt = time.time() - t_last
                 cps = n_last / dt if dt > 0 else 0.0
-                pred = self.eval_step(f).cpu().numpy()
-                self._dump_images(step, pred[0, -1], np.asarray(targets)[0, -1])
+                pred_last = last_frame(self.eval_step(f)).cpu().numpy()
+                self._dump_images(step, pred_last[0], np.asarray(targets)[0, -1])
                 print(f"[{datetime.datetime.now().isoformat(timespec='seconds')}] "
                       f"step {step} loss {loss_v:.4f} clips/s {cps:.2f}", flush=True)
                 self._log({"step": step, "loss": loss_v, "clips_per_sec": cps})
@@ -300,12 +314,13 @@ class Trainer:
     def validate(self, step: int, valid_batches: Iterable) -> dict:
         """CC/SIM/KLD/AUC-Judd on the last frame of each clip, NaN-filtered
         means (under a data mesh, of every rank's clips); logged and
-        returned."""
+        returned.  In time mode the eval forward runs sharded and the last
+        frame comes from the last shard."""
         ccs, sims, klds, aucs = [], [], [], []
         gen = torch.Generator(device=self.device).manual_seed(step)
         for frames, targets in valid_batches:
-            pred_last = self.eval_step(self._put(frames))[:, -1].float()
-            gt_last = self._put(targets)[:, -1].float()
+            pred_last = last_frame(self.eval_step(self._put(frames))).to(self.device).float()
+            gt_last = torch.as_tensor(np.asarray(targets)[:, -1], device=self.device).float()
             ccs += metrics.cc(pred_last, gt_last).tolist()
             sims += metrics.sim(pred_last, gt_last).tolist()
             klds += metrics.kldiv(pred_last, gt_last).tolist()

@@ -769,6 +769,156 @@ def test_trainer_time_shards_across_cards(cards, tmp_path):
     np.testing.assert_allclose(sharded, base, rtol=1e-5)
 
 
+# ---- every layer time-sharded (ops/time_shard.py) ---------------------------
+
+# The micro SA model at 64 px, 64 frames, batch 1, float32, every layer on
+# its own of 4 shards of cuda:0 (cuDNN's deterministic algorithms), against
+# the unsharded gather step: the eval forward's mean |diff| of the sigmoid
+# output, the loss (relative) and the whole gradient (relative L2).  Both
+# planted faults of the CPU tests (each shard padded at its own ends; BN
+# statistics per shard) must exceed the gradient's limit.  Read on an
+# NVIDIA H100 80GB HBM3 at 700.00 W: forward 1.5e-9, loss 0 to 7.6e-7,
+# gradient 5.0e-3 to 7.5e-3 (the micro model's train-mode BN over few
+# samples a channel is ill-conditioned in float32; the gradient's limit is
+# the CPU train tests' GRAD_TOL), the faults 1.64 and 1.21.
+_TIME_SHARD_TOL = {"forward": 1e-6, "loss": 1e-5, "grad": 5e-2}
+# Each card's peak allocation in the 64-frame bf16 flagship step at batch 4,
+# time-sharded over N cards, at most this share of the one-card ring step's
+# peak: 1/N of the activations and 0.25 for what stays on cuda:0 (the
+# float32 weights, their gradients and Adam's moments, about 1.4 GiB, 14%
+# of the ring step's 10.19 GiB).  A run that shards nothing keeps the whole
+# clip's activations on cuda:0 and fails.
+
+
+def _time_shard_share(n: int) -> float:
+    return 1.0 / n + 0.25
+
+
+def test_time_shard_step_matches_the_gather_step(cuda, monkeypatch):
+    """The fp32 check of chip_smoke.py phase 9(e)(i) at micro width: the
+    sharded eval forward and one train step (the ring on the shards where
+    they lie: B2 and B4 on cuda:0) against the unsharded gather step."""
+    from chip_smoke import TIME_SHARD_FAULTS, planted_time_shard_fault
+    from sap3d_tpu_torch.core.mesh import make_time_mesh, time_shard_batch
+    from sap3d_tpu_torch.models.registry import build_model
+    from sap3d_tpu_torch.ops import time_shard as ts
+    from sap3d_tpu_torch.train.steps import loss_fn_saliency, make_eval_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    mesh = make_time_mesh(4, devices=[cuda] * 4)
+    models = {}
+    for label, ring in (("sharded", mesh), ("gather", None)):
+        models[label] = build_model("p3d_micro_sa", dtype="float32", device=cuda, seed=0,
+                                    dropout_rate=0.0, ring_mesh=ring)
+        with torch.no_grad():
+            for sa in models[label].attention_modules():
+                sa.gamma.fill_(1.0)
+    weights = {k: v.clone() for k, v in models["gather"].state_dict().items()}
+    rng = np.random.default_rng(0)
+    x = (rng.normal(size=(1, 64, 64, 64, 3)) * 0.5).astype(np.float32)
+    y = rng.random((1, 64, 64, 64)).astype(np.float32)
+    xs, ys = time_shard_batch(mesh, (x, y))
+    xd, yd = torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)
+    fwd_s = ts.gather(make_eval_step(models["sharded"])(xs))
+    fwd_g = make_eval_step(models["gather"])(xd)
+
+    def step(label, inp, tgt):
+        m = models[label]
+        m.load_state_dict(weights)
+        m.train()
+        m.zero_grad(set_to_none=True)
+        loss = loss_fn_saliency(m(inp), tgt)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), torch.cat([p.grad.flatten() for p in m.parameters()])
+
+    before = (flash_forward_lse.launches, fb.flash_backward.launches,
+              fb.flash_backward.launches_lse)
+    loss_s, g_s = step("sharded", xs, ys)
+    launched = tuple(a - b for a, b in zip((flash_forward_lse.launches, fb.flash_backward.launches,
+                                            fb.flash_backward.launches_lse), before))
+    loss_g, g_g = step("gather", xd, yd)
+    faults = {}
+    for fault in TIME_SHARD_FAULTS:
+        with planted_time_shard_fault(fault):
+            _, g_f = step("sharded", xs, ys)
+        faults[fault] = ((g_f - g_g).norm() / g_g.norm()).item()
+    fwd = (fwd_s - fwd_g).abs().mean().item()
+    rel = ((g_s - g_g).norm() / g_g.norm()).item()
+    print(f"time-shard step: forward mean {fwd:.3e}, loss {abs(loss_s - loss_g) / loss_g:.3e}, "
+          f"gradient {rel:.3e}, faults {faults}, launches (B2, B3, B4) {launched}")
+    assert launched[0] > 0 and launched[1] == 0 and launched[2] > 0
+    assert fwd <= _TIME_SHARD_TOL["forward"]
+    assert abs(loss_s - loss_g) <= _TIME_SHARD_TOL["loss"] * abs(loss_g)
+    assert rel <= _TIME_SHARD_TOL["grad"] < min(faults.values()), (rel, faults)
+
+
+def test_time_shard_across_cards(cards):
+    """The 64-frame bf16 flagship step at batch 4 time-sharded over the
+    visible cards (2 to 4, ``make_time_mesh``): every convolution's output
+    has one shard on each card, in mesh order, and each card's peak
+    allocation is at most ``_time_shard_share(N)`` of the ring step's on
+    one card (the whole clip on cuda:0, its sites as 4-shard rings).  The
+    median ms of 3 more steps of each is printed, not held."""
+    import time
+
+    from sap3d_tpu_torch.core.mesh import make_time_mesh, time_shard_batch
+    from sap3d_tpu_torch.models.registry import build_model
+    from sap3d_tpu_torch.ops import layers
+    from sap3d_tpu_torch.ops import time_shard as ts
+    from sap3d_tpu_torch.train.state import create_train_state
+    from sap3d_tpu_torch.train.steps import make_train_step
+
+    rng = np.random.default_rng(0)
+    x = (rng.normal(size=(4, 64, 112, 112, 3)) * 0.3).astype(np.float32)
+    y = rng.random((4, 64, 112, 112)).astype(np.float32)
+
+    def peaks(mesh, inputs):
+        model = build_model("unet++", dtype="bfloat16", device=cards[0], seed=0, ring_mesh=mesh)
+        step = make_train_step(create_train_state(model, lr=1e-4))
+        placed = set()
+        for m in model.modules():
+            if isinstance(m, (layers.Conv3d, layers.ConvTranspose3d)):
+                m.register_forward_hook(lambda m, a, out: placed.add(
+                    tuple(str(p.device) for p in out.parts) if isinstance(out, ts.Shards)
+                    else (str(out.device),)))
+        for dev in cards:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        step(*inputs(mesh))
+        for dev in cards:
+            torch.cuda.synchronize(dev)
+        got = [torch.cuda.max_memory_allocated(dev) for dev in cards]
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step(*inputs(mesh))
+            for dev in cards:
+                torch.cuda.synchronize(dev)
+            times.append(1e3 * (time.perf_counter() - t0))
+        del model, step
+        torch.cuda.empty_cache()
+        return got, placed, sorted(times)[1]
+
+    one_card = make_time_mesh(4, devices=[cards[0]] * 4)
+    ring, ring_placed, ring_ms = peaks(one_card, lambda mesh: (
+        torch.from_numpy(x).to(cards[0]), torch.from_numpy(y).to(cards[0])))
+    mesh = make_time_mesh(len(cards))
+    sharded, placed, sharded_ms = peaks(mesh, lambda mesh: time_shard_batch(mesh, (x, y)))
+    # read, not held: the ring alone with its hops across the cards
+    ring_n, _, ring_n_ms = peaks(mesh, lambda mesh: (torch.from_numpy(x).to(cards[0]),
+                                                     torch.from_numpy(y).to(cards[0])))
+    limit = _time_shard_share(len(cards)) * ring[0]
+    gib = lambda b: [round(p / 2**30, 2) for p in b]  # noqa: E731
+    print(f"time-shard across {len(cards)} cards: ring step on one card {ring[0] / 2**30:.2f} "
+          f"GiB, {ring_ms:.1f} ms (inputs from the host); sharded step per card "
+          f"{gib(sharded)} GiB (limit {limit / 2**30:.2f}), {sharded_ms:.1f} ms; the ring "
+          f"alone with its hops across the cards, per card {gib(ring_n)} GiB, {ring_n_ms:.1f} ms")
+    assert ring_placed == {(str(cards[0]),)}
+    assert placed == {tuple(str(d) for d in mesh.devices)}
+    assert max(sharded) <= limit, (sharded, limit)
+
+
 # ---- data parallel (core/mesh.launch) ---------------------------------------
 
 # The micro model's float32 gradient at 64 px (the registry's weights,

@@ -92,7 +92,8 @@ def test_flagship_bridge_covers_every_key_and_shape():
             zero = np.broadcast_to(np.float32(0), leaf.shape)  # no memory
             flax_shapes[p.replace("/", ".")] = convert_leaf(p, zero).shape
 
-    tm = treg.build_model("unet++", device="meta")
+    with torch.device("meta"):  # no full-width initialization on the CPU first
+        tm = treg.build_model("unet++", device="meta")
     torch_shapes = {k: tuple(v.shape) for k, v in tm.state_dict().items()}
     assert flax_shapes == torch_shapes
     n_params = sum(p.numel() for p in tm.parameters())
@@ -153,10 +154,11 @@ def test_every_registry_name_builds():
     every alias names one of them; the GN SA decoder has the parameter count
     of the flax model."""
     assert len(treg.MODEL_REGISTRY) == 14
-    for name in treg.MODEL_REGISTRY:
-        assert not treg.build_model(name, device="meta").training
+    with torch.device("meta"):  # no full-width initialization on the CPU first
+        for name in treg.MODEL_REGISTRY:
+            assert not treg.build_model(name, device="meta").training
+        tm = treg.build_model("P3D_SA_DECODER", device="meta")
     assert all(treg.resolve_name(a) in treg.MODEL_REGISTRY for a in treg.STRUCTURE_ALIASES)
-    tm = treg.build_model("P3D_SA_DECODER", device="meta")
     jm = jreg.build_model("P3D_SA_DECODER")
     abstract = jax.eval_shape(
         lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 112, 112, 3)), train=False))

@@ -8,7 +8,8 @@
   against the JAX ring (``make_time_mesh(4)`` on 4 virtual CPU devices,
   the chunked hop) and ``attend_tokens``.
 * A micro UNet++ SA model with a 4-shard ring against the JAX model without
-  one; the trainer's time mode against its unsharded run.
+  one; the trainer's time mode (every layer time-sharded,
+  tests/test_torch_time_shard.py) against its unsharded run.
 
 Tolerances are those of tests/test_ring_attention.py: values 1e-5 and
 gradients 1e-4 (the online softmax reorders the float32 sums), the model's
@@ -40,7 +41,9 @@ from sap3d_tpu_torch.core.config import Config, DataConfig, ModelConfig, TrainCo
 from sap3d_tpu_torch.core.mesh import TIME_AXIS, make_time_mesh
 from sap3d_tpu_torch.models.p3d import P3DSaliency
 from sap3d_tpu_torch.ops import attention as ta
+from sap3d_tpu_torch.ops import layers
 from sap3d_tpu_torch.ops import ring_attention as ra
+from sap3d_tpu_torch.ops import time_shard as ts
 from sap3d_tpu_torch.ops.cuda import flash_attention as fa
 from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
 from sap3d_tpu_torch.train.steps import loss_fn_saliency
@@ -290,7 +293,12 @@ def _time_cfg(tmp_path, tag, time_shards, t=32, steps=2):
 
 def test_trainer_time_mode_matches_unsharded(tmp_path):
     """--time-shards 2 with ring attention on the CPU: two steps' losses as
-    the unsharded run's, every SA site on the ring, a checkpoint written."""
+    the unsharded run's, every SA site on the ring, a checkpoint written;
+    every convolution's output in the sharded run is time-sharded over the
+    mesh (each of 2 shards on its device), in the encoder and the decoder,
+    and no convolution of the unsharded run is; a validation before the
+    first step (the sharded eval forward, the last frame from the last
+    shard) scores as the unsharded run's."""
     rng = np.random.default_rng(7)
     batches = [((rng.normal(size=(2, 32, 16, 16, 3)) * 0.3).astype(np.float32),
                 rng.random((2, 32, 16, 16)).astype(np.float32)) for _ in range(2)]
@@ -298,21 +306,34 @@ def test_trainer_time_mode_matches_unsharded(tmp_path):
     def run(tag, time_shards):
         tr = Trainer(_time_cfg(tmp_path, tag, time_shards), run=tag, device="cpu")
         meshes = {sa.ring_mesh for sa in tr.model.attention_modules()}
+        outputs = {}  # conv name -> the shard counts of its outputs (0: a whole tensor)
+        for name, m in tr.model.named_modules():
+            if isinstance(m, (layers.Conv3d, layers.ConvTranspose3d)):
+                m.register_forward_hook(lambda m, i, out, name=name: outputs.setdefault(
+                    name, set()).add(out.n if isinstance(out, ts.Shards) else 0))
         try:
+            valid = tr.validate(0, iter(batches[:1]))
             tr.fit(iter(batches))
         finally:
             tr.close()
         with open(os.path.join(tr.logs_dir, "metrics.jsonl")) as f:
             losses = [r["loss"] for r in map(json.loads, f) if "loss" in r]
         assert os.listdir(tr.model_dir), "no checkpoint written"
-        return losses, meshes
+        return losses, meshes, outputs, [valid[k] for k in ("cc", "sim", "kld", "auc_judd")]
 
-    base, base_meshes = run("base", 0)
-    sharded, meshes = run("tsharded", 2)
+    base, base_meshes, base_outputs, base_scores = run("base", 0)
+    sharded, meshes, outputs, scores = run("tsharded", 2)
     assert base_meshes == {None}
     assert meshes == {make_time_mesh(2, devices=["cpu"] * 2)}
     assert len(base) == len(sharded) == 2
     np.testing.assert_allclose(sharded, base, rtol=1e-5)
+    assert set(outputs) == set(base_outputs)
+    assert "encoder.stem" in outputs and "decoder.x_1_3.Conv_0" in outputs
+    assert all(n == {0} for n in base_outputs.values())
+    assert all(n == {2} for n in outputs.values()), outputs
+    # cc, sim, kld, auc: the untrained model's cc is near 0, so the scores
+    # are also held absolutely (read: 1.9e-7 apart at most)
+    np.testing.assert_allclose(scores, base_scores, rtol=1e-5, atol=1e-6)
 
 
 def test_trainer_time_mode_guards(tmp_path, monkeypatch):
