@@ -188,8 +188,10 @@ result line):
      against the one-device route under ``DP_EVAL_TOL``, which the route
      with per-rank statistics fails; B1 launches on each rank;
      (d) printed, not held: all-reduces counted in one bf16 step (2 per BN
-     layer, one per gradient bucket, the loss) and ms per step; gloo on
-     one card goes through the host, so these measure the mechanism;
+     layer, one per gradient bucket, the loss), ms per step, each rank's
+     bytes of parameters, gradients and Adam moments and its peak memory
+     over the timed steps; gloo on one card goes through the host, so
+     these measure the mechanism;
  14. multi-host training (``cli train --distributed``) on the one card, the
      flagship at full width in bf16 on a synthetic dataset at 112 px,
      dropout 0, shuffle off, a global batch of 4, 3 steps, plotting every
@@ -218,7 +220,27 @@ result line):
      line; ms per step and the traced step's device-busy share;
      (d) process 0 of 2 alone (``initialize_distributed`` with a 5 s
      timeout) raises at the rendezvous within a bounded time;
- 15. a JSON line of per-kernel numbers (B1-B4 also in fp32, the split-bf16
+ 15. tensor parallel (``core/sharding_rules.py``): ``make_mesh_2d(2, 2)`` on
+     [cuda:0] * 4 over gloo (four processes of ``core/mesh.launch``, each
+     with its data column and model row), the calibrated flagship at full
+     width with its 52 kernels of 512 output features or more sharded on
+     the model axis (column-parallel layers, their Adam moments sliced):
+     (a) one float64 step (the plain path, dropout 0, deterministic cuDNN)
+     at a global batch of 4 against two one-process steps: the loss, the
+     summed gradient (slices gathered), every BN buffer and the gathered
+     Adam moments under ``DP_TOL``, which both planted faults
+     (``TENSOR_PARALLEL_FAULTS``: replicated gradients summed over the
+     world; a column-parallel layer's input gradient not summed over its
+     model row) must fail; (b) two bf16 steps at a global batch of 16,
+     dropout 0.5 drawn per data index: per rank 3 B2 + 3 B3 launches a
+     step and no B1, every call held on the rank's own tensors against its
+     plain version; replicated tensors bit-identical on the four ranks and
+     each slice on its data column (integer checksums over all_reduce);
+     each local kernel half its output features; (c) printed: per-rank
+     bytes of parameters, gradients and moments and peak memory beside
+     phase 13's replicated ranks, the all-gathers and all-reduces of one
+     step, ms per step; over NCCL when four cards are visible;
+ 16. a JSON line of per-kernel numbers (B1-B4 also in fp32, the split-bf16
      instantiations), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -3493,18 +3515,24 @@ def dp_bn_buffers(model) -> dict:
             for b in ("mean", "var")}
 
 
-def dp_state_checksum(torch, group, model) -> tuple[bool, list[int]]:
-    """Two integer sums of the bits of every parameter and buffer (plain,
-    and weighted by position), all-reduced: equal to the world size times
-    this rank's own on every rank exactly when the ranks agree bit for bit.
-    Returns (agree, this rank's sums)."""
+def bit_sums(torch, tensors):
+    """Two integer sums of the bits of each tensor (plain, and weighted by
+    position), stacked."""
     sums = []
-    for t in model.state_dict().values():
+    for t in tensors:
         bits = t.detach().contiguous().flatten()
-        bits = bits.view({4: torch.int32, 2: torch.int16}[bits.element_size()]).to(torch.int64)
+        bits = bits.view({8: torch.int64, 4: torch.int32, 2: torch.int16}[
+            bits.element_size()]).to(torch.int64)
         weight = torch.arange(bits.numel(), device=bits.device) % 8191 + 1
         sums += [bits.sum(), (bits * weight).sum()]
-    own = torch.stack(sums)
+    return torch.stack(sums)
+
+
+def agree_bitwise(torch, group, tensors) -> tuple[bool, list[int]]:
+    """``bit_sums`` all-reduced over ``group``: equal to its size times
+    this rank's own on every rank exactly when the ranks agree bit for bit.
+    Returns (agree, this rank's sums)."""
+    own = bit_sums(torch, tensors)
     total = group.all_reduce(own.clone())
     return bool(torch.equal(total, own * group.world_size)), own.tolist()
 
@@ -3526,6 +3554,17 @@ def counted_all_reduces(counts: list):
         yield
     finally:
         dist.all_reduce = orig
+
+
+def state_bytes(state) -> int:
+    """Bytes of a train state's parameters, their gradients and their Adam
+    moments, as this rank holds them."""
+    total = 0
+    for p in state.model.parameters():
+        held = [p] + ([p.grad] if p.grad is not None else []) + [
+            v for k, v in state.optimizer.state.get(p, {}).items() if k != "step"]
+        total += sum(t.numel() * t.element_size() for t in held)
+    return total
 
 
 def dp_rank(group, spec: dict) -> dict:
@@ -3700,7 +3739,7 @@ def dp_rank(group, spec: dict) -> dict:
     group.barrier()
     fit_s = time.perf_counter() - t0
     fit_launches = _launch_counts(fa, fb)
-    agree, sums = dp_state_checksum(torch, group, trainer.model)
+    agree, sums = agree_bitwise(torch, group, trainer.model.state_dict().values())
     final = {k: v.clone() for k, v in trainer.model.state_dict().items()}
     trainer.close()
     del trainer
@@ -3727,6 +3766,8 @@ def dp_rank(group, spec: dict) -> dict:
     for h in hooks:
         h.remove()
     times = []
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
     for _ in range(DP_TIMED_STEPS):
         group.barrier()
         t0 = time.perf_counter()
@@ -3737,6 +3778,8 @@ def dp_rank(group, spec: dict) -> dict:
                     bn_modules=sum(isinstance(m, BatchNorm) for m in resumed.model.modules()),
                     gradient_buckets=len(gradient_buckets(resumed.model.parameters())),
                     parameters=sum(p.numel() for p in resumed.model.parameters()),
+                    state_bytes=state_bytes(resumed.state),
+                    peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30 if on_card else None,
                     step_ms=[1e3 * s for s in times])
     resumed.close()
     del resumed, f, t
@@ -3874,7 +3917,9 @@ def phase_data_parallel(torch, calibrated, card, mesh=None, model="unet++"):
           f"of {d['parameters']} "
           f"parameters, the loss: {expected}); ms per step "
           f"{[round(v, 2) for v in d['step_ms']]}, median "
-          f"{sorted(d['step_ms'])[len(d['step_ms']) // 2]:.2f}.  Over {backend}"
+          f"{sorted(d['step_ms'])[len(d['step_ms']) // 2]:.2f}; per rank "
+          f"{d['state_bytes'] / 1e9:.3f} GB of parameters, gradients and Adam moments, peak "
+          f"{d['peak_gib']} GiB.  Over {backend}"
           + (" on one card every reduction goes through the host: these times measure the "
              "mechanism, not the scaling" if backend == "gloo" else "") + f"  [{card}]",
           flush=True)
@@ -4323,6 +4368,393 @@ def phase_multihost(torch, card, repeats: int = 1):
 # its prefix), and those of them that must not spill (the wgmma kernels,
 # bf16 and split fp32, which the gates reach at every instantiation, and
 # the split prep).
+# ---- phase 15: tensor parallel over a data x model mesh (core/sharding_rules) -
+
+TP_SHAPE = (2, 2)            # data x model: four ranks, by default all on cuda:0 (gloo)
+TP_MODEL = "unet++"          # the flagship, p3d_unetplusplus_ds
+TP_MIN_FEATURES = 512        # the JAX package's default: the flagship shards 52 kernels
+TP_F64_BATCH = 4             # (a): the global batch, 2 rows a data index
+TP_BF16_BATCH = 16           # (b): 8 rows a data index
+TP_BF16_STEPS = 2
+TP_DROPOUT = 0.5             # (b): masks drawn from a generator seeded by the data index
+
+
+TENSOR_PARALLEL_FAULTS = ("world_summed_replicated", "input_gradient_not_reduced")
+
+
+@contextlib.contextmanager
+def planted_tensor_parallel_fault(fault: str):
+    """One of the planted faults of the tensor-parallel step for the
+    duration (``TENSOR_PARALLEL_FAULTS``; phase 15 and
+    ``tests/test_torch_tensor_parallel.py`` hold their limits against
+    both): "world_summed_replicated", the replicated parameters' gradients
+    summed over the world (each counted ``n_model`` times);
+    "input_gradient_not_reduced", a column-parallel layer's input gradient
+    left as this rank's share (no sum over the model row)."""
+    from sap3d_tpu_torch.ops import layers
+    from sap3d_tpu_torch.train import steps
+
+    def world_summed(sharded, replicated, group):
+        steps.all_reduce_gradients(sharded, group.data)
+        steps.all_reduce_gradients(replicated, group)
+
+    owner, attr, fake = {
+        "world_summed_replicated": (steps, "reduce_grid_gradients", world_summed),
+        "input_gradient_not_reduced": (layers, "copy_to_model_row", lambda x, group: x),
+    }[fault]
+    orig = getattr(owner, attr)
+    setattr(owner, attr, fake)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, orig)
+
+
+def tp_checksums(torch, group, state) -> dict:
+    """Whether the ranks agree bit for bit where the rules say they must
+    (``agree_bitwise``): every replicated parameter, buffer and Adam state
+    over the world, the kernel slices and their moments over the data
+    column."""
+    from sap3d_tpu_torch.core.sharding_rules import sharded_layers
+
+    model, opt = state.model, state.optimizer
+    sliced = {id(layer.kernel) for layer, _ in sharded_layers(model).values()}
+    tensors = {True: [], False: list(model.buffers())}
+    for p in model.parameters():
+        tensors[id(p) in sliced] += [p] + [v for k, v in opt.state[p].items() if k != "step"]
+    return {"replicated": agree_bitwise(torch, group, tensors[False])[0],
+            "slices": agree_bitwise(torch, group.data, tensors[True])[0]}
+
+
+def tp_rank(group, spec: dict) -> dict:
+    """One rank of phase 15 (a data x model group; the spec names the
+    model, the files the parent wrote and the sizes): (a) the float64
+    tensor-parallel step, sound and with each planted fault, on rank 0
+    beside two one-process steps at the global batch; (b) two bf16 steps
+    with the kernels, every B2 and B3 call held on the rank's own tensors,
+    the ranks' bit identity, the local kernels' widths; (c) bytes, peak
+    memory, collectives and ms per step."""
+    import numpy as np
+    import torch
+
+    from sap3d_tpu_torch.core import mesh as mesh_lib
+    from sap3d_tpu_torch.core.sharding_rules import (
+        gather_state,
+        gather_tensors,
+        make_mesh_2d,
+        sharded_layers,
+        state_shardings,
+    )
+    from sap3d_tpu_torch.models.registry import build_model
+    from sap3d_tpu_torch.ops.cuda import flash_attention as fa
+    from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
+    from sap3d_tpu_torch.train.state import create_train_state
+    from sap3d_tpu_torch.train.steps import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, main = group.device, group.is_main
+    on_card = dev.type == "cuda"
+    n_data, n_model = group.data.world_size, group.model.world_size
+    mesh = make_mesh_2d(n_data, n_model, devices=[dev] * group.world_size)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    out = {"rank": group.rank, "coords": (group.data.rank, group.model.rank),
+           "backend": group.backend}
+    weights = torch.load(spec["weights"], map_location=dev, weights_only=True)
+    data = np.load(spec["inputs"])
+    frames, targets = data["frames"], data["targets"]
+
+    def model_of(dtype, dropout):
+        m = build_model(spec["model"], dtype=dtype, device=dev, dropout_rate=dropout)
+        m.load_state_dict(weights)
+        return m.double() if dtype == torch.float64 else m
+
+    def put(a, n, dtype, parallel=True):
+        b = n // n_data if parallel else n
+        rows = slice(group.data.rank * b, (group.data.rank + 1) * b) if parallel else \
+            slice(0, n)
+        return torch.from_numpy(np.ascontiguousarray(a[rows])).to(dev, dtype)
+
+    def flat(tensors: dict):
+        return torch.cat([t.detach().flatten() for t in tensors.values()])
+
+    def rel(a, b_):
+        return (a.double() - b_.double()).norm().item() / b_.double().norm().item()
+
+    # (a) float64, the plain path; rank 0 first takes two one-process steps
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    n64 = spec["f64_batch"]
+    x64, t64 = put(frames, n64, torch.float64), put(targets, n64, torch.float64)
+    ref = None
+    if main:
+        ones = []
+        for _ in range(2):
+            m = model_of(torch.float64, 0.0)
+            state = create_train_state(m, lr=1e-4)
+            loss = make_train_step(state)(put(frames, n64, torch.float64, False),
+                                          put(targets, n64, torch.float64, False))
+            opt = state.optimizer
+            ones.append(dict(
+                loss=loss.item(), grad=flat({n: p.grad for n, p in m.named_parameters()}),
+                buffers=dp_bn_buffers(m),
+                moments={k: flat({n: opt.state[p][k] for n, p in m.named_parameters()})
+                         for k in ("exp_avg", "exp_avg_sq")}))
+            del m, state, opt
+        ref = ones[0]
+        out["floor_grad_rel_l2"] = rel(ones[1]["grad"], ref["grad"])
+        del ones
+        if on_card:
+            torch.cuda.empty_cache()
+    group.barrier()
+
+    def step64(fault=None):
+        m = model_of(torch.float64, 0.0)
+        state = create_train_state(m, lr=1e-4)
+        step = make_train_step(state, group, state_shardings(state, mesh, spec["min_features"]))
+        with planted_tensor_parallel_fault(fault) if fault else contextlib.nullcontext():
+            loss = step(x64, t64)
+        sync()
+        grad = flat(gather_tensors(m, {n: p.grad for n, p in m.named_parameters()}))
+        res = None
+        if fault is None:
+            whole = gather_state(state)["optimizer"]
+            moments = {k: flat({n: e[k] for n, e in whole.items()})
+                       for k in ("exp_avg", "exp_avg_sq")}
+        if main:
+            res = dict(loss_rel=abs(loss.item() - ref["loss"]) / abs(ref["loss"]),
+                       grad_rel_l2=rel(grad, ref["grad"]))
+            if fault is None:
+                res.update(
+                    loss=loss.item(), one_process_loss=ref["loss"],
+                    buffer_excess=max(
+                        ((b.double() - ref["buffers"][k].double()).abs().max()
+                         / ref["buffers"][k].double().abs().max()).item()
+                        for k, b in dp_bn_buffers(m).items()),
+                    moments_rel_l2={k: rel(v, ref["moments"][k]) for k, v in moments.items()})
+        del m, state, step, grad
+        return res
+
+    a = {"sound": step64()}
+    for fault in TENSOR_PARALLEL_FAULTS:
+        a[fault] = step64(fault)
+    if main:
+        out["a"] = a
+    del ref, x64, t64
+    torch.backends.cudnn.deterministic = False
+    if on_card:
+        torch.cuda.empty_cache()
+    group.barrier()
+
+    # (b) two bf16 steps with the kernels, dropout drawn per data index
+    m = model_of("bfloat16", spec["dropout"])
+    full_parameters = sum(p.numel() for p in m.parameters())
+    state = create_train_state(m, lr=1e-4)
+    step = make_train_step(state, group, state_shardings(state, mesh, spec["min_features"]))
+    nb = spec["bf16_batch"]
+    x, t = put(frames, nb, torch.float32), put(targets, nb, torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40 + group.data.rank)
+    calls = {"B2": [], "B3": []}
+
+    def spy_forward(q, k, v):
+        o, lse = fa.flash_forward_lse(q, k, v)
+        calls["B2"].append((q, k, v, o, lse))
+        return o, lse
+
+    def spy_backward(q, k, v, o, lse, do):
+        res = fb.flash_backward(q, k, v, o, lse, do)
+        calls["B3"].append((q, k, v, o, lse, do, res))
+        return res
+
+    counts = {"all_reduce": 0, "all_gather": 0}
+    orig_reduce, orig_gather = torch.distributed.all_reduce, mesh_lib.DataGroup.all_gather
+
+    def counting_reduce(*args, **kwargs):
+        counts["all_reduce"] += 1
+        return orig_reduce(*args, **kwargs)
+
+    def counting_gather(self, tensor, dim):
+        counts["all_gather"] += 1
+        return orig_gather(self, tensor, dim)
+
+    losses, times = [], []
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launch_counts(fa, fb)
+    with function_calls(spy_forward, spy_backward):
+        for i in range(spec["bf16_steps"]):
+            counted = i == spec["bf16_steps"] - 1
+            if counted:
+                torch.distributed.all_reduce = counting_reduce
+                mesh_lib.DataGroup.all_gather = counting_gather
+            group.barrier()
+            t0 = time.perf_counter()
+            try:
+                losses.append(step(x, t, gen).item())
+                sync()
+            finally:
+                torch.distributed.all_reduce = orig_reduce
+                mesh_lib.DataGroup.all_gather = orig_gather
+            times.append(time.perf_counter() - t0)
+    launches = _launch_counts(fa, fb)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if on_card else None
+    layers = sharded_layers(m)
+    widths = {n: (tuple(layer.kernel.shape), tuple(weights[n].shape), dim)
+              for n, (layer, dim) in layers.items()}
+    out["b"] = dict(losses=losses, launches=launches, agree=tp_checksums(torch, group, state),
+                    widths=widths, sharded=len(layers), state_bytes=state_bytes(state),
+                    full_parameters=full_parameters,
+                    peak_gib=peak, step_ms=[1e3 * s for s in times], collectives=counts,
+                    bn_layers=sum(1 for _ in dp_bn_buffers(m)) // 2)
+    del m, state, step, x, t
+    # each rank in turn holds its steps' kernel calls on its own tensors
+    names = {shape: name for name, shape in SITES.items()}
+    held = {"B2": [], "B3": []}
+    for r in range(group.world_size):
+        if r == group.rank:
+            for q, k, v, o, lse in calls["B2"]:
+                site = dp_site_name(names, q, k, v)
+                held["B2"].append((site, check_b2(
+                    fa, f"{site} bf16 (rank {r} of the tensor-parallel step)",
+                    q, k, v, o, lse)["max_abs_err"]))
+            for q, k, v, o, lse, do, got in calls["B3"]:
+                site = dp_site_name(names, q, k, v)
+                held["B3"].append((site, check_b3(
+                    fb, f"{site} bf16 (rank {r} of the tensor-parallel step)",
+                    q, k, v, o, lse, do, got)["max_abs_err"]))
+            calls.clear()
+            if on_card:
+                torch.cuda.empty_cache()
+        group.barrier()
+    out["held"] = held
+    return out
+
+
+def phase_tensor_parallel(torch, calibrated, card, mesh=None, dp=None):
+    """Phase 15: a data x model mesh (default: cuda:0 four times, over
+    gloo) through ``core/mesh.launch``, each rank running ``tp_rank``;
+    the parent writes the calibrated weights and the steps' inputs, then
+    holds what the ranks read.  ``dp``: phase 13's result, whose replicated
+    ranks' bytes and peak stand beside this phase's."""
+    import shutil
+
+    import numpy as np
+
+    from sap3d_tpu_torch.core.mesh import data_backend, launch
+    from sap3d_tpu_torch.core.sharding_rules import make_mesh_2d
+
+    t_phase = time.perf_counter()
+    n_data, n_model = TP_SHAPE
+    mesh = mesh or make_mesh_2d(n_data, n_model, devices=[DEVICE] * (n_data * n_model))
+    backend = data_backend(mesh)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_tp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        weights = os.path.join(root, f"{TP_MODEL}_calibrated.pt")
+        torch.save({k: v.cpu() for k, v in calibrated.items()}, weights)
+        rng = np.random.default_rng(SEED + 39)
+        shape = (max(TP_F64_BATCH, TP_BF16_BATCH), 16, SIZE, SIZE, 3)
+        inputs = os.path.join(root, "inputs.npz")
+        np.savez(inputs, frames=(rng.normal(size=shape) * 0.3).astype(np.float32),
+                 targets=rng.uniform(size=shape[:4]).astype(np.float32))
+        spec = dict(model=TP_MODEL, weights=weights, inputs=inputs, min_features=TP_MIN_FEATURES,
+                    f64_batch=TP_F64_BATCH, bf16_batch=TP_BF16_BATCH,
+                    bf16_steps=TP_BF16_STEPS, dropout=TP_DROPOUT)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = launch(mesh, tp_rank, spec)
+        launch_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    a, tol = ranks[0]["a"], DP_TOL
+    sound = a["sound"]
+    where = (f"{n_data} x {n_model} ranks (data x model) on "
+             f"{', '.join(str(x) for x in mesh.devices)} over {backend}")
+    print(f"[tp] {where}: one launch in {launch_s:.2f} s (spawn, the phases and the "
+          f"teardown); ranks at {[r['coords'] for r in ranks]}  [{card}]", flush=True)
+    print(f"[tp] (a) one float64 step at a global batch of {TP_F64_BATCH} against one process "
+          f"({ranks[0]['b']['sharded']} kernels sharded at min_features {TP_MIN_FEATURES}): loss "
+          f"{sound['loss']:.6f} vs {sound['one_process_loss']:.6f} (relative "
+          f"{sound['loss_rel']:.3e}, limit {tol['loss']:g}); summed gradient (slices gathered) "
+          f"relative L2 {sound['grad_rel_l2']:.3e} (limit {tol['grad']:g}; two one-process runs "
+          f"{ranks[0]['floor_grad_rel_l2']:.3e}); BN buffers {sound['buffer_excess']:.3e} "
+          f"(limit {tol['buffer']:g}); Adam moments (gathered) relative L2 "
+          f"{ {k: f'{v:.3e}' for k, v in sound['moments_rel_l2'].items()} } (limit "
+          f"{tol['grad']:g}); planted faults: "
+          + ", ".join(f"{f} gradient {a[f]['grad_rel_l2']:.3e}, loss {a[f]['loss_rel']:.3e}"
+                      for f in TENSOR_PARALLEL_FAULTS), flush=True)
+    b = [r["b"] for r in ranks]
+    print(f"[tp] (b) {TP_BF16_STEPS} bf16 steps at a global batch of {TP_BF16_BATCH} "
+          f"({TP_BF16_BATCH // n_data} rows a data index, dropout {TP_DROPOUT} drawn per data "
+          f"index): losses per rank {[r['losses'] for r in b]}; launches per rank "
+          f"{[r['launches'] for r in b]}; B2 and B3 held on each rank's tensors, max |err| "
+          f"{[{k: [f'{s_} {e:.2e}' for s_, e in v] for k, v in r['held'].items()} for r in ranks]}"
+          f"; bit-identical (checksums over all_reduce): replicated tensors across the "
+          f"{len(ranks)} ranks {[r['agree']['replicated'] for r in b]}, slices across each data "
+          f"column {[r['agree']['slices'] for r in b]}", flush=True)
+    dp_d = dp["collectives"] if dp else None
+    replicated_bytes = b[0]["full_parameters"] * 16  # float32 parameter, gradient, 2 moments
+    coll = b[0]["collectives"]
+    print(f"[tp] (c) per rank {[round(r['state_bytes'] / 1e9, 3) for r in b]} GB of parameters, "
+          f"gradients and Adam moments (all replicated: {replicated_bytes / 1e9:.3f} GB; phase "
+          f"13's ranks {round(dp_d['state_bytes'] / 1e9, 3) if dp_d else 'not run'} GB); peak "
+          f"memory per rank {[round(r['peak_gib'], 2) if r['peak_gib'] else None for r in b]} "
+          f"GiB (phase 13's at its 8 rows a rank "
+          f"{round(dp_d['peak_gib'], 2) if dp_d and dp_d['peak_gib'] else 'not read'} GiB); one "
+          f"bf16 step on rank 0: {coll['all_gather']} all-gathers of output slices, "
+          f"{coll['all_reduce']} all-reduces counted ({b[0]['bn_layers']} BN layers forward and "
+          f"backward, the input gradients of the {b[0]['sharded']} column-parallel layers, the "
+          f"gradient buckets and the loss"
+          + (", and over gloo each all-gather is one of them" if backend == "gloo" else "")
+          + f"); ms per step {[[round(v, 2) for v in r['step_ms']] for r in b]}.  Over "
+          f"{backend}" + (" on one card every collective goes through the host: these times "
+                          "measure the mechanism, not the scaling" if backend == "gloo" else "")
+          + f"  [{card}]", flush=True)
+
+    on_card = all(x.type == "cuda" for x in mesh.devices)
+    if not (sound["loss_rel"] <= tol["loss"] and sound["grad_rel_l2"] <= tol["grad"]
+            and sound["buffer_excess"] <= tol["buffer"]
+            and all(v <= tol["grad"] for v in sound["moments_rel_l2"].values())):
+        raise AssertionError("the tensor-parallel float64 step disagrees with one process")
+    if not all(a[f]["grad_rel_l2"] > tol["grad"] for f in TENSOR_PARALLEL_FAULTS):
+        raise AssertionError("the tensor-parallel limits pass a planted fault; void")
+    if not all(r["agree"]["replicated"] and r["agree"]["slices"] for r in b):
+        raise AssertionError("the tensor-parallel ranks differ where the rules say they agree")
+    if not all(np.isfinite(r["losses"]).all() and len(r["losses"]) == TP_BF16_STEPS for r in b):
+        raise AssertionError("the bf16 tensor-parallel steps' losses are not finite")
+    for r in b:
+        for name, (local, full, dim) in r["widths"].items():
+            want = list(full)
+            want[dim] //= n_model
+            if list(local) != want:
+                raise AssertionError(f"{name}: a local kernel of {local}, not {n_model} slices "
+                                     f"of {full}")
+    if on_card:
+        n_sites = len(SITES)
+        step_calls = {"B1": 0, "B2": n_sites * TP_BF16_STEPS, "B3": n_sites * TP_BF16_STEPS,
+                      "B4": 0}
+        if not all(r["launches"] == step_calls for r in b):
+            raise AssertionError(f"launches per rank of the tensor-parallel steps: expected "
+                                 f"{step_calls}")
+        if not all(len(r["held"]["B2"]) == len(r["held"]["B3"]) == n_sites * TP_BF16_STEPS
+                   for r in ranks):
+            raise AssertionError("not every B2 and B3 call of the tensor-parallel steps was held")
+        if b[0]["sharded"] != 52:
+            raise AssertionError(f"{b[0]['sharded']} kernels sharded, not the flagship's 52")
+    seconds = time.perf_counter() - t_phase
+    print(f"[tp] phase 15 in {seconds:.2f} s", flush=True)
+    return dict(backend=backend, devices=[str(x) for x in mesh.devices], a=a,
+                floor_grad_rel_l2=ranks[0]["floor_grad_rel_l2"],
+                steps=[{k: v for k, v in r.items() if k != "widths"} for r in b],
+                held=[r["held"] for r in ranks], launches=[r["launches"] for r in b],
+                seconds=seconds, launch_seconds=launch_s)
+
+
 BUILD_KERNELS = {
     "flash_attention_fwd": (("flash_fwd_bf16", "flash_row_stats", "split_planes"),
                             ("flash_fwd_bf16", "flash_row_stats", "split_planes")),
@@ -4560,9 +4992,19 @@ def main(argv=None) -> int:
         else:
             print(f"[dp] over NCCL on two cards: not run ({torch.cuda.device_count()} card "
                   "visible); gloo on cuda:0 twice ran", flush=True)
-        del calibrated
         torch.cuda.empty_cache()
         mh = phase_multihost(torch, card, repeats=args.multihost_repeats)
+        from sap3d_tpu_torch.core.sharding_rules import make_mesh_2d
+
+        tp = [phase_tensor_parallel(torch, calibrated, card, dp=dp[0])]
+        if torch.cuda.device_count() >= 4:
+            tp.append(phase_tensor_parallel(torch, calibrated, card, mesh=make_mesh_2d(2, 2),
+                                            dp=dp[0]))
+        else:
+            print(f"[tp] over NCCL on four cards: not run ({torch.cuda.device_count()} card(s) "
+                  "visible); gloo on cuda:0 four times ran", flush=True)
+        del calibrated
+        torch.cuda.empty_cache()
 
         fit, gn_fit = train["fit"]["launches"], gn_train["fit"]["launches"]
         ring_fwd, ring_step = ring["launches"]["forward"], ring["launches"]["step"]
@@ -4587,6 +5029,8 @@ def main(argv=None) -> int:
         dp_eval32 = sum(n for r in dp for n in r["evaluation"]["launches"])
         # multi-host: cli train --distributed's two processes, over their ranks
         mh_fit = {k: sum(r[k] for r in mh["launches"]) for k in ("B1", "B2", "B3")}
+        # tensor parallel: the bf16 steps, over the ranks
+        tp_steps = {k: sum(n[k] for r in tp for n in r["launches"]) for k in ("B2", "B3")}
         # every main path launched every kernel the gate gives it
         if not (launches > 0 and fit["B2"] > 0 and fit["B3"] > 0 and gn_launches > 0
                 and gn_fit["B2"] > 0 and gn_fit["B3"] > 0 and b5_launches > 0
@@ -4599,7 +5043,7 @@ def main(argv=None) -> int:
                 and mh_fit["B1"] > 0 and mh_fit["B2"] > 0 and mh_fit["B3"] > 0
                 and ts_step["B2"] > 0 and ts_step["B4"] > 0 and ts32["B2"] > 0
                 and ts32["B4"] > 0 and ts_zoo["B2"] > 0 and ts_zoo["B3"] > 0
-                and ts_zoo["B4"] > 0):
+                and ts_zoo["B4"] > 0 and tp_steps["B2"] > 0 and tp_steps["B3"] > 0):
             raise AssertionError("a kernel of a main path was never launched")
         print(f"[launches] flagship predictor B1 {launches}; flagship Trainer.fit {fit}; GN "
               f"predictor B1 {gn_launches}; GN Trainer.fit {gn_fit}; B5 on the GN step's "
@@ -4613,7 +5057,7 @@ def main(argv=None) -> int:
               f"{dp_fit}, the float32 step {dp_step32}, cli eval's float32 route B1 "
               f"{dp_eval32}; cli train --distributed, over both processes' ranks {mh_fit}; "
               f"the time-sharded step {ts_step}, float32 {ts32}, every registry name's "
-              f"{ts_zoo}", flush=True)
+              f"{ts_zoo}; the tensor-parallel bf16 steps, over the ranks {tp_steps}", flush=True)
         in_step = {k: [r["max_abs_err"] for r in train[f"{k}_in_step"].values()]
                    for k in ("b2", "b3")}
         kernels = [
@@ -4628,11 +5072,13 @@ def main(argv=None) -> int:
             kernel_entry("flash_attention_fwd_lse", fa.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:141",
                          fit["B2"] + gn_fit["B2"] + ring_fwd["B2"] + ring_step["B2"]
-                         + dp_fit["B2"] + mh_fit["B2"] + ts_step["B2"] + ts_zoo["B2"],
+                         + dp_fit["B2"] + mh_fit["B2"] + ts_step["B2"] + ts_zoo["B2"]
+                         + tp_steps["B2"],
                          rows["B2"], in_step["b2"], gn_rows["B2"] + zoo_rows["B2"]),
             kernel_entry("flash_attention_bwd", fb.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:274",
-                         fit["B3"] + gn_fit["B3"] + dp_fit["B3"] + mh_fit["B3"] + ts_zoo["B3"],
+                         fit["B3"] + gn_fit["B3"] + dp_fit["B3"] + mh_fit["B3"] + ts_zoo["B3"]
+                         + tp_steps["B3"],
                          rows["B3"], in_step["b3"], gn_rows["B3"] + zoo_rows["B3"]),
             # B4: the ring train steps' backward (ring-only and time-sharded),
             # times at the per-shard shapes
@@ -4644,7 +5090,7 @@ def main(argv=None) -> int:
             # B5: forward + backward (the row statistics and B3) at the three
             # GN sites
             kernel_entry("flash_fwd_chunked_bwd", fa.SOURCE,
-                         "sap3d_tpu/ops/pallas/flash_attention.py:373", b5_launches, b5_rows,
+                         "sap3d_tpu/ops/pallas/flash_attention.py:374", b5_launches, b5_rows,
                          [r["max_abs_err"] for by_site in gn_train["b5_in_step"].values()
                           for r in by_site.values()]),
             # B6: the bisect's swapped forward, times at the flagship's sites
@@ -4690,7 +5136,8 @@ def main(argv=None) -> int:
                                row_stats_rows=stats_rows, bisect=bisect, evaluation=evaluation,
                                tf_import=dict(reader=tf_reader, mapping=tf_mapping,
                                               quirk=tf_quirk),
-                               data_parallel=dp, multihost=mh, kernels=kernels), f,
+                               data_parallel=dp, multihost=mh, tensor_parallel=tp,
+                               kernels=kernels), f,
                           indent=1)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,17 @@ list of devices along one axis.
   on one device).  Gloo moves CUDA tensors only by ``all_reduce`` and
   ``broadcast``, so those are the only collectives on device tensors; host
   data (metric lists) goes by ``all_gather_object``.
+* The data x model mesh of tensor parallel (``core/sharding_rules.py``'s
+  ``make_mesh_2d``): a data mesh whose entries form a grid of
+  ``n_data`` rows and ``n_model`` columns, rank ``r`` at (``r // n_model``,
+  ``r % n_model``), as JAX reshapes its device list.  ``launch`` runs it
+  as a data mesh whose ``DataGroup`` also carries two subgroups: ``data``,
+  the ranks of its model index (its column, over which the batch is
+  split), and ``model``, the ranks of its data index (its row, over which
+  the wide kernels are split).  Under gloo the all-gather of a layer's
+  output slices is a sum of zero-padded slices (``DataGroup.all_gather``);
+  under NCCL it is ``all_gather_into_tensor``.  A 2-D mesh spans the ranks
+  of one process: a cluster's mesh is 1-D.
 
 Multi-host (``initialize_distributed``, the counterpart of JAX's): process
 ``i`` of ``P`` meets the others at a coordinator, a TCP store that process
@@ -52,6 +63,7 @@ import torch.distributed as dist
 
 TIME_AXIS = "time"
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
 # Seconds a process waits for the others at the coordinator, and the ranks
 # in a collective: jax.distributed.initialize's initialization_timeout.
 DEFAULT_TIMEOUT_S = 300.0
@@ -63,17 +75,22 @@ class Mesh:
 
     A data mesh across processes (``make_mesh`` with a ``cluster``) also
     holds each entry's (host, card), the entries ``[start, stop)`` that
-    this process runs, and the cluster its ranks meet through."""
+    this process runs, and the cluster its ranks meet through.  A data mesh
+    with ``n_model`` set is the data x model grid of tensor parallel, its
+    devices in row-major order (``core/sharding_rules.make_mesh_2d``)."""
 
     devices: tuple[torch.device, ...]
     axis: str = TIME_AXIS
     places: tuple[tuple[str, str], ...] = ()
     local: tuple[int, int] | None = None
     cluster: Cluster | None = dataclasses.field(default=None, compare=False, repr=False)
+    n_model: int | None = None
 
     @property
     def shape(self) -> dict[str, int]:
         """{axis name: number of devices}, as a JAX mesh's ``shape``."""
+        if self.n_model is not None:
+            return {DATA_AXIS: len(self.devices) // self.n_model, MODEL_AXIS: self.n_model}
         return {self.axis: len(self.devices)}
 
 
@@ -297,12 +314,22 @@ class DataGroup:
     """One rank's view of the process group of a data mesh (``launch``
     makes it): its rank, the number of ranks, its device and the backend.
     The collectives sum over every rank, in place, and return their
-    tensor; with one rank they do nothing."""
+    tensor; with one rank they do nothing.
+
+    A subgroup (``process_group`` set) is the same view of some of the
+    ranks: ``rank`` is this rank's index among ``ranks``, the members'
+    global ranks in order.  On a data x model mesh the world's group holds
+    this rank's two subgroups, ``data`` (its column) and ``model`` (its
+    row)."""
 
     rank: int
     world_size: int
     device: torch.device
     backend: str
+    process_group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    ranks: tuple[int, ...] = ()
+    data: DataGroup | None = None
+    model: DataGroup | None = None
 
     @property
     def is_main(self) -> bool:
@@ -311,44 +338,98 @@ class DataGroup:
 
     def all_reduce(self, tensor: torch.Tensor) -> torch.Tensor:
         if self.world_size > 1:
-            dist.all_reduce(tensor)
+            dist.all_reduce(tensor, group=self.process_group)
         return tensor
 
+    def all_gather(self, tensor: torch.Tensor, dim: int) -> torch.Tensor:
+        """The members' tensors (one shape on every rank) concatenated
+        along ``dim`` in member order, the same on every rank.  NCCL
+        gathers them (``all_gather_into_tensor``); gloo, which moves CUDA
+        tensors only by ``all_reduce`` and ``broadcast``, sums zero-padded
+        copies, 16-bit values in float32 (exact either way: each element is
+        one member's value plus zeros)."""
+        if self.world_size == 1:
+            return tensor
+        dim = dim % tensor.dim()
+        n = tensor.shape[dim]
+        if self.backend == "nccl":
+            out = torch.empty((self.world_size, *tensor.shape), dtype=tensor.dtype,
+                              device=tensor.device)
+            dist.all_gather_into_tensor(out, tensor.contiguous(), group=self.process_group)
+            return out.movedim(0, dim).flatten(dim, dim + 1)
+        acc = torch.promote_types(tensor.dtype, torch.float32)
+        shape = list(tensor.shape)
+        shape[dim] = n * self.world_size
+        out = torch.zeros(shape, dtype=acc, device=tensor.device)
+        out.narrow(dim, self.rank * n, n).copy_(tensor)
+        dist.all_reduce(out, group=self.process_group)
+        return out.to(tensor.dtype)
+
     def broadcast(self, tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """``tensor`` set to rank ``src``'s on every rank; a tensor off the
+        """``tensor`` set to member ``src``'s on every rank; a tensor off the
         group's device (a CPU step count under NCCL) goes through it."""
         if self.world_size > 1:
+            root = self.ranks[src] if self.ranks else src
             if tensor.device == self.device:
-                dist.broadcast(tensor, src)
+                dist.broadcast(tensor, root, group=self.process_group)
             else:
                 staged = tensor.to(self.device)
-                dist.broadcast(staged, src)
+                dist.broadcast(staged, root, group=self.process_group)
                 tensor.copy_(staged)
         return tensor
 
     def all_gather_object(self, obj: Any) -> list:
-        """Every rank's ``obj``, in rank order (pickled through the host)."""
+        """Every member's ``obj``, in member order (pickled through the
+        host)."""
         if self.world_size == 1:
             return [obj]
         out = [None] * self.world_size
-        dist.all_gather_object(out, obj)
+        dist.all_gather_object(out, obj, group=self.process_group)
         return out
 
     def barrier(self) -> None:
         if self.world_size > 1:
             if self.backend == "nccl":
-                dist.barrier(device_ids=[self.device.index])
+                dist.barrier(group=self.process_group, device_ids=[self.device.index])
             else:
-                dist.barrier()
+                dist.barrier(group=self.process_group)
 
 
-def _rank_main(local_rank: int, fn: Callable, args: tuple, devices: tuple, first: int,
-               backend: str, workdir: str, threads: int | None, rendezvous: tuple | None
-               ) -> None:
+def grid_ranks(world_size: int, n_model: int) -> tuple[list[list[int]], list[list[int]]]:
+    """The columns (one per model index, the ranks of a data group) and the
+    rows (one per data index, the ranks of a model group) of a grid of
+    ``world_size`` ranks in ``n_model`` columns, rank ``r`` at (``r //
+    n_model``, ``r % n_model``)."""
+    if n_model < 1 or world_size % n_model:
+        raise ValueError(f"{world_size} ranks do not form a grid of {n_model} columns")
+    n_data = world_size // n_model
+    return ([[d * n_model + m for d in range(n_data)] for m in range(n_model)],
+            [[d * n_model + m for m in range(n_model)] for d in range(n_data)])
+
+
+def grid_groups(world: DataGroup, n_model: int, timeout: datetime.timedelta) -> DataGroup:
+    """``world`` with its ``data`` and ``model`` subgroups on a grid of
+    ``n_model`` columns (``grid_ranks``): every rank creates every column's
+    group, then every row's, in the same order (``dist.new_group`` is
+    collective over the world, and ranks that create groups in another
+    order wait on each other until the timeout)."""
+    columns, rows = grid_ranks(world.world_size, n_model)
+    groups = [(tuple(g), dist.new_group(g, timeout=timeout)) for g in columns + rows]
+    r = world.rank
+    data, model = (DataGroup(ranks.index(r), len(ranks), world.device, world.backend, pg, ranks)
+                   for ranks, pg in groups if r in ranks)
+    return dataclasses.replace(world, data=data, model=model)
+
+
+def _rank_main(local_rank: int, fn: Callable, devices: tuple, first: int, backend: str,
+               workdir: str, threads: int | None, rendezvous: tuple | None,
+               n_model: int | None = None) -> None:
     """One rank, ``first + local_rank`` of the mesh: join the group (on a
-    file store, or on the cluster's TCP store under the launch's prefix),
-    run ``fn(group, *args)``, leave the group and write its return value
-    for the launcher."""
+    file store, or on the cluster's TCP store under the launch's prefix;
+    on a data x model grid, with its subgroups and ``DEFAULT_TIMEOUT_S``
+    on every collective), run ``fn(group, *args)`` with the launcher's
+    ``args`` read from its file, leave the group and write its return
+    value for the launcher."""
     rank = first + local_rank
     n, device = len(devices), devices[rank]
     if device.type == "cuda":
@@ -357,14 +438,21 @@ def _rank_main(local_rank: int, fn: Callable, args: tuple, devices: tuple, first
         torch.set_num_threads(threads)
     if rendezvous is None:
         store, kw = dist.FileStore(os.path.join(workdir, "store"), n), {}
+        if n_model is not None:
+            kw = {"timeout": datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)}
     else:
         host, port, timeout, prefix = rendezvous
         store = dist.PrefixStore(prefix, dist.TCPStore(host, port, is_master=False,
                                                        timeout=timeout))
         kw = {"timeout": timeout}
+    with open(os.path.join(workdir, "args.pkl"), "rb") as f:
+        args = pickle.load(f)
     dist.init_process_group(backend, store=store, rank=rank, world_size=n, **kw)
     try:
-        result = fn(DataGroup(rank, n, device, backend), *args)
+        group = DataGroup(rank, n, device, backend)
+        if n_model is not None:
+            group = grid_groups(group, n_model, kw["timeout"])
+        result = fn(group, *args)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(workdir, f"result_{local_rank}.pkl"), "wb") as f:
@@ -376,12 +464,18 @@ def launch(mesh: Mesh, fn: Callable, *args) -> list:
     mesh, with the backend ``data_backend`` names, and return each rank's
     return value, in rank order.
 
-    ``fn`` and ``args`` are pickled (``fn`` by its import path) and the
-    processes start by ``spawn``: the caller's CUDA context, if any, is not
-    inherited.  The ranks meet on a file store in a temporary directory,
+    ``fn`` and ``args`` are pickled (``fn`` by its import path; ``args``
+    into a file that each rank reads, since a spawned process takes what
+    comes through its pipe only once it has imported the caller's main
+    module, and a large pipe write would start the ranks one by one) and
+    the processes start by ``spawn``: the caller's CUDA context, if any, is
+    not inherited.  The ranks meet on a file store in a temporary directory,
     so no port is needed.  On the CPU each rank takes an equal share of
     the caller's threads.  A rank that raises or dies ends the others, and
     the launcher raises ``RuntimeError`` with the first failure it sees.
+
+    A data x model mesh (``core/sharding_rules.make_mesh_2d``) gives each
+    rank's group its ``data`` and ``model`` subgroups (``grid_groups``).
 
     A mesh across processes (``make_mesh`` with a cluster) starts only this
     process's entries, with their global ranks; they meet the other
@@ -397,10 +491,12 @@ def launch(mesh: Mesh, fn: Callable, *args) -> list:
     threads = max(1, torch.get_num_threads() // len(local)) if cpu else None
     rendezvous = mesh.cluster.rendezvous() if mesh.cluster is not None else None
     with tempfile.TemporaryDirectory(prefix="sap3d_data_mesh_") as workdir:
+        with open(os.path.join(workdir, "args.pkl"), "wb") as f:
+            pickle.dump(args, f)
         try:
             mp.start_processes(_rank_main, nprocs=len(local), start_method="spawn",
-                               args=(fn, args, tuple(mesh.devices), first, data_backend(mesh),
-                                     workdir, threads, rendezvous))
+                               args=(fn, tuple(mesh.devices), first, data_backend(mesh),
+                                     workdir, threads, rendezvous, mesh.n_model))
         except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
             raise RuntimeError(f"a rank of the data mesh failed: {e}") from e
         results = []

@@ -17,6 +17,11 @@ from the neighbouring shards (``ops/layers.Conv3d``).
 Parameter names follow the flax modules (``ch_at/mlp_0``, ``ch_at/mlp_1``,
 ``sp_at/conv3d``, ``squeeze``, ``excite``).  A ``Dense`` kernel is stored
 ``[out, in]`` (flax: ``[in, out]``; ``interop/flax_bridge.py`` transposes).
+
+Under tensor parallel a ``Dense`` whose kernel is sharded
+(``core/sharding_rules.py``: the GN family's CBAM ``mlp_1`` at 512 and 1024
+features) is column-parallel on the last dim of its pooled [B, C] input
+(``ops/layers.column_parallel``).
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sap3d_tpu_torch.ops.layers import Conv3d
+from sap3d_tpu_torch.ops.layers import Conv3d, column_parallel
 from sap3d_tpu_torch.ops.time_shard import Shards, clip_amax, clip_mean, scale_samples
 
 # Standard deviation of a unit normal truncated at +-2, by which flax's
@@ -41,7 +46,8 @@ def _variance_scaling_(w: torch.Tensor, fan_in: int) -> None:
 
 
 class Dense(nn.Module):
-    """``nn.Dense`` (flax) twin on the last axis; ``kernel`` is ``[out, in]``."""
+    """``nn.Dense`` (flax) twin on the last axis; ``kernel`` is ``[out, in]``
+    (this rank's rows of it where ``model_group`` is set)."""
 
     def __init__(self, in_features: int, features: int,
                  dtype: torch.dtype = torch.float32):
@@ -50,10 +56,15 @@ class Dense(nn.Module):
         self.kernel = nn.Parameter(torch.empty(features, in_features))
         _variance_scaling_(self.kernel, in_features)
         self.bias = nn.Parameter(torch.zeros(features))
+        self.model_group = None  # core/mesh.DataGroup: the kernel is this rank's slice
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.kernel.to(self.dtype),
-                        self.bias.to(self.dtype))
+        x = x.to(self.dtype)
+        if self.model_group is not None:
+            return column_parallel(x, self.model_group,
+                                   lambda t: F.linear(t, self.kernel.to(self.dtype)),
+                                   self.bias, -1)
+        return F.linear(x, self.kernel.to(self.dtype), self.bias.to(self.dtype))
 
 
 class ChannelAttention3D(nn.Module):

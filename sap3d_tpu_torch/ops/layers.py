@@ -27,6 +27,13 @@ several shards where a shard holds fewer); a transposed conv takes the input
 frames whose windows reach the shard's own output frames and crops the rest;
 the norms sum their statistics over every shard.  The parameters are moved
 to each shard's device (a no-op on their own).
+
+Under tensor parallel (``core/sharding_rules.apply_state_sharding``) a
+``Conv3d`` or ``ConvTranspose3d`` whose kernel is sharded holds this rank's
+slice of its output features and a ``model_group`` (the rank's model row):
+it is column-parallel (``column_parallel``).  Its bias stays whole, as the
+JAX package keeps biases replicated.  A time-sharded clip through such a
+layer raises: the JAX package does not combine the two either.
 """
 
 from __future__ import annotations
@@ -148,9 +155,14 @@ class Conv3d(nn.Module):
         vol = self.ksize[0] * self.ksize[1] * self.ksize[2]
         _glorot_(self.kernel, in_features * vol, features * vol)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.model_group = None  # core/mesh.DataGroup: the kernel is this rank's slice
 
     def forward(self, x):
         x = x.to(self.dtype)
+        if self.model_group is not None:
+            return column_parallel(x, self.model_group, lambda t: self._conv(
+                t, same_pads(t.shape[2], self.ksize[0], self.strides[0]), with_bias=False),
+                self.bias, 1)
         if isinstance(x, Shards):
             if self.strides[0] != 1:
                 raise ValueError("a time-sharded conv takes temporal stride 1")
@@ -158,7 +170,8 @@ class Conv3d(nn.Module):
             return x.with_parts([self._conv(p, (0, 0)) for p in time_shard.halo(x, lo, hi)])
         return self._conv(x, same_pads(x.shape[2], self.ksize[0], self.strides[0]))
 
-    def _conv(self, x: torch.Tensor, time_pads: tuple[int, int]) -> torch.Tensor:
+    def _conv(self, x: torch.Tensor, time_pads: tuple[int, int],
+              with_bias: bool = True) -> torch.Tensor:
         pads = [time_pads] + [same_pads(n, k, s) for n, k, s in
                               zip(x.shape[3:], self.ksize[1:], self.strides[1:])]
         if all(lo == hi for lo, hi in pads):
@@ -167,7 +180,8 @@ class Conv3d(nn.Module):
             (dl, dh), (hl, hh), (wl, wh) = pads
             x = F.pad(x, (wl, wh, hl, hh, dl, dh))
             padding = 0
-        bias = None if self.bias is None else to_device(self.bias, x.device).to(self.dtype)
+        bias = None if self.bias is None or not with_bias else \
+            to_device(self.bias, x.device).to(self.dtype)
         kernel = to_device(self.kernel, x.device).to(self.dtype)
         return F.conv3d(x, kernel, bias, self.strides, padding)
 
@@ -208,11 +222,16 @@ class ConvTranspose3d(nn.Module):
         vol = self.ksize[0] * self.ksize[1] * self.ksize[2]
         _glorot_(self.kernel, in_features * vol, features * vol)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.model_group = None  # core/mesh.DataGroup: the kernel is this rank's slice
 
     def forward(self, x):
         x = x.to(self.dtype)
         crops = [tconv_same_crop(n, k, s) for n, k, s in
                  zip(x.shape[2:], self.ksize, self.strides)]
+        if self.model_group is not None:
+            return column_parallel(x, self.model_group,
+                                   lambda t: self._tconv(t, *crops, with_bias=False),
+                                   self.bias, 1)
         if not isinstance(x, Shards):
             return self._tconv(x, *crops)
         # shard j's output frames [j t s, (j + 1) t s) take the input frames
@@ -228,8 +247,10 @@ class ConvTranspose3d(nn.Module):
             parts.append(self._tconv(p, (start, max(short, 0)), *crops[1:], d=t * s))
         return x.with_parts(parts)
 
-    def _tconv(self, x: torch.Tensor, *crops, d: int | None = None) -> torch.Tensor:
-        bias = None if self.bias is None else to_device(self.bias, x.device).to(self.dtype)
+    def _tconv(self, x: torch.Tensor, *crops, d: int | None = None,
+               with_bias: bool = True) -> torch.Tensor:
+        bias = None if self.bias is None or not with_bias else \
+            to_device(self.bias, x.device).to(self.dtype)
         y = F.conv_transpose3d(
             x, to_device(self.kernel, x.device).to(self.dtype), bias, self.strides,
             output_padding=tuple(op for _, op in crops),
@@ -238,6 +259,65 @@ class ConvTranspose3d(nn.Module):
         dd, h, w = (n * s for n, s in zip(x.shape[2:], self.strides))
         d = dd if d is None else d
         return y[:, :, d0:d0 + d, h0:h0 + h, w0:w0 + w]
+
+
+class _CopyToModelRow(torch.autograd.Function):
+    """The identity, whose backward sums the gradient over a model row: a
+    column-parallel layer's slice gives only its share of the gradient of
+    the input, which every rank of the row holds whole."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return ctx.group.all_reduce(grad.clone(memory_format=torch.contiguous_format)), None
+
+
+class _GatherFeatures(torch.autograd.Function):
+    """The row's slices of an output, all-gathered along ``dim``
+    (``DataGroup.all_gather``); the backward keeps this rank's slice of the
+    gradient, with no reduction: every rank of the row computes the same
+    gradient of the whole output."""
+
+    @staticmethod
+    def forward(ctx, y: torch.Tensor, group, dim: int) -> torch.Tensor:
+        ctx.group, ctx.dim, ctx.n = group, dim, y.shape[dim]
+        return group.all_gather(y, dim)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad.narrow(ctx.dim, ctx.group.rank * ctx.n, ctx.n).contiguous(), None, None
+
+
+def copy_to_model_row(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``, its gradient summed over the model row ``group``."""
+    return _CopyToModelRow.apply(x, group)
+
+
+def gather_features(y: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The model row's slices of ``y`` gathered along ``dim``, in row order."""
+    return _GatherFeatures.apply(y, group, dim)
+
+
+def column_parallel(x, group, local, bias, dim: int) -> torch.Tensor:
+    """A layer whose kernel is this rank's slice of the output features,
+    on the model row ``group``: ``local(x)`` (the layer on its slice, no
+    bias) for each rank, the slices all-gathered along ``dim`` into the
+    whole output, then the whole bias added.  The gradient of ``x`` is
+    summed over the row (``copy_to_model_row``); the kernel's gradient is
+    this rank's slice's, the bias's the whole layer's."""
+    if isinstance(x, Shards):
+        raise ValueError("a time-sharded clip through a layer sharded on the model axis: "
+                         "tensor parallel takes whole clips")
+    y = gather_features(local(copy_to_model_row(x, group)), group, dim)
+    if bias is None:
+        return y
+    shape = [1] * y.dim()
+    shape[dim] = -1
+    return y + bias.to(y.dtype).view(shape)
 
 
 class BatchNorm(nn.Module):
@@ -439,7 +519,12 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 
 def set_data_group(model: nn.Module, group) -> None:
     """Give every ``BatchNorm`` of ``model`` the data group whose global
-    batch its statistics cover (None: this process's batch alone)."""
+    batch its statistics cover (None: this process's batch alone).  A data
+    x model group gives its data column: the ranks of a model row hold the
+    same rows, and a sum over the world would count each row ``n_model``
+    times."""
+    if group is not None and group.data is not None:
+        group = group.data
     for m in model.modules():
         if isinstance(m, BatchNorm):
             m.group = group

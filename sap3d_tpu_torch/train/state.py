@@ -9,11 +9,18 @@ JAX package's coupled L2 on conv kernels only: torch Adam's
 is ``optax.add_decayed_weights`` ahead of ``scale_by_adam``, so kernels form
 one parameter group with ``weight_decay`` and every other parameter (biases,
 BN scales, ``gamma``) a group with 0.
+
+Under tensor parallel (``core/sharding_rules.apply_state_sharding``) the
+model holds this rank's slices of the wide kernels and the optimizer is
+built over them, so its ``exp_avg``/``exp_avg_sq`` have the slices' shapes
+(the JAX package's ``mu``/``nu`` sharded as their parameter);
+``sharding`` records the state's ``StateSharding``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 from torch import nn
@@ -24,11 +31,19 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    sharding: Any = None
 
     def load_optimizer_state(self, by_name: dict[str, dict[str, torch.Tensor]]) -> None:
         """Set the optimizer's per-parameter state from ``{parameter name:
-        state}`` (``interop/flax_bridge.optimizer_state_from_optax``)."""
+        state}`` (``interop/flax_bridge.optimizer_state_from_optax``).  Each
+        moment takes its parameter's shape: a sharded kernel's slice under
+        tensor parallel; another shape raises."""
         params = dict(self.model.named_parameters())
+        bad = [(name, k, tuple(t.shape), tuple(params[name].shape))
+               for name, entry in by_name.items() for k, t in entry.items()
+               if k in ("exp_avg", "exp_avg_sq") and t.shape != params[name].shape]
+        if bad:
+            raise ValueError(f"moments whose shape is not their parameter's: {bad[:5]}")
         order = [p for group in self.optimizer.param_groups for p in group["params"]]
         index = {id(p): i for i, p in enumerate(order)}
         sd = self.optimizer.state_dict()

@@ -31,6 +31,21 @@ it returns the global loss.  ``DataParallelForward`` is the eval forward
 over a group: rank 0 broadcasts each batch, every rank forwards its
 contiguous rows, and a sum of the zero-padded rows assembles the output.
 
+Tensor parallel (``core/sharding_rules.py``): with the group of a data x
+model mesh and a ``state_sharding``, the step is this rank's share of the
+JAX package's ``state_sharding`` step.  The wide kernels are this rank's
+slices (column-parallel layers), the BN statistics cover the data column,
+and the gradients are summed as GSPMD's function: each kernel slice's over
+its data column; each replicated parameter's over the world and divided
+by ``n_model``, which is the data column's sum and leaves the ranks of a
+model row bit-identical where their own gradients differ in the last bits
+(pool1's max-pool backward and B3's dq are not deterministic on a card;
+the division is exact for a power of two).  The loss is the data column's
+sum.  Dropout draws on whole activations (a gathered output is whole on
+every rank of the row), so every rank of a model row must draw the same
+masks: the caller passes generators seeded by the data index
+(``group.data.rank``), not the global rank.
+
 The JAX package's ``make_multi_train_step`` fuses K steps into one
 dispatch with ``lax.scan``; eager PyTorch has no dispatch to save that way
 (K steps in one call would be the same loop of K single steps), so it has
@@ -45,6 +60,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from sap3d_tpu_torch.core.sharding_rules import apply_state_sharding, sharded_layers
 from sap3d_tpu_torch.ops.layers import set_data_group, smooth_l1_loss, smooth_l1_terms
 from sap3d_tpu_torch.ops.time_shard import Shards, shard_sums
 from sap3d_tpu_torch.train.state import TrainState
@@ -83,28 +99,55 @@ def gradient_buckets(params) -> list[list[torch.Tensor]]:
     return buckets
 
 
-def all_reduce_gradients(params, group) -> None:
+def all_reduce_gradients(params, group, divisor: int = 1) -> None:
     """Sum each parameter's ``.grad`` over the ranks of ``group`` in place,
-    one all-reduce per bucket (``gradient_buckets``)."""
+    one all-reduce per bucket (``gradient_buckets``), divided by
+    ``divisor``."""
     for bucket in gradient_buckets(params):
         flat = group.all_reduce(torch.cat([g.reshape(-1) for g in bucket]))
+        if divisor != 1:
+            flat.div_(divisor)
         offset = 0
         for g in bucket:
             g.copy_(flat[offset:offset + g.numel()].view_as(g))
             offset += g.numel()
 
 
-def make_train_step(state: TrainState, group=None
+def reduce_grid_gradients(sharded, replicated, group) -> None:
+    """The gradient sums of a tensor-parallel step on the data x model
+    ``group``: the kernel slices' (``sharded``) over the data column, the
+    replicated parameters' over the world divided by ``n_model``."""
+    all_reduce_gradients(sharded, group.data)
+    all_reduce_gradients(replicated, group, divisor=group.model.world_size)
+
+
+def make_train_step(state: TrainState, group=None, state_sharding=None
                     ) -> Callable[[torch.Tensor, torch.Tensor, torch.Generator | None],
                                   torch.Tensor]:
     """The train step; with a ``group`` (``core/mesh.DataGroup``) of more
     than one rank, this rank's share of a data-parallel step, whose BN
-    layers take the group (global-batch statistics)."""
-    model, opt = state.model, state.optimizer
+    layers take the group (global-batch statistics).  With the group of a
+    data x model mesh and a ``state_sharding``
+    (``core/sharding_rules.state_shardings``), which go together, a
+    tensor-parallel step: the state is sharded first where it is not yet
+    (``apply_state_sharding``); a state sharded otherwise raises."""
+    model = state.model
+    grid = state_sharding is not None
+    if grid != (group is not None and group.model is not None):
+        raise ValueError("a tensor-parallel step takes a state_sharding and the group of "
+                         "its data x model mesh together")
+    if grid and state.sharding is None:
+        apply_state_sharding(state, state_sharding, group)
+    elif state.sharding != state_sharding:
+        raise ValueError("the state is sharded otherwise than state_sharding says")
+    opt = state.optimizer
     parallel = group is not None and group.world_size > 1
     if parallel:
         set_data_group(model, group)
     params = list(model.parameters())
+    sliced = {id(layer.kernel) for layer, _ in sharded_layers(model).values()} if grid else ()
+    sharded = [p for p in params if id(p) in sliced]
+    replicated = [p for p in params if id(p) not in sliced]
 
     def step(frames: torch.Tensor, targets: torch.Tensor,
              generator: torch.Generator | None = None) -> torch.Tensor:
@@ -113,7 +156,10 @@ def make_train_step(state: TrainState, group=None
         opt.zero_grad(set_to_none=True)
         loss.backward()
         loss = loss.detach()
-        if parallel:
+        if grid and parallel:
+            reduce_grid_gradients(sharded, replicated, group)
+            loss = group.data.all_reduce(loss.clone())
+        elif parallel:
             all_reduce_gradients(params, group)
             loss = group.all_reduce(loss.clone())
         opt.step()

@@ -249,7 +249,10 @@ class Trainer:
     def fit(self, train_batches: Iterable,
             valid_batches_fn: Callable[[], Iterable] | None = None) -> None:
         """Train on ``train_batches`` (this rank's share of each global
-        batch under a data mesh)."""
+        batch under a data mesh).  Dropout draws from a generator seeded
+        by the rank; the trainer does not reach tensor parallel, whose
+        ranks of a model row need one seed, their data index
+        (``train/steps.py``)."""
         tc = self.cfg.train
         gen = torch.Generator(device=self.device).manual_seed(tc.seed + 1 + self.rank)
         step = self.state.step

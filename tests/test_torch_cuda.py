@@ -1128,3 +1128,77 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+# ---- tensor parallel (core/sharding_rules.py) -------------------------------
+
+# The float64 tensor-parallel step of p3d_micro_sa (the plain path) against
+# one device at the global batch, relative L2 of the summed gradient: the
+# same summation-order and float32-head argument as _DP_GRAD_TOL's float64
+# limit (1e-6), which each planted fault fails by orders of magnitude.
+_TP_GRAD_TOL = 1e-6
+
+
+@pytest.mark.parametrize("placement", ["dp2_tp2_nccl", "tp2_nccl"])
+def test_tensor_parallel_step_matches_one_device(cards, placement):
+    """``p3d_micro_sa`` at 32 px, a global batch of 4, dropout 0, its 22
+    kernels of 128 output features or more sharded on the model axis:
+    on four distinct cards as 2 x 2 (data x model), or on two as 1 x 2,
+    over NCCL.  One float64 step's summed gradient (slices gathered)
+    against one device's, each planted fault failing; after two steps
+    the replicated tensors bit-identical on every rank and each slice on
+    its data column."""
+    from _torch_tp_ranks import TENSOR_PARALLEL_FAULTS, card_rank, model_of
+
+    from sap3d_tpu_torch.core.mesh import data_backend, launch
+    from sap3d_tpu_torch.core.sharding_rules import make_mesh_2d
+    from sap3d_tpu_torch.models.registry import MODEL_REGISTRY, build_model
+    from sap3d_tpu_torch.train.steps import loss_fn_saliency
+
+    shape = (2, 2) if placement == "dp2_tp2_nccl" else (1, 2)
+    if len(cards) < shape[0] * shape[1]:
+        pytest.skip(f"needs {shape[0] * shape[1]} CUDA devices; {len(cards)} visible")
+    mesh = make_mesh_2d(*shape, devices=cards[:shape[0] * shape[1]])
+    assert data_backend(mesh) == "nccl"
+    cfg = dict(MODEL_REGISTRY["p3d_micro_sa"])
+    model = build_model("p3d_micro_sa", device="cpu", seed=0, dropout_rate=0.0)
+    with torch.no_grad():
+        for sa in model.attention_modules():
+            sa.gamma.fill_(1.0)  # with gamma = 0 every attention gradient is 0
+    weights = model.state_dict()
+    rng = np.random.default_rng(9)
+    frames = (rng.normal(size=(4, 16, 32, 32, 3)) * 0.5).astype(np.float32)
+    targets = rng.uniform(size=(4, 16, 32, 32)).astype(np.float32)
+    runs = launch(mesh, card_rank, cfg, weights, frames, targets)
+
+    torch.backends.cudnn.deterministic = True
+    one = model_of(cfg, weights, torch.float64, cards[0]).train()
+    loss = loss_fn_saliency(one(torch.from_numpy(frames).to(cards[0], torch.float64)),
+                            torch.from_numpy(targets).to(cards[0], torch.float64))
+    loss.backward()
+    want = {n: p.grad.cpu() for n, p in one.named_parameters()}
+
+    def rel(grads):
+        num = sum(((grads[n] - w) ** 2).sum() for n, w in want.items()).sqrt()
+        return (num / sum((w ** 2).sum() for w in want.values()).sqrt()).item()
+
+    dist = {k: rel(runs[0][k]["grads"]) for k in ("sound", *TENSOR_PARALLEL_FAULTS)}
+    print(f"tensor parallel {placement} float64: loss {runs[0]['sound']['losses']} against "
+          f"{loss.item()}, gradient relative L2 {dist} (limit {_TP_GRAD_TOL:g})")
+    assert runs[0]["sound"]["losses"][0] == pytest.approx(loss.item(), rel=1e-7)
+    assert dist["sound"] <= _TP_GRAD_TOL
+    assert all(dist[f] > 10 * _TP_GRAD_TOL for f in TENSOR_PARALLEL_FAULTS)
+    sharded = set(runs[0]["sound"]["shapes"])
+    assert len(sharded) == 22
+    local = [r["sound"]["local"] for r in runs]
+
+    def of_slice(key):
+        return any(key == f"model/{n}" or key.startswith(f"optimizer/{n}/") for n in sharded)
+
+    for r, x in enumerate(local):
+        for k, v in x.items():
+            if not of_slice(k):
+                assert torch.equal(v, local[0][k]), (r, k)
+            else:  # the same slice on every rank of the data column
+                assert torch.equal(v, local[r % shape[1]][k]), (r, k)
+
