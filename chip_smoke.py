@@ -240,7 +240,20 @@ result line):
      bytes of parameters, gradients and moments and peak memory beside
      phase 13's replicated ranks, the all-gathers and all-reduces of one
      step, ms per step; over NCCL when four cards are visible;
- 16. a JSON line of per-kernel numbers (B1-B4 also in fp32, the split-bf16
+ 16. the port's profiling and bench scripts (``sap3d_tpu_torch/scripts``),
+     each script's ``main(argv)`` in this process at full width with 3
+     timed repeats: ``profile_attention`` (B1, B2, B3 held at the flagship's
+     sites), ``profile_ring_hop`` (the kernel hop, B2 + B4, against the
+     chunked hop), ``profile_decoder``, ``profile_encoder`` (im2col against
+     cuDNN), ``profile_step`` (legs full, no_sa, fwd, stage3_thin, then full
+     again), ``profile_gn`` (full_sa_decoder, no_cbam), ``bench_eval`` (2
+     videos of 20 frames; the card's means against the host's),
+     ``bench_cli_eval`` (float32 B1), ``bench_export`` (1 video of 40
+     frames, bf16 B1), ``bench_loader``: each script's launches counted
+     from zero, its last line parsed, every time in it finite and
+     positive, what it holds held again from its readings; the phase's
+     seconds;
+ 17. a JSON line of per-kernel numbers (B1-B4 also in fp32, the split-bf16
      instantiations), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -4755,6 +4768,149 @@ def phase_tensor_parallel(torch, calibrated, card, mesh=None, dp=None):
                 seconds=seconds, launch_seconds=launch_s)
 
 
+# Phase 16: the port's profiling and bench scripts (sap3d_tpu_torch/scripts),
+# each script's main(argv) in this process at full width, with fewer timed
+# repeats and the reduced runs below; every other script whole.
+SCRIPT_REPEATS = ["--repeats", "3"]
+SCRIPT_RUNS = (
+    ("profile_attention", SCRIPT_REPEATS),
+    ("profile_ring_hop", SCRIPT_REPEATS),
+    ("profile_decoder", SCRIPT_REPEATS),
+    ("profile_encoder", SCRIPT_REPEATS),
+    ("profile_step", ["full", "no_sa", "fwd", "stage3_thin"] + SCRIPT_REPEATS),
+    ("profile_gn", ["full_sa_decoder", "no_cbam"] + SCRIPT_REPEATS),
+    ("bench_eval", ["--videos", "2", "--frames", "20"]),
+    ("bench_cli_eval", []),
+    ("bench_export", []),
+    ("bench_loader", []),
+)
+# bench_export's dataset (its environment variables): 1 video of 40 frames
+SCRIPT_ENV = {"bench_export": {"BENCH_EXPORT_VIDEOS": "1", "BENCH_EXPORT_FRAMES": "40"}}
+# Kernels each script's run must launch on the card (at least once)
+SCRIPT_KERNELS = {"profile_attention": ("B1", "B2", "B3"), "profile_ring_hop": ("B2", "B4"),
+                  "profile_step": ("B2", "B3"), "profile_gn": ("B2", "B3"),
+                  "bench_cli_eval": ("B1",), "bench_export": ("B1",)}
+# Attention sites on the kernel route per step of a profile_step or
+# profile_gn leg: the flagship's three (x_4_0 has 49 queries, below a query
+# block), the GN SA decoder's three, none without self-attention
+SCRIPT_LEG_SITES = {"full": 3, "no_sa": 0, "no_dropout": 3, "no_opt": 3, "fwd": 3,
+                    "stage1_thin": 3, "stage2_thin": 3, "stage3_thin": 3, "full_again": 3,
+                    "full_sa_decoder": 3, "no_cbam": 3, "bn_backbone": 3, "decoder_nosa": 0,
+                    "easy_full": 0}
+
+
+class _Tee:
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        import io
+
+        self.out, self.copy = out, io.StringIO()
+
+    def write(self, text):
+        self.copy.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def script_holds(name: str, res: dict) -> None:
+    """What phase 16 holds of a script's printed readings, beside what the
+    script holds itself (and raises on)."""
+    from sap3d_tpu_torch.scripts.bench_eval import MEAN_TOLERANCE
+
+    def within(label, value, limit=1.0):
+        if not value <= limit:
+            raise AssertionError(f"[scripts] {name}: {label} {value} exceeds {limit}")
+
+    if name == "profile_attention":
+        held = [(site, label, h) for site, row in res["sites"].items()
+                for label, h in row.get("holds", {}).items()]
+        if len(held) != 18:  # B1 o, B2 o and lse, B3 dq, dk, dv at three sites
+            raise AssertionError(f"[scripts] profile_attention held {len(held)} outputs")
+        for site, label, h in held:
+            within(f"{site} {label} excess", h["excess"])
+    elif name == "profile_ring_hop":
+        within("max|xla - pallas| excess", res["check"]["excess"])
+        if not all(res["check"]["grads_finite"].values()):
+            raise AssertionError(f"[scripts] {name}: a hop's gradient is not finite")
+    elif name == "profile_encoder":
+        within("im2col excess", res["micro"]["im2col_check"]["excess"])
+    elif name in ("profile_step", "profile_gn"):
+        for leg, row in res["legs"].items():
+            n = SCRIPT_LEG_SITES[leg]
+            want = {"B1": n, "B2": 0, "B3": 0} if row["mode"] == "forward" else \
+                {"B1": 0, "B2": n, "B3": n}
+            got = {k: row["launches_per_step"][k] for k in want}
+            if row["kernel_sites"] != n or got != want:
+                raise AssertionError(f"[scripts] {name} {leg}: {row['kernel_sites']} kernel "
+                                     f"sites, launches per step {got}; want {n}, {want}")
+        if name == "profile_gn" and res["failed"]:
+            raise AssertionError(f"[scripts] profile_gn: legs failed: {res['failed']}")
+    elif name == "bench_eval":
+        for check, diffs in res["card_minus_host"].items():
+            for metric, d in diffs.items():
+                within(f"{check} |card - host| {metric}", d, MEAN_TOLERANCE[metric])
+    elif name == "bench_cli_eval" and not res["clips_scored"] > 0:
+        raise AssertionError("[scripts] bench_cli_eval scored no clip")
+
+
+def phase_scripts(torch, card):
+    """Phase 16: each of ``SCRIPT_RUNS``'s scripts through its ``main(argv)``
+    on the card: its launch counts zeroed just before and read just after,
+    its last printed line parsed as JSON and equal to what it returned, its
+    card the one of ``card``, every time in it finite and positive
+    (``_timing.finite_times``), its kernels launched (``SCRIPT_KERNELS``),
+    and what it holds held again from its readings (``script_holds``)."""
+    import contextlib
+    import importlib
+
+    from sap3d_tpu_torch.ops.cuda import flash_attention as fa
+    from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
+    from sap3d_tpu_torch.scripts import _timing
+
+    t_phase = time.perf_counter()
+    out = {}
+    for name, argv in SCRIPT_RUNS:
+        mod = importlib.import_module(f"sap3d_tpu_torch.scripts.{name}")
+        argv = list(argv) + ["--device", DEVICE]
+        env = SCRIPT_ENV.get(name, {})
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        tee = _Tee(sys.stdout)
+        t0 = time.perf_counter()
+        _zero_launch_counts(fa, fb)
+        try:
+            with contextlib.redirect_stdout(tee):
+                res = mod.main(argv)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        launches = _launch_counts(fa, fb)
+        seconds = time.perf_counter() - t0
+        last = json.loads(tee.copy.getvalue().strip().splitlines()[-1])
+        if last != json.loads(json.dumps(res)):
+            raise AssertionError(f"[scripts] {name}: its last line is not what it returned")
+        if last["card"]["name"] not in card:
+            raise AssertionError(f"[scripts] {name}: card {last['card']} is not {card!r}")
+        _timing.finite_times(last, f"{name}.")
+        missing = [k for k in SCRIPT_KERNELS.get(name, ()) if not launches[k] > 0]
+        if missing:
+            raise AssertionError(f"[scripts] {name} launched no {missing}: {launches}")
+        script_holds(name, last)
+        print(f"[scripts] {name} {' '.join(argv)}: {seconds:.1f} s, launches {launches}; last "
+              "line parsed, every time finite and positive", flush=True)
+        out[name] = dict(result=last, launches=launches, seconds=seconds)
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[scripts] phase 16 in {seconds:.2f} s", flush=True)
+    return dict(scripts=out, seconds=seconds)
+
+
 BUILD_KERNELS = {
     "flash_attention_fwd": (("flash_fwd_bf16", "flash_row_stats", "split_planes"),
                             ("flash_fwd_bf16", "flash_row_stats", "split_planes")),
@@ -5005,6 +5161,7 @@ def main(argv=None) -> int:
                   "visible); gloo on cuda:0 four times ran", flush=True)
         del calibrated
         torch.cuda.empty_cache()
+        scripts = phase_scripts(torch, card)
 
         fit, gn_fit = train["fit"]["launches"], gn_train["fit"]["launches"]
         ring_fwd, ring_step = ring["launches"]["forward"], ring["launches"]["step"]
@@ -5031,6 +5188,11 @@ def main(argv=None) -> int:
         mh_fit = {k: sum(r[k] for r in mh["launches"]) for k in ("B1", "B2", "B3")}
         # tensor parallel: the bf16 steps, over the ranks
         tp_steps = {k: sum(n[k] for r in tp for n in r["launches"]) for k in ("B2", "B3")}
+        # phase 16: the scripts' runs (bench_cli_eval's forward is float32)
+        sc = {name: r["launches"] for name, r in scripts["scripts"].items()}
+        sc_bf16 = {k: sum(n[k] for name, n in sc.items() if name != "bench_cli_eval")
+                   for k in ("B1", "B2", "B3", "B4")}
+        sc_fp32 = sc["bench_cli_eval"]
         # every main path launched every kernel the gate gives it
         if not (launches > 0 and fit["B2"] > 0 and fit["B3"] > 0 and gn_launches > 0
                 and gn_fit["B2"] > 0 and gn_fit["B3"] > 0 and b5_launches > 0
@@ -5043,7 +5205,9 @@ def main(argv=None) -> int:
                 and mh_fit["B1"] > 0 and mh_fit["B2"] > 0 and mh_fit["B3"] > 0
                 and ts_step["B2"] > 0 and ts_step["B4"] > 0 and ts32["B2"] > 0
                 and ts32["B4"] > 0 and ts_zoo["B2"] > 0 and ts_zoo["B3"] > 0
-                and ts_zoo["B4"] > 0 and tp_steps["B2"] > 0 and tp_steps["B3"] > 0):
+                and ts_zoo["B4"] > 0 and tp_steps["B2"] > 0 and tp_steps["B3"] > 0
+                and all(sc_bf16[k] > 0 for k in ("B1", "B2", "B3", "B4"))
+                and sc_fp32["B1"] > 0):
             raise AssertionError("a kernel of a main path was never launched")
         print(f"[launches] flagship predictor B1 {launches}; flagship Trainer.fit {fit}; GN "
               f"predictor B1 {gn_launches}; GN Trainer.fit {gn_fit}; B5 on the GN step's "
@@ -5057,7 +5221,8 @@ def main(argv=None) -> int:
               f"{dp_fit}, the float32 step {dp_step32}, cli eval's float32 route B1 "
               f"{dp_eval32}; cli train --distributed, over both processes' ranks {mh_fit}; "
               f"the time-sharded step {ts_step}, float32 {ts32}, every registry name's "
-              f"{ts_zoo}; the tensor-parallel bf16 steps, over the ranks {tp_steps}", flush=True)
+              f"{ts_zoo}; the tensor-parallel bf16 steps, over the ranks {tp_steps}; the scripts "
+              f"(phase 16) {sc}", flush=True)
         in_step = {k: [r["max_abs_err"] for r in train[f"{k}_in_step"].values()]
                    for k in ("b2", "b3")}
         kernels = [
@@ -5066,25 +5231,25 @@ def main(argv=None) -> int:
             kernel_entry("flash_attention_fwd", fa.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:141",
                          launches + gn_launches + evaluation["b1_launches"]
-                         + tf_quirk["b1_launches"] + mh_fit["B1"],
+                         + tf_quirk["b1_launches"] + mh_fit["B1"] + sc_bf16["B1"],
                          rows["B1"], [r["max_abs_err"] for r in gn_fwd["held"].values()],
                          gn_rows["B1"] + zoo_rows["B1"]),
             kernel_entry("flash_attention_fwd_lse", fa.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:141",
                          fit["B2"] + gn_fit["B2"] + ring_fwd["B2"] + ring_step["B2"]
                          + dp_fit["B2"] + mh_fit["B2"] + ts_step["B2"] + ts_zoo["B2"]
-                         + tp_steps["B2"],
+                         + tp_steps["B2"] + sc_bf16["B2"],
                          rows["B2"], in_step["b2"], gn_rows["B2"] + zoo_rows["B2"]),
             kernel_entry("flash_attention_bwd", fb.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:274",
                          fit["B3"] + gn_fit["B3"] + dp_fit["B3"] + mh_fit["B3"] + ts_zoo["B3"]
-                         + tp_steps["B3"],
+                         + tp_steps["B3"] + sc_bf16["B3"],
                          rows["B3"], in_step["b3"], gn_rows["B3"] + zoo_rows["B3"]),
             # B4: the ring train steps' backward (ring-only and time-sharded),
             # times at the per-shard shapes
             kernel_entry("flash_attention_bwd_lse", fb.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:274",
-                         ring_step["B4"] + ts_step["B4"] + ts_zoo["B4"],
+                         ring_step["B4"] + ts_step["B4"] + ts_zoo["B4"] + sc_bf16["B4"],
                          b4_rows, [r["max_abs_err"] for by_site in ring["b4_in_step"].values()
                                    for r in by_site], gn_b4_rows),
             # B5: forward + backward (the row statistics and B3) at the three
@@ -5106,7 +5271,8 @@ def main(argv=None) -> int:
             # 11), the float32 train step (phase 6(c)) and ring step (9(b))
             kernel_entry("flash_attention_fwd_split_f32", fa.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:141",
-                         evaluation["b1_launches"] + tf_quirk["b1_launches_fp32"] + dp_eval32,
+                         evaluation["b1_launches"] + tf_quirk["b1_launches_fp32"] + dp_eval32
+                         + sc_fp32["B1"],
                          rows["B1"], (),
                          gn_rows["B1"] + zoo_rows["B1"], dtype="float32"),
             kernel_entry("flash_attention_fwd_lse_split_f32", fa.SOURCE,
@@ -5137,7 +5303,7 @@ def main(argv=None) -> int:
                                tf_import=dict(reader=tf_reader, mapping=tf_mapping,
                                               quirk=tf_quirk),
                                data_parallel=dp, multihost=mh, tensor_parallel=tp,
-                               kernels=kernels), f,
+                               scripts=scripts, kernels=kernels), f,
                           indent=1)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {

@@ -34,8 +34,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
+
+try:
+    from ._timing import card_line
+except ImportError:  # run by its path: this file's directory is on sys.path
+    from _timing import card_line
 
 # (name, B, Nq, Nk, d, C): the flagship's three sites at batch 16 (also the
 # ring hops' stacked shapes), the GN decoders' deconv_pool3 and deconv_pool4
@@ -45,12 +49,6 @@ SITES = (("x_3_1", 16, 392, 392, 64, 512), ("x_2_2", 16, 3136, 3136, 32, 256),
          ("deconv_pool4", 16, 3136, 3136, 128, 1024), ("x_0_1_sa", 2, 200704, 3136, 2, 16))
 # The GN sites, where B5 is timed
 B5_SITES = ("x_2_2", "deconv_pool3", "deconv_pool4")
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_ms(torch, fn, iters: int, flush) -> float:

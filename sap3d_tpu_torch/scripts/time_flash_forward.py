@@ -33,8 +33,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
+
+try:
+    from ._timing import card_line
+except ImportError:  # run by its path: this file's directory is on sys.path
+    from _timing import card_line
 
 # (name, B, Nq, Nk, d, C): the flagship's three sites at batch 16 (also the
 # ring hops' stacked shapes; GN pool2 is x_2_2's shape), the GN decoders'
@@ -49,12 +53,6 @@ BF16_FLOPS = 989e12
 FP32_CUDA_CORE_FLOPS = 67e12
 SPLIT_PRODUCTS = 6  # bf16 products per float32 product (csrc/split_bf16.cuh)
 EXP_PER_S = 16 * 132 * 1.98e9
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_ms(torch, fn, iters: int, flush) -> float:

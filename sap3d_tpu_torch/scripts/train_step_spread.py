@@ -30,14 +30,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+try:
+    from ._timing import card_line
+except ImportError:  # run by its path: this file's directory is on sys.path
+    from _timing import card_line
 
 
 def main(argv=None) -> dict:

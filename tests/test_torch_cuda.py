@@ -1202,3 +1202,34 @@ def test_tensor_parallel_step_matches_one_device(cards, placement):
             else:  # the same slice on every rank of the data column
                 assert torch.equal(v, local[r % shape[1]][k]), (r, k)
 
+
+def test_profile_scripts_hold_the_kernels_at_the_flagship_shapes(cuda, monkeypatch):
+    """profile_ring_hop's check (the kernel hop, B2 and B4, against the
+    chunked hop at its long-clip shard shape, bf16; both hops' gradients
+    finite from the -inf state; the kernel hop with its last 64 keys
+    dropped failing) and profile_attention's holds (B1, B2, B3 against their
+    plain versions at the flagship's three kernel sites at batch 16 in bf16,
+    on the script's own inputs), as the scripts run them."""
+    from sap3d_tpu_torch.ops import ring_attention
+    from sap3d_tpu_torch.scripts import profile_attention, profile_ring_hop
+
+    args = profile_ring_hop.hop_inputs(profile_ring_hop.SHAPE, torch.bfloat16, cuda)
+    check = profile_ring_hop.check_hops(args)
+    assert check["excess"] <= 1 and all(check["grads_finite"].values())
+    monkeypatch.setitem(profile_ring_hop.HOPS, "pallas", lambda q, k, v, *state:
+                        ring_attention._pallas_hop(q, k[:, :-64], v[:, :-64], *state))
+    with pytest.raises(AssertionError, match="disagrees"):
+        profile_ring_hop.check_hops(args)
+
+    rng = np.random.default_rng(0)
+    held = {}
+    for name, dhw, c, sub in profile_attention.SITES:
+        q, k, v = profile_attention.site_inputs(rng, dhw, c, sub, profile_attention.B,
+                                                torch.bfloat16, cuda)
+        (_, nq, d), nk = q.shape, k.shape[1]
+        routes = {mode: ta.attention_route(nq, nk, d, c, torch.bfloat16, train)
+                  for mode, train in (("forward", False), ("train", True))}
+        if "flash" in routes.values():
+            held[name] = profile_attention.hold_kernels(name, q, k, v, routes)
+    assert set(held) == {"x_3_1", "x_2_2", "x_1_3"}
+    assert all(len(h) == 6 and max(a["excess"] for a in h.values()) <= 1 for h in held.values())

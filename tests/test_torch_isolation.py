@@ -57,7 +57,10 @@ def test_port_imports_nothing_of_jax():
     assert "sap3d_tpu_torch.core.mesh" in mods
     for new in ("ops.cuda.flash_attention_nolse", "scripts.bisect_infer", "eval.metrics_np",
                 "eval.evaluator", "infer.video", "train.inspect_ckpt", "interop.tf_bundle",
-                "interop.tf_import"):
+                "interop.tf_import", "scripts._timing", "scripts.profile_attention",
+                "scripts.profile_ring_hop", "scripts.profile_decoder", "scripts.profile_encoder",
+                "scripts.profile_step", "scripts.profile_gn", "scripts.bench_eval",
+                "scripts.bench_cli_eval", "scripts.bench_export", "scripts.bench_loader"):
         assert f"sap3d_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
