@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--json-out PATH]
 
-Phases (each prints its lines; any failure exits non-zero and prints no
-result line):
+Phases (each prints its lines and, at its end, its seconds since the card's
+line; any failure exits non-zero and prints no result line):
   1. card: name and power limit from nvidia-smi;
   2. kernel build: the port's CUDA sources, one nvcc each, started
      together; build time and ptxas register/spill report (per kernel
@@ -33,7 +33,7 @@ result line):
      [16, 16, 112, 112, 3] bf16, seeded weights, gamma nonzero and random BN
      statistics; each B1 call held against its plain version on the tensors
      the model gave it, the kernel path against the plain path end to end,
-     3 launches per forward, clips/s of both (median of 10); with
+     3 launches per forward, clips/s of both (median of 6); with
      --json-out, a torch.profiler breakdown of one kernel-path forward by
      layer;
   5. predictor (the inference path): SlidingWindowPredictor.predict_video
@@ -54,7 +54,7 @@ result line):
      zeroed before and read after, finite losses, a validation pass,
      checkpoints saved, restored into a second trainer and resumed;
      (e) train clips/s of both paths (plain, kernel, kernel, plain; the
-     median, slowest and fastest of 10 steps each) and peak device
+     median, slowest and fastest of 6 steps each) and peak device
      memory; with --json-out, a torch.profiler breakdown of one kernel-path
      train step;
   7. the GN + CBAM SA decoder (inference_p3d_sa_decoder_block, alias
@@ -241,7 +241,7 @@ result line):
      phase 13's replicated ranks, the all-gathers and all-reduces of one
      step, ms per step; over NCCL when four cards are visible;
  16. the port's profiling and bench scripts (``sap3d_tpu_torch/scripts``),
-     each script's ``main(argv)`` in this process at full width with 3
+     each script's ``main(argv)`` in this process at full width with 2
      timed repeats: ``profile_attention`` (B1, B2, B3 held at the flagship's
      sites), ``profile_ring_hop`` (the kernel hop, B2 + B4, against the
      chunked hop), ``profile_decoder``, ``profile_encoder`` (im2col against
@@ -253,8 +253,42 @@ result line):
      from zero, its last line parsed, every time in it finite and
      positive, what it holds held again from its readings; the phase's
      seconds;
- 17. a JSON line of per-kernel numbers (B1-B4 also in fp32, the split-bf16
-     instantiations), then the result line
+ 17. K train steps per call (``train/steps.make_multi_train_step``, its
+     captured path: one train step as a CUDA graph, replayed):
+     (a) ``p3d_micro_sa`` on [2, 16, 32, 32, 3] in fp32, dropout 0.5,
+     cuDNN's deterministic algorithms: two calls of K = 4 (a warm-up call,
+     then replays) against 8 eager single steps from one state and one
+     dropout generator, two more eager runs the control: the losses, the
+     parameters, BN statistics, Adam moments and step counts within twice
+     the control's distance plus ``MS_MICRO_FLOOR``, the generator where the eager
+     run left it; two planted faults (``MULTI_STEP_FAULTS``: replays that
+     skip the batch copy, one replay fewer) failing; whether fused Adam's
+     ``capturable`` moves its update, read on three steps of the same
+     gradients;
+     (b) the calibrated flagship in fp32 at batch 16, K = 2: after a warm-up
+     call the state and generator are saved and restored in place before
+     each of three eager runs (two the control) and one replayed call:
+     its first loss bit for bit the eager one's, its state within twice the
+     control plus ``MS_FLAGSHIP_FLOOR`` (the per-tensor distances printed
+     beside the controls'), the skipped batch copy breaking the bit
+     equality and failing the state hold;
+     (c) the flagship and the GN SA decoder in bf16 at batch 16, calls of
+     K = 8, eager and captured (legs eager, captured, eager again): ms a
+     step, host ms a call, peak memory, the first call's warm-up and
+     capture, the idle share of one profiled call, B2/B3 launches a step
+     (captured as many as eager), the hand-written kernels in one profiled
+     call's trace (captured as many as eager); read, claimed as nothing;
+     (d) ``cli train --steps-per-call 4 --max-steps 8`` on a synthetic
+     dataset: logged, validated and saved at steps 4 and 8, by the JAX
+     trainer's rule.
+     The launch counters count Python calls, so a replay adds nothing to
+     them and a capture's recording calls, which launch nothing, add one
+     step's: every count of this phase is taken over one run, the counters
+     set to 0 just before it, as the counters' less the launches captured a
+     step for each capture plus them for each replay (``ms_launches``), and
+     says so;
+ 18. a JSON line of per-kernel numbers (B1-B4 also in fp32, the split-bf16
+     instantiations; launches of phase 17 counted as above), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Needs torch with CUDA and nvcc; imports nothing of JAX or ``sap3d_tpu``.
@@ -265,6 +299,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -349,7 +384,7 @@ GN_PROJ_TOL = {"bf16": 2e-3, "float32": 1e-4}
 # float32 gradient under B3's own limits (excess 0.52 at most, read).
 B5_DISTANCE_FACTOR = 1.5
 TRAIN_STEPS = 3
-THROUGHPUT_CALLS = 10              # timed calls per path and round of clips/s
+THROUGHPUT_CALLS = 6               # timed calls per path and round of clips/s
 GN_MODEL = "P3D_SA_DECODER"        # inference_p3d_sa_decoder_block
 # B1 launches of one eval forward of each registry name at 112 px: the
 # attention sites the forward gate takes (at least 256 queries, C a multiple
@@ -947,16 +982,22 @@ def phase_predictor(torch, fa, model):
     return launches
 
 
-def _launch_counts(fa, fb) -> dict[str, int]:
-    return {"B1": fa.flash_attend_tokens.launches, "B2": fa.flash_forward_lse.launches,
-            "B3": fb.flash_backward.launches, "B4": fb.flash_backward.launches_lse}
+B1_B4 = ("B1", "B2", "B3", "B4")
+B1_B5 = (*B1_B4, "B5")
 
 
-def _zero_launch_counts(fa, fb) -> None:
-    fa.flash_attend_tokens.launches = 0
-    fa.flash_forward_lse.launches = 0
-    fb.flash_backward.launches = 0
-    fb.flash_backward.launches_lse = 0
+def launch_counts(*names: str) -> dict[str, int]:
+    """``ops.cuda.launch_counts``, imported when called."""
+    from sap3d_tpu_torch.ops import cuda
+
+    return cuda.launch_counts(*names)
+
+
+def reset_launch_counts(*names: str) -> None:
+    """``ops.cuda.reset_launch_counts``, imported when called."""
+    from sap3d_tpu_torch.ops import cuda
+
+    cuda.reset_launch_counts(*names)
 
 
 @contextlib.contextmanager
@@ -1106,9 +1147,9 @@ def phase_train(torch, fa, fb, model, card, profile: bool = False):
         plain path (autograd of softmax attention), and the reference with a
         plain forward that rounds where the kernel does."""
         ref = fb.flash_backward_reference
-        _zero_launch_counts(fa, fb)  # the float32 step's kernel path: one main-path run
+        reset_launch_counts(*B1_B4)  # the float32 step's kernel path: one main-path run
         loss_k_, g_k_ = (loss_k, g_k) if bf16 else grads(m, True)
-        launches = _launch_counts(fa, fb)
+        launches = launch_counts(*B1_B4)
         loss_s, g_s = grads(m, True, backward=ref)
         _, g_f = grads(m, True, backward=no_delta)
         loss_r, g_r = grads(m, True, forward=fa.flash_forward_lse_reference, backward=ref)
@@ -1154,10 +1195,10 @@ def phase_train(torch, fa, fb, model, card, profile: bool = False):
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     for use_kernel in (True, False):
         set_kernel(use_kernel)
-        _zero_launch_counts(fa, fb)
+        reset_launch_counts(*B1_B4)
         loss = step(x, y, gen)
         torch.cuda.synchronize()
-        got = _launch_counts(fa, fb)
+        got = launch_counts(*B1_B4)
         want = {"B1": 0, "B2": len(SITES) if use_kernel else 0,
                 "B3": len(SITES) if use_kernel else 0, "B4": 0}
         path = "kernel" if use_kernel else "plain"
@@ -1199,13 +1240,13 @@ def phase_train(torch, fa, fb, model, card, profile: bool = False):
         trainer.model.load_state_dict(model.state_dict())  # calibrated BN, gamma
         train_batches = [batch() for _ in range(TRAIN_STEPS)]
         valid = [batch()]
-        _zero_launch_counts(fa, fb)
+        reset_launch_counts(*B1_B4)
         t0 = time.perf_counter()
         trainer.fit(iter(train_batches), lambda: iter(valid))
         trainer.ckpt.wait_until_finished()
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-        fit_launches = _launch_counts(fa, fb)
+        fit_launches = launch_counts(*B1_B4)
         trainer.close()
         with open(os.path.join(trainer.logs_dir, "metrics.jsonl")) as f:
             records = [json.loads(line) for line in f]
@@ -1262,15 +1303,6 @@ def phase_train(torch, fa, fb, model, card, profile: bool = False):
 
 
 # ---- phase 7: the GN + CBAM SA decoder ---------------------------------------
-
-
-def launch_counts(fa, fb, ta) -> dict[str, int]:
-    return dict(_launch_counts(fa, fb), B5=ta.flash_fwd_chunked_bwd.launches)
-
-
-def zero_launch_counts(fa, fb, ta) -> None:
-    _zero_launch_counts(fa, fb)
-    ta.flash_fwd_chunked_bwd.launches = 0
 
 
 @contextlib.contextmanager
@@ -1465,9 +1497,7 @@ def b5_backward_launches(torch, fa, fb, ta, q, k, v, do, label):
     kernel) and, from the profiler, that every device operation it runs is
     one of the hand-written kernels (``B5_BACKWARD_KERNELS``) or a memset."""
     def counts():
-        return dict(RS=fa.flash_row_stats.launches, B3=fb.flash_backward.launches,
-                    B4=fb.flash_backward.launches_lse, B1=fa.flash_attend_tokens.launches,
-                    B2=fa.flash_forward_lse.launches, B5=ta.flash_fwd_chunked_bwd.launches)
+        return launch_counts(*B1_B5, "RS")
 
     out = ta.flash_fwd_chunked_bwd(q, k, v)
     torch.cuda.synchronize()
@@ -1757,11 +1787,11 @@ def phase_gn_train(torch, fa, fb, ta, model, sites, card, profile: bool = False)
         name = next(n for n, (shape, _) in sites.items() if shape == widest)
         label = f"{name} {dname} (on the GN train step's tensors)"
         q, k, v = (rec[n].clone().requires_grad_() for n in "qkv")
-        before = launch_counts(fa, fb, ta), fa.flash_row_stats.launches
+        before = launch_counts(*B1_B5), fa.flash_row_stats.launches
         out = ta.flash_fwd_chunked_bwd(q, k, v)
         got = torch.autograd.grad(out, (q, k, v), rec["do"])
         torch.cuda.synchronize()
-        after = launch_counts(fa, fb, ta), fa.flash_row_stats.launches
+        after = launch_counts(*B1_B5), fa.flash_row_stats.launches
         launches = {key: n - before[0][key] for key, n in after[0].items()}
         launches["RS"] = after[1] - before[1]
         if launches != {"B1": 0, "B2": 0, "B3": 1, "B4": 0, "B5": 1, "RS": 1}:
@@ -1901,11 +1931,11 @@ def phase_gn_train(torch, fa, fb, ta, model, sites, card, profile: bool = False)
     step = make_train_step(state)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     set_kernel(model, True)
-    zero_launch_counts(fa, fb, ta)
+    reset_launch_counts(*B1_B5)
     with attention_sites(model) as seen:
         loss = step(x, y, gen)
     torch.cuda.synchronize()
-    got = launch_counts(fa, fb, ta)
+    got = launch_counts(*B1_B5)
     routes = {n: r for n, (_, r) in seen.items()}
     print(f"[gn] launches in one make_train_step call: {got}, routes {routes}, loss "
           f"{loss.item():.4f}", flush=True)
@@ -1948,13 +1978,13 @@ def phase_gn_train(torch, fa, fb, ta, model, sites, card, profile: bool = False)
         trainer.model.load_state_dict(model.state_dict())  # gamma nonzero
         train_batches = [batch() for _ in range(TRAIN_STEPS)]
         valid = [batch()]
-        zero_launch_counts(fa, fb, ta)
+        reset_launch_counts(*B1_B5)
         t0 = time.perf_counter()
         trainer.fit(iter(train_batches), lambda: iter(valid))
         trainer.ckpt.wait_until_finished()
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-        fit_launches = launch_counts(fa, fb, ta)
+        fit_launches = launch_counts(*B1_B5)
         trainer.close()
         with open(os.path.join(trainer.logs_dir, "metrics.jsonl")) as f:
             records = [json.loads(line) for line in f]
@@ -2207,10 +2237,10 @@ def phase_ring(torch, fa, fb, calibrated, flush, card, profile: bool = False):
     def forward(m, use_kernel=True):
         for sa in m.attention_modules():
             sa.use_kernel = use_kernel
-        _zero_launch_counts(fa, fb)
+        reset_launch_counts(*B1_B4)
         out = make_eval_step(m)(x)
         torch.cuda.synchronize()
-        return out, _launch_counts(fa, fb)
+        return out, launch_counts(*B1_B4)
 
     out_g, n_g = forward(gather)
     out_r, n_r = forward(ring)  # the main path: counts zeroed just before, read just after
@@ -2275,10 +2305,10 @@ def phase_ring(torch, fa, fb, calibrated, flush, card, profile: bool = False):
     state = create_train_state(ring, lr=1e-4)
     step = make_train_step(state)
     step_gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
-    _zero_launch_counts(fa, fb)  # the main path: one make_train_step call
+    reset_launch_counts(*B1_B4)  # the main path: one make_train_step call
     loss = step(x, y, step_gen)
     torch.cuda.synchronize()
-    n_step = _launch_counts(fa, fb)
+    n_step = launch_counts(*B1_B4)
     print(f"[ring] launches in one ring make_train_step call: predicted {want_step}, counted "
           f"{n_step}, loss {loss.item():.4f}", flush=True)
     if n_step != want_step or not np.isfinite(loss.item()):
@@ -2348,9 +2378,9 @@ def phase_ring(torch, fa, fb, calibrated, flush, card, profile: bool = False):
         del fwd_r, fwd_g, fwd_n, fwd_p, fwd_na
         loss_g, g_g = grads(gather32)
         _, g_g2 = grads(gather32)
-        _zero_launch_counts(fa, fb)  # the float32 ring step: one main-path run
+        reset_launch_counts(*B1_B4)  # the float32 ring step: one main-path run
         loss_r, g_r = grads(ring32)
-        res["launches"]["fp32_step"] = _launch_counts(fa, fb)
+        res["launches"]["fp32_step"] = launch_counts(*B1_B4)
         _, g_f = grads(ring32, backward=b3_in_place)
         # yardsticks: another float32 order of the same sums (the plain
         # path), and the gather path with its B2 outputs moved at random by
@@ -2543,7 +2573,7 @@ TS_FP32_TOL = {"forward_mean": 1e-4, "forward_max": 1e-2, "loss": 1e-5, "grad": 
 # the loss 1.04e-7, the gradient 4.5e-9; the faults 1.006 and 1.160.
 TS_F64_FWD_TOL = 1e-6
 TS_F64_TOL = (1e-6, 1e-6)
-TS_TIMED_STEPS = 5             # (iii): steps per round, 4 rounds
+TS_TIMED_STEPS = 3             # (iii): steps per round, 4 rounds
 TS_ZOO_SHARDS, TS_ZOO_BATCH, TS_ZOO_FRAMES = 2, 2, 32
 
 
@@ -2727,9 +2757,9 @@ def phase_time_shard(torch, fa, fb, calibrated, card):
             with planted_time_shard_fault("own_ends"):
                 fwd["own_ends"] = dist(whole(make_eval_step(sh)(xs_sh)))
         loss_g, g_g = grads(g, weights, xs_d, ys_d)
-        _zero_launch_counts(fa, fb)
+        reset_launch_counts(*B1_B4)
         steps = {"sharded": grads(sh, weights, xs_sh, ys_sh)}
-        launches = _launch_counts(fa, fb)
+        launches = launch_counts(*B1_B4)
         if dtype == torch.float32:
             steps["one_ulp"] = grads(g, weights, moved, ys_d)
         for fault in TIME_SHARD_FAULTS if held else ():
@@ -2787,10 +2817,10 @@ def phase_time_shard(torch, fa, fb, calibrated, card):
     state = create_train_state(sharded, lr=1e-4)
     step = make_train_step(state)
     with conv_outputs(torch, sharded) as seen, time_shard_traffic() as traffic:
-        _zero_launch_counts(fa, fb)  # the main path: one sharded make_train_step call
+        reset_launch_counts(*B1_B4)  # the main path: one sharded make_train_step call
         loss = step(xb, yb, step_gen)
         torch.cuda.synchronize()
-        n_step = _launch_counts(fa, fb)
+        n_step = launch_counts(*B1_B4)
     whole_convs = sorted(name for name, kinds in seen.items()
                          if any(n != RING_SHARDS for n, _ in kinds))
     print(f"[time-shard] launches in one sharded make_train_step call: counted {n_step}, "
@@ -2845,10 +2875,10 @@ def phase_time_shard(torch, fa, fb, calibrated, card):
         shapes = []
         handle = model.register_forward_hook(lambda m, a, out: shapes.append(out.shape))
         zstep = make_train_step(create_train_state(model, lr=1e-4))
-        _zero_launch_counts(fa, fb)
+        reset_launch_counts(*B1_B4)
         zloss = zstep(zx_sh, zy_sh).item()
         torch.cuda.synchronize()
-        counts = _launch_counts(fa, fb)
+        counts = launch_counts(*B1_B4)
         handle.remove()
         rings, sites = len(model.ring_sites()), len(model.attention_modules())
         print(f"[time-shard] {name}: output {shapes[0]} over {TS_ZOO_SHARDS} shards, loss "
@@ -3329,7 +3359,7 @@ def phase_tf_quirk(torch, fa, model, calibrated, card):
     bit the original after the runs, the maps without the quirk (the same
     weights) further than 1e-3 max|out| from them; seconds per video with
     and without the quirk, in the order quirk, without, without, quirk, and
-    the eval step's ms at batch 16 (medians of 10) beside them.  (2) fp32,
+    the eval step's ms at batch 16 (medians of 6) beside them.  (2) fp32,
     ``cli eval``'s dtype (the split-bf16 B1): one eval step of 2 clips
     (``cli eval``'s batch), 3 B1 launches, against the plain attention route
     under phase 4's fp32 limit."""
@@ -3483,7 +3513,7 @@ DP_STEP_BATCH = {"float32": 16, "float64": 4}
 DP_FIT_BATCH = 16
 DP_EVAL_BATCH = 4
 DP_EVAL_FRAMES = 40           # one synthetic JPEG video: 14 clips, 3 batches of 4
-DP_TIMED_STEPS = 5
+DP_TIMED_STEPS = 3
 # (a)'s limits of the float64 data-parallel step (the plain path: no kernel
 # takes float64) against the one-process step at the global batch of 4
 # (dropout 0, cuDNN's deterministic algorithms): the loss (relative), the
@@ -3635,11 +3665,11 @@ def dp_rank(group, spec: dict) -> dict:
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a[rows])).to(dev, dtype)
 
-        _zero_launch_counts(fa, fb)
+        reset_launch_counts(*B1_B4)
         loss = step(put(x), put(targets[:x.shape[0]]))
         sync()
         res = dict(loss=loss.item(), grad=dp_flat_grad(torch, m), buffers=dp_bn_buffers(m),
-                   launches=_launch_counts(fa, fb))
+                   launches=launch_counts(*B1_B4))
         del m
         return res
 
@@ -3743,7 +3773,7 @@ def dp_rank(group, spec: dict) -> dict:
                                    logs_dir=os.path.join(spec["root"], "logs")))
     trainer = Trainer(cfg, run="smoke_dp", group=group)
     trainer.model.load_state_dict(weights)  # calibrated BN, gamma; the same on every rank
-    _zero_launch_counts(fa, fb)
+    reset_launch_counts(*B1_B4)
     t0 = time.perf_counter()
     trainer.fit(iter(mine), lambda: iter(mine_valid))
     if main:
@@ -3751,7 +3781,7 @@ def dp_rank(group, spec: dict) -> dict:
     sync()
     group.barrier()
     fit_s = time.perf_counter() - t0
-    fit_launches = _launch_counts(fa, fb)
+    fit_launches = launch_counts(*B1_B4)
     agree, sums = agree_bitwise(torch, group, trainer.model.state_dict().values())
     final = {k: v.clone() for k, v in trainer.model.state_dict().items()}
     trainer.close()
@@ -4034,12 +4064,12 @@ def mh_counted_train(group, cfg, *args) -> None:
         cfg = cfg.replace(train=dataclasses.replace(
             cfg.train, profile_dir=os.environ[MH_TRACE_ENV], profile_start=MH_PROFILE_STEP,
             profile_steps=1))
-    _zero_launch_counts(fa, fb)
+    reset_launch_counts(*B1_B4)
     cli._train(group, cfg, *args)
     if group.device.type == "cuda":
         torch.cuda.synchronize(group.device)
     with open(os.path.join(os.environ[MH_COUNTS_ENV], f"rank{group.rank}.json"), "w") as f:
-        json.dump(dict(launches=_launch_counts(fa, fb), backend=group.backend,
+        json.dump(dict(launches=launch_counts(*B1_B4), backend=group.backend,
                        world_size=group.world_size), f)
 
 
@@ -4596,7 +4626,7 @@ def tp_rank(group, spec: dict) -> dict:
     losses, times = [], []
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
-    _zero_launch_counts(fa, fb)
+    reset_launch_counts(*B1_B4)
     with function_calls(spy_forward, spy_backward):
         for i in range(spec["bf16_steps"]):
             counted = i == spec["bf16_steps"] - 1
@@ -4612,7 +4642,7 @@ def tp_rank(group, spec: dict) -> dict:
                 torch.distributed.all_reduce = orig_reduce
                 mesh_lib.DataGroup.all_gather = orig_gather
             times.append(time.perf_counter() - t0)
-    launches = _launch_counts(fa, fb)
+    launches = launch_counts(*B1_B4)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if on_card else None
     layers = sharded_layers(m)
     widths = {n: (tuple(layer.kernel.shape), tuple(weights[n].shape), dim)
@@ -4771,7 +4801,7 @@ def phase_tensor_parallel(torch, calibrated, card, mesh=None, dp=None):
 # Phase 16: the port's profiling and bench scripts (sap3d_tpu_torch/scripts),
 # each script's main(argv) in this process at full width, with fewer timed
 # repeats and the reduced runs below; every other script whole.
-SCRIPT_REPEATS = ["--repeats", "3"]
+SCRIPT_REPEATS = ["--repeats", "2"]
 SCRIPT_RUNS = (
     ("profile_attention", SCRIPT_REPEATS),
     ("profile_ring_hop", SCRIPT_REPEATS),
@@ -4880,7 +4910,7 @@ def phase_scripts(torch, card):
         os.environ.update(env)
         tee = _Tee(sys.stdout)
         t0 = time.perf_counter()
-        _zero_launch_counts(fa, fb)
+        reset_launch_counts(*B1_B4)
         try:
             with contextlib.redirect_stdout(tee):
                 res = mod.main(argv)
@@ -4890,7 +4920,7 @@ def phase_scripts(torch, card):
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
-        launches = _launch_counts(fa, fb)
+        launches = launch_counts(*B1_B4)
         seconds = time.perf_counter() - t0
         last = json.loads(tee.copy.getvalue().strip().splitlines()[-1])
         if last != json.loads(json.dumps(res)):
@@ -4909,6 +4939,752 @@ def phase_scripts(torch, card):
     seconds = time.perf_counter() - t_phase
     print(f"[scripts] phase 16 in {seconds:.2f} s", flush=True)
     return dict(scripts=out, seconds=seconds)
+
+
+# ---- phase 17: K train steps per call (train/steps.make_multi_train_step) ----
+
+MS_MICRO = "p3d_micro_sa"
+MS_MICRO_SHAPE = (2, 16, 32, 32, 3)  # (a): x_2_2 (Nq 256) and x_1_3 (2048) on the fp32 kernels
+MS_MICRO_K = 4                       # (a): two calls of 4 against 8 eager steps
+MS_FLAGSHIP_K = 2                    # (b): a warm-up call, then one replayed call
+MS_TIMED_K = 8                       # (c): the JAX benchmark's K (bench.py)
+MS_TIMED_CALLS = 2                   # (c): timed calls a leg, after one
+MS_CLI_K = 4                         # (d)
+# (a), (b): a captured run is held to an eager run group by group (the
+# losses' largest relative difference; the relative L2 distance of all
+# parameters, BN statistics, Adam moments, step counts) within twice the
+# larger of what two more eager runs from the same start move (pool1's
+# max-pool backward and B3's dq reduce-adds add in run order on the card,
+# and fp32 training carries the difference on) plus a floor.  How far two
+# runs part depends on where their reduce-adds first land in another order
+# and on how far training carries that, up to a ceiling, so two eager
+# reruns can both set a control far below it: twice the control alone
+# failed an eager run in the captured run's place in 24 of 180 choices of
+# (a)'s runs and 107 of 840 of (b)'s, on an H100.  Each group's floor is
+# that ceiling, the largest distance of any pair of many runs from one
+# start (``--multi-step-spread``; PERF.md).  (a), 8 micro steps from
+# one start, in two readings of 8 eager and 8 captured runs: parameters
+# 4.07e-4, statistics 5.99e-5, moments 5.87e-2, losses 1.08e-4.  (b), two
+# flagship steps from a snapshot taken after the warm-up call, whose own
+# run order moves the ceiling from one run of the smoke to the next (two
+# readings: parameters 5.41e-4 and 5.77e-4, statistics 1.75e-5 and
+# 1.65e-5, moments 1.87e-1 and 3.73e-1, losses 8.4e-6 and 1.9e-5): the
+# moments' floor is twice their larger ceiling.  Step counts must agree
+# (``MS_FLOOR_DEFAULT``).  The planted faults read 30 to 1e5 times the
+# limits.
+MS_MICRO_FLOOR = {"parameters": 4.1e-4, "statistics": 6e-5, "moments": 5.9e-2,
+                  "losses": 2e-4}
+MS_FLAGSHIP_FLOOR = {"parameters": 6e-4, "statistics": 1.8e-5, "moments": 7.5e-1,
+                     "losses": 2e-4}
+MS_FLOOR_DEFAULT = 1e-6
+MULTI_STEP_FAULTS = ("skip_copy", "replay_short")
+# the hand-written kernels' names in a trace (ms_device_busy)
+MS_HAND_KERNELS = ("flash_", "bwd_row_stats", "round_to_bf16")
+
+
+def ms_launches(counted: dict, multi, replays: int, captures: int) -> dict:
+    """The launches a run of the multi-step ``multi`` made on the card:
+    ``counted``, the counters set to 0 just before the run and read just
+    after it, less ``multi.captured_launches`` for each of the run's
+    ``captures`` (a capture's recording calls launch nothing) and plus
+    them for each of its ``replays``."""
+    return {key: n + multi.captured_launches.get(key, 0) * (replays - captures)
+            for key, n in counted.items()}
+
+
+@contextlib.contextmanager
+def planted_multi_step_fault(fault: str):
+    """``train/steps.py``'s multi-step wrong in one way for the duration:
+    ``step0_batch``, every step of a call on the call's first batch (both
+    paths); ``skip_copy``, replays that skip the copy of their batch into
+    the graph's static inputs (each replay then runs on the batch last
+    copied there: the capture's, the first call's first); ``replay_short``,
+    one replay fewer a call."""
+    from sap3d_tpu_torch.train import steps
+
+    cls = steps.CapturedMultiStep
+    if fault == "step0_batch":
+        target, name, orig = steps, "micro_batch", steps.micro_batch
+
+        def patched(frames, targets, i):
+            return orig(frames, targets, 0)
+    elif fault == "skip_copy":
+        target, name = cls, "_load"
+
+        def patched(self, frames, targets, i):
+            return None
+    elif fault == "replay_short":
+        target, name, orig = cls, "_replay", cls._replay
+
+        def patched(self, i, frames, targets, losses):
+            if i < self.k - 1:
+                orig(self, i, frames, targets, losses)
+    else:
+        raise ValueError(f"no planted multi-step fault {fault!r}")
+    saved = getattr(target, name)
+    setattr(target, name, patched)
+    try:
+        yield
+    finally:
+        setattr(target, name, saved)
+
+
+def ms_live(state) -> dict:
+    """The tensors a train step moves, by (group, name): parameters, BN
+    statistics, Adam moments and Adam step counts."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    out = {("parameters", n): p for n, p in state.model.named_parameters()}
+    out.update({("statistics", n): b for n, b in state.model.named_buffers()})
+    for p, entry in state.optimizer.state.items():
+        for k, t in entry.items():
+            out[("steps" if k == "step" else "moments", f"{names[id(p)]}.{k}")] = t
+    return out
+
+
+def ms_tensors(state) -> dict:
+    return {key: t.detach().clone() for key, t in ms_live(state).items()}
+
+
+def ms_distance(got: dict, want: dict, got_losses, want_losses) -> dict:
+    """Per group of ``ms_live``, the relative L2 distance of ``got``'s
+    tensors from ``want``'s, taken over the whole group (a tensor that is
+    rounding noise, as the gradient of a bias ahead of a train-mode BN, does
+    not decide it), and the losses' largest relative difference; NaN reads
+    as infinity."""
+    if got.keys() != want.keys():
+        return {"tensors": math.inf}
+    sums: dict[str, list[float]] = {}
+    for (group, name), w in want.items():
+        w, g = w.double(), got[(group, name)].double()
+        acc = sums.setdefault(group, [0.0, 0.0])
+        acc[0] += (g - w).square().sum().item()
+        acc[1] += w.square().sum().item()
+    out = {group: math.sqrt(d / max(n, 1e-300)) for group, (d, n) in sums.items()}
+    out["losses"] = ((got_losses.double() - want_losses.double()).abs()
+                     / want_losses.double().abs()).max().item()
+    return {g: v if math.isfinite(v) else math.inf for g, v in out.items()}
+
+
+def ms_control(*distances: dict) -> dict:
+    """The control: group by group, the largest of the eager reruns'
+    distances."""
+    return {g: max(d[g] for d in distances) for g in distances[0]}
+
+
+def ms_hold(got: dict, control: dict, floor: dict) -> dict:
+    """``got`` within twice ``control`` plus its floor (``floor``, else
+    ``MS_FLOOR_DEFAULT``), group by group."""
+    limit = {g: 2 * control[g] + floor.get(g, MS_FLOOR_DEFAULT) for g in control}
+    ok = got.keys() == control.keys() and all(got[g] <= limit[g] for g in limit)
+    excess = max((got.get(g, math.inf) / limit[g] for g in limit), default=math.inf)
+    return dict(distance=got, control=control, limit=limit, excess=excess, ok=ok)
+
+
+def ms_describe(h: dict) -> str:
+    return ", ".join(f"{g} {h['distance'].get(g, math.inf):.3e} (control {h['control'][g]:.3e})"
+                     for g in h["control"]) + f"; excess {h['excess']:.3g}"
+
+
+def ms_worst_tensors(got: dict, want: dict, *controls: dict, n: int = 3) -> dict:
+    """Per group of ``ms_live``, the ``n`` tensors of ``got`` farthest from
+    ``want`` by relative L2 distance (absolute where ``want`` is 0): (name,
+    distance, each control's distance from ``want``, the tensor's share of
+    its group's norm)."""
+    def rel(a, w):
+        d, norm = (a.double() - w.double()).norm().item(), w.double().norm().item()
+        return d / norm if norm > 0 else d
+
+    norms: dict[str, float] = {}
+    for (group, _), w in want.items():
+        norms[group] = norms.get(group, 0.0) + w.double().square().sum().item()
+    out: dict[str, list] = {}
+    for (group, name), w in want.items():
+        share = w.double().norm().item() / math.sqrt(norms[group]) if norms[group] else 0.0
+        out.setdefault(group, []).append(
+            (name, rel(got[(group, name)], w),
+             *(rel(c[(group, name)], w) for c in controls), share))
+    return {group: sorted(rows, key=lambda row: -row[1])[:n] for group, rows in out.items()}
+
+
+def adam_capturable_same(torch, tensors: dict) -> bool:
+    """Whether ``capturable`` moves fused Adam at all: three steps of
+    ``train/state.make_optimizer``'s optimizer on copies of ``tensors``
+    (floating ones, as parameters) with the same random gradients, once
+    capturable and once not; True if parameters and moments agree bit for
+    bit (the update is elementwise and deterministic)."""
+    from sap3d_tpu_torch.train.state import make_optimizer
+
+    grads = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    shapes = [t.shape for t in tensors.values() if t.is_floating_point()]
+    g = [[torch.randn(s, device=DEVICE, generator=grads) for s in shapes] for _ in range(3)]
+    out = []
+    for capturable in (True, False):
+        model = torch.nn.Module()
+        model.kernel = torch.nn.ParameterList(
+            torch.nn.Parameter(t.detach().clone().to(DEVICE))
+            for t in tensors.values() if t.is_floating_point())
+        opt = make_optimizer(model, 1e-4)
+        for group in opt.param_groups:
+            group["capturable"] &= capturable
+        for step in g:
+            for p, gi in zip(model.kernel, step):
+                p.grad = gi.clone()
+            opt.step()
+        out.append([p.detach() for p in model.kernel]
+                   + [t for s in opt.state.values() for t in s.values()])
+    return all(torch.equal(a, b) for a, b in zip(*out))
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(torch):
+    """cuDNN's deterministic algorithms for the duration."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def ms_micro_runner(torch):
+    """(a)'s runs: ``MS_MICRO`` at ``MS_MICRO_SHAPE`` in fp32, dropout 0.5, 8
+    steps from one state and one dropout generator.  Returns ``run(captured,
+    fault=None)`` (8 eager single steps, or two calls of the captured
+    multi-step at K = ``MS_MICRO_K``, ``fault`` planted in the second;
+    the counters set to 0 just before) and the start's state dict."""
+    from sap3d_tpu_torch.models.registry import build_model
+    from sap3d_tpu_torch.train.state import create_train_state
+    from sap3d_tpu_torch.train.steps import (
+        CapturedMultiStep,
+        make_multi_train_step,
+        make_train_step,
+    )
+
+    k, n = MS_MICRO_K, 2 * MS_MICRO_K
+    data = torch.Generator(device=DEVICE).manual_seed(SEED)
+    frames = torch.randn((n, *MS_MICRO_SHAPE), device=DEVICE, generator=data) * 0.5
+    targets = torch.rand((n, *MS_MICRO_SHAPE[:4]), device=DEVICE, generator=data)
+    start = build_model(MS_MICRO, dtype="float32", device=DEVICE, seed=SEED).state_dict()
+
+    def run(captured: bool, fault=None) -> dict:
+        model = build_model(MS_MICRO, dtype="float32", device=DEVICE, seed=SEED,
+                            dropout_rate=0.5)
+        model.load_state_dict(start)
+        state = create_train_state(model, lr=1e-4)
+        drop = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+        ms = None
+        reset_launch_counts(*B1_B4)  # the run below is the main path's
+        if captured:
+            ms = make_multi_train_step(state, k)
+            if not isinstance(ms, CapturedMultiStep):
+                raise AssertionError(f"a CUDA model's multi-step is {type(ms).__name__}")
+            first = ms(frames[:k], targets[:k], drop)
+            with planted_multi_step_fault(fault) if fault else contextlib.nullcontext():
+                second = ms(frames[k:], targets[k:], drop)
+            losses = torch.cat([first, second])
+        else:
+            step = make_train_step(state)
+            losses = torch.stack([step(frames[i], targets[i], drop) for i in range(n)])
+        torch.cuda.synchronize()
+        counted = launch_counts(*B1_B4)
+        return dict(losses=losses.clone(), tensors=ms_tensors(state), step=state.step,
+                    generator=drop.get_state(), ms=ms, counted=counted,
+                    launches=None if ms is None else ms_launches(counted, ms, ms.replays,
+                                                                 ms.captures))
+
+    return run, start
+
+
+def multi_step_micro_hold(torch, faults=MULTI_STEP_FAULTS) -> dict:
+    """Phase 17(a), and the card test ``-k multi_step``: ``ms_micro_runner``'s
+    runs with cuDNN's deterministic algorithms, the captured multi-step's
+    against 8 eager single steps, two more eager runs the control
+    (``ms_control``, ``ms_hold`` with ``MS_MICRO_FLOOR``); the generator's
+    state after the run the eager one's; every planted fault of ``faults``
+    (in the second call) failing the hold.  Also read: whether fused
+    Adam's ``capturable`` moves its update (``adam_capturable_same``).
+    Returns the readings; raises where a hold fails."""
+    k, n = MS_MICRO_K, 2 * MS_MICRO_K
+    with cudnn_deterministic(torch):
+        run, start = ms_micro_runner(torch)
+        e1, e2, e3, c = run(False), run(False), run(False), run(True)
+        faulty = {f: run(True, f) for f in faults}
+        capturable_same = adam_capturable_same(torch, start)
+    control = ms_control(*(ms_distance(e["tensors"], e1["tensors"], e["losses"], e1["losses"])
+                           for e in (e2, e3)))
+    hold = ms_hold(ms_distance(c["tensors"], e1["tensors"], c["losses"], e1["losses"]),
+                   control, MS_MICRO_FLOOR)
+    fault_holds = {f: ms_hold(ms_distance(r["tensors"], e1["tensors"], r["losses"],
+                                          e1["losses"]), control, MS_MICRO_FLOOR)
+                   for f, r in faulty.items()}
+    ms, launches = c["ms"], c["launches"]
+    same_generator = torch.equal(c["generator"], e1["generator"])
+    print(f"[ms] (a) {MS_MICRO} {list(MS_MICRO_SHAPE)} fp32, dropout 0.5, deterministic "
+          f"cuDNN: 2 calls of {k} (warm-up and capture {ms.capture_s:.3f} s, then {ms.replays} "
+          f"replays) against {n} eager steps: {ms_describe(hold)}; generator as the eager "
+          f"run's: {same_generator}; losses captured "
+          f"{[round(v, 4) for v in c['losses'].tolist()]}, eager "
+          f"{[round(v, 4) for v in e1['losses'].tolist()]}", flush=True)
+    print(f"[ms]   launches captured a step {ms.captured_launches}; the run's counted "
+          f"(Python calls, the capture's recording one step among them) {c['counted']} + "
+          f"captured x ({ms.replays} replays - {ms.captures} capture) = {launches}", flush=True)
+    print("[ms]   planted faults: " + "; ".join(
+        f"{f} excess {h['excess']:.3g} ({'passes: void' if h['ok'] else 'fails'})"
+        for f, h in fault_holds.items()), flush=True)
+    print(f"[ms]   fused Adam, capturable against not, three steps on the same gradients: "
+          f"parameters and moments bit for bit {capturable_same}", flush=True)
+    if not hold["ok"] or not same_generator or c["step"] != n:
+        raise AssertionError(f"(a) the captured steps are not the eager ones: {hold}, "
+                             f"generator {same_generator}, step {c['step']}")
+    passed = [f for f, h in fault_holds.items() if h["ok"]]
+    if passed:
+        raise AssertionError(f"(a) the hold passes the planted faults {passed}: void")
+    if not (ms.replays > 0 and ms.captured_launches["B2"] > 0
+            and ms.captured_launches["B3"] > 0):
+        raise AssertionError(f"(a) no replay of the fp32 kernels: {ms.captured_launches}, "
+                             f"{ms.replays} replays")
+    return dict(hold=hold, faults=fault_holds, capturable_same=capturable_same,
+                capture_s=ms.capture_s, replays=ms.replays,
+                captured_launches=ms.captured_launches, launches=launches,
+                losses=c["losses"].tolist())
+
+
+def ms_flagship_runner(torch, calibrated):
+    """(b)'s runs: the calibrated flagship in fp32 at batch ``BATCH``,
+    dropout 0.5, K = ``MS_FLAGSHIP_K``, its multi-step's warm-up call run
+    (the counters set to 0 just before it) and the state (parameters,
+    buffers, moments, step counts) and the generator saved after it.
+    Returns ``run(kind)``, which restores that state in place and runs K
+    eager steps (``"eager"``), one replayed call (``"replayed"``; the
+    counters set to 0 just before it) or one with a planted fault, and the
+    multi-step and its warm-up call's launches and seconds."""
+    from sap3d_tpu_torch.models.registry import build_model
+    from sap3d_tpu_torch.train.state import create_train_state
+    from sap3d_tpu_torch.train.steps import make_multi_train_step, make_train_step
+
+    k = MS_FLAGSHIP_K
+    model = build_model("unet++", dtype="float32", device=DEVICE, dropout_rate=0.5)
+    model.load_state_dict(calibrated)
+    state = create_train_state(model, lr=1e-4)
+    data = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    frames = torch.randn((2 * k, BATCH, 16, SIZE, SIZE, 3), device=DEVICE,
+                         generator=data) * 0.3
+    targets = torch.rand((2 * k, BATCH, 16, SIZE, SIZE), device=DEVICE, generator=data)
+    drop = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    multi = make_multi_train_step(state, k)
+    reset_launch_counts(*B1_B4)  # the warm-up call: K eager steps and the capture
+    t0 = time.perf_counter()
+    multi(frames[:k], targets[:k], drop)
+    torch.cuda.synchronize()
+    warm = dict(seconds=time.perf_counter() - t0,
+                launches=ms_launches(launch_counts(*B1_B4), multi, multi.replays,
+                                     multi.captures))
+    saved, saved_gen, saved_step = ms_tensors(state), drop.get_state(), state.step
+    live = ms_live(state)
+    mf, mt = frames[k:], targets[k:]
+    eager = make_train_step(state)
+
+    def run(kind: str) -> dict:
+        with torch.no_grad():
+            for key, t in live.items():
+                t.copy_(saved[key])
+        drop.set_state(saved_gen)
+        state.step = saved_step
+        out = {}
+        if kind == "eager":
+            losses = torch.stack([eager(mf[i], mt[i], drop) for i in range(k)])
+        elif kind == "replayed":
+            reset_launch_counts(*B1_B4)  # the replayed call, the main path's run
+            replays = multi.replays
+            losses = multi(mf, mt, drop)
+            torch.cuda.synchronize()
+            out["counted"] = launch_counts(*B1_B4)
+            out["launches"] = ms_launches(out["counted"], multi, multi.replays - replays, 0)
+        else:
+            with planted_multi_step_fault(kind):
+                losses = multi(mf, mt, drop)
+        torch.cuda.synchronize()
+        return dict(out, losses=losses.clone(), tensors=ms_tensors(state))
+
+    return run, multi, warm
+
+
+def ms_flagship_hold(torch, calibrated, card) -> dict:
+    """Phase 17(b): ``ms_flagship_runner``'s runs with cuDNN's
+    deterministic algorithms: three eager runs (the second and third the
+    control), one replayed call and one with ``skip_copy``.  Held: the
+    replayed call's first loss bit for bit the eager one's (the forward is
+    deterministic: the two eager runs' first losses agree bit for bit), its
+    state within ``ms_hold`` (``MS_FLAGSHIP_FLOOR``) of the eager run's,
+    and ``skip_copy`` breaking the bit equality and failing the state
+    hold."""
+    k = MS_FLAGSHIP_K
+    with cudnn_deterministic(torch):
+        run, multi, warm = ms_flagship_runner(torch, calibrated)
+        runs = {name: run(kind) for name, kind in (
+            ("eager", "eager"), ("control", "eager"), ("control2", "eager"),
+            ("replayed", "replayed"), ("skip_copy", "skip_copy"))}
+    warm_s = warm["seconds"]
+    warm, replayed, counted = warm["launches"], runs["replayed"]["launches"], \
+        runs["replayed"]["counted"]
+    e, ctl, ctl2, r, f = (runs[n] for n in ("eager", "control", "control2", "replayed",
+                                            "skip_copy"))
+    control = ms_control(*(ms_distance(c["tensors"], e["tensors"], c["losses"], e["losses"])
+                           for c in (ctl, ctl2)))
+    hold = ms_hold(ms_distance(r["tensors"], e["tensors"], r["losses"], e["losses"]), control,
+                   MS_FLAGSHIP_FLOOR)
+    fault_hold = ms_hold(ms_distance(f["tensors"], e["tensors"], f["losses"], e["losses"]),
+                         control, MS_FLAGSHIP_FLOOR)
+    worst = ms_worst_tensors(r["tensors"], e["tensors"], ctl["tensors"], ctl2["tensors"])
+    first_equal = torch.equal(r["losses"][0], e["losses"][0])
+    control_equal = all(torch.equal(c["losses"][0], e["losses"][0]) for c in (ctl, ctl2))
+    fault_equal = torch.equal(f["losses"][0], e["losses"][0])
+    launches = {key: n + replayed[key] for key, n in warm.items()}
+    print(f"[ms] (b) the flagship fp32, batch {BATCH}, dropout 0.5, deterministic cuDNN, K = "
+          f"{k}: warm-up call and capture {warm_s:.2f} s (capture {multi.capture_s:.3f} s); "
+          f"first loss replayed {r['losses'][0].item()!r}, eager {e['losses'][0].item()!r}, "
+          f"control {ctl['losses'][0].item()!r}: bit for bit {first_equal} (control "
+          f"{control_equal}); the state after the call against the eager run: "
+          f"{ms_describe(hold)}; skip_copy's first loss {f['losses'][0].item()!r} (bit for bit "
+          f"{fault_equal}), its state {ms_describe(fault_hold)} "
+          f"({'passes: void' if fault_hold['ok'] else 'fails'}); launches captured a step "
+          f"{multi.captured_launches}; the warm-up call (K eager steps and the capture, counted "
+          f"less the recording) {warm}, the replayed call (counted {counted} + captured x "
+          f"{k} replays) {replayed}; together {launches}  [{card}]", flush=True)
+    print("[ms] (b) per tensor, the replayed call's largest relative L2 distances from the "
+          "eager run (the two controls' beside, and the tensor's share of its group's norm): "
+          + "; ".join(f"{group}: " + ", ".join(
+              f"{name} {d:.3e} (controls {c1:.3e}, {c2:.3e}; share {share:.2e})"
+              for name, d, c1, c2, share in rows) for group, rows in worst.items()), flush=True)
+    if not (first_equal and control_equal and hold["ok"]):
+        raise AssertionError(f"(b) the replayed call is not the eager steps: first loss "
+                             f"{first_equal} (control {control_equal}), {hold}")
+    if fault_equal or fault_hold["ok"]:
+        raise AssertionError(f"(b) skip_copy keeps the first loss bit for bit ({fault_equal}) "
+                             f"or passes the state hold ({fault_hold['ok']}): void")
+    res = dict(hold=hold, fault_hold=fault_hold, worst_tensors=worst,
+               first_loss_bitwise=first_equal, warm_s=warm_s, capture_s=multi.capture_s,
+               replays=k, captured_launches=multi.captured_launches,
+               launches_warm_up=warm, launches_replayed=replayed, launches=launches)
+    del multi, run, runs
+    torch.cuda.empty_cache()
+    return res
+
+
+def ms_spread_of(runs: list, n_eager: int, floor: dict) -> dict:
+    """What a hold of ``ms_hold`` stands on, from ``runs`` from one start,
+    the first ``n_eager`` eager and the rest captured: per group, the range
+    of the distances of eager pairs and of captured-eager pairs (their
+    largest, the ceiling, is what ``floor`` should be), and over every
+    choice of an eager reference and two eager controls, how often twice
+    the control alone and the hold with ``floor`` fail a captured run, or
+    another eager run, in the captured run's place."""
+    d = {(a, b): ms_distance(runs[a]["tensors"], runs[b]["tensors"], runs[a]["losses"],
+                             runs[b]["losses"])
+         for a in range(len(runs)) for b in range(n_eager) if a != b}
+    pairs = {"eager": [key for key in d if key[0] < key[1]],
+             "captured": [key for key in d if key[0] >= n_eager]}
+    ranges = {g: {kind: (min(d[key][g] for key in keys), max(d[key][g] for key in keys))
+                  for kind, keys in pairs.items()} for g in d[pairs["eager"][0]]}
+    holds = {}
+    for kind, cands in (("captured", range(n_eager, len(runs))), ("eager", range(n_eager))):
+        count = dict(choices=0, bare_fail=0, floor_fail=0, worst_excess=0.0)
+        for i, j, m in itertools.permutations(range(n_eager), 3):
+            if j > m:
+                continue
+            control = ms_control(d[j, i], d[m, i])
+            for c in (c for c in cands if c not in (i, j, m)):
+                bare, held = ms_hold(d[c, i], control, {}), ms_hold(d[c, i], control, floor)
+                count["choices"] += 1
+                count["bare_fail"] += not bare["ok"]
+                count["floor_fail"] += not held["ok"]
+                count["worst_excess"] = max(count["worst_excess"], held["excess"])
+        holds[kind] = count
+    return dict(ranges=ranges, holds=holds)
+
+
+def ms_spread(torch, card, n: int) -> dict:
+    """``chip_smoke.py --multi-step-spread N``: what phase 17's holds stand
+    on.  ``n`` eager runs and ``n`` captured runs of (a)
+    (``ms_micro_runner``), and ``n`` eager runs and ``n`` replayed calls of
+    (b) from one snapshot (``ms_flagship_runner``), each read by
+    ``ms_spread_of`` against its floor."""
+    from sap3d_tpu_torch.models.registry import build_model
+
+    out = {}
+    with cudnn_deterministic(torch):
+        run, _ = ms_micro_runner(torch)
+        runs = [run(captured) for captured in [False] * n + [True] * n]
+        out["a"] = ms_spread_of(runs, n, MS_MICRO_FLOOR)
+        out["a"]["first_differing_step"] = [
+            next((i for i in range(len(r["losses"]))
+                  if not torch.equal(r["losses"][i], runs[0]["losses"][i])), None)
+            for r in runs[1:]]
+        del run, runs
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        model = build_model("unet++", dtype="bfloat16", device=DEVICE, seed=SEED)
+        x = torch.randn(BATCH, 16, SIZE, SIZE, 3, device=DEVICE, generator=gen) * 0.3
+        calibrate_and_randomize_bn(torch, model, x, gen)
+        calibrated = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        del model, x
+        torch.cuda.empty_cache()
+        run, multi, _ = ms_flagship_runner(torch, calibrated)
+        runs = [run(kind) for kind in ["eager"] * n + ["replayed"] * n]
+        out["b"] = ms_spread_of(runs, n, MS_FLAGSHIP_FLOOR)
+        out["b"]["first_losses"] = sorted({r["losses"][0].item() for r in runs})
+        del run, multi, runs
+    torch.cuda.empty_cache()
+    for part, res in out.items():
+        for g, r in res["ranges"].items():
+            print(f"[spread] ({part}) {g}: eager pairs {r['eager'][0]:.3e} to "
+                  f"{r['eager'][1]:.3e}, captured-eager pairs {r['captured'][0]:.3e} to "
+                  f"{r['captured'][1]:.3e}", flush=True)
+        for kind, h in res["holds"].items():
+            print(f"[spread] ({part}) a {kind} run in the captured run's place: twice the "
+                  f"control alone fails {h['bare_fail']} of {h['choices']} choices, the hold "
+                  f"with its floor {h['floor_fail']} (worst excess {h['worst_excess']:.3g})  "
+                  f"[{card}]", flush=True)
+    print(f"[spread] (a) first differing step from the first eager run (0-based; eager "
+          f"runs, then captured): {out['a']['first_differing_step']}; (b) first losses "
+          f"{out['b']['first_losses']}", flush=True)
+    return out
+
+
+def ms_device_busy(torch, fn) -> dict | None:
+    """The device time of one call of ``fn`` (torch.profiler, the card's
+    activity alone: kernels, copies and memsets) against its wall time,
+    and the hand-written kernels the card ran (``MS_HAND_KERNELS`` in a
+    device event's name), or None where the profiler saw no device time.
+    Without the host's activity the trace costs the call little and reads
+    in seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the raw events: key_averages() would build every event's tree first
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.duration_ns() for e in events) / 1e6
+    hand = sum(any(key in e.name() for key in MS_HAND_KERNELS) for e in events)
+    return dict(device_ms=device_ms, wall_ms=wall_ms, hand_kernels=hand) if device_ms > 0 \
+        else None
+
+
+def ms_readings(torch, label: str, model, card) -> dict:
+    """Phase 17(c) for ``model`` (bf16, batch ``BATCH``, its dropout): calls of
+    ``MS_TIMED_K`` steps, eager single steps and the captured multi-step, in
+    legs eager, captured, eager again (the control), ``MS_TIMED_CALLS``
+    timed calls each (``_timing.step_times``; ms a step, the median,
+    fastest and slowest); host ms a call (until the call returns); peak
+    memory allocated and reserved (a graph's private pool is reserved, not
+    allocated, between replays); the captured leg's first call (warm-up
+    and capture) apart; one profiled call of each (``ms_device_busy``); B2
+    and B3 launches a step, captured against eager; the hand-written
+    kernels in the two profiled calls' traces, which must agree.  Claims
+    nothing."""
+    import statistics
+
+    from sap3d_tpu_torch.scripts import _timing
+    from sap3d_tpu_torch.train.state import create_train_state
+    from sap3d_tpu_torch.train.steps import make_multi_train_step, make_train_step
+
+    k, device = MS_TIMED_K, torch.device(DEVICE)
+    state = create_train_state(model, lr=1e-4)
+    data = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    frames = torch.randn((k, BATCH, 16, SIZE, SIZE, 3), device=DEVICE, generator=data) * 0.3
+    targets = torch.rand((k, BATCH, 16, SIZE, SIZE), device=DEVICE, generator=data)
+    drop = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    step = make_train_step(state)
+    multi = make_multi_train_step(state, k)
+    out = {}
+
+    def eager():
+        return torch.stack([step(frames[i], targets[i], drop) for i in range(k)])
+
+    def captured():
+        out["losses"] = multi(frames, targets, drop)
+
+    def leg(fn, warmup: int) -> dict:
+        host = []
+
+        def timed():
+            t0 = time.perf_counter()
+            fn()
+            host.append(time.perf_counter() - t0)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = _timing.step_times(timed, MS_TIMED_CALLS, device, warmup=warmup)
+        return dict(_timing.step_summary([t / k for t in times], clips=BATCH),
+                    host_ms_per_call=statistics.median(host[warmup:]) * 1e3,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                    reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30)
+
+    reset_launch_counts(*B1_B4)
+    out["eager"] = leg(eager, 1)
+    eager_per_step = {key: n / ((1 + MS_TIMED_CALLS) * k)
+                      for key, n in launch_counts(*B1_B4).items()}
+    reset_launch_counts(*B1_B4)  # the captured leg, its first call included
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    captured()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    losses = out.pop("losses")
+    out["captured"] = leg(captured, 0)
+    counted, replays = launch_counts(*B1_B4), multi.replays
+    launches = ms_launches(counted, multi, replays, multi.captures)
+    losses = torch.cat([losses, out.pop("losses")])
+    out["eager_again"] = leg(eager, 0)
+    prof = {name: ms_device_busy(torch, fn) for name, fn in (("eager", eager),
+                                                             ("captured", captured))}
+    out.pop("losses")
+    idle = {name: None if p is None else max(0.0, 1 - p["device_ms"] / p["wall_ms"])
+            for name, p in prof.items()}
+    finite = bool(torch.isfinite(losses).all())
+    hand = {name: None if p is None else p["hand_kernels"] for name, p in prof.items()}
+    out.update(first_call_s=first_s, capture_s=multi.capture_s, replays=replays,
+               captured_launches=multi.captured_launches, eager_launches_per_step=eager_per_step,
+               launches=launches, idle_share=idle, profile=prof, hand_kernels=hand,
+               losses_finite=finite)
+    legs = "; ".join(
+        f"{name} {r['ms']:.2f} ms a step [{r['fastest_ms']:.2f}, {r['slowest_ms']:.2f}], "
+        f"{r['clips_per_s']:.1f} clips/s, host {r['host_ms_per_call']:.1f} ms a call, peak "
+        f"{r['peak_gib']:.2f} GiB allocated, {r['reserved_gib']:.2f} GiB reserved (the "
+        "graph's pool among it)" for name, r in
+        ((n, out[n]) for n in ("eager", "captured", "eager_again")))
+    print(f"[ms] (c) {label}, bf16, batch {BATCH}, calls of {k} steps ({MS_TIMED_CALLS} timed "
+          f"a leg): {legs}; the captured leg's first call (warm-up and capture) "
+          f"{first_s:.2f} s, capture {multi.capture_s:.3f} s; idle share "
+          + ", ".join(f"{n} {'not measured' if v is None else f'{v:.3f}'}"
+                      for n, v in idle.items())
+          + f"; B2/B3 a step captured {multi.captured_launches['B2']}/"
+          f"{multi.captured_launches['B3']}, eager {eager_per_step['B2']:g}/"
+          f"{eager_per_step['B3']:g}; the captured leg's launches counted {counted} + "
+          f"captured x ({replays} replays - {multi.captures} capture) = {launches}; "
+          f"hand-written kernels in one profiled call's trace, eager "
+          f"{hand['eager']}, captured {hand['captured']}  [{card}]", flush=True)
+    want = {key: eager_per_step[key] for key in ("B2", "B3")}
+    got = {key: multi.captured_launches[key] for key in ("B2", "B3")}
+    if got != want or not want["B2"] > 0 or not finite:
+        raise AssertionError(f"(c) {label}: launches a step captured {got}, eager {want}; "
+                             f"finite losses {finite}")
+    if None not in hand.values() and not hand["captured"] == hand["eager"] > 0:
+        raise AssertionError(f"(c) {label}: the replayed call ran {hand['captured']} "
+                             f"hand-written kernels, the eager one {hand['eager']}")
+    del multi, step, state, frames, targets
+    torch.cuda.empty_cache()
+    return out
+
+
+def ms_cli(torch, card) -> dict:
+    """Phase 17(d): ``cli train --steps-per-call MS_CLI_K`` once, the
+    flagship in bf16 on a synthetic dataset, max-steps 8: calls end at steps
+    4 and 8, and the JAX rule logs at 4 and 8 (below 10 + K), validates and
+    saves at 4 and 8 (validiter and saveiter 3: ``step % 3 < K``; single
+    steps would have validated and saved at 3 and 6)."""
+    import shutil
+
+    import numpy as np
+
+    from sap3d_tpu_torch import cli
+    from sap3d_tpu_torch.data.synthetic import make_synthetic_dataset
+    from sap3d_tpu_torch.train import trainer as trainer_module
+    from sap3d_tpu_torch.train.checkpoint import checkpoint_steps
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_ms")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    made = []
+    orig = trainer_module.make_multi_train_step
+
+    def spy(*args, **kw):
+        made.append(orig(*args, **kw))
+        return made[-1]
+
+    cwd = os.getcwd()
+    try:
+        data = make_synthetic_dataset(os.path.join(root, "data"), num_videos=2,
+                                      frames_per_video=40, size=(SIZE, SIZE))
+        argv = ["train", "--structure", "unet++", "--dtype", "bfloat16",
+                "--frames", data["frame_dirs"], "--densities", data["density_dirs"],
+                "--imagesize", str(SIZE), "--batch", "2", "--epoch", "4", "--max-steps", "8",
+                "--steps-per-call", str(MS_CLI_K), "--plotiter", "1000", "--validiter", "3",
+                "--saveiter", "3", "--info", "ms", "--threads", "4", "--device", DEVICE]
+        os.chdir(root)
+        trainer_module.make_multi_train_step = spy
+        reset_launch_counts(*B1_B4)
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counted = launch_counts(*B1_B4)
+        (run,) = os.listdir(os.path.join(root, "model"))
+        with open(os.path.join(root, "logs", run, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        ckpts = checkpoint_steps(os.path.join(root, "model", run))
+    finally:
+        trainer_module.make_multi_train_step = orig
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    (multi,) = made
+    launches = ms_launches(counted, multi, multi.replays, multi.captures)
+    logged = [r["step"] for r in records if "loss" in r]
+    validated = [r["step"] for r in records if "cc" in r]
+    saved = [r["step"] for r in records if "save_dispatch_s" in r]
+    losses = [r["loss"] for r in records if "loss" in r]
+    print(f"[ms] (d) cli train --steps-per-call {MS_CLI_K} --max-steps 8 (the flagship, bf16, "
+          f"batch 2): exit {rc} in {seconds:.1f} s; logged at {logged} (losses "
+          f"{[round(v, 3) for v in losses]}), validated at {validated}, saved at {saved}, "
+          f"checkpoints {ckpts}; {type(multi).__name__}, {multi.replays} replays; launches "
+          f"counted {counted} + captured x ({multi.replays} replays - {multi.captures} "
+          f"capture) = {launches}  [{card}]", flush=True)
+    if rc != 0 or logged != [4, 8] or validated != [4, 8] or saved != [4, 8] \
+            or ckpts != [4, 8] or not all(np.isfinite(losses)) or multi.replays != MS_CLI_K:
+        raise AssertionError("(d) cli train --steps-per-call did not follow the JAX rule")
+    return dict(seconds=seconds, logged=logged, validated=validated, saved=saved,
+                checkpoints=ckpts, replays=multi.replays, launches=launches)
+
+
+def phase_multi_step(torch, calibrated, card) -> dict:
+    """Phase 17: K train steps per call (``make_multi_train_step``)."""
+    from sap3d_tpu_torch.models.registry import build_model
+
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.empty_cache()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    def readings(label, build):
+        return ms_readings(torch, label, build(), card)
+
+    def flagship():
+        model = build_model("unet++", dtype="bfloat16", device=DEVICE, dropout_rate=0.5)
+        model.load_state_dict(calibrated)
+        return model
+
+    res = dict(micro=part("a", lambda: multi_step_micro_hold(torch)),
+               flagship=part("b", lambda: ms_flagship_hold(torch, calibrated, card)))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    res["readings"] = {
+        "flagship": part("c flagship", lambda: readings("the flagship", flagship)),
+        "gn": part("c GN", lambda: readings("the GN SA decoder",
+                                            lambda: build_gn_model(torch, "bfloat16", gen=gen))),
+    }
+    res["cli"] = part("d", lambda: ms_cli(torch, card))
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[ms] phase 17 in {res['seconds']:.2f} s ("
+          + ", ".join(f"({n}) {v:.1f} s" for n, v in seconds.items()) + ")", flush=True)
+    return res
 
 
 BUILD_KERNELS = {
@@ -5027,6 +5803,9 @@ def main(argv=None) -> int:
     p.add_argument("--json-out", default=None,
                    help="also profile one forward and one train step by layer and "
                         "write the details here")
+    p.add_argument("--multi-step-spread", type=int, default=0, metavar="N",
+                   help="only read what phase 17's holds stand on, from N eager and N "
+                        "captured runs of (a) and of (b), after the build")
     p.add_argument("--multihost-repeats", type=int, default=1,
                    help="run phase 14's (b) this many times and print every pair's "
                         "readings")
@@ -5041,6 +5820,11 @@ def main(argv=None) -> int:
     try:
         card = card_line()
         print(f"[card] {card}", flush=True)
+        t_start = time.perf_counter()
+
+        def phase_ended(n: int) -> None:
+            print(f"[time] phase {n} ended {time.perf_counter() - t_start:.1f} s after the "
+                  "card's line", flush=True)
         # float32 references in full float32: no TF32 in products or in cuDNN
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -5075,8 +5859,14 @@ def main(argv=None) -> int:
             raise AssertionError(f"{n_stats} row-stats instantiations compiled, not one per "
                                  "(d tile, planes)")
 
+        phase_ended(2)
+        if args.multi_step_spread:
+            spread = ms_spread(torch, card, args.multi_step_spread)
+            print(json.dumps({"multi_step_spread": spread}), flush=True)
+            return 0
         flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
         rows = phase_kernels(torch, fa, fb, flush)
+        phase_ended(3)
 
         gen = torch.Generator(device=DEVICE).manual_seed(SEED)
         model = build_model("unet++", dtype="bfloat16", device=DEVICE, seed=SEED)
@@ -5086,9 +5876,12 @@ def main(argv=None) -> int:
         fwd = phase_forward(torch, fa, model, x)
         thr = phase_throughput(torch, model, x, card)
         prof = phase_profile(torch, model, x) if args.json_out else None
+        phase_ended(4)
         launches = phase_predictor(torch, fa, model)
+        phase_ended(5)
         del x
         train = phase_train(torch, fa, fb, model, card, profile=bool(args.json_out))
+        phase_ended(6)
         del model
         torch.cuda.empty_cache()
 
@@ -5117,6 +5910,7 @@ def main(argv=None) -> int:
                                   card, profile=bool(args.json_out))
         del gn_model
         torch.cuda.empty_cache()
+        phase_ended(7)
         zoo, zoo_sites = phase_zoo(torch, fa, set(SITES.values()) | set(gn_sites.values()))
         # B1, B2 and B3 at the sites no earlier phase measured (the 'full'
         # head's x_0_1_sa), at the zoo's batch of 2
@@ -5128,18 +5922,23 @@ def main(argv=None) -> int:
         if not all(len(zoo_rows[n]) == 2 * len(zoo_sites) for n in ("B1", "B2", "B3")):
             raise AssertionError("B1, B2 and B3 were not all held at the zoo's new sites")
 
+        phase_ended(8)
         ring, b4_rows = phase_ring(torch, fa, fb, calibrated, flush, card,
                                    profile=bool(args.json_out))
         torch.cuda.empty_cache()
         tshard = phase_time_shard(torch, fa, fb, calibrated, card)
+        phase_ended(9)
         b6_rows, stats_rows = phase_b6(torch, fa, nolse, flush)
         bisect = phase_bisect(torch, fa, nolse, ta, card)
+        phase_ended(10)
         evaluation = phase_eval(torch, fa, calibrated, card)
+        phase_ended(11)
         tf_reader = phase_tf_reader()
         quirk_model, tf_mapping = phase_tf_mapping(torch, calibrated)
         tf_quirk = phase_tf_quirk(torch, fa, quirk_model, calibrated, card)
         del quirk_model
         torch.cuda.empty_cache()
+        phase_ended(12)
         dp = [phase_data_parallel(torch, calibrated, card)]
         if torch.cuda.device_count() >= 2:
             from sap3d_tpu_torch.core.mesh import make_mesh
@@ -5149,7 +5948,9 @@ def main(argv=None) -> int:
             print(f"[dp] over NCCL on two cards: not run ({torch.cuda.device_count()} card "
                   "visible); gloo on cuda:0 twice ran", flush=True)
         torch.cuda.empty_cache()
+        phase_ended(13)
         mh = phase_multihost(torch, card, repeats=args.multihost_repeats)
+        phase_ended(14)
         from sap3d_tpu_torch.core.sharding_rules import make_mesh_2d
 
         tp = [phase_tensor_parallel(torch, calibrated, card, dp=dp[0])]
@@ -5159,9 +5960,14 @@ def main(argv=None) -> int:
         else:
             print(f"[tp] over NCCL on four cards: not run ({torch.cuda.device_count()} card(s) "
                   "visible); gloo on cuda:0 four times ran", flush=True)
+        torch.cuda.empty_cache()
+        phase_ended(15)
+        scripts = phase_scripts(torch, card)
+        phase_ended(16)
+        multi = phase_multi_step(torch, calibrated, card)
+        phase_ended(17)
         del calibrated
         torch.cuda.empty_cache()
-        scripts = phase_scripts(torch, card)
 
         fit, gn_fit = train["fit"]["launches"], gn_train["fit"]["launches"]
         ring_fwd, ring_step = ring["launches"]["forward"], ring["launches"]["step"]
@@ -5193,6 +5999,13 @@ def main(argv=None) -> int:
         sc_bf16 = {k: sum(n[k] for name, n in sc.items() if name != "bench_cli_eval")
                    for k in ("B1", "B2", "B3", "B4")}
         sc_fp32 = sc["bench_cli_eval"]
+        # phase 17: the captured multi-step's runs, each counted and then
+        # captured launches x replays added: bf16, (c)'s captured legs and
+        # (d)'s cli train; fp32, (a) and (b)
+        ms_bf16 = {k: sum(r["launches"][k] for r in multi["readings"].values())
+                   + multi["cli"]["launches"][k] for k in ("B1", "B2", "B3")}
+        ms_fp32 = {k: multi["micro"]["launches"][k] + multi["flagship"]["launches"][k]
+                   for k in ("B2", "B3")}
         # every main path launched every kernel the gate gives it
         if not (launches > 0 and fit["B2"] > 0 and fit["B3"] > 0 and gn_launches > 0
                 and gn_fit["B2"] > 0 and gn_fit["B3"] > 0 and b5_launches > 0
@@ -5207,7 +6020,8 @@ def main(argv=None) -> int:
                 and ts32["B4"] > 0 and ts_zoo["B2"] > 0 and ts_zoo["B3"] > 0
                 and ts_zoo["B4"] > 0 and tp_steps["B2"] > 0 and tp_steps["B3"] > 0
                 and all(sc_bf16[k] > 0 for k in ("B1", "B2", "B3", "B4"))
-                and sc_fp32["B1"] > 0):
+                and sc_fp32["B1"] > 0 and ms_bf16["B2"] > 0 and ms_bf16["B3"] > 0
+                and ms_fp32["B2"] > 0 and ms_fp32["B3"] > 0):
             raise AssertionError("a kernel of a main path was never launched")
         print(f"[launches] flagship predictor B1 {launches}; flagship Trainer.fit {fit}; GN "
               f"predictor B1 {gn_launches}; GN Trainer.fit {gn_fit}; B5 on the GN step's "
@@ -5222,7 +6036,8 @@ def main(argv=None) -> int:
               f"{dp_eval32}; cli train --distributed, over both processes' ranks {mh_fit}; "
               f"the time-sharded step {ts_step}, float32 {ts32}, every registry name's "
               f"{ts_zoo}; the tensor-parallel bf16 steps, over the ranks {tp_steps}; the scripts "
-              f"(phase 16) {sc}", flush=True)
+              f"(phase 16) {sc}; the captured multi-step (phase 17; counted, plus captured "
+              f"launches x replays) bf16 {ms_bf16}, float32 {ms_fp32}", flush=True)
         in_step = {k: [r["max_abs_err"] for r in train[f"{k}_in_step"].values()]
                    for k in ("b2", "b3")}
         kernels = [
@@ -5231,19 +6046,20 @@ def main(argv=None) -> int:
             kernel_entry("flash_attention_fwd", fa.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:141",
                          launches + gn_launches + evaluation["b1_launches"]
-                         + tf_quirk["b1_launches"] + mh_fit["B1"] + sc_bf16["B1"],
+                         + tf_quirk["b1_launches"] + mh_fit["B1"] + sc_bf16["B1"]
+                         + ms_bf16["B1"],
                          rows["B1"], [r["max_abs_err"] for r in gn_fwd["held"].values()],
                          gn_rows["B1"] + zoo_rows["B1"]),
             kernel_entry("flash_attention_fwd_lse", fa.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:141",
                          fit["B2"] + gn_fit["B2"] + ring_fwd["B2"] + ring_step["B2"]
                          + dp_fit["B2"] + mh_fit["B2"] + ts_step["B2"] + ts_zoo["B2"]
-                         + tp_steps["B2"] + sc_bf16["B2"],
+                         + tp_steps["B2"] + sc_bf16["B2"] + ms_bf16["B2"],
                          rows["B2"], in_step["b2"], gn_rows["B2"] + zoo_rows["B2"]),
             kernel_entry("flash_attention_bwd", fb.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:274",
                          fit["B3"] + gn_fit["B3"] + dp_fit["B3"] + mh_fit["B3"] + ts_zoo["B3"]
-                         + tp_steps["B3"] + sc_bf16["B3"],
+                         + tp_steps["B3"] + sc_bf16["B3"] + ms_bf16["B3"],
                          rows["B3"], in_step["b3"], gn_rows["B3"] + zoo_rows["B3"]),
             # B4: the ring train steps' backward (ring-only and time-sharded),
             # times at the per-shard shapes
@@ -5277,11 +6093,12 @@ def main(argv=None) -> int:
                          gn_rows["B1"] + zoo_rows["B1"], dtype="float32"),
             kernel_entry("flash_attention_fwd_lse_split_f32", fa.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:141",
-                         fit32["B2"] + ring32["B2"] + dp_step32["B2"] + ts32["B2"], rows["B2"], (),
+                         fit32["B2"] + ring32["B2"] + dp_step32["B2"] + ts32["B2"]
+                         + ms_fp32["B2"], rows["B2"], (),
                          gn_rows["B2"] + zoo_rows["B2"], dtype="float32"),
             kernel_entry("flash_attention_bwd_split_f32", fb.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:274",
-                         fit32["B3"] + dp_step32["B3"], rows["B3"], (),
+                         fit32["B3"] + dp_step32["B3"] + ms_fp32["B3"], rows["B3"], (),
                          gn_rows["B3"] + zoo_rows["B3"], dtype="float32"),
             kernel_entry("flash_attention_bwd_lse_split_f32", fb.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:274", ring32["B4"] + ts32["B4"],
@@ -5303,7 +6120,7 @@ def main(argv=None) -> int:
                                tf_import=dict(reader=tf_reader, mapping=tf_mapping,
                                               quirk=tf_quirk),
                                data_parallel=dp, multihost=mh, tensor_parallel=tp,
-                               scripts=scripts, kernels=kernels), f,
+                               scripts=scripts, multi_step=multi, kernels=kernels), f,
                           indent=1)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {

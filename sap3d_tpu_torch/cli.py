@@ -149,8 +149,11 @@ def _train_parser() -> argparse.ArgumentParser:
     p.add_argument("--sync-bn", type=parse_bool, default=False,
                    help="no effect: BN statistics are always global-batch")
     p.add_argument("--steps-per-call", type=int, default=1,
-                   help="no effect: accepted for the JAX command line; each "
-                        "call is one train step (train/steps.py)")
+                   help="K train steps per call (train/steps.make_multi_train_step): "
+                        "on one card one captured CUDA graph of a step, replayed K "
+                        "times; on the CPU, a data mesh or --time-shards, K single "
+                        "steps in one call.  Logging, validation and saving are "
+                        "tested after each call, as in the JAX trainer")
     p.add_argument("--weight-decay", type=float, default=0.0,
                    help="coupled L2 on conv kernels")
     p.add_argument("--max-steps", type=int, default=None)

@@ -99,7 +99,8 @@ class TrainConfig:
     logs_dir: str = "./logs"
     info: str = ""
     sync_bn: bool = False
-    # Accepted for the JAX command line; the port runs one step per call.
+    # K train steps per call (train/steps.make_multi_train_step): a CUDA graph
+    # replayed K times on one card, K single steps elsewhere.
     steps_per_call: int = 1
     # Anomaly detection (the counterpart of jax debug_nans).
     debug_nans: bool = False

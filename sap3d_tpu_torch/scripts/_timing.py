@@ -167,14 +167,10 @@ def step_summary(times: list[float], clips: int | None = None) -> dict:
 
 
 def launch_counts() -> dict[str, int]:
-    """The launch counters of kernels B1-B4 (``flash_attend_tokens``,
-    ``flash_forward_lse``, ``flash_backward`` and its ``launches_lse``):
-    those ``chip_smoke.py`` reads."""
-    from sap3d_tpu_torch.ops.cuda import flash_attention as fa
-    from sap3d_tpu_torch.ops.cuda import flash_attention_bwd as fb
+    """The launch counters of kernels B1-B4 (``ops.cuda.launch_counts``)."""
+    from sap3d_tpu_torch.ops import cuda
 
-    return {"B1": fa.flash_attend_tokens.launches, "B2": fa.flash_forward_lse.launches,
-            "B3": fb.flash_backward.launches, "B4": fb.flash_backward.launches_lse}
+    return cuda.launch_counts("B1", "B2", "B3", "B4")
 
 
 def launches_since(before: dict[str, int]) -> dict[str, int]:

@@ -40,8 +40,7 @@ import torch
 
 from sap3d_tpu_torch.core.device import resolve_device
 from sap3d_tpu_torch.models.registry import build_model
-from sap3d_tpu_torch.ops import attention
-from sap3d_tpu_torch.ops.cuda import flash_attention as fa
+from sap3d_tpu_torch.ops import attention, cuda
 from sap3d_tpu_torch.ops.cuda import flash_attention_nolse as nolse
 from sap3d_tpu_torch.train.steps import make_eval_step
 
@@ -90,15 +89,13 @@ def flagship(batch: int, device, structure: str = FLAGSHIP, size: int = 112):
 
 
 def launch_counts() -> dict[str, int]:
-    return {"B1": fa.flash_attend_tokens.launches, "RS": fa.flash_row_stats.launches,
-            "B6": nolse.flash_nolse.launches}
+    return cuda.launch_counts("B1", "RS", "B6")
 
 
 def forward_launches(fwd, frames: torch.Tensor) -> dict[str, int]:
     """B1 and B6 (row statistics and pass 2) launches of one call of
     ``fwd``, counted from 0."""
-    fa.flash_attend_tokens.launches = fa.flash_row_stats.launches = 0
-    nolse.flash_nolse.launches = 0
+    cuda.reset_launch_counts("B1", "RS", "B6")
     fwd(frames)
     synchronize(frames.device)
     return launch_counts()

@@ -106,11 +106,18 @@ class CheckpointManager:
 
     def restore(self, state: TrainState, step: int | None = None) -> TrainState:
         """Load the checkpoint at ``step`` (default: the latest) into
-        ``state``'s model and optimizer; shapes must match."""
+        ``state``'s model and optimizer; shapes must match.  The optimizer
+        keeps its own ``fused`` and ``capturable``."""
         self.wait_until_finished()
         payload = load_checkpoint(self.directory, step)
         state.model.load_state_dict(payload["model"], strict=True)
-        state.optimizer.load_state_dict(payload["optimizer"])
+        optimizer = payload["optimizer"]
+        # fused and capturable follow this process's device (a checkpoint
+        # written on the CPU, or before the step could be captured, carries
+        # others); the rest is the checkpoint's
+        for saved, live in zip(optimizer["param_groups"], state.optimizer.param_groups):
+            saved.update({k: live[k] for k in ("fused", "capturable")})
+        state.optimizer.load_state_dict(optimizer)
         state.step = int(payload["step"])
         return state
 

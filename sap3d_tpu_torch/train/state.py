@@ -63,15 +63,19 @@ def make_optimizer(model: nn.Module, lr: float,
                    weight_decay: float = 0.0) -> torch.optim.Adam:
     """Adam, with coupled L2 on kernels only when ``weight_decay`` > 0.
     On CUDA parameters the update runs fused (one multi-tensor kernel per
-    step; the same arithmetic as the default implementation)."""
+    step; the same arithmetic as the default implementation) and
+    ``capturable``, so that a CUDA graph may hold the step
+    (``train/steps.CapturedMultiStep``): fused Adam keeps its step counts on
+    the device either way and computes the same update, and the flag only
+    lets a capture take it."""
     named = list(model.named_parameters())
     fused = all(p.is_cuda for _, p in named)
     if weight_decay <= 0:
-        return torch.optim.Adam([p for _, p in named], lr=lr, fused=fused)
+        return torch.optim.Adam([p for _, p in named], lr=lr, fused=fused, capturable=fused)
     return torch.optim.Adam([
         {"params": [p for n, p in named if is_kernel(n)], "weight_decay": weight_decay},
         {"params": [p for n, p in named if not is_kernel(n)], "weight_decay": 0.0},
-    ], lr=lr, fused=fused)
+    ], lr=lr, fused=fused, capturable=fused)
 
 
 def create_train_state(model: nn.Module, lr: float = 1e-4,

@@ -46,21 +46,33 @@ every rank of the row), so every rank of a model row must draw the same
 masks: the caller passes generators seeded by the data index
 (``group.data.rank``), not the global rank.
 
-The JAX package's ``make_multi_train_step`` fuses K steps into one
-dispatch with ``lax.scan``; eager PyTorch has no dispatch to save that way
-(K steps in one call would be the same loop of K single steps), so it has
-no counterpart here and the trainer runs single steps.
+K steps per call (``make_multi_train_step``, the JAX package's
+``lax.scan`` of K steps in one dispatch): ``multi_step(frames [K, B, T, H,
+W, 3], targets [K, B, T, H, W], generator)`` computes what K calls of the
+train step compute, in order, dropout drawn from the one ``generator``,
+and returns the K losses (float32 ``[K]`` on the device, not
+synchronized); ``state.step`` grows by K.  Its path is fixed when it is
+built.  On a CUDA model with no data group of more than one rank, no state
+sharding and no time mesh, one step is a captured CUDA graph
+(``CapturedMultiStep``): eager PyTorch spends more host time launching a
+step's few thousand kernels than the card spends running them (PERF.md
+§5), and a replay launches them all at once.  On the CPU, on a data group,
+on a data x model grid and over a time mesh the K single steps run one
+after the other in the call.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable
 
 import numpy as np
 import torch
 from torch import nn
 
+from sap3d_tpu_torch.core.mesh import time_shard_batch
 from sap3d_tpu_torch.core.sharding_rules import apply_state_sharding, sharded_layers
+from sap3d_tpu_torch.ops.cuda import launch_counts
 from sap3d_tpu_torch.ops.layers import set_data_group, smooth_l1_loss, smooth_l1_terms
 from sap3d_tpu_torch.ops.time_shard import Shards, shard_sums
 from sap3d_tpu_torch.train.state import TrainState
@@ -167,6 +179,175 @@ def make_train_step(state: TrainState, group=None, state_sharding=None
         return loss
 
     return step
+
+
+def micro_batch(frames, targets, i: int):
+    """Step ``i``'s batch of a multi-step call."""
+    return frames[i], targets[i]
+
+
+def make_multi_train_step(state: TrainState, steps_per_call: int, group=None,
+                          state_sharding=None, time_mesh=None):
+    """K = ``steps_per_call`` train steps per call (``multi_step(frames,
+    targets, generator) -> losses [K]``), over ``make_train_step(state,
+    group, state_sharding)``.  The path is chosen here, once:
+
+    * captured (``CapturedMultiStep``): the model's parameters on a CUDA
+      device, ``group`` None or of one rank, no ``state_sharding`` and no
+      ``time_mesh``.  A capture that fails raises; nothing then runs the
+      steps eagerly in its place.
+    * loop: anywhere else (the CPU, a data group over NCCL or gloo, a data x
+      model grid, a time mesh), the K single steps one after the other.
+      With ``time_mesh`` (long-clip mode) ``frames`` and ``targets`` are
+      host arrays and each step's batch is cut onto the mesh's shards
+      (``core/mesh.time_shard_batch``), as the trainer's single steps are.
+    """
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call must be at least 1, got {steps_per_call}")
+    step = make_train_step(state, group, state_sharding)
+    on_card = next(state.model.parameters()).device.type == "cuda"
+    if on_card and time_mesh is None and state_sharding is None \
+            and (group is None or group.world_size == 1):
+        return CapturedMultiStep(state, step, steps_per_call)
+
+    def multi_step(frames, targets, generator: torch.Generator | None = None) -> torch.Tensor:
+        _check_steps(frames, targets, steps_per_call)
+        losses = []
+        for i in range(steps_per_call):
+            f, t = micro_batch(frames, targets, i)
+            if time_mesh is not None:
+                f, t = time_shard_batch(time_mesh, (f, t))
+            losses.append(step(f, t, generator))
+        return torch.stack(losses)
+
+    return multi_step
+
+
+def _check_steps(frames, targets, k: int) -> None:
+    if len(frames) != k or len(targets) != k:
+        raise ValueError(f"a call of {k} steps takes [{k}, B, ...] frames and targets, "
+                         f"got {len(frames)} and {len(targets)}")
+
+
+class CapturedMultiStep:
+    """The captured path of ``make_multi_train_step``: one train step
+    (``step``, a ``make_train_step`` of ``state``) as a CUDA graph.
+
+    The first call runs its K steps eagerly on the graph's side stream.
+    They are real steps, and the warm-up that capture needs: the kernels'
+    first-use build and shared-memory attributes, cuDNN's plans, fused
+    Adam's state.  Then it captures one step (the forward, the loss,
+    ``zero_grad(set_to_none=True)``, the backward, ``opt.step()``) on
+    static frames and targets, with ``generator`` registered to the graph,
+    so that each replay draws the dropout masks an eager step would draw
+    and advances the generator as far.  Each step of a later call copies
+    its batch into the static inputs and replays the graph.  The optimizer
+    must be ``capturable`` (``train/state.make_optimizer`` makes it so on
+    the card; fused Adam computes the same update either way), or the
+    capture raises, as any failed capture does.
+
+    What the graph holds fixed:
+
+    * where the parameters, BN buffers, Adam moments and step counts lie.
+      A call that finds any of them replaced
+      (``TrainState.load_optimizer_state``, a checkpoint restore) warms up
+      and captures again;
+    * the generator: a later call with another one raises;
+    * what Python read while capturing: the attention routes and
+      ``use_kernel``, the dropout rate, train mode, the optimizer's lr, a
+      patched function.  A change to any of them needs a new multi-step;
+    * the batch's shape and dtype, which a later call must keep.
+
+    ``.grad`` after a call is the graph's memory or an eager step's: read
+    nothing from it.  The launch counters of ``ops.cuda`` count Python
+    calls, so a replay adds nothing to them and each capture's recording
+    calls, which launch nothing, add ``captured_launches`` (one captured
+    step's launches).  ``replays`` counts the steps replayed and
+    ``captures`` the captures, so a run that moved the counters by
+    ``counted`` launched ``counted + captured_launches * (replays -
+    captures)``, both taken over the run.  ``capture_s`` is the last
+    capture's seconds.
+    """
+
+    def __init__(self, state: TrainState, step, steps_per_call: int):
+        self.state, self.step, self.k = state, step, steps_per_call
+        self.device = next(state.model.parameters()).device
+        self.stream = torch.cuda.Stream(self.device)
+        self.graph = None
+        self.generator = None
+        self.static_frames = self.static_targets = self.static_loss = None
+        self.replays = self.captures = 0
+        self.captured_launches: dict[str, int] = {}
+        self.capture_s = 0.0
+        self._storage: tuple[int, ...] = ()
+
+    def _storage_now(self) -> tuple[int, ...]:
+        opt = self.state.optimizer
+        tensors = [*self.state.model.parameters(), *self.state.model.buffers(),
+                   *(t for s in opt.state.values() for t in s.values() if torch.is_tensor(t))]
+        return tuple(t.data_ptr() for t in tensors)
+
+    def __call__(self, frames: torch.Tensor, targets: torch.Tensor,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+        _check_steps(frames, targets, self.k)
+        losses = torch.empty(self.k, dtype=torch.float32, device=self.device)
+        if self.graph is None or self._storage != self._storage_now():
+            self._warm_up(frames, targets, generator, losses)
+            self._capture(frames, targets, generator)
+            return losses
+        if generator is not self.generator:
+            raise ValueError("the graph was captured with another dropout generator")
+        if (frames.shape[1:], frames.dtype, targets.shape[1:], targets.dtype) != (
+                self.static_frames.shape, self.static_frames.dtype,
+                self.static_targets.shape, self.static_targets.dtype):
+            raise ValueError(f"the graph was captured on frames {tuple(self.static_frames.shape)} "
+                             f"and targets {tuple(self.static_targets.shape)}; got "
+                             f"{tuple(frames.shape[1:])} and {tuple(targets.shape[1:])}")
+        for i in range(self.k):
+            self._replay(i, frames, targets, losses)
+        self.replays += self.k
+        self.state.step += self.k
+        return losses
+
+    def _warm_up(self, frames, targets, generator, losses) -> None:
+        """The call's K steps, eagerly on the side stream."""
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            for i in range(self.k):
+                losses[i] = self.step(*micro_batch(frames, targets, i), generator)
+        current.wait_stream(self.stream)
+
+    def _capture(self, frames, targets, generator) -> None:
+        self.graph = None
+        self.static_frames = frames[0].clone()
+        self.static_targets = targets[0].clone()
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        before, count = launch_counts(), self.state.step
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, stream=self.stream):
+                self.static_loss = self.step(self.static_frames, self.static_targets, generator)
+        finally:
+            self.state.step = count  # capturing ran no step
+        self.capture_s = time.perf_counter() - t0
+        self.captured_launches = {k: n - before[k] for k, n in launch_counts().items()}
+        self.captures += 1
+        self.graph, self.generator, self._storage = graph, generator, self._storage_now()
+
+    def _load(self, frames, targets, i: int) -> None:
+        f, t = micro_batch(frames, targets, i)
+        self.static_frames.copy_(f)
+        self.static_targets.copy_(t)
+
+    def _replay(self, i: int, frames, targets, losses) -> None:
+        """Step ``i`` of a call: its batch into the static inputs, one
+        replay, its loss out."""
+        self._load(frames, targets, i)
+        self.graph.replay()
+        losses[i] = self.static_loss
 
 
 def make_eval_step(model: nn.Module) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -30,16 +30,27 @@ device, as one rank of a data mesh, or in long-clip mode over a time mesh.
   clips/s counts the global batch; validation gathers every rank's
   per-clip scores before the means.  ``sync_bn`` changes nothing: the
   statistics are always global-batch, as in the JAX trainer.
-* Profiler traces (``profile_dir``): steps ``[profile_start,
-  profile_start + profile_steps)`` are traced with ``torch.profiler`` (CPU
-  activity, and CUDA activity on the card), each step a ``train_step
-  <n>`` range; the device is synchronized before the trace stops, as the
+* Profiler traces (``profile_dir``): the calls that run any of the steps
+  ``[profile_start, profile_start + profile_steps)`` are traced with
+  ``torch.profiler`` (CPU activity, and CUDA activity on the card), each
+  call a ``train_step <n>`` range (``train_step <first>-<last>`` for a call
+  of K steps); the device is synchronized before the trace stops, as the
   JAX trainer blocks, and each rank writes its own Chrome trace,
   ``rank<r>_steps_<first>-<last>.pt.trace.json``, into ``profile_dir``.
-* ``steps_per_call`` is accepted for the JAX command line and changes
-  nothing: the JAX trainer groups K batches into one ``lax.scan`` dispatch,
-  which in eager PyTorch would be the same K single steps
-  (``train/steps.py``).
+* ``steps_per_call`` K > 1: as the JAX trainer, ``fit`` groups K
+  consecutive batches (``_macro_batches``; the batches left over at the
+  end go through the single step), puts each group on the device in one
+  copy and runs it through ``train/steps.make_multi_train_step``: one
+  captured CUDA graph replayed K times on one card, K single steps in one
+  call on the CPU, on a data mesh (each rank groups its own batches) and in
+  long-clip mode.  Logging, validation, saving and ``max_steps`` are tested
+  after each call by the JAX trainer's rule, with the call's K steps
+  behind it: it logs when ``step < 10 + k or step % plot_iter < k`` (the
+  call's last loss; the JPEG dump and plot forward on its last batch),
+  validates when ``step >= valid_iter and step % valid_iter < k`` and
+  saves when ``step >= save_iter and step % save_iter < k``; at K = 1 these
+  are every step up to 10 and every ``plot_iter``-th, ``valid_iter``-th and
+  ``save_iter``-th step.  A profiler window traces whole calls.
 * Long-clip mode (``time_shards`` N > 1): a time mesh of N devices
   (``core/mesh.py``), with the JAX trainer's guards (N no more than the
   devices; the clip length a multiple of 16 N, so that every shard keeps a
@@ -83,7 +94,11 @@ from sap3d_tpu_torch.models.registry import build_model
 from sap3d_tpu_torch.ops.time_shard import last_frame
 from sap3d_tpu_torch.train.checkpoint import CheckpointManager, try_restore_latest
 from sap3d_tpu_torch.train.state import create_train_state
-from sap3d_tpu_torch.train.steps import make_eval_step, make_train_step
+from sap3d_tpu_torch.train.steps import (
+    make_eval_step,
+    make_multi_train_step,
+    make_train_step,
+)
 from sap3d_tpu_torch.train.tb_events import EventWriter
 
 
@@ -139,7 +154,11 @@ class Trainer:
             print(f"[time-shards] model '{cfg.model.name}' has no ring-attention sites; its "
                   f"attention sites gather their tokens on {self.time_mesh.devices[0]}")
         self.state = create_train_state(self.model, lr=tc.lr, weight_decay=tc.weight_decay)
+        self.steps_per_call = max(1, tc.steps_per_call)
         self.train_step = make_train_step(self.state, self.group)
+        self.multi_step = make_multi_train_step(
+            self.state, self.steps_per_call, self.group, time_mesh=self.time_mesh) \
+            if self.steps_per_call > 1 else None
         self.eval_step = make_eval_step(self.model)
         if self.is_main_process:
             self.ckpt = CheckpointManager(self.model_dir, tc.max_to_keep)
@@ -217,6 +236,25 @@ class Trainer:
             return time_shard_batch(self.time_mesh, array)
         return torch.as_tensor(np.asarray(array), device=self.device)
 
+    def _macro_batches(self, batches: Iterable):
+        """``(k, frames, targets)``: K consecutive batches stacked into [K,
+        B, ...] arrays with k = K, and the batches left over after the last
+        whole group one by one with k = 1 (the JAX trainer's
+        ``_macro_batches``)."""
+        if self.steps_per_call == 1:
+            for f, t in batches:
+                yield 1, f, t
+            return
+        group: list = []
+        for f, t in batches:
+            group.append((f, t))
+            if len(group) == self.steps_per_call:
+                yield (len(group), np.stack([g[0] for g in group]),
+                       np.stack([g[1] for g in group]))
+                group = []
+        for f, t in group:
+            yield 1, f, t
+
     def _save(self, step: int) -> None:
         """Rank 0 saves; the other ranks wait for it."""
         if self.is_main_process:
@@ -260,25 +298,38 @@ class Trainer:
         ran_any = False
         traced = range(tc.profile_start, tc.profile_start + tc.profile_steps) \
             if tc.profile_dir else range(0)
-        trace = None
-        for frames, targets in train_batches:
-            step += 1
+        trace, trace_first = None, None
+        for k, frames, targets in self._macro_batches(train_batches):
+            first, step = step + 1, step + k
             ran_any = True
-            if trace is None and step in traced:
-                trace = self._start_trace()
-            elif trace is not None and step not in traced:
-                self._stop_trace(trace, traced.start, step - 1)
+            in_window = first < traced.stop and step >= traced.start
+            if trace is None and in_window:
+                trace, trace_first = self._start_trace(), first
+            elif trace is not None and not in_window:
+                self._stop_trace(trace, trace_first, first - 1)
                 trace = None
-            f, t = self._put(frames), self._put(targets)
-            with (torch.profiler.record_function(f"train_step {step}") if trace is not None
+            label = f"train_step {step}" if k == 1 else f"train_step {first}-{step}"
+            with (torch.profiler.record_function(label) if trace is not None
                   else contextlib.nullcontext()):
-                loss = self.train_step(f, t, gen)
-            n_last += frames.shape[0] * self.world_size
+                if k == 1:
+                    f = self._put(frames)
+                    loss = self.train_step(f, self._put(targets), gen)
+                elif self.time_mesh is None:
+                    fk = self._put(frames)
+                    loss = self.multi_step(fk, self._put(targets), gen)[-1]
+                    f = fk[-1]
+                else:  # the time mesh's multi-step cuts each batch from the host
+                    loss = self.multi_step(frames, targets, gen)[-1]
+                    f = None
+            if k > 1:  # the JPEG dump and the plot forward take the last batch
+                frames, targets = frames[-1], targets[-1]
+            n_last += frames.shape[0] * k * self.world_size
 
-            if (step <= 10 or step % tc.plot_iter == 0) and self.is_main_process:
+            if (step < 10 + k or step % tc.plot_iter < k) and self.is_main_process:
                 loss_v = float(loss)
                 dt = time.time() - t_last
                 cps = n_last / dt if dt > 0 else 0.0
+                f = self._put(frames) if f is None else f
                 pred_last = last_frame(self.eval_step(f)).cpu().numpy()
                 self._dump_images(step, pred_last[0], np.asarray(targets)[0, -1])
                 print(f"[{datetime.datetime.now().isoformat(timespec='seconds')}] "
@@ -286,14 +337,15 @@ class Trainer:
                 self._log({"step": step, "loss": loss_v, "clips_per_sec": cps})
                 t_last, n_last = time.time(), 0
 
-            if valid_batches_fn is not None and step % tc.valid_iter == 0:
+            if valid_batches_fn is not None and step >= tc.valid_iter \
+                    and step % tc.valid_iter < k:
                 self.validate(step, valid_batches_fn())
                 if self.is_main_process:
                     from sap3d_tpu_torch.train.plotting import plot_curves
 
                     plot_curves(self.logs_dir)
 
-            if step % tc.save_iter == 0:
+            if step >= tc.save_iter and step % tc.save_iter < k:
                 t_save = time.time()
                 self._save(step)
                 self._log({"step": step, "save_dispatch_s": time.time() - t_save})
@@ -301,7 +353,7 @@ class Trainer:
             if tc.max_steps is not None and step >= tc.max_steps:
                 break
         if trace is not None:
-            self._stop_trace(trace, traced.start, step)
+            self._stop_trace(trace, trace_first, step)
         if not ran_any:
             if step == 0:
                 raise RuntimeError(

@@ -128,6 +128,22 @@ def snapshot(tm) -> dict[str, torch.Tensor]:
     return {n: p.detach().clone() for n, p in tm.named_parameters()}
 
 
+def state_tensors(state) -> dict[str, torch.Tensor]:
+    """Parameters, buffers and Adam state of a port ``TrainState``, copied."""
+    opt = state.optimizer
+    out = {f"model.{n}": t.detach().clone() for n, t in state.model.state_dict().items()}
+    for i, p in enumerate(p for g in opt.param_groups for p in g["params"]):
+        for k, t in opt.state[p].items():
+            out[f"opt.{i}.{k}"] = t.detach().clone()
+    return out
+
+
+def differing(a: dict, b: dict) -> list[str]:
+    """The tensors of ``a`` that are not bit for bit those of ``b``."""
+    assert a.keys() == b.keys()
+    return [n for n in a if not torch.equal(a[n], b[n])]
+
+
 def jax_params(tm, params) -> dict[str, torch.Tensor]:
     """A JAX parameter tree in the port's layout."""
     sd = state_dict_from_flax(params, {})

@@ -1233,3 +1233,73 @@ def test_profile_scripts_hold_the_kernels_at_the_flagship_shapes(cuda, monkeypat
             held[name] = profile_attention.hold_kernels(name, q, k, v, routes)
     assert set(held) == {"x_3_1", "x_2_2", "x_1_3"}
     assert all(len(h) == 6 and max(a["excess"] for a in h.values()) <= 1 for h in held.values())
+
+
+# -- K train steps per call: the captured multi-step (train/steps.py) ----------
+
+
+def test_multi_step_captured_matches_eager_and_planted_faults_fail(cuda):
+    """chip_smoke.py phase 17(a): two calls of the captured multi-step at
+    K = 4 (a warm-up call, then replays) against 8 eager single steps from
+    one state and generator, in fp32 with cuDNN's deterministic algorithms,
+    within twice the larger of two more eager runs' distances plus
+    ``MS_MICRO_FLOOR``; the generator where the eager run left it; replays
+    that skip the batch copy, and one replay fewer, failing that hold.  It
+    raises where a hold fails."""
+    from chip_smoke import multi_step_micro_hold
+
+    res = multi_step_micro_hold(torch)
+    assert res["hold"]["ok"] and res["replays"] > 0
+    assert res["captured_launches"]["B2"] > 0 and res["captured_launches"]["B3"] > 0
+    assert not any(h["ok"] for h in res["faults"].values())
+
+
+def test_multi_step_capture_raises_and_recaptures_replaced_state(cuda, monkeypatch):
+    """A capture that fails raises (an optimizer that is not capturable);
+    nothing steps on in its place.  A call that finds the Adam moments
+    replaced (a state dict loaded) warms up and captures again."""
+    import copy
+
+    from sap3d_tpu_torch.models.registry import build_model
+    from sap3d_tpu_torch.train.state import create_train_state
+    from sap3d_tpu_torch.train.steps import CapturedMultiStep, make_multi_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    frames = torch.randn((2, 2, 16, 32, 32, 3), device=cuda, generator=gen) * 0.5
+    targets = torch.rand((2, 2, 16, 32, 32), device=cuda, generator=gen)
+
+    def fresh():
+        model = build_model("p3d_micro_sa", dtype="float32", device=cuda, seed=0,
+                            dropout_rate=0.5)
+        return create_train_state(model, lr=1e-4)
+
+    state = fresh()
+    for group in state.optimizer.param_groups:
+        group["capturable"] = False
+    multi = make_multi_train_step(state, 2)
+    assert isinstance(multi, CapturedMultiStep)
+    with pytest.raises(RuntimeError) as raised:
+        multi(frames, targets, gen)
+    messages, e = [], raised.value
+    while e is not None:  # the capture's end may raise over the optimizer's error
+        messages.append(str(e))
+        e = e.__context__
+    assert any("capturable" in m for m in messages), messages
+    assert multi.graph is None and state.step == 2  # the warm-up's two steps, no more
+
+    state = fresh()
+    multi = make_multi_train_step(state, 2)
+    multi(frames, targets, gen)
+    first = multi.graph
+    multi(frames, targets, gen)
+    assert multi.replays == 2 and multi.graph is first
+    # new moment tensors, as a checkpoint restore from host memory makes
+    state.optimizer.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
+    losses = multi(frames, targets, gen)
+    torch.cuda.synchronize()
+    assert multi.graph is not first and multi.replays == 2 and state.step == 6
+    assert multi.captures == 2
+    assert bool(torch.isfinite(losses).all())
+    multi(frames, targets, gen)
+    assert multi.replays == 4 and state.step == 8

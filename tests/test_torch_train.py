@@ -16,7 +16,10 @@ The same numpy-made inputs go through both packages.  Tolerances:
   the Adam moments (held as the gradient is), the step count and the
   update of each parameter (``optimizer_excess``, held tightly where the
   moments agree; a wrong lr or step count fails it), and the BN statistics
-  under ``STAT_TOL``; the later losses to 2e-3.
+  under ``STAT_TOL``; the later losses to 2e-3;
+* two steps in one call of ``make_multi_train_step`` (the loop path on the
+  CPU): the same limits against JAX's steps, and bit for bit the port's two
+  single steps.
 """
 
 import json
@@ -35,11 +38,14 @@ from _torch_parity import (
     assert_optimizer_close,
     assert_stats_close,
     build_pair,
+    differing,
     grad_distance,
     jax_params,
     optimizer_excess,
     snapshot,
+    state_tensors,
 )
+from chip_smoke import planted_multi_step_fault
 from sap3d_tpu.models import registry as jreg
 from sap3d_tpu.ops.fast_tconv import space_to_depth3d
 from sap3d_tpu.ops.layers import smooth_l1_loss as jax_smooth_l1
@@ -55,11 +61,26 @@ from sap3d_tpu_torch.interop.flax_bridge import (
 from sap3d_tpu_torch.models import registry as treg
 from sap3d_tpu_torch.ops.layers import BatchNorm, smooth_l1_loss
 from sap3d_tpu_torch.train.state import create_train_state, make_optimizer
-from sap3d_tpu_torch.train.steps import loss_fn_saliency, make_train_step
+from sap3d_tpu_torch.train.steps import (
+    loss_fn_saliency,
+    make_multi_train_step,
+    make_train_step,
+)
 from sap3d_tpu_torch.train.trainer import Trainer
 
 SHAPE = (2, 16, 32, 32, 3)  # p3d_micro_sa at 32 px: x_2_2 (Nq 256) and x_1_3 (2048)
 LR = 1e-4  # the trainer's default
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Torch on two threads: the Tier-1 command's six workers share the
+    host's cores, and a worker on every core ran this file's steps 15-20
+    times slower than one process alone."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 def test_smooth_l1_and_saliency_loss_match_jax():
@@ -295,10 +316,11 @@ def test_micro_train_steps_match_jax_after_three_steps(jax_run):
 
 
 def test_multi_step_matches_single_steps_and_jax(jax_run, tmp_path):
-    """``steps_per_call`` (the JAX trainer's K steps per dispatch) is
-    accepted and the trainer runs single steps: three batches through
-    ``Trainer.fit`` at K = 3 land where JAX's three single steps do, with a
-    loss logged for each step."""
+    """``steps_per_call`` (the JAX trainer's K steps per dispatch): three
+    batches through ``Trainer.fit`` at K = 3 are one call of the
+    multi-step, which lands where JAX's three single steps do; by the JAX
+    trainer's rule one record is logged, at step 3, with the call's last
+    loss, JAX's third."""
     cfg = Config(model=ModelConfig(name="p3d_micro_sa", dtype="float32", dropout=0.0),
                  train=TrainConfig(batch_size=SHAPE[0], lr=LR, steps_per_call=3, plot_iter=1,
                                    model_dir=str(tmp_path / "model"),
@@ -310,9 +332,76 @@ def test_multi_step_matches_single_steps_and_jax(jax_run, tmp_path):
     assert trainer.state.step == 3
     with open(tmp_path / "logs" / "k3" / "metrics.jsonl") as f:
         records = [json.loads(line) for line in f]
-    losses = [r["loss"] for r in records if "loss" in r]
-    np.testing.assert_allclose(losses, jax_run["losses"], rtol=2e-3)
+    logged = [(r["step"], r["loss"]) for r in records if "loss" in r]
+    assert [step for step, _ in logged] == [3]
+    np.testing.assert_allclose(logged[0][1], jax_run["losses"][2], rtol=2e-3)
     assert_stats_close(trainer.model, jax_run["states"][2], 3)
+
+
+# K = 2 steps per call (make_multi_train_step) on the fixture's first two
+# batches.  JAX's make_multi_train_step is its single steps in a scan (the
+# JAX package's test_multi_step_matches_single_steps), so the fixture's
+# states after one and two single steps are where JAX's multi-step passes
+# and lands.
+MULTI_K = 2
+MULTI_LOSS_RTOL = (1e-5, 2e-3)  # step 1 from one state; step 2 after Adam parts the two
+
+
+@pytest.fixture(scope="module")
+def port_single_steps(jax_run):
+    """The port's first ``MULTI_K`` single steps from the fixture's start:
+    the losses, the parameters before the last step and every tensor after
+    it."""
+    state = create_train_state(_port_model(jax_run), lr=LR)
+    step, losses = make_train_step(state), []
+    for f, t in jax_run["batches"][:MULTI_K]:
+        before_last = snapshot(state.model)
+        losses.append(step(torch.from_numpy(f), torch.from_numpy(t)))
+    return dict(losses=torch.stack(losses), before_last=before_last,
+                tensors=state_tensors(state))
+
+
+def _multi_step_call(jax_run):
+    """A port state from the fixture's start and the stacked batches of
+    one call of ``MULTI_K`` steps."""
+    batches = jax_run["batches"][:MULTI_K]
+    frames, targets = (torch.from_numpy(np.stack(b)) for b in zip(*batches))
+    return create_train_state(_port_model(jax_run), lr=LR), frames, targets
+
+
+def test_multi_step_call_matches_jax_and_its_single_steps(jax_run, port_single_steps):
+    """One call of the multi-step (the loop path on the CPU): the losses
+    against JAX's, bit for bit the port's single steps (losses, parameters,
+    BN statistics, Adam moments and step counts), the second step's update
+    held from both packages' states after one step, and the BN statistics
+    after two."""
+    state, frames, targets = _multi_step_call(jax_run)
+    losses = make_multi_train_step(state, MULTI_K)(frames, targets)
+    assert losses.dtype == torch.float32 and losses.shape == (MULTI_K,)
+    assert state.step == MULTI_K
+    for i, rtol in enumerate(MULTI_LOSS_RTOL):
+        np.testing.assert_allclose(losses[i].item(), jax_run["losses"][i], rtol=rtol)
+    assert torch.equal(losses, port_single_steps["losses"])
+    assert not differing(state_tensors(state), port_single_steps["tensors"])
+    assert_optimizer_close(state.model, state.optimizer, port_single_steps["before_last"],
+                           jax_params(state.model, jax_run["states"][0].params),
+                           jax_run["states"][1], same_start=False)
+    assert_stats_close(state.model, jax_run["states"][1], MULTI_K)
+
+
+def test_multi_step_holds_fail_a_call_that_reuses_its_first_batch(jax_run, port_single_steps):
+    """The planted fault (``chip_smoke.planted_multi_step_fault
+    ("step0_batch")``): every step of the call on its first batch.  Its
+    second step is then not the single step's, and its loss is not JAX's."""
+    state, frames, targets = _multi_step_call(jax_run)
+    with planted_multi_step_fault("step0_batch"):
+        losses = make_multi_train_step(state, MULTI_K)(frames, targets)
+    singles = port_single_steps
+    assert torch.equal(losses[0], singles["losses"][0])  # the first step is unchanged
+    assert not torch.equal(losses, singles["losses"])
+    assert differing(state_tensors(state), singles["tensors"])
+    rel = abs(losses[1].item() - jax_run["losses"][1]) / abs(jax_run["losses"][1])
+    assert rel > MULTI_LOSS_RTOL[1], rel
 
 
 def _continue_from_jax(jax_run, lr=LR, count=None):
