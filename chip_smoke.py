@@ -287,8 +287,34 @@ line; any failure exits non-zero and prints no result line):
      set to 0 just before it, as the counters' less the launches captured a
      step for each capture plus them for each replay (``ms_launches``), and
      says so;
- 18. a JSON line of per-kernel numbers (B1-B4 also in fp32, the split-bf16
-     instantiations; launches of phase 17 counted as above), then the result line
+ 18. the layout rewrites (ROADMAP A.10: ``LAYOUT_CONFIGS``, each flag and
+     the JAX package's default pair, split and phase-layout loss, each
+     model built with its variables set, ``layout_flags``), the calibrated
+     flagship at batch 16:
+     (a) float32, cuDNN's deterministic algorithms: every layer a
+     configuration rewrites (the split sites' convs, norms and relus, the
+     stem, the head, the attention projections) on the default model's own
+     inputs against the default layer, excess under ``LAYOUT_LAYER_TOL``,
+     with both planted faults (``LAYOUT_FAULTS``: the parts' kernel slices
+     swapped, the phase plan's taps shifted) failing it; the step-1 loss
+     of each configuration against the default step's, held within
+     ``LAYOUT_CONTROL_FACTOR`` times the largest distance of the controls
+     (``LAYOUT_CONTROLS``: the default step again, under cuDNN's default
+     algorithms and on frames one ulp up and down), the shifted taps
+     failing; the decoder's gradient, the whole gradient's norm and the
+     leaves it moved most printed beside the controls, not held (they do
+     not part a rewrite from a fault on this model); B2/B3 launches the
+     default's (``--layout-spread N`` reads the same on N batches);
+     (b) bf16 readings of the default and each configuration, claimed as
+     nothing: the captured call's (K = 8) ms a step and its peak memory
+     above its start, B1 a forward and B2/B3 a step (the default's), the
+     copies the kernels' launchers made a forward (``--layout-readings``
+     also times the eval forward and the eager step, host-bound);
+     (c) ``profile_tconv``, ``profile_tconv2``, ``profile_tconv3`` with 2
+     repeats, their last lines parsed, every time finite and positive;
+ 19. a JSON line of per-kernel numbers (B1-B4 also in fp32, the split-bf16
+     instantiations; launches of phases 17 and 18 counted as above), then
+     the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Needs torch with CUDA and nvcc; imports nothing of JAX or ``sap3d_tpu``.
@@ -759,6 +785,20 @@ def calibrate_and_randomize_bn(torch, model, x, gen):
     finally:
         for h in handles:
             h.remove()
+
+
+def calibrated_flagship(torch):
+    """Phase 4's model: the flagship in bf16 from ``SEED``, its BN
+    calibrated on a batch drawn from ``SEED`` (``calibrate_and_randomize_bn``).
+    Returns the generator (drawn on further by later phases), the model,
+    the batch and a copy of the model's state dict."""
+    from sap3d_tpu_torch.models.registry import build_model
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    model = build_model("unet++", dtype="bfloat16", device=DEVICE, seed=SEED)
+    x = torch.randn(BATCH, 16, SIZE, SIZE, 3, device=DEVICE, generator=gen) * 0.3
+    calibrate_and_randomize_bn(torch, model, x, gen)
+    return gen, model, x, {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
 def phase_forward(torch, fa, model, x):
@@ -3513,7 +3553,7 @@ DP_STEP_BATCH = {"float32": 16, "float64": 4}
 DP_FIT_BATCH = 16
 DP_EVAL_BATCH = 4
 DP_EVAL_FRAMES = 40           # one synthetic JPEG video: 14 clips, 3 batches of 4
-DP_TIMED_STEPS = 3
+DP_TIMED_STEPS = 2
 # (a)'s limits of the float64 data-parallel step (the plain path: no kernel
 # takes float64) against the one-process step at the global batch of 4
 # (dropout 0, cuDNN's deterministic algorithms): the loss (relative), the
@@ -5687,6 +5727,600 @@ def phase_multi_step(torch, calibrated, card) -> dict:
     return res
 
 
+# ---- phase 18: the layout rewrites (ROADMAP A.10) ----------------------------
+
+# Each configuration: the variables set while its model is built (every
+# other layout variable unset); "jax_default_pair" is the JAX package's
+# default schedule, the split and the phase-layout loss together.
+LAYOUT_CONFIGS = {
+    "concat_split": {"SAP3D_CONCAT_SPLIT": "1"},
+    "head_phase_loss": {"SAP3D_HEAD_PHASE_LOSS": "1"},
+    "conv3d_via_2d": {"SAP3D_CONV3D_VIA_2D": "1"},
+    "stem_s2d": {"SAP3D_STEM_S2D": "1"},
+    "head_tconv_ps": {"SAP3D_HEAD_TCONV_PS": "1"},
+    "attn_proj_fused": {"SAP3D_ATTN_PROJ": "fused"},
+    "attn_proj_fused_lowp": {"SAP3D_ATTN_PROJ": "fused_lowp"},
+    "jax_default_pair": {"SAP3D_CONCAT_SPLIT": "1", "SAP3D_HEAD_PHASE_LOSS": "1"},
+}
+# Every rewrite at once (the fused projections in their float32-accumulator
+# mode); a model mesh takes all but the fused projections, which raise there
+LAYOUT_ALL = {"SAP3D_CONCAT_SPLIT": "1", "SAP3D_HEAD_PHASE_LOSS": "1", "SAP3D_CONV3D_VIA_2D": "1",
+              "SAP3D_STEM_S2D": "1", "SAP3D_HEAD_TCONV_PS": "1", "SAP3D_ATTN_PROJ": "fused"}
+LAYOUT_MODEL_MESH = {k: v for k, v in LAYOUT_ALL.items() if k != "SAP3D_ATTN_PROJ"}
+LAYOUT_VARIABLES = ("SAP3D_CONCAT_SPLIT", "SAP3D_CONCAT_EAGER_SITES", "SAP3D_HEAD_PHASE_LOSS",
+                    "SAP3D_CONV3D_VIA_2D", "SAP3D_STEM_S2D", "SAP3D_HEAD_TCONV_PS",
+                    "SAP3D_ATTN_PROJ")
+LAYOUT_SPLIT_SITES = ("x_3_1", "x_2_1", "x_2_2", "x_1_1", "x_1_2", "x_1_3")
+LAYOUT_SA_SITES = ("x_4_0_sa", "x_3_1_sa", "x_2_2_sa", "x_1_3_sa")
+# The layers each configuration rewrites, held on the default model's inputs
+LAYOUT_LAYERS = {
+    "concat_split": LAYOUT_SPLIT_SITES, "conv3d_via_2d": LAYOUT_SPLIT_SITES,
+    "stem_s2d": ("stem",), "head_tconv_ps": ("x_0_1",), "head_phase_loss": ("x_0_1",),
+    "attn_proj_fused": LAYOUT_SA_SITES, "attn_proj_fused_lowp": LAYOUT_SA_SITES,
+    "jax_default_pair": LAYOUT_SPLIT_SITES + ("x_0_1",),
+}
+# (a) a rewritten layer against the default one, float32 (no TF32), cuDNN's
+# deterministic algorithms: max |got - ref| over LAYOUT_LAYER_TOL times the
+# default output's largest |value|.  Both are float32 sums of the same
+# products (up to 27 x 1536 of them) in other orders.
+LAYOUT_LAYER_TOL = 1e-5
+# (a) each configuration's step against the default step's (cuDNN's
+# deterministic algorithms) on each measure of LAYOUT_STEP_MEASURES: "loss",
+# the step-1 loss, relative; "decoder_grad", the decoder's gradient's
+# relative L2 distance; "grad_norm", the whole gradient's norm, relative.
+# Each beside the largest distance of a control (``LAYOUT_CONTROLS``): the
+# default step again under cuDNN's deterministic algorithms, twice under
+# cuDNN's default algorithms (other algorithms and orders of the same sums
+# in every conv's backward), and on frames one ulp up and one ulp down (a
+# rounding-level change of the forward from its first layer).  Those of
+# LAYOUT_STEP_HELD are held within LAYOUT_CONTROL_FACTOR times it.  The
+# gradient's measures are printed, not held: on the calibrated flagship a
+# rounding-level change of the forward before pool1 turns the gradient
+# through a large angle (one ulp of the frames: cosine 0.05-0.76, the
+# decoder's gradient 0.15-0.33 apart, on four batches), and on eight batches
+# of two calls (an H100 80GB HBM3 at 700 W) the shifted taps read 0.28 and
+# 3.1 times the controls' largest on them where the stem s2d read 0.50 and
+# 1.17, so no limit parts a rewrite from a fault there (PERF.md §6, PR 17;
+# ``--layout-spread N`` reads every measure on N batches; the card tests
+# ``-k layouts`` hold each configuration's gradient on the micro model).
+# On the loss the stem s2d read at most 5.16 times the controls' largest
+# and the shifted taps at least 1.27e3 times: a factor of 16 keeps both 3x
+# and 79x clear.
+LAYOUT_CONTROLS = ("deterministic", "cudnn_default", "cudnn_default", "input_ulp_up",
+                   "input_ulp_down")
+LAYOUT_STEP_MEASURES = ("loss", "decoder_grad", "grad_norm")
+LAYOUT_STEP_HELD = ("loss",)
+LAYOUT_CONTROL_FACTOR = 16
+# Planted faults: "swapped_slices", each part's conv takes the kernel's
+# input-channel slice of the other end; "shifted_taps", the phase plan
+# feeds every phase the next tap
+LAYOUT_FAULTS = ("swapped_slices", "shifted_taps")
+# (b) the captured call of MS_TIMED_K steps, timed once after its first
+# call (warm-up and capture); ``--layout-readings`` also times
+# LAYOUT_TIMED eval forwards and eager steps after one of each
+LAYOUT_TIMED = 2
+TCONV_SCRIPTS = ("profile_tconv", "profile_tconv2", "profile_tconv3")
+
+
+@contextlib.contextmanager
+def layout_flags(flags: dict):
+    """The layout variables as ``flags`` says (the others unset) for the
+    duration: a model built inside reads them (each module reads its
+    variable when it is built)."""
+    before = {k: os.environ.get(k) for k in LAYOUT_VARIABLES}
+    for k in LAYOUT_VARIABLES:
+        os.environ.pop(k, None)
+    os.environ.update(flags)
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def planted_layout_fault(fault: str):
+    """One of ``LAYOUT_FAULTS`` planted for the duration (a model built
+    while it is planted keeps no trace of it: both act at call time)."""
+    import numpy as np
+    import torch
+
+    from sap3d_tpu_torch.ops import concat_split, fast_tconv
+
+    if fault == "swapped_slices":
+        mod, name = concat_split, "conv3d_concat_split"
+        orig = concat_split.conv3d_concat_split
+
+        def wrong(parts, kernel, *args, **kw):
+            widths = [p.shape[1] for p in parts]
+            slices = kernel.split(widths[::-1], dim=1)[::-1]
+            return orig(parts, torch.cat(slices, 1), *args, **kw)
+    elif fault == "shifted_taps":
+        mod, name = fast_tconv, "_dim_plan"
+        orig = fast_tconv._dim_plan
+
+        def wrong(k, s):
+            idx, mask, lo, hi = orig(k, s)
+            return np.where(mask > 0, (idx + 1) % k, idx), mask, lo, hi
+    else:
+        raise ValueError(f"unknown layout fault {fault!r}")
+    setattr(mod, name, wrong)
+    try:
+        yield
+    finally:
+        setattr(mod, name, orig)
+
+
+def layout_model(torch, flags: dict, dtype: str, state: dict, dropout_rate: float = 0.5):
+    """The flagship under ``flags`` on the card in ``dtype`` carrying
+    ``state`` (built on the meta device, then filled), eval mode."""
+    from sap3d_tpu_torch.core.device import resolve_dtype
+    from sap3d_tpu_torch.models.p3d import P3DSaliency
+    from sap3d_tpu_torch.models.registry import MODEL_REGISTRY, resolve_name
+
+    cfg = MODEL_REGISTRY[resolve_name(FLAGSHIP)]
+    with layout_flags(flags), torch.device("meta"):
+        model = P3DSaliency(**cfg, dtype=resolve_dtype(dtype), dropout_rate=dropout_rate)
+    model = model.to_empty(device=DEVICE)
+    model.load_state_dict(state)
+    return model.eval()
+
+
+def layout_inputs(torch, model, x) -> dict:
+    """The default model's own inputs to every layer a configuration
+    rewrites (one eval forward with pre-hooks)."""
+    dec = model.decoder
+    layers = {"stem": model.encoder.stem, "x_0_1": dec.x_0_1,
+              **{n: getattr(dec, n) for n in LAYOUT_SPLIT_SITES + LAYOUT_SA_SITES}}
+    seen = {}
+    handles = [m.register_forward_pre_hook(lambda m, args, n=n: seen.__setitem__(n, args[0]))
+               for n, m in layers.items()]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def layout_layer(torch, model, name: str, inp, phase: bool = False):
+    """Layer ``name`` of ``model`` on ``inp``: a decoder site's conv, norm
+    and relu (eval mode), the stem, the head (its phase layout with
+    ``phase``, as [B, 8, T/2, H/2, W/2]) or an attention site's f, g and h
+    side by side."""
+    from sap3d_tpu_torch.ops.fast_tconv import space_to_depth3d
+
+    with torch.no_grad():
+        if name == "stem":
+            return model.encoder.stem(inp)
+        layer = getattr(model.decoder, name)
+        if name == "x_0_1":
+            layer.train(phase)
+            y = layer(inp)
+            layer.eval()
+            if phase and y.shape[1] == 1:  # an interleaved head: rearranged to compare
+                y = space_to_depth3d(y[:, 0], (2, 2, 2)).permute(0, 4, 1, 2, 3)
+            return y
+        if name in LAYOUT_SA_SITES:
+            parts = (layer._fused_projections(inp) if layer.proj_mode != "separate"
+                     else (layer.f(inp), layer.g(inp), layer.h(inp)))
+            return torch.cat(parts, 1)
+        return layer(inp)
+
+
+def layout_layer_holds(torch, ref_model, model, config: str, inputs: dict) -> dict:
+    """(a) Each layer ``config`` rewrites, in ``model``, against the same
+    layer of the default ``ref_model`` on the default model's inputs."""
+    out = {}
+    phase = "SAP3D_HEAD_PHASE_LOSS" in LAYOUT_CONFIGS.get(config, {})
+    for name in LAYOUT_LAYERS[config]:
+        p = phase and name == "x_0_1"
+        ref = layout_layer(torch, ref_model, name, inputs[name], p)
+        got = layout_layer(torch, model, name, inputs[name], p)
+        if got.shape != ref.shape:
+            raise AssertionError(f"[layouts] {config} {name}: {tuple(got.shape)} against "
+                                 f"{tuple(ref.shape)}")
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        out[name] = dict(max_abs_err=err, scale=scale, excess=err / (LAYOUT_LAYER_TOL * scale))
+    return out
+
+
+def layout_data(torch, seed: int = 0):
+    """(a)'s and (b)'s batches: ``MS_TIMED_K`` of ``BATCH`` clips and their
+    targets, drawn on the card from ``SEED + 8 + seed``."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8 + seed)
+    frames = torch.randn((MS_TIMED_K, BATCH, 16, SIZE, SIZE, 3), device=DEVICE,
+                         generator=gen) * 0.3
+    targets = torch.rand((MS_TIMED_K, BATCH, 16, SIZE, SIZE), device=DEVICE, generator=gen)
+    return frames, targets
+
+
+def layout_step(torch, flags: dict, state: dict, frames, targets, fault=None,
+                control: str = "deterministic", ref_grads=None) -> dict:
+    """(a) One float32 train step of the flagship under ``flags`` from
+    ``state`` (dropout 0.5 from a seeded generator): the loss, the
+    gradient's L2 norm, B2/B3 launches, and the gradients (float64, by
+    parameter name) or, given ``ref_grads``, how they moved from those
+    (``gradient_moves``).  ``control``: "deterministic", cuDNN's
+    deterministic algorithms; "cudnn_default", its default choice;
+    "input_ulp_up" / "input_ulp_down", deterministic on the frames one ulp
+    toward +inf / -inf."""
+    from sap3d_tpu_torch.train.state import create_train_state
+    from sap3d_tpu_torch.train.steps import make_train_step
+
+    if control not in ("deterministic", "cudnn_default", "input_ulp_up", "input_ulp_down"):
+        raise ValueError(f"unknown control {control!r}")
+    model = layout_model(torch, flags, "float32", state)
+    step = make_train_step(create_train_state(model, lr=1e-4))
+    drop = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    if control.startswith("input_ulp"):
+        toward = math.inf if control == "input_ulp_up" else -math.inf
+        frames = torch.nextafter(frames, torch.full_like(frames, toward))
+    algorithms = (contextlib.nullcontext() if control == "cudnn_default"
+                  else cudnn_deterministic(torch))
+    with algorithms, (planted_layout_fault(fault) if fault else contextlib.nullcontext()):
+        reset_launch_counts(*B1_B4)
+        loss = step(frames, targets, drop).item()
+        launches = launch_counts(*B1_B4)
+    grads = {n: p.grad.detach().double() for n, p in model.named_parameters()
+             if p.grad is not None}
+    norm = torch.sqrt(sum(g.square().sum() for g in grads.values())).item()
+    del model, step
+    out = dict(loss=loss, grad_norm=norm, launches=launches)
+    if ref_grads is None:
+        out["grads"] = grads
+    else:
+        out["moves"] = gradient_moves(torch, grads, ref_grads)
+    del grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def gradient_moves(torch, got: dict, ref: dict, top: int = 3) -> dict:
+    """How the gradients ``got`` moved from ``ref`` (float64 by name): their
+    cosine; the relative L2 distance of the encoder's leaves and of the
+    decoder's; and the ``top`` leaves whose squared norm moved most, each
+    with its share of the whole squared norm's move (signed), its share of
+    ``ref``'s squared norm and its own relative L2 distance."""
+    names = list(ref)
+    sq_got = torch.stack([got[n].square().sum() for n in names])
+    sq_ref = torch.stack([ref[n].square().sum() for n in names])
+    sq_diff = torch.stack([(got[n] - ref[n]).square().sum() for n in names])
+    dot = torch.stack([(got[n] * ref[n]).sum() for n in names]).sum()
+    cos = (dot / (sq_got.sum() * sq_ref.sum()).sqrt()).item()
+    move = (sq_got - sq_ref).tolist()
+    total, ref_total = sum(move), sq_ref.sum().item()
+    sq_ref, sq_diff = sq_ref.tolist(), sq_diff.tolist()
+    worst = sorted(range(len(names)), key=lambda i: -abs(move[i]))[:top]
+
+    def rel_l2(prefix: str) -> float:
+        idx = [i for i, n in enumerate(names) if n.startswith(prefix)]
+        return math.sqrt(sum(sq_diff[i] for i in idx) / sum(sq_ref[i] for i in idx))
+
+    return dict(cosine=cos, encoder_rel_l2=rel_l2("encoder."),
+                decoder_rel_l2=rel_l2("decoder."), leaves=[dict(
+        leaf=names[i], move_share=move[i] / total if total else 0.0,
+        norm_share=sq_ref[i] / ref_total,
+        rel_l2=math.sqrt(sq_diff[i] / sq_ref[i]) if sq_ref[i] else math.inf) for i in worst])
+
+
+def step_distance(step: dict, ref: dict, key: str) -> float:
+    """A step's distance from the default's on one measure: "loss" and
+    "grad_norm" relative, "decoder_grad" the decoder's gradient's relative
+    L2 distance."""
+    if key == "decoder_grad":
+        return step["moves"]["decoder_rel_l2"]
+    return abs(step[key] - ref[key]) / abs(ref[key])
+
+
+def layout_step_hold(got: dict, ref: dict, controls: list) -> dict:
+    """How far a step is from the default's on each measure of
+    ``LAYOUT_STEP_MEASURES``, each over its limit: ``LAYOUT_CONTROL_FACTOR``
+    times the largest distance of ``controls``."""
+    out = {}
+    for key in LAYOUT_STEP_MEASURES:
+        dist = step_distance(got, ref, key)
+        ctrl = max(step_distance(c, ref, key) for c in controls)
+        limit = LAYOUT_CONTROL_FACTOR * ctrl
+        out[key] = dict(distance=dist, control=ctrl, limit=limit,
+                        excess=dist / limit if limit else (math.inf if dist else 0.0))
+    return out
+
+
+def layout_steps(torch, calibrated: dict, frames, targets) -> dict:
+    """(a)'s steps on one batch: the default, ``LAYOUT_CONTROLS``, every
+    configuration of ``LAYOUT_CONFIGS`` and the pair with the phase taps
+    shifted, each held by ``layout_step_hold`` and its gradients' moves
+    from the default's read."""
+    ref = layout_step(torch, {}, calibrated, frames, targets)
+    ref_grads = ref.pop("grads")
+    controls = [layout_step(torch, {}, calibrated, frames, targets, control=c,
+                            ref_grads=ref_grads) for c in LAYOUT_CONTROLS]
+    steps = {config: layout_step(torch, flags, calibrated, frames, targets, ref_grads=ref_grads)
+             for config, flags in LAYOUT_CONFIGS.items()}
+    steps["jax_default_pair + shifted_taps"] = layout_step(
+        torch, LAYOUT_CONFIGS["jax_default_pair"], calibrated, frames, targets,
+        fault="shifted_taps", ref_grads=ref_grads)
+    del ref_grads
+    torch.cuda.empty_cache()
+    holds = {config: layout_step_hold(s, ref, controls) for config, s in steps.items()}
+    return dict(ref=ref, controls=controls, steps=steps, holds=holds)
+
+
+def print_layout_steps(res: dict, card) -> None:
+    ref = res["ref"]
+    print(f"[layouts] (a) the step, float32, dropout 0.5: default loss {ref['loss']!r}, "
+          f"gradient norm {ref['grad_norm']!r}; controls (the default step again) "
+          + ", ".join(f"{c} {s['loss']!r} / {s['grad_norm']!r} (cosine "
+                      f"{s['moves']['cosine']:.9f})"
+                      for c, s in zip(LAYOUT_CONTROLS, res["controls"])) + f"  [{card}]",
+          flush=True)
+    rows = [(f"control {c}", s, None) for c, s in zip(LAYOUT_CONTROLS, res["controls"])]
+    rows += [(config, s, res["holds"][config]) for config, s in res["steps"].items()]
+    for name, s, h in rows:
+        def held(key):
+            unheld = "" if key in LAYOUT_STEP_HELD else " (not held)"
+            return unheld if h is None else (f" (distance {h[key]['distance']:.3g}, limit "
+                                             f"{h[key]['limit']:.3g}){unheld}")
+        m = s["moves"]
+        leaves = "; ".join(f"{v['leaf']} {v['move_share']:+.3f} of the move, "
+                           f"{v['norm_share']:.3g} of the norm, rel L2 {v['rel_l2']:.3g}"
+                           for v in m["leaves"])
+        print(f"[layouts]     {name}: loss {s['loss']!r}{held('loss')}; the decoder's "
+              f"gradient rel L2 {m['decoder_rel_l2']:.3g}{held('decoder_grad')}; gradient "
+              f"norm {s['grad_norm']!r}{held('grad_norm')}, cosine "
+              f"{m['cosine']:.9f}, the encoder's rel L2 {m['encoder_rel_l2']:.3g}; launches "
+              f"{s['launches']}; the squared norm's largest moves: {leaves}", flush=True)
+
+
+def layout_spread(torch, calibrated: dict, card, n: int) -> dict:
+    """``chip_smoke.py --layout-spread N``: what (a)'s step hold stands on,
+    ``layout_steps`` on ``n`` batches (the first is the smoke's), and per
+    configuration and measure the largest ratio of its distance to the
+    controls' largest over the batches (the fault's least)."""
+    per_seed = []
+    for seed in range(n):
+        frames, targets = layout_data(torch, seed)
+        res = layout_steps(torch, calibrated, frames[0], targets[0])
+        print(f"[layouts] spread, batch {seed}:", flush=True)
+        print_layout_steps(res, card)
+        per_seed.append(res)
+        del frames, targets
+    ratios = {}
+    for config in per_seed[0]["holds"]:
+        pick = min if config.endswith("taps") else max
+        ratios[config] = {key: pick(r["holds"][config][key]["distance"]
+                                    / r["holds"][config][key]["control"]
+                                    if r["holds"][config][key]["control"] else math.inf
+                                    for r in per_seed)
+                           for key in LAYOUT_STEP_MEASURES}
+    controls = [{c: {k: step_distance(s, r["ref"], k) for k in LAYOUT_STEP_MEASURES}
+                 for c, s in zip([f"{c} {i}" for i, c in enumerate(LAYOUT_CONTROLS)],
+                                 r["controls"])} for r in per_seed]
+    print(f"[layouts] spread over {n} batches: distance over the controls' largest, the "
+          f"largest (the fault's least), {' / '.join(LAYOUT_STEP_MEASURES)}: "
+          + "; ".join(
+              f"{c} " + " / ".join(f"{v[k]:.3g}" for k in LAYOUT_STEP_MEASURES)
+              for c, v in ratios.items())
+          + f"  [{card}]", flush=True)
+    return dict(ratios=ratios, controls=controls)
+
+
+def layout_readings(torch, config: str, flags: dict, calibrated: dict, frames, targets,
+                    card, timed_legs: bool = False) -> dict:
+    """(b) bf16 readings of one configuration, claiming nothing: B1
+    launches and the contiguous copies the kernels' launchers made
+    (``contiguous_aligned``) a forward, from one eval forward; the captured
+    call's ms a step (``MS_TIMED_K`` steps a call), its launches, B2/B3 a
+    captured step and its peak memory allocated above what was allocated
+    when it began.  With ``timed_legs`` (``--layout-readings``), the eval
+    forward's and the eager step's ms as well, each with its peak (the eager
+    leg's includes the Adam moments its first step makes)."""
+    import gc
+    import statistics
+
+    from sap3d_tpu_torch.ops.cuda import flash_attention as fa
+    from sap3d_tpu_torch.scripts import _timing
+    from sap3d_tpu_torch.train.state import create_train_state
+    from sap3d_tpu_torch.train.steps import make_eval_step, make_multi_train_step, \
+        make_train_step
+
+    device = torch.device(DEVICE)
+    model = layout_model(torch, flags, "bfloat16", calibrated)
+    eval_step = make_eval_step(model)
+    copies = [0]
+    orig = fa.contiguous_aligned
+
+    def counting(t):
+        out = orig(t)
+        copies[0] += out is not t
+        return out
+
+    def peak_above(start: int) -> float:
+        return (torch.cuda.max_memory_allocated() - start) / 2 ** 30
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        times = _timing.step_times(fn, LAYOUT_TIMED, device, warmup=1)
+        return statistics.median(times) * 1e3, peak_above(start)
+
+    out = {}
+    calls = 1 + LAYOUT_TIMED if timed_legs else 1
+    reset_launch_counts(*B1_B4)
+    fa.contiguous_aligned = counting
+    try:
+        if timed_legs:
+            out["eval_ms"], out["eval_peak_gib"] = timed(lambda: eval_step(frames[0]))
+        else:
+            eval_step(frames[0])
+            torch.cuda.synchronize()
+    finally:
+        fa.contiguous_aligned = orig
+    out["b1_per_forward"] = launch_counts("B1")["B1"] / calls
+    out["copies_per_forward"] = copies[0] / calls
+    state = create_train_state(model, lr=1e-4)
+    drop = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    if timed_legs:
+        step = make_train_step(state)
+        reset_launch_counts(*B1_B4)
+        out["eager_step_ms"], out["eager_peak_gib"] = timed(
+            lambda: step(frames[0], targets[0], drop))
+        out["eager_per_step"] = {k: n / calls for k, n in launch_counts("B2", "B3").items()}
+        del step
+    multi = make_multi_train_step(state, MS_TIMED_K)
+    reset_launch_counts(*B1_B4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = multi(frames, targets, drop)
+    torch.cuda.synchronize()
+    out["first_call_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    (call_s,) = _timing.step_times(lambda: multi(frames, targets, drop), 1, device, warmup=0)
+    out["captured_peak_gib"] = peak_above(start)
+    out["captured_ms"] = call_s * 1e3 / MS_TIMED_K
+    out["launches"] = ms_launches(launch_counts(*B1_B4), multi, multi.replays, multi.captures)
+    out["captured_per_step"] = {k: multi.captured_launches[k] for k in ("B2", "B3")}
+    out["capture_s"] = multi.capture_s
+    out["losses_finite"] = bool(torch.isfinite(losses).all())
+    timed_part = (f"eval forward {out['eval_ms']:.2f} ms (peak +{out['eval_peak_gib']:.2f} "
+                  f"GiB); eager step {out['eager_step_ms']:.2f} ms (peak "
+                  f"+{out['eager_peak_gib']:.2f} GiB, B2/B3 {out['eager_per_step']['B2']:g}/"
+                  f"{out['eager_per_step']['B3']:g}); ") if timed_legs else ""
+    print(f"[layouts] (b) {config}: B1 {out['b1_per_forward']:g} a forward, "
+          f"{out['copies_per_forward']:g} copies by the launchers; {timed_part}captured "
+          f"{MS_TIMED_K} steps a call {out['captured_ms']:.2f} ms a step (peak "
+          f"+{out['captured_peak_gib']:.2f} GiB allocated above its start, B2/B3 a step "
+          f"{out['captured_per_step']['B2']}/{out['captured_per_step']['B3']}; first call "
+          f"{out['first_call_s']:.2f} s, capture {multi.capture_s:.3f} s); launches "
+          f"{out['launches']}  [{card}]", flush=True)
+    del multi, state, eval_step, model
+    gc.collect()  # the multi-step's graph and static inputs sit in reference cycles
+    torch.cuda.empty_cache()
+    return out
+
+
+def all_layout_readings(torch, calibrated: dict, card, timed_legs: bool = False) -> dict:
+    """(b) for the default and every configuration of ``LAYOUT_CONFIGS``,
+    each held to the default's launches and to finite losses."""
+    frames, targets = layout_data(torch)
+    readings = {config: layout_readings(torch, config, flags, calibrated, frames, targets, card,
+                                        timed_legs)
+                for config, flags in {"default": {}, **LAYOUT_CONFIGS}.items()}
+    base = readings["default"]
+    keys = ("b1_per_forward", "captured_per_step", "launches") + (
+        ("eager_per_step",) if timed_legs else ())
+    for config, r in readings.items():
+        if any(r[k] != base[k] for k in keys) or not r["losses_finite"] \
+                or not base["b1_per_forward"] > 0:
+            raise AssertionError(f"[layouts] (b) {config}: " + ", ".join(
+                f"{k} {r[k]}" for k in keys) + " against the default's " + ", ".join(
+                f"{k} {base[k]}" for k in keys) + f"; finite losses {r['losses_finite']}")
+    return readings
+
+
+def phase_layouts(torch, calibrated: dict, card) -> dict:
+    """Phase 18: the layout rewrites of ``LAYOUT_CONFIGS`` on the flagship
+    (``calibrated``, batch ``BATCH``): (a) holds in float32, (b) bf16
+    readings, (c) the three tconv scripts."""
+    import importlib
+
+    from sap3d_tpu_torch.scripts import _timing
+
+    t_phase = time.perf_counter()
+    seconds = {}
+    frames, targets = layout_data(torch)
+
+    # (a) holds, float32
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False  # as main sets it: no TF32 in the holds
+    ref = layout_model(torch, {}, "float32", calibrated)
+    with cudnn_deterministic(torch):
+        inputs = layout_inputs(torch, ref, frames[0])
+        layers = {}
+        for config, flags in LAYOUT_CONFIGS.items():
+            model = layout_model(torch, flags, "float32", calibrated)
+            layers[config] = layout_layer_holds(torch, ref, model, config, inputs)
+            del model
+        faults = {}
+        for fault, config in zip(LAYOUT_FAULTS, ("concat_split", "head_phase_loss")):
+            model = layout_model(torch, LAYOUT_CONFIGS[config], "float32", calibrated)
+            with planted_layout_fault(fault):
+                faults[fault] = layout_layer_holds(torch, ref, model, config, inputs)
+            del model
+    del ref, inputs
+    torch.cuda.empty_cache()
+    worst = {c: max(h["excess"] for h in held.values()) for c, held in layers.items()}
+    fault_worst = {f: max(h["excess"] for h in held.values()) for f, held in faults.items()}
+    print(f"[layouts] (a) layers, float32, on the flagship's own inputs (batch {BATCH}): "
+          "largest excess over LAYOUT_LAYER_TOL "
+          + ", ".join(f"{c} {v:.3g}" for c, v in worst.items())
+          + "; planted faults, largest excess " + ", ".join(
+              f"{f} {v:.3g}" for f, v in fault_worst.items()) + f"  [{card}]", flush=True)
+    for c, held in layers.items():
+        print(f"[layouts]     {c}: " + ", ".join(
+            f"{n} {h['max_abs_err']:.3g} of {h['scale']:.3g}" for n, h in held.items()),
+            flush=True)
+    steps = layout_steps(torch, calibrated, frames[0], targets[0])
+    print_layout_steps(steps, card)
+    seconds["a"] = time.perf_counter() - t0
+    fault_config = "jax_default_pair + shifted_taps"
+    bad = [c for c, v in worst.items() if not v <= 1]
+    bad += [f"{c} step {k}" for c, h in steps["holds"].items() if c != fault_config
+            for k in LAYOUT_STEP_HELD if not h[k]["excess"] <= 1]
+    bad += [f"fault {f} held" for f, v in fault_worst.items() if not v > 1]
+    bad += [f"fault shifted_taps held in the step's {k}" for k in LAYOUT_STEP_HELD
+            if not steps["holds"][fault_config][k]["excess"] > 1]
+    want = steps["ref"]["launches"]
+    bad += [f"{c} step launches {s['launches']}"
+            for c, s in list(steps["steps"].items()) + list(zip(LAYOUT_CONTROLS,
+                                                                steps["controls"]))
+            if s["launches"] != want]
+    if bad or not want["B2"] > 0:
+        raise AssertionError(f"[layouts] (a) failed: {bad}; default launches {want}")
+
+    # (b) readings, bf16
+    t0 = time.perf_counter()
+    readings = all_layout_readings(torch, calibrated, card)
+    seconds["b"] = time.perf_counter() - t0
+
+    # (c) the tconv scripts
+    t0 = time.perf_counter()
+    scripts = {}
+    for name in TCONV_SCRIPTS:
+        mod = importlib.import_module(f"sap3d_tpu_torch.scripts.{name}")
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            res = mod.main(SCRIPT_REPEATS + ["--device", DEVICE])
+        last = json.loads(tee.copy.getvalue().strip().splitlines()[-1])
+        if last != json.loads(json.dumps(res)) or last["card"]["name"] not in card:
+            raise AssertionError(f"[layouts] {name}: its last line is not what it returned")
+        _timing.finite_times(last, f"{name}.")
+        scripts[name] = last
+        torch.cuda.empty_cache()
+    seconds["c"] = time.perf_counter() - t0
+    total = time.perf_counter() - t_phase
+    launches = {k: sum(r["launches"][k] for r in readings.values()) for k in ("B2", "B3")}
+    launches["B1"] = round(sum(r["b1_per_forward"] for r in readings.values()))
+    launches32 = {k: sum(s["launches"][k] for c, s in [("default", steps["ref"]),
+                                                       *zip(LAYOUT_CONTROLS, steps["controls"]),
+                                                       *steps["steps"].items()]
+                         if not c.endswith("taps"))
+                  for k in ("B2", "B3")}
+    print(f"[layouts] phase 18 in {total:.2f} s (" + ", ".join(
+        f"({n}) {v:.1f} s" for n, v in seconds.items()) + f"); launches bf16 {launches}, "
+          f"float32 steps {launches32}", flush=True)
+    return dict(layers=layers, faults=faults, steps=steps, readings=readings, scripts=scripts,
+                launches=launches, launches32=launches32, seconds=total)
+
+
 BUILD_KERNELS = {
     "flash_attention_fwd": (("flash_fwd_bf16", "flash_row_stats", "split_planes"),
                             ("flash_fwd_bf16", "flash_row_stats", "split_planes")),
@@ -5806,6 +6440,12 @@ def main(argv=None) -> int:
     p.add_argument("--multi-step-spread", type=int, default=0, metavar="N",
                    help="only read what phase 17's holds stand on, from N eager and N "
                         "captured runs of (a) and of (b), after the build")
+    p.add_argument("--layout-spread", type=int, default=0, metavar="N",
+                   help="only read what phase 18's step hold stands on, from N batches, "
+                        "after the build")
+    p.add_argument("--layout-readings", action="store_true",
+                   help="only time phase 18's configurations in bf16 (the eval forward, "
+                        "the eager step and the captured call), after the build")
     p.add_argument("--multihost-repeats", type=int, default=1,
                    help="run phase 14's (b) this many times and print every pair's "
                         "readings")
@@ -5831,7 +6471,6 @@ def main(argv=None) -> int:
 
         from concurrent.futures import ThreadPoolExecutor
 
-        from sap3d_tpu_torch.models.registry import build_model
         from sap3d_tpu_torch.ops import attention as ta
         from sap3d_tpu_torch.ops.cuda import build
         from sap3d_tpu_torch.ops.cuda import flash_attention as fa
@@ -5864,15 +6503,20 @@ def main(argv=None) -> int:
             spread = ms_spread(torch, card, args.multi_step_spread)
             print(json.dumps({"multi_step_spread": spread}), flush=True)
             return 0
+        if args.layout_spread or args.layout_readings:
+            *_, calibrated = calibrated_flagship(torch)
+            if args.layout_spread:
+                spread = layout_spread(torch, calibrated, card, args.layout_spread)
+                print(json.dumps({"layout_spread": spread}), flush=True)
+            if args.layout_readings:
+                readings = all_layout_readings(torch, calibrated, card, timed_legs=True)
+                print(json.dumps({"layout_readings": readings}), flush=True)
+            return 0
         flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
         rows = phase_kernels(torch, fa, fb, flush)
         phase_ended(3)
 
-        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-        model = build_model("unet++", dtype="bfloat16", device=DEVICE, seed=SEED)
-        x = torch.randn(BATCH, 16, SIZE, SIZE, 3, device=DEVICE, generator=gen) * 0.3
-        calibrate_and_randomize_bn(torch, model, x, gen)
-        calibrated = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        gen, model, x, calibrated = calibrated_flagship(torch)
         fwd = phase_forward(torch, fa, model, x)
         thr = phase_throughput(torch, model, x, card)
         prof = phase_profile(torch, model, x) if args.json_out else None
@@ -5966,6 +6610,8 @@ def main(argv=None) -> int:
         phase_ended(16)
         multi = phase_multi_step(torch, calibrated, card)
         phase_ended(17)
+        layouts = phase_layouts(torch, calibrated, card)
+        phase_ended(18)
         del calibrated
         torch.cuda.empty_cache()
 
@@ -6006,6 +6652,9 @@ def main(argv=None) -> int:
                    + multi["cli"]["launches"][k] for k in ("B1", "B2", "B3")}
         ms_fp32 = {k: multi["micro"]["launches"][k] + multi["flagship"]["launches"][k]
                    for k in ("B2", "B3")}
+        # phase 18: the layout configurations' bf16 forwards and steps (eager
+        # and captured) and their float32 steps
+        lay, lay32 = layouts["launches"], layouts["launches32"]
         # every main path launched every kernel the gate gives it
         if not (launches > 0 and fit["B2"] > 0 and fit["B3"] > 0 and gn_launches > 0
                 and gn_fit["B2"] > 0 and gn_fit["B3"] > 0 and b5_launches > 0
@@ -6021,7 +6670,8 @@ def main(argv=None) -> int:
                 and ts_zoo["B4"] > 0 and tp_steps["B2"] > 0 and tp_steps["B3"] > 0
                 and all(sc_bf16[k] > 0 for k in ("B1", "B2", "B3", "B4"))
                 and sc_fp32["B1"] > 0 and ms_bf16["B2"] > 0 and ms_bf16["B3"] > 0
-                and ms_fp32["B2"] > 0 and ms_fp32["B3"] > 0):
+                and ms_fp32["B2"] > 0 and ms_fp32["B3"] > 0 and lay["B1"] > 0
+                and lay["B2"] > 0 and lay["B3"] > 0 and lay32["B2"] > 0 and lay32["B3"] > 0):
             raise AssertionError("a kernel of a main path was never launched")
         print(f"[launches] flagship predictor B1 {launches}; flagship Trainer.fit {fit}; GN "
               f"predictor B1 {gn_launches}; GN Trainer.fit {gn_fit}; B5 on the GN step's "
@@ -6037,7 +6687,8 @@ def main(argv=None) -> int:
               f"the time-sharded step {ts_step}, float32 {ts32}, every registry name's "
               f"{ts_zoo}; the tensor-parallel bf16 steps, over the ranks {tp_steps}; the scripts "
               f"(phase 16) {sc}; the captured multi-step (phase 17; counted, plus captured "
-              f"launches x replays) bf16 {ms_bf16}, float32 {ms_fp32}", flush=True)
+              f"launches x replays) bf16 {ms_bf16}, float32 {ms_fp32}; the layout rewrites "
+              f"(phase 18) bf16 {lay}, float32 {lay32}", flush=True)
         in_step = {k: [r["max_abs_err"] for r in train[f"{k}_in_step"].values()]
                    for k in ("b2", "b3")}
         kernels = [
@@ -6047,19 +6698,19 @@ def main(argv=None) -> int:
                          "sap3d_tpu/ops/pallas/flash_attention.py:141",
                          launches + gn_launches + evaluation["b1_launches"]
                          + tf_quirk["b1_launches"] + mh_fit["B1"] + sc_bf16["B1"]
-                         + ms_bf16["B1"],
+                         + ms_bf16["B1"] + lay["B1"],
                          rows["B1"], [r["max_abs_err"] for r in gn_fwd["held"].values()],
                          gn_rows["B1"] + zoo_rows["B1"]),
             kernel_entry("flash_attention_fwd_lse", fa.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:141",
                          fit["B2"] + gn_fit["B2"] + ring_fwd["B2"] + ring_step["B2"]
                          + dp_fit["B2"] + mh_fit["B2"] + ts_step["B2"] + ts_zoo["B2"]
-                         + tp_steps["B2"] + sc_bf16["B2"] + ms_bf16["B2"],
+                         + tp_steps["B2"] + sc_bf16["B2"] + ms_bf16["B2"] + lay["B2"],
                          rows["B2"], in_step["b2"], gn_rows["B2"] + zoo_rows["B2"]),
             kernel_entry("flash_attention_bwd", fb.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:274",
                          fit["B3"] + gn_fit["B3"] + dp_fit["B3"] + mh_fit["B3"] + ts_zoo["B3"]
-                         + tp_steps["B3"] + sc_bf16["B3"] + ms_bf16["B3"],
+                         + tp_steps["B3"] + sc_bf16["B3"] + ms_bf16["B3"] + lay["B3"],
                          rows["B3"], in_step["b3"], gn_rows["B3"] + zoo_rows["B3"]),
             # B4: the ring train steps' backward (ring-only and time-sharded),
             # times at the per-shard shapes
@@ -6094,11 +6745,11 @@ def main(argv=None) -> int:
             kernel_entry("flash_attention_fwd_lse_split_f32", fa.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:141",
                          fit32["B2"] + ring32["B2"] + dp_step32["B2"] + ts32["B2"]
-                         + ms_fp32["B2"], rows["B2"], (),
+                         + ms_fp32["B2"] + lay32["B2"], rows["B2"], (),
                          gn_rows["B2"] + zoo_rows["B2"], dtype="float32"),
             kernel_entry("flash_attention_bwd_split_f32", fb.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:274",
-                         fit32["B3"] + dp_step32["B3"] + ms_fp32["B3"], rows["B3"], (),
+                         fit32["B3"] + dp_step32["B3"] + ms_fp32["B3"] + lay32["B3"], rows["B3"], (),
                          gn_rows["B3"] + zoo_rows["B3"], dtype="float32"),
             kernel_entry("flash_attention_bwd_lse_split_f32", fb.SOURCE,
                          "sap3d_tpu/ops/pallas/flash_attention.py:274", ring32["B4"] + ts32["B4"],
@@ -6120,7 +6771,8 @@ def main(argv=None) -> int:
                                tf_import=dict(reader=tf_reader, mapping=tf_mapping,
                                               quirk=tf_quirk),
                                data_parallel=dp, multihost=mh, tensor_parallel=tp,
-                               scripts=scripts, multi_step=multi, kernels=kernels), f,
+                               scripts=scripts, multi_step=multi, layouts=layouts,
+                               kernels=kernels), f,
                           indent=1)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {

@@ -89,10 +89,14 @@ def _kernel_layers(model: nn.Module):
     for prefix, module in model.named_modules():
         if "kernel" not in module._parameters:
             continue
-        if type(module) not in OUTPUT_FEATURE_DIM:
+        # the nearest class of the rule: a layer's formulations (the stem's
+        # space-to-depth conv, the phase transposed conv) keep its layout
+        dim = next((OUTPUT_FEATURE_DIM[t] for t in type(module).__mro__
+                    if t in OUTPUT_FEATURE_DIM), None)
+        if dim is None:
             raise TypeError(f"{prefix}: no output-feature dim known for "
                             f"{type(module).__name__}'s kernel")
-        yield f"{prefix}.kernel" if prefix else "kernel", module, OUTPUT_FEATURE_DIM[type(module)]
+        yield f"{prefix}.kernel" if prefix else "kernel", module, dim
 
 
 def infer_param_specs(model: nn.Module, mesh: Mesh, min_features: int = 512

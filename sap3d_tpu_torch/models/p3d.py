@@ -13,9 +13,22 @@ The module tree mirrors the flax variable tree (``encoder/stage1_block0/
 reduce``, ``decoder/x_3_1/Conv_0``, ``decoder/x_1_3_sa/f``, ...), so weights
 carry across by name (``interop/flax_bridge.py``).  Inside, tensors are
 NCDHW; ``P3DSaliency`` takes ``[B, T, H, W, 3]`` and returns
-``[B, T, H, W, 1]`` in float32, as the JAX model does.  Dense skips are
-concatenated eagerly with ``torch.cat`` (the JAX package's split-conv of the
-parts is a TPU formulation of the same math).
+``[B, T, H, W, 1]`` in float32, as the JAX model does.
+
+The JAX package's layout rewrites sit behind its environment variables,
+read when a model is built (each module's docstring says why not per call):
+``SAP3D_CONCAT_SPLIT`` / ``SAP3D_CONCAT_EAGER_SITES`` (the dense-skip convs
+per part, ``ops/concat_split.py``), ``SAP3D_CONV3D_VIA_2D`` (the
+``ConvNormRelu`` convs as 2-D convs, ``ops/conv2d_path.py``; both chosen
+by ``ops/concat_split.conv_norm_relu``),
+``SAP3D_STEM_S2D`` (the stem on a space-to-depth view,
+``ops/stem_s2d.py``), ``SAP3D_HEAD_TCONV_PS`` (the 1-channel heads' phase
+forward) and ``SAP3D_HEAD_PHASE_LOSS`` (the UNet++ 'ds' head's phase layout
+in train mode, ``ops/fast_tconv.py``), and ``SAP3D_ATTN_PROJ``
+(``ops/attention.py``).  Each computes the same function and keeps the
+state dict; with every variable unset the model is the port's default.
+The port's default for ``SAP3D_CONCAT_SPLIT`` and ``SAP3D_HEAD_PHASE_LOSS``
+is off, where the JAX package's is on.
 
 Under a time mesh every model takes a time-sharded clip
 (``ops/time_shard.Shards``, the counterpart of GSPMD's time partitioning)
@@ -40,14 +53,16 @@ from torch import nn
 
 from sap3d_tpu_torch.ops.attention import NonLocal3D, SelfAttention3D
 from sap3d_tpu_torch.ops.cbam import CBAM
+from sap3d_tpu_torch.ops.concat_split import conv_norm_relu
+from sap3d_tpu_torch.ops.fast_tconv import head_tconv, phase_head_loss_enabled
 from sap3d_tpu_torch.ops.layers import (
     Conv3d,
-    ConvNormRelu,
     ConvTranspose3d,
     Norm,
     TransposeConvNormRelu,
     max_pool3d,
 )
+from sap3d_tpu_torch.ops.stem_s2d import StemConv, stem_s2d_enabled
 from sap3d_tpu_torch.ops.time_shard import Shards
 
 BLOCK_EXPANSION = 4
@@ -126,8 +141,7 @@ class P3DEncoder(nn.Module):
                  in_features: int = 3, use_cbam: bool = False,
                  bn_reference_quirk: bool = False):
         super().__init__()
-        self.stem = Conv3d(in_features, stem_features, (1, 7, 7), (1, 2, 2),
-                           use_bias=False, dtype=dtype)
+        self.stem = StemConv(in_features, stem_features, 7, dtype, s2d=stem_s2d_enabled())
         self.stem_norm = Norm(norm_mode, stem_features, dtype)
         self.stage_blocks: list[list[str]] = []
         ch, n_s = stem_features, 0  # n_s: global block index drives A/B/C
@@ -177,7 +191,11 @@ class _Decoder(nn.Module):
     def _drop(self, x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
         """Inverted dropout in train mode with a mask drawn from
         ``generator`` (flax's ``nn.Dropout``: keep with probability 1 - rate,
-        scale by its inverse in the input's dtype)."""
+        scale by its inverse in the input's dtype).  The mask is drawn in
+        channels-last order, the memory order the model's layers keep from
+        its NDHWC input on the card, whatever ``x``'s own memory format: a
+        layout rewrite, or a backend whose convs hand back contiguous
+        tensors, draws the same mask from the same generator."""
         keep = 1.0 - self.dropout_rate
         if not self.training or self.dropout_rate == 0.0:
             return x
@@ -187,8 +205,8 @@ class _Decoder(nn.Module):
             return x * self._shard_masks(x, keep, generator) / keep
         if keep <= 0.0:
             return torch.zeros_like(x)
-        mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
-        return x * mask / keep
+        mask = torch.empty_like(x, memory_format=torch.channels_last_3d)
+        return x * mask.bernoulli_(keep, generator=generator) / keep
 
     @staticmethod
     def _shard_masks(x: Shards, keep: float, generator) -> Shards:
@@ -217,7 +235,7 @@ class UNetDecoder(_Decoder):
         self.deconv2 = TransposeConvNormRelu(512 + c3, 256, (2, 3, 3), 2, **self.kw)
         self.deconv3 = TransposeConvNormRelu(256 + c2, 128, 3, 2, **self.kw)
         self.head_conv = Conv3d(128, 32, 1, dtype=dtype)
-        self.head_tconv = ConvTranspose3d(32, 1, 3, 2, dtype=dtype)
+        self.head_tconv = head_tconv(32, dtype)
 
     def forward(self, feats, generator=None) -> torch.Tensor:
         d1 = self.deconv1(feats["pool4"])
@@ -239,9 +257,9 @@ class ConcatDecoder(_Decoder):
         self.deconv_pool2 = TransposeConvNormRelu(c2, 128, 3, 1, **self.kw)
         self.deconv_pool3 = TransposeConvNormRelu(c3, 256, 3, 2, **self.kw)
         self.deconv_pool4 = TransposeConvNormRelu(c4, 512, 3, 4, **self.kw)
-        self.conv_concat = ConvNormRelu(128 + 256 + 512, 512, 3, 1, **self.kw)
+        self.conv_concat = conv_norm_relu(128 + 256 + 512, 512, 3, 1, **self.kw)
         self.deconv_revise = TransposeConvNormRelu(512, 128, 3, 2, **self.kw)
-        self.predict_revise = ConvTranspose3d(128, 1, 3, 2, dtype=dtype)
+        self.predict_revise = head_tconv(128, dtype)
 
     def forward(self, feats, generator=None) -> torch.Tensor:
         h = self.conv_concat((self.deconv_pool2(feats["pool2"]),
@@ -272,9 +290,10 @@ class UNetPPDecoder(_Decoder):
     its tokens; fed a time-sharded clip of the same mesh, every layer runs
     shard by shard and the rings take the shards where they lie.
 
-    The JAX package's phase-layout train head (``fast_tconv.py``) is a TPU
-    formulation whose summed loss is the same number; the interleaved head
-    runs in both modes here."""
+    Under ``SAP3D_HEAD_PHASE_LOSS=1`` the 'ds' head gives its phase layout
+    in train mode, [B, 8, T/2, H/2, W/2] (``ops/fast_tconv.PhaseHeadTConv``;
+    ``train/steps.loss_fn_saliency`` takes it); eval mode gives the
+    interleaved map either way."""
 
     def __init__(self, skip_features: tuple[int, int, int, int],
                  attention: str = "sa", head: str = "ds", norm_mode: str = "bn",
@@ -301,21 +320,21 @@ class UNetPPDecoder(_Decoder):
         sa("x_4_0_sa", c4)
         nl("x_4_0_nl", c4, False)
         self.upx_4_0 = TransposeConvNormRelu(c4, 512, (1, 3, 3), 2, **kw)
-        self.x_3_1 = ConvNormRelu(c3 + 512, 512, (2, 3, 3), 1, **kw)
+        self.x_3_1 = conv_norm_relu(c3 + 512, 512, (2, 3, 3), 1, **kw, site="x_3_1")
         sa("x_3_1_sa", 512)
         nl("x_3_1_nl", 512, False)
         self.upx_3_0 = TransposeConvNormRelu(c3, 256, (2, 3, 3), 2, **kw)
-        self.x_2_1 = ConvNormRelu(c2 + 256, 256, 3, 1, **kw)
+        self.x_2_1 = conv_norm_relu(c2 + 256, 256, 3, 1, **kw, site="x_2_1")
         self.upx_3_1 = TransposeConvNormRelu(512, 256, (2, 3, 3), 2, **kw)
-        self.x_2_2 = ConvNormRelu(512, 256, 3, 1, **kw)
+        self.x_2_2 = conv_norm_relu(512, 256, 3, 1, **kw, site="x_2_2")
         sa("x_2_2_sa", 256)
         nl("x_2_2_nl", 256, False)
         self.upx_2_0 = TransposeConvNormRelu(c2, 128, 3, 2, **kw)
-        self.x_1_1 = ConvNormRelu(c1 + 128, 128, 3, 1, **kw)
+        self.x_1_1 = conv_norm_relu(c1 + 128, 128, 3, 1, **kw, site="x_1_1")
         self.upx_2_1 = TransposeConvNormRelu(256, 128, 3, 2, **kw)
-        self.x_1_2 = ConvNormRelu(256, 128, 3, 1, **kw)
+        self.x_1_2 = conv_norm_relu(256, 128, 3, 1, **kw, site="x_1_2")
         self.upx_2_2 = TransposeConvNormRelu(256, 128, 3, 2, **kw)
-        self.x_1_3 = ConvNormRelu(256, 128, 3, 1, **kw)
+        self.x_1_3 = conv_norm_relu(256, 128, 3, 1, **kw, site="x_1_3")
         if attention == "nl":
             nl("x_1_3_nl", 128, True)
         else:
@@ -325,7 +344,7 @@ class UNetPPDecoder(_Decoder):
             sa("x_0_1_sa", 16, subsample=True, sub_size=4)
             self.result = Conv3d(16, 1, 1, dtype=dtype)
         else:
-            self.x_0_1 = ConvTranspose3d(128, 1, 3, 2, dtype=dtype)
+            self.x_0_1 = head_tconv(128, dtype, phase_layout=phase_head_loss_enabled())
 
     def _attend(self, x: torch.Tensor, site: str) -> torch.Tensor:
         """The attention blocks registered at ``site`` (``<site>_sa``, then
@@ -385,9 +404,9 @@ class GNEasyDecoder(_Decoder):
         wide = 1024 if wide_pool4 else 512
         self.deconv_pool3 = TransposeConvNormRelu(c3, 512, 3, 2, **self.kw)
         self.deconv_pool4 = TransposeConvNormRelu(c4, wide, 3, 4, **self.kw)
-        self.conv_concat = ConvNormRelu(512 + wide + c2, 1024, 3, 1, **self.kw)
+        self.conv_concat = conv_norm_relu(512 + wide + c2, 1024, 3, 1, **self.kw)
         self.deconv_revise = TransposeConvNormRelu(1024, 256, 3, 2, **self.kw)
-        self.predict_revise = ConvTranspose3d(256, 1, 3, 2, dtype=dtype)
+        self.predict_revise = head_tconv(256, dtype)
 
     def forward(self, feats, generator=None) -> torch.Tensor:
         pool2, pool3, pool4 = feats["pool2"], feats["pool3"], feats["pool4"]
@@ -416,7 +435,7 @@ class GNSAConcat2Decoder(_Decoder):
         self.conv_concat = Conv3d(c2 + 256 + 512, 512, 3, dtype=dtype)
         self.conv_concat_gn = Norm(norm_mode, 512, dtype)
         self.deconv_revise = TransposeConvNormRelu(512, 128, 3, 2, **self.kw)
-        self.predict_revise = ConvTranspose3d(128, 1, 3, 2, dtype=dtype)
+        self.predict_revise = head_tconv(128, dtype)
 
     def forward(self, feats, generator=None) -> torch.Tensor:
         pool2_sa = self.pool2_sa(feats["pool2"])
@@ -455,13 +474,13 @@ class GNDecoderBlock(_Decoder):
             self.deconv_pool3 = TransposeConvNormRelu(c3, 256, (2, 3, 3), 2, **kw)
             self.deconv_pool4 = TransposeConvNormRelu(c4, 512, (1, 3, 3), 4, **kw)
             cat = 128 + 256 + 512
-        self.conv_concat = ConvNormRelu(cat, 1024, 3, 1, **kw)
-        self.decoder1_conv1 = ConvNormRelu(1024, 256, 3, 1, **kw)
+        self.conv_concat = conv_norm_relu(cat, 1024, 3, 1, **kw)
+        self.decoder1_conv1 = conv_norm_relu(1024, 256, 3, 1, **kw)
         self.decoder1_deconv = TransposeConvNormRelu(256, 256, 3, 2, **kw)
-        self.decoder1_conv2 = ConvNormRelu(256, 128, 3, 1, **kw)
-        self.decoder2_conv1 = ConvNormRelu(128, 32, 3, 1, **kw)
+        self.decoder1_conv2 = conv_norm_relu(256, 128, 3, 1, **kw)
+        self.decoder2_conv1 = conv_norm_relu(128, 32, 3, 1, **kw)
         self.decoder2_deconv = TransposeConvNormRelu(32, 32, 3, 2, **kw)
-        self.decoder2_conv2 = ConvNormRelu(32, 16, 3, 1, **kw)
+        self.decoder2_conv2 = conv_norm_relu(32, 16, 3, 1, **kw)
         self.results = Conv3d(16, 1, 3, dtype=dtype)
 
     def forward(self, feats, generator=None) -> torch.Tensor:

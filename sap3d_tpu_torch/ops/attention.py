@@ -56,6 +56,7 @@ version on CPU tensors.  The function is the same on every route.
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 import torch.nn.functional as F
@@ -71,7 +72,7 @@ from sap3d_tpu_torch.ops.cuda.flash_attention import (
 )
 from sap3d_tpu_torch.ops.cuda.flash_attention_bwd import backward_viable, flash_backward
 from sap3d_tpu_torch.ops.layers import Conv3d, Norm, pool3d
-from sap3d_tpu_torch.ops.time_shard import Shards, gather, shard
+from sap3d_tpu_torch.ops.time_shard import Shards, gather, shard, to_device
 
 # Above this many query tokens, attend in query chunks so the score matrix
 # is at most [B, chunk, Nk].
@@ -225,6 +226,19 @@ def attention_route(nq: int, nk: int, d: int, c: int, dtype: torch.dtype,
     return "flash" if viable(nq, nk, d, c, dtype) else "plain"
 
 
+PROJ_MODES = ("separate", "fused", "fused_lowp")
+
+
+def attn_proj_mode() -> str:
+    """``SAP3D_ATTN_PROJ``: how ``SelfAttention3D`` computes its f/g/h
+    projections (``PROJ_MODES``; "separate" by default, as in the JAX
+    package).  Any other value raises."""
+    mode = os.environ.get("SAP3D_ATTN_PROJ", "separate")
+    if mode not in PROJ_MODES:
+        raise ValueError(f"SAP3D_ATTN_PROJ={mode!r}; known: {', '.join(PROJ_MODES)}")
+    return mode
+
+
 def _tokens(x: torch.Tensor) -> torch.Tensor:
     """[B, C, D, H, W] -> contiguous [B, D*H*W, C]."""
     return x.flatten(2).transpose(1, 2).contiguous()
@@ -255,8 +269,22 @@ def _scattered(o: torch.Tensor, like: Shards) -> Shards:
 class SelfAttention3D(nn.Module):
     """SAGAN-style global self-attention over D*H*W tokens (NCDHW in/out).
 
-    f/g project to max(1, C//8) channels, h to C, each a biased 1x1x1 conv
-    (the JAX package's default "separate" projections).  With
+    f/g project to max(1, C//8) channels, h to C, each a biased 1x1x1 conv.
+    ``SAP3D_ATTN_PROJ`` (read when the block is built, not per call: the
+    eager step is bound by host launches, and a captured step fixes the
+    schedule at capture anyway) picks how, as in the JAX package (``sap3d_tpu/ops/attention.py:150-215``): "separate" (the
+    default) runs the three convs; "fused" runs one 1x1x1 conv C -> 2i + C
+    over the three kernels concatenated, on the input and kernel widened to
+    float32 (the JAX einsum's float32 accumulator, float64 for a float64
+    input), casts it to the compute dtype, adds the concatenated bias in
+    that dtype and splits the channels; "fused_lowp" runs the one conv in
+    the compute dtype.  The parameters stay the three modules ``f``, ``g``
+    and ``h`` in every mode.  The fused modes' f, g and h are channel slices
+    of one tensor; ``_tokens`` makes each a contiguous [B, N, C] copy, as it
+    does the separate convs' outputs, so the kernels (whose
+    ``contiguous_aligned`` copies anything else) get the same tensors in
+    every mode.  A block whose projections are sharded on a model axis
+    (tensor parallel) takes "separate" only.  With
     ``use_kernel=False`` every size takes ``attend_tokens`` (the plain path,
     to compare the kernel path against; with a ``ring_mesh``, the ring's
     chunked hop); otherwise the dispatch rule above applies.  ``ring_mesh``
@@ -285,9 +313,13 @@ class SelfAttention3D(nn.Module):
         self.out = Conv3d(features, features, 1, dtype=dtype)
         self.Norm_0 = Norm(norm_mode, features, dtype)
         self.gamma = nn.Parameter(torch.zeros(1))
+        self.proj_mode = attn_proj_mode()
 
     def forward(self, x):
-        f, g, hv = self.f(x), self.g(x), self.h(x)
+        if self.proj_mode == "separate":
+            f, g, hv = self.f(x), self.g(x), self.h(x)
+        else:
+            f, g, hv = self._fused_projections(x)
         if self.subsample:
             f = pool3d(f, self.sub_size)
             hv = pool3d(hv, self.sub_size)
@@ -297,6 +329,28 @@ class SelfAttention3D(nn.Module):
             o = _untokens(self._attend(_tokens(g), _tokens(f), _tokens(hv)), x.shape[2:])
         o = F.relu(self.Norm_0(self.out(o)))
         return x + self.gamma.to(x.dtype) * o
+
+    def _fused_projections(self, x):
+        """f, g, h from one 1x1x1 conv (``proj_mode`` "fused" or
+        "fused_lowp")."""
+        if any(m.model_group is not None for m in (self.f, self.g, self.h)):
+            raise ValueError(f"SAP3D_ATTN_PROJ={self.proj_mode} on a model mesh: the fused "
+                             "projections take whole kernels; tensor parallel takes 'separate'")
+        dtype, inter = self.f.dtype, self.f.kernel.shape[0]
+        acc = torch.promote_types(dtype, torch.float32) if self.proj_mode == "fused" else dtype
+        w = torch.cat([self.f.kernel, self.g.kernel, self.h.kernel]).to(dtype)
+        b = torch.cat([self.f.bias, self.g.bias, self.h.bias]).to(dtype).view(1, -1, 1, 1, 1)
+
+        def project(t: torch.Tensor) -> torch.Tensor:
+            y = F.conv3d(t.to(dtype).to(acc), to_device(w, t.device).to(acc)).to(dtype)
+            return y + to_device(b, t.device)
+
+        fgh = x.map(project) if isinstance(x, Shards) else project(x)
+
+        def cut(a: int, z: int):
+            return fgh.map(lambda t: t[:, a:z]) if isinstance(fgh, Shards) else fgh[:, a:z]
+
+        return cut(0, inter), cut(inter, 2 * inter), cut(2 * inter, None)
 
     def _attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         """The attention of whole-clip tokens by the module docstring's rule."""

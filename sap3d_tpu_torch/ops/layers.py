@@ -38,7 +38,7 @@ layer raises: the JAX package does not combine the two either.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -71,6 +71,16 @@ def pad_same(x: torch.Tensor, kernel, strides, value: float = 0.0) -> torch.Tens
         return x
     (dl, dh), (hl, hh), (wl, wh) = pads
     return F.pad(x, (wl, wh, hl, hh, dl, dh), value=value)
+
+
+def in_memory_format_of(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``y`` in the memory format of ``x`` (channels-last or contiguous), as
+    a conv keeps its input's: a layout rewrite of a layer hands on the
+    format the layer would, so what follows (the dropout masks, drawn in
+    memory order; cuDNN's choice of kernels) sees the default path's."""
+    channels_last = not x.is_contiguous() and x.is_contiguous(memory_format=torch.channels_last_3d)
+    return y.contiguous(memory_format=torch.channels_last_3d if channels_last
+                        else torch.contiguous_format)
 
 
 def max_pool3d(
@@ -160,18 +170,25 @@ class Conv3d(nn.Module):
     def forward(self, x):
         x = x.to(self.dtype)
         if self.model_group is not None:
-            return column_parallel(x, self.model_group, lambda t: self._conv(
-                t, same_pads(t.shape[2], self.ksize[0], self.strides[0]), with_bias=False),
-                self.bias, 1)
+            return column_parallel(x, self.model_group, lambda t: self.conv(t, with_bias=False),
+                                   self.bias, 1)
+        return self.conv(x)
+
+    def conv(self, x, kernel: torch.Tensor | None = None, with_bias: bool = True):
+        """The SAME conv of a whole or time-sharded ``x`` (in the compute
+        dtype) with ``kernel``: the layer's own, or a slice of its input
+        channels (``ops/concat_split.py``)."""
         if isinstance(x, Shards):
             if self.strides[0] != 1:
                 raise ValueError("a time-sharded conv takes temporal stride 1")
             lo, hi = same_pads(x.shape[2], self.ksize[0], 1)
-            return x.with_parts([self._conv(p, (0, 0)) for p in time_shard.halo(x, lo, hi)])
-        return self._conv(x, same_pads(x.shape[2], self.ksize[0], self.strides[0]))
+            return x.with_parts([self._conv(p, (0, 0), kernel, with_bias)
+                                 for p in time_shard.halo(x, lo, hi)])
+        return self._conv(x, same_pads(x.shape[2], self.ksize[0], self.strides[0]), kernel,
+                          with_bias)
 
     def _conv(self, x: torch.Tensor, time_pads: tuple[int, int],
-              with_bias: bool = True) -> torch.Tensor:
+              kernel: torch.Tensor | None = None, with_bias: bool = True) -> torch.Tensor:
         pads = [time_pads] + [same_pads(n, k, s) for n, k, s in
                               zip(x.shape[3:], self.ksize[1:], self.strides[1:])]
         if all(lo == hi for lo, hi in pads):
@@ -180,10 +197,18 @@ class Conv3d(nn.Module):
             (dl, dh), (hl, hh), (wl, wh) = pads
             x = F.pad(x, (wl, wh, hl, hh, dl, dh))
             padding = 0
-        bias = None if self.bias is None or not with_bias else \
-            to_device(self.bias, x.device).to(self.dtype)
-        kernel = to_device(self.kernel, x.device).to(self.dtype)
-        return F.conv3d(x, kernel, bias, self.strides, padding)
+        return F.conv3d(x, self._kernel(x, kernel), self._bias(x, with_bias), self.strides,
+                        padding)
+
+    def _kernel(self, x: torch.Tensor, kernel: torch.Tensor | None = None) -> torch.Tensor:
+        """``kernel`` (the layer's own by default) on x's device, in the
+        compute dtype."""
+        return to_device(self.kernel if kernel is None else kernel, x.device).to(self.dtype)
+
+    def _bias(self, x: torch.Tensor, with_bias: bool = True) -> torch.Tensor | None:
+        if self.bias is None or not with_bias:
+            return None
+        return to_device(self.bias, x.device).to(self.dtype)
 
 
 def tconv_same_crop(n: int, k: int, s: int) -> tuple[int, int]:
@@ -308,11 +333,15 @@ def column_parallel(x, group, local, bias, dim: int) -> torch.Tensor:
     bias) for each rank, the slices all-gathered along ``dim`` into the
     whole output, then the whole bias added.  The gradient of ``x`` is
     summed over the row (``copy_to_model_row``); the kernel's gradient is
-    this rank's slice's, the bias's the whole layer's."""
-    if isinstance(x, Shards):
+    this rank's slice's, the bias's the whole layer's.  ``x`` may be a
+    tuple of channel-concat parts (``ops/concat_split.py``): each part's
+    gradient is summed over the row, and ``local`` takes the tuple."""
+    parts = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+    if any(isinstance(p, Shards) for p in parts):
         raise ValueError("a time-sharded clip through a layer sharded on the model axis: "
                          "tensor parallel takes whole clips")
-    y = gather_features(local(copy_to_model_row(x, group)), group, dim)
+    parts = tuple(copy_to_model_row(p, group) for p in parts)
+    y = gather_features(local(parts if isinstance(x, (tuple, list)) else parts[0]), group, dim)
     if bias is None:
         return y
     shape = [1] * y.dim()
@@ -611,19 +640,29 @@ def _cat(x):
 
 
 class ConvNormRelu(nn.Module):
-    """conv3d -> norm -> relu.  Accepts a tuple of parts, concatenated on
-    the channel axis (the JAX package's split-conv of the parts is a TPU
-    formulation of the same math and is not ported)."""
+    """conv3d -> norm -> relu.  Accepts a tuple of parts (the decoders'
+    dense skips), concatenated on the channel axis (``_cat``), or, given
+    ``split``, handed to ``split(Conv_0, parts)`` without the concat.
+    ``conv`` replaces the plain ``Conv3d`` (a subclass with the same
+    parameters, so the state dict is the same).  Which conv and split a
+    layer takes under the layout variables is chosen where the model is
+    built (``ops/concat_split.conv_norm_relu``)."""
 
     def __init__(self, in_features: int, features: int, kernel=3, strides=1,
                  norm_mode: str = "bn", use_bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, conv: type[Conv3d] | None = None,
+                 split: Callable | None = None):
         super().__init__()
-        self.Conv_0 = Conv3d(in_features, features, kernel, strides, use_bias, dtype)
+        self.split_conv = split
+        self.Conv_0 = (conv or Conv3d)(in_features, features, kernel, strides, use_bias, dtype)
         self.Norm_0 = Norm(norm_mode, features, dtype)
 
     def forward(self, x):
-        return F.relu(self.Norm_0(self.Conv_0(_cat(x))))
+        if self.split_conv is not None and isinstance(x, (tuple, list)):
+            y = self.split_conv(self.Conv_0, x)
+        else:
+            y = self.Conv_0(_cat(x))
+        return F.relu(self.Norm_0(y))
 
 
 class TransposeConvNormRelu(nn.Module):

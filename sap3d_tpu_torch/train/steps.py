@@ -73,6 +73,7 @@ from torch import nn
 from sap3d_tpu_torch.core.mesh import time_shard_batch
 from sap3d_tpu_torch.core.sharding_rules import apply_state_sharding, sharded_layers
 from sap3d_tpu_torch.ops.cuda import launch_counts
+from sap3d_tpu_torch.ops.fast_tconv import space_to_depth3d
 from sap3d_tpu_torch.ops.layers import set_data_group, smooth_l1_loss, smooth_l1_terms
 from sap3d_tpu_torch.ops.time_shard import Shards, shard_sums
 from sap3d_tpu_torch.train.state import TrainState
@@ -86,12 +87,32 @@ def loss_fn_saliency(pred, target) -> torch.Tensor:
     ``pred`` [B, T, H, W, 1] or [B, T, H, W], ``target`` [B, T, H, W].
     Time-sharded ``pred`` and ``target`` (``core/mesh.time_shard_batch``)
     give each shard's sum on its device, and those sums are added on the
-    mesh's first device in shard order."""
+    mesh's first device in shard order.
+
+    A ``pred`` of 8 channels is the UNet++ 'ds' head's phase layout
+    [B, T/2, H/2, W/2, 8] (``SAP3D_HEAD_PHASE_LOSS``): it is held against
+    ``space_to_depth3d(target)``, which puts each target value where its
+    prediction lies, so the sum has the same terms (each time shard's
+    target is rearranged on its own)."""
+    if len(pred.shape) == len(target.shape) + 1 and pred.shape[-1] == 8:
+        if pred.shape[1] * 2 != target.shape[1]:
+            raise ValueError(f"a phase-layout prediction {tuple(pred.shape)} against a target "
+                             f"{tuple(target.shape)}")
+        return loss_fn_saliency(pred, _phase_target(target))
     if pred.shape[-1] == 1 and len(pred.shape) == len(target.shape) + 1:
         pred = pred.squeeze(-1)
     if isinstance(pred, Shards):
         return shard_sums(pred.zip(target, smooth_l1_terms)).sum()
     return smooth_l1_loss(pred, target, 1.0, 1.0, sigma=1.0)
+
+
+def _phase_target(target):
+    """The target [B, T, H, W] as the phase layout [B, T/2, H/2, W/2, 8],
+    shard by shard for a time-sharded one (whose shards' frames are even
+    where the prediction's T/2 divides over the shards)."""
+    if not isinstance(target, Shards):
+        return space_to_depth3d(target, (2, 2, 2))
+    return target.map(lambda t: space_to_depth3d(t, (2, 2, 2)))
 
 
 def gradient_buckets(params) -> list[list[torch.Tensor]]:

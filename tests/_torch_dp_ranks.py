@@ -13,6 +13,7 @@ import os
 import numpy as np
 import torch
 
+from chip_smoke import LAYOUT_ALL, layout_flags
 from sap3d_tpu_torch.models import registry as treg
 from sap3d_tpu_torch.ops.layers import set_data_group
 from sap3d_tpu_torch.train.state import create_train_state
@@ -47,8 +48,9 @@ def parity_rank(group, weights, batches, skewed):
     rows scaled and shifted, so that the halves differ): the summed
     gradient, and the control with per-rank BN statistics; on rank 0 the
     one-device gradients of the whole batches, float32 on ``batches[0]`` and
-    float64 on ``skewed``; (c) rank 0: the quirk model's eval output over the
-    group."""
+    float64 on ``skewed``; the summed float64 gradient again with every
+    layout rewrite set (``summed_layouts``); (c) rank 0: the quirk model's
+    eval output over the group."""
     torch.set_num_threads(2)
     b = batches[0][0].shape[0] // group.world_size
     rows = slice(group.rank * b, (group.rank + 1) * b)
@@ -69,11 +71,14 @@ def parity_rank(group, weights, batches, skewed):
             for dtype, name, frames, g, global_bn in (
                 (torch.float32, "one_device32", batches[0][0], None, True),
                 (torch.float64, "summed", skewed, group, True),
+                (torch.float64, "summed_layouts", skewed, group, True),
                 (torch.float64, "per_rank_bn", skewed, group, False),
                 (torch.float64, "one_device", skewed, None, True))
             if g is not None or group.is_main]
     for dtype, name, frames, g, global_bn in runs:
-        model = micro_model(weights, dtype)
+        # "summed_layouts": every layout rewrite (chip_smoke.LAYOUT_ALL) on the data mesh
+        with layout_flags(LAYOUT_ALL if name == "summed_layouts" else {}):
+            model = micro_model(weights, dtype)
         step = make_train_step(create_train_state(model, lr=LR, weight_decay=WEIGHT_DECAY), g)
         if not global_bn:
             set_data_group(model, None)

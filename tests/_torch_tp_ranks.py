@@ -12,7 +12,12 @@ import contextlib
 import numpy as np
 import torch
 
-from chip_smoke import TENSOR_PARALLEL_FAULTS, planted_tensor_parallel_fault
+from chip_smoke import (
+    LAYOUT_MODEL_MESH,
+    TENSOR_PARALLEL_FAULTS,
+    layout_flags,
+    planted_tensor_parallel_fault,
+)
 from sap3d_tpu_torch.core.sharding_rules import (
     gather_state,
     gather_tensors,
@@ -100,7 +105,9 @@ def one_device_step(cfg, weights, frames, targets, dtype, device="cpu"):
 def parity_rank(group, micro, gn, frames, targets):
     """This rank's readings of the CPU tests: (a) ``p3d_micro_sa``
     (``micro`` = (config, weights)) in float32, two steps; (b) the same in
-    float64, sound and with each planted fault, one step; (c) the GN +
+    float64, sound, with the layout rewrites a model mesh takes
+    (``chip_smoke.LAYOUT_MODEL_MESH``) and with each planted fault, one
+    step; (c) the GN +
     CBAM micro model (``gn``) in float32, one step.  Readings that every
     rank holds alike come back from rank 0 only."""
     torch.set_num_threads(1)
@@ -110,6 +117,8 @@ def parity_rank(group, micro, gn, frames, targets):
     out["shapes"] = a["shapes"]
     runs = {"f32": a}
     runs["f64"] = tp_step(group, *micro, frames, targets, torch.float64)
+    with layout_flags(LAYOUT_MODEL_MESH):  # the layout rewrites a model mesh takes
+        runs["f64_layouts"] = tp_step(group, *micro, frames, targets, torch.float64)
     for fault in TENSOR_PARALLEL_FAULTS:
         runs[fault] = tp_step(group, *micro, frames, targets, torch.float64, fault=fault)
     runs["gn"] = tp_step(group, *gn, frames, targets, torch.float32)

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from _torch_parity import record_routes
+from _torch_threads import two_threads  # noqa: F401  (autouse: two torch threads)
 from sap3d_tpu.ops import attention as ja
 from sap3d_tpu_torch.interop.flax_bridge import state_dict_from_flax
 from sap3d_tpu_torch.ops import attention as ta

@@ -1303,3 +1303,108 @@ def test_multi_step_capture_raises_and_recaptures_replaced_state(cuda, monkeypat
     assert bool(torch.isfinite(losses).all())
     multi(frames, targets, gen)
     assert multi.replays == 4 and state.step == 8
+
+
+# ---- the layout rewrites (chip_smoke.py phase 18) ---------------------------
+
+# The micro model's float32 train gradient is ill-conditioned (its BN sees a
+# few samples a channel): a rewrite's other rounding moves it as the JAX
+# package's does (tests/_torch_parity.py's GRAD_TOL); the eval forward and
+# the loss move by float32 rounding.
+LAYOUT_EVAL_TOL, LAYOUT_LOSS_TOL, LAYOUT_GRAD_TOL = 1e-5, 1e-5, 5e-2
+
+
+def _layout_run(cuda, flags, state=None, fault=None):
+    """p3d_micro_sa under ``flags`` (cuDNN's deterministic algorithms,
+    float32, dropout 0.5 from a seeded generator, gamma 1): the eval
+    forward at 32 px, batch 2, and one train step's loss and gradient, with
+    the kernels' launches of each."""
+    import contextlib
+
+    from chip_smoke import layout_flags, planted_layout_fault
+    from sap3d_tpu_torch.models.registry import build_model
+    from sap3d_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from sap3d_tpu_torch.train.steps import loss_fn_saliency
+
+    with layout_flags(flags):
+        model = build_model("p3d_micro_sa", dtype="float32", device=cuda, seed=0)
+    if state is not None:
+        model.load_state_dict(state)
+    with torch.no_grad():
+        for sa in model.attention_modules():
+            sa.gamma.fill_(1.0)
+    start = {k: v.clone() for k, v in model.state_dict().items()}  # before BN moves
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(2, 16, 32, 32, 3, device=cuda, generator=gen) * 0.5
+    y = torch.rand(2, 16, 32, 32, device=cuda, generator=gen)
+    with (planted_layout_fault(fault) if fault else contextlib.nullcontext()):
+        reset_launch_counts()
+        with torch.no_grad():
+            out = model.eval()(x)
+        eval_launches = launch_counts("B1", "B2", "B3")
+        reset_launch_counts()
+        loss = loss_fn_saliency(model.train()(x, torch.Generator(device=cuda).manual_seed(1)), y)
+        loss.backward()
+        torch.cuda.synchronize()
+        step_launches = launch_counts("B1", "B2", "B3")
+    grad = torch.cat([p.grad.flatten() for p in model.parameters()])
+    return dict(state=start, out=out, loss=loss.item(), grad=grad,
+                eval_launches=eval_launches, step_launches=step_launches)
+
+
+@pytest.mark.parametrize("config", ["concat_split", "head_phase_loss", "conv3d_via_2d",
+                                    "stem_s2d", "head_tconv_ps", "attn_proj_fused",
+                                    "attn_proj_fused_lowp", "jax_default_pair", "all"])
+def test_layouts_match_the_default_on_the_card(cuda, config, monkeypatch):
+    """Each layout configuration's eval forward and train step against the
+    default model's in float32, B1/B2/B3 launches the same; with every
+    rewrite set, the phase plan's taps shifted fails the step."""
+    from chip_smoke import LAYOUT_ALL, LAYOUT_CONFIGS
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    flags = LAYOUT_ALL if config == "all" else LAYOUT_CONFIGS[config]
+    ref = _layout_run(cuda, {})
+    got = _layout_run(cuda, flags, ref["state"])
+    scale = ref["out"].abs().max().item()
+    assert (got["out"] - ref["out"]).abs().max().item() <= LAYOUT_EVAL_TOL * scale
+    assert abs(got["loss"] - ref["loss"]) <= LAYOUT_LOSS_TOL * abs(ref["loss"])
+    rel = (got["grad"] - ref["grad"]).norm().item() / ref["grad"].norm().item()
+    assert rel <= LAYOUT_GRAD_TOL, rel
+    assert got["eval_launches"] == ref["eval_launches"] and ref["eval_launches"]["B1"] == 2
+    assert got["step_launches"] == ref["step_launches"] and ref["step_launches"]["B2"] == 2
+    if config == "all":
+        bad = _layout_run(cuda, flags, ref["state"], fault="shifted_taps")
+        assert abs(bad["loss"] - ref["loss"]) > 10 * LAYOUT_LOSS_TOL * abs(ref["loss"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layouts_capture_and_keep_the_dropout_masks(cuda, dtype):
+    """Under the JAX package's default pair (split and phase-layout loss)
+    the K-step call captures and replays with finite losses and the eager
+    step's launches a step; the default model's dropout input is
+    channels-last on the card (the masks, drawn in channels-last order,
+    are the ones drawn before the layout rewrites)."""
+    from chip_smoke import LAYOUT_CONFIGS, layout_flags
+    from sap3d_tpu_torch.models.registry import build_model
+    from sap3d_tpu_torch.train.state import create_train_state
+    from sap3d_tpu_torch.train.steps import CapturedMultiStep, make_multi_train_step
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    frames = torch.randn((2, 2, 16, 32, 32, 3), device=cuda, generator=gen) * 0.5
+    targets = torch.rand((2, 2, 16, 32, 32), device=cuda, generator=gen)
+    default = build_model("p3d_micro_sa", dtype=dtype, device=cuda, seed=0).train()
+    seen = []
+    drop = default.decoder._drop
+    default.decoder._drop = lambda x, g: (seen.append(x), drop(x, g))[1]
+    with torch.no_grad():
+        default(frames[0], gen)
+    assert seen[0].is_contiguous(memory_format=torch.channels_last_3d)
+    assert not seen[0].is_contiguous()
+    with layout_flags(LAYOUT_CONFIGS["jax_default_pair"]):
+        model = build_model("p3d_micro_sa", dtype=dtype, device=cuda, seed=0, dropout_rate=0.5)
+    multi = make_multi_train_step(create_train_state(model, lr=1e-4), 2)
+    assert isinstance(multi, CapturedMultiStep)
+    losses = torch.cat([multi(frames, targets, gen), multi(frames, targets, gen)])
+    torch.cuda.synchronize()
+    assert multi.replays == 2 and bool(torch.isfinite(losses).all())
+    assert multi.captured_launches["B2"] == multi.captured_launches["B3"] == 2

@@ -189,6 +189,18 @@ def test_summed_gradient_matches_one_device_and_the_controls_fail(ranks, dtype):
         assert torch.equal(ranks[1][f"summed{suffix}"]["grads"][n], g), n
 
 
+def test_layout_rewrites_compose_with_the_data_parallel_step(ranks):
+    """Every layout rewrite set (``chip_smoke.LAYOUT_ALL``: the split, the
+    phase-layout loss and the four opt-in rewrites) on the 2-rank data
+    mesh: the summed float64 gradient against one device's default one,
+    under ``SUMMED_GRAD_TOL``, the same on both ranks."""
+    got, want = ranks[0]["summed_layouts"], ranks[0]["one_device"]
+    assert got["loss"] == pytest.approx(want["loss"], rel=1e-12)
+    assert _rel_l2(got["grads"], want["grads"]) <= SUMMED_GRAD_TOL
+    for n, g in got["grads"].items():
+        assert torch.equal(ranks[1]["summed_layouts"]["grads"][n], g), n
+
+
 def test_ranks_stay_bit_identical(ranks):
     a, b = ranks[0]["steps"][-1], ranks[1]["steps"][-1]
     assert a["loss"] == b["loss"]

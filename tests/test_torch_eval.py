@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import two_threads  # noqa: F401  (autouse: two torch threads)
 from sap3d_tpu.eval import evaluator as jev
 from sap3d_tpu.eval import metrics_jax as MJ
 from sap3d_tpu_torch import cli

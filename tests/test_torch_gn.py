@@ -31,6 +31,9 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from _torch_parity import build_micro_pair, record_routes
+# two torch threads; the steps held to JAX's loss at rtol 1e-6 take the
+# default pool, whose order of sums meets it (at two threads one read 1.6e-6)
+from _torch_threads import default_threads, two_threads  # noqa: F401
 from sap3d_tpu.ops import cbam as jc
 from sap3d_tpu.ops.pallas.flash_attention import flash_fwd_chunked_bwd as jax_hybrid
 from sap3d_tpu.train.steps import loss_fn_saliency as jax_loss_fn
@@ -259,7 +262,7 @@ def _port_step(gn_pair):
 
 
 @pytest.mark.parametrize("hybrid", ["0", "1"], ids=["hybrid_off", "hybrid_on"])
-def test_gn_micro_train_step_matches_jax(gn_pair, monkeypatch, hybrid):
+def test_gn_micro_train_step_matches_jax(gn_pair, monkeypatch, hybrid, default_threads):
     """With SAP3D_FLASH_HYBRID (the JAX package's hybrid flag) unset or "1"
     every site, the C = 1024 one (d = 128) too, trains through B2 + B3: the
     backward gate takes d <= 128 and C <= 1024, and the port has no hybrid
@@ -281,7 +284,7 @@ def test_gn_micro_train_step_matches_jax(gn_pair, monkeypatch, hybrid):
     assert all(sa.gamma.grad.abs().item() > 0 for sa in tm.attention_modules())
 
 
-def test_gn_micro_train_step_through_b5_matches_jax(gn_pair, monkeypatch):
+def test_gn_micro_train_step_through_b5_matches_jax(gn_pair, monkeypatch, default_threads):
     """The C = 1024 site sent to B5 (``flash_fwd_chunked_bwd``) in the
     same step: no route of the dispatch reaches B5, so the site's call of
     ``flash_attend`` is given to it here; the gradient is held as above."""

@@ -60,7 +60,9 @@ def test_port_imports_nothing_of_jax():
                 "interop.tf_import", "scripts._timing", "scripts.profile_attention",
                 "scripts.profile_ring_hop", "scripts.profile_decoder", "scripts.profile_encoder",
                 "scripts.profile_step", "scripts.profile_gn", "scripts.bench_eval",
-                "scripts.bench_cli_eval", "scripts.bench_export", "scripts.bench_loader"):
+                "scripts.bench_cli_eval", "scripts.bench_export", "scripts.bench_loader",
+                "ops.concat_split", "ops.conv2d_path", "ops.fast_tconv", "ops.stem_s2d",
+                "scripts.profile_tconv", "scripts.profile_tconv2", "scripts.profile_tconv3"):
         assert f"sap3d_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"

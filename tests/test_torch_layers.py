@@ -14,6 +14,7 @@ import pytest
 import torch
 from flax import linen as nn
 
+from _torch_threads import two_threads  # noqa: F401  (autouse: two torch threads)
 from sap3d_tpu.ops import layers as jl
 from sap3d_tpu_torch.interop.flax_bridge import convert_leaf
 from sap3d_tpu_torch.ops import layers as tl

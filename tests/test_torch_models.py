@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import two_threads  # noqa: F401  (autouse: two torch threads)
 from sap3d_tpu.models import registry as jreg
 from _torch_parity import build_micro_pair, build_pair
 from sap3d_tpu_torch.interop.flax_bridge import convert_leaf

@@ -23,6 +23,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from _torch_threads import two_threads  # noqa: F401  (autouse: two torch threads)
 from sap3d_tpu.ops.pallas.flash_attention import _flash_forward
 from sap3d_tpu_torch.models.registry import build_model
 from sap3d_tpu_torch.ops import attention

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from _torch_parity import build_pair
+from _torch_threads import two_threads  # noqa: F401  (autouse: two torch threads)
 from sap3d_tpu.data.synthetic import make_synthetic_dataset
 from sap3d_tpu.infer.predictor import SlidingWindowPredictor as JaxPredictor
 from sap3d_tpu_torch import cli

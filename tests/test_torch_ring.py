@@ -30,6 +30,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from _torch_parity import build_micro_pair
+from _torch_threads import two_threads  # noqa: F401  (autouse: two torch threads)
 from sap3d_tpu.core.mesh import make_time_mesh as jax_time_mesh
 from sap3d_tpu.ops.attention import attend_tokens as jax_attend_tokens
 from sap3d_tpu.ops.pallas.flash_attention import (

@@ -69,6 +69,9 @@ from sap3d_tpu_torch.scripts import (
     profile_gn,
     profile_ring_hop,
     profile_step,
+    profile_tconv,
+    profile_tconv2,
+    profile_tconv3,
     time_flash_backward,
     time_flash_forward,
     train_step_spread,
@@ -78,7 +81,8 @@ from sap3d_tpu_torch.train.state import create_train_state
 REPO = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
 SCRIPTS = (profile_attention, profile_ring_hop, profile_decoder, profile_encoder, profile_step,
-           profile_gn, bench_eval, bench_cli_eval, bench_export, bench_loader)
+           profile_gn, bench_eval, bench_cli_eval, bench_export, bench_loader, profile_tconv,
+           profile_tconv2, profile_tconv3)
 
 
 def jax_script(path: Path):
@@ -138,7 +142,7 @@ def test_ring_hop_matches_jax(jax_scripts, monkeypatch, hop):
     jrh = jax_scripts["profile_ring_hop"]
     monkeypatch.setattr(ring_attention, "RING_QUERY_CHUNK", RING_CHUNK)
     args = profile_ring_hop.hop_inputs(RING_SHAPE, torch.float32, CPU)
-    jargs = [jnp.asarray(a.numpy()) for a in args]
+    jargs = [jnp.asarray(a.numpy().copy()) for a in args]  # no buffer shared with torch
     jhop = {"xla": lambda *a: jrh.xla_hop(*a, chunk_q=RING_CHUNK), "pallas": jrh.pallas_hop}[hop]
 
     def loss(q, k, v):
@@ -147,8 +151,8 @@ def test_ring_hop_matches_jax(jax_scripts, monkeypatch, hop):
         return 0.5 * jnp.sum(out ** 2), out
 
     with pltpu.force_tpu_interpret_mode():
-        (_, want_o), want_g = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True))(
-            *jargs[:3])
+        (_, want_o), want_g = jax.device_get(jax.jit(jax.value_and_grad(
+            loss, argnums=(0, 1, 2), has_aux=True))(*jargs[:3]))  # done before the port runs
     port = profile_ring_hop.HOPS[hop]
     _close(profile_ring_hop.hop_output(port, args), want_o, 1e-5, "o")
     for name, g, w in zip("qkv", profile_ring_hop.hop_grads(port, args), want_g):
@@ -515,6 +519,130 @@ def test_bench_loader_matches_jax(monkeypatch, capsys):
 
 
 # ---- every script ----------------------------------------------------------------
+
+
+# ---- the transposed-conv scripts ---------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tconv_captures():
+    """Each JAX tconv script's main at batch 1 with its ``chained_time``
+    replaced: the labels it prints, and the functions and inputs it would
+    time, in order."""
+    out = {}
+    for name in ("profile_tconv", "profile_tconv2", "profile_tconv3"):
+        mod = jax_script(REPO / "scripts" / f"{name}.py")
+        mod.B = 1
+        calls = []
+
+        def stub(fn, *args, calls=calls, **_):
+            calls.append((fn, args))
+            return 1.0
+
+        mod.chained_time = stub
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            mod.main()
+        labels = [line.rsplit(" ms", 1)[0].rsplit(None, 1)[0].strip()
+                  for line in buf.getvalue().splitlines() if " ms" in line]
+        out[name] = dict(labels=[lb.removesuffix(" f+b").strip() for lb in labels],
+                         calls=calls)
+    return out
+
+
+def _closure(fn) -> dict:
+    """The free variables of a jitted (or grad-wrapped) JAX function's body."""
+    while hasattr(fn, "__wrapped__"):
+        fn = fn.__wrapped__
+    names = inspect.getclosurevars(fn).nonlocals
+    return _closure(names["fun"]) if set(names) == {"fun"} else names
+
+
+def _ndhwc(x: torch.Tensor) -> np.ndarray:
+    return x.detach().numpy().transpose(0, 2, 3, 4, 1)
+
+
+def test_tconv_script_cases_match_jax(tconv_captures):
+    """Each case on a small input, with the JAX script's own weights in the
+    port's layers, against the JAX function, float32; the labels are the
+    JAX script's."""
+    cap = tconv_captures["profile_tconv"]
+    assert cap["labels"] == list(profile_tconv.LABELS.values())
+    mods = profile_tconv.layers(torch.float32, CPU)
+    names = {"tconv": "vt", "dense": "vb", "packed": "vp"}
+    rng = np.random.default_rng(0)
+    xs = {"tconv": rng.normal(size=(1, 2, 5, 6, 256)), "dense": rng.normal(size=(1, 3, 5, 6, 256))}
+    xs["packed"] = xs["tconv"]
+    for (fn, _), (case, var) in zip(cap["calls"], names.items()):
+        w = np.asarray(_closure(fn)[var]["params"]["kernel"])
+        with torch.no_grad():
+            mods[case].kernel.copy_(torch.from_numpy(np.ascontiguousarray(
+                convert_leaf(("x_0_1" if case == "tconv" else "c") + "/kernel", w))))
+        want = np.asarray(fn(jnp.asarray(xs[case], jnp.float32)))
+        x = torch.from_numpy(xs[case].transpose(0, 4, 1, 2, 3)).float()
+        got = _ndhwc(profile_tconv.cases(mods, x, x)[case]())
+        _close(got[..., :want.shape[-1]], want, 1e-5, case)  # JAX slices to 256 channels
+
+
+def test_tconv2_script_gradients_match_jax(tconv_captures):
+    cap = tconv_captures["profile_tconv2"]
+    assert cap["labels"] == list(profile_tconv2.LABELS)
+    mods = profile_tconv.layers(torch.float32, CPU)
+    fns = [fn for fn, _ in cap["calls"]]
+    for var, case in (("vt", "tconv"), ("vp", "packed")):
+        owner = fns[0] if case == "tconv" else fns[1]
+        w = np.asarray(_closure(owner)[var]["params"]["kernel"])
+        with torch.no_grad():
+            mods[case].kernel.copy_(torch.from_numpy(np.ascontiguousarray(
+                convert_leaf(("x_0_1" if case == "tconv" else "c") + "/kernel", w))))
+    x = np.random.default_rng(1).normal(size=(1, 2, 5, 6, 256))
+    for fn, (label, loss) in zip(fns, profile_tconv2.losses(mods).items()):
+        want = np.asarray(fn(jnp.asarray(x, jnp.float32)))
+        got = profile_tconv2.input_grad(loss, torch.from_numpy(x.transpose(0, 4, 1, 2, 3)).float())
+        _close(_ndhwc(got), want, 1e-5, label)
+
+
+def test_tconv3_script_variants_match_jax(tconv_captures, monkeypatch):
+    """The six variants on a small input with the JAX script's weights,
+    against its functions: those take bf16 and round their outputs (and
+    the affine's product and sum) to bf16, the port computes in float32 on
+    the same bf16 values, so the hold is 2^-6 of the output's largest
+    value.  The draws at batch 1 are the JAX script's."""
+    cap = tconv_captures["profile_tconv3"]
+    assert cap["labels"] == list(profile_tconv3.LABELS)
+    got_arrays = profile_tconv3.arrays(1)
+    free = {}
+    for i in (0, 1, 3):  # A's kernel, B's packed kernel, D's affine
+        free.update(_closure(cap["calls"][i][0]))
+    for k in ("w_t", "w_p", "scale", "shift"):  # the JAX script holds them in bf16
+        _close(np.asarray(free[k], np.float32), got_arrays[k], 2.0 ** -8, k)
+    _close(np.asarray(cap["calls"][0][1][0], np.float32), got_arrays["x"], 2.0 ** -8, "x")
+    x = np.random.default_rng(2).normal(size=(1, 2, 5, 6, 256)).astype(jnp.bfloat16).astype(
+        np.float32)
+    a = {k: np.asarray(free[k], np.float32) for k in ("w_t", "w_p", "scale", "shift")}
+    fns = profile_tconv3.variants(profile_tconv3.tensors(dict(a, x=x), torch.float32, CPU))
+    assert list(fns) == list(profile_tconv3.LABELS)
+    for (fn, _), (label, port) in zip(cap["calls"], fns.items()):
+        want = np.asarray(fn(jnp.asarray(x, jnp.bfloat16)), np.float32)
+        _close(_ndhwc(port()), want, 2.0 ** -6, label)
+
+
+@pytest.mark.parametrize("script", [profile_tconv, profile_tconv2, profile_tconv3],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[-1])
+def test_tconv_scripts_run_on_the_cpu_with_the_jax_fields(script, tconv_captures, monkeypatch,
+                                                          capsys):
+    """At a tiny size on the CPU, each script's JSON names its cases by the
+    labels its JAX counterpart prints, with a finite positive time each."""
+    for mod in (profile_tconv, profile_tconv3):
+        monkeypatch.setattr(mod, "CIN", 8)
+        monkeypatch.setattr(mod, "COUT", 4)
+        monkeypatch.setattr(mod, "SMALL", (2, 4, 4))
+    monkeypatch.setattr(profile_tconv, "BIG", (4, 8, 8))
+    monkeypatch.setattr(script, "BATCH", 1)
+    out = script.main(["--device", "cpu", "--repeats", "1"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == out
+    assert list(out["cases"]) == tconv_captures[script.__name__.rsplit(".", 1)[-1]]["labels"]
+    _timing.finite_times(out)
 
 
 @pytest.mark.parametrize("script", SCRIPTS, ids=lambda m: m.__name__.rsplit(".", 1)[-1])

@@ -407,6 +407,17 @@ def test_float64_gradient_matches_one_device_and_the_faults_fail(ranks, one_devi
         assert dist > 10 * GRAD_TOL64
 
 
+def test_layout_rewrites_compose_with_the_tensor_parallel_step(ranks, one_device):
+    """The split, the phase-layout loss, the 2-D conv path, the stem's
+    space-to-depth and the phase head tconv (``chip_smoke.LAYOUT_MODEL_MESH``)
+    on the 2 x 2 mesh: the float64 gradient against one device's default
+    one under ``GRAD_TOL64``; a split site's conv is column-parallel there."""
+    got, want = ranks[0]["f64_layouts"], one_device["f64"]
+    assert "decoder.x_3_1.Conv_0.kernel" in got["shapes"]
+    assert got["losses"][0] == pytest.approx(want["loss"], rel=1e-12)
+    assert _rel_l2(got["grads"], want["grads"]) <= GRAD_TOL64
+
+
 def test_ranks_agree_bit_for_bit_where_the_rules_say(ranks):
     """After two steps: replicated tensors on all four ranks, slices on
     each data column (ranks 0 and 2, 1 and 3); slices of one row differ."""

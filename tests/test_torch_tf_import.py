@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import two_threads  # noqa: F401  (autouse: two torch threads)
 from sap3d_tpu.interop import tf_import as jti
 from sap3d_tpu_torch import cli
 from sap3d_tpu_torch.interop import tf_bundle

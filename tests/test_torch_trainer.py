@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import two_threads  # noqa: F401  (autouse: two torch threads)
 from sap3d_tpu.data.indexer import ClipIndex as JaxClipIndex
 from sap3d_tpu.data.pipeline import ClipLoader as JaxClipLoader
 from sap3d_tpu.data.synthetic import make_synthetic_dataset as jax_make_synthetic
